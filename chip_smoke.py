@@ -9,12 +9,19 @@ Phases, one JSON line each:
 1. card: name and power limit from nvidia-smi, torch and CUDA versions;
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
-   the reference kernel's test shapes, the all-masked case and main-path
-   shapes (one 512K-row segment, G in {1, 12, 208, 4096}): mins/maxs
+   the reference kernel's test shapes, the all-masked case and the shapes
+   the main path launches (one 512K-row segment at each query's G and
+   column counts, plus a time-sorted Timeseries segment): mins/maxs
    exactly equal, sums within rtol 1e-5 (another summation order over
-   512K rows), two launches bit-equal; at the main-path shapes, CUDA-event
-   medians of the kernel, the plain version and one library call
-   (`index_add_`) computing the same sums, beside the bound;
+   512K rows), two launches bit-equal.  At those shapes it times the
+   kernel (`ms`) and one library call computing the same sums
+   (`index_add_`, `library_ms`) by device time under torch.profiler,
+   over launches that rotate through copies of the inputs larger than the
+   L2 together, so reads come from HBM as the bound assumes; the call
+   through the wrapper on the host clock (`call_ms`, CUDA events around
+   one Python call); the plain version (`plain_ms`, CUDA events); and, to
+   see what holds the kernel back, its device time per pass (`pass_ms`),
+   on L2-resident inputs (`l2_ms`) and with every row masked (`floor_ms`);
 4. main path: SSB (SF10: 60M lineorder rows in 512K-row time-sorted
    segments, resident on the card) and TPC-H lineitem (SF1), the 13 SSB
    queries, TPC-H Q1, a Timeseries and a TopN through
@@ -53,9 +60,20 @@ ORACLE_RTOL = 2e-5
 
 # the reference kernel's test shapes (R, G, Ms, Mn, Mx)
 TEST_SHAPES = [(4096, 12, 3, 0, 0), (8192, 300, 4, 2, 1), (8192, 700, 2, 1, 1), (1024, 1, 1, 0, 0)]
-# one 512K-row SSB segment at the group counts of the main path
-MAIN_SHAPES = [(524288, g, 4, 1, 1) for g in (1, 12, 208, 4096)]
-HEADLINE_G = 208
+# one 512K-row segment at the shapes the main path launches
+MAIN_SHAPES = [
+    (524288, 1, 2, 0, 0),  # q1.1-q1.3: revenue and count, one group
+    (524288, 12, 8, 0, 0),  # TPC-H Q1
+    (524288, 26, 2, 0, 0),  # TopN by c_nation
+    (524288, 84, 2, 0, 0),  # Timeseries by month
+    (524288, 208, 2, 0, 0),  # q4.1
+    (524288, 208, 4, 1, 1),  # the headline row of PR 1, min/max included
+    (524288, 4096, 4, 1, 1),  # min/max at the scatter cutover
+]
+HEADLINE = (524288, 208, 4, 1, 1)
+# Timeseries over a time-sorted segment: one or two months per segment
+SKEWED = (524288, 84, 2, 0, 0)
+ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
 WARM_RUNS = 5
 
 
@@ -73,11 +91,14 @@ def card_line() -> str:
 # -- phase 3: the kernel against its plain version ---------------------------
 
 
-def make_inputs(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8):
+def make_inputs(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8, skewed=False):
     rng = np.random.default_rng(seed)
     mask = rng.random(R) < mask_p
+    gid = rng.integers(0, G, R).astype(np.int32)
+    if skewed:  # two sorted runs: the segment spans two adjacent groups
+        gid = np.where(np.arange(R) < R * 3 // 5, G // 2, G // 2 + 1).astype(np.int32)
     arrs = (
-        rng.integers(0, G, R).astype(np.int32),
+        gid,
         mask,
         (rng.random((R, Ms)) * 1000 * mask[:, None]).astype(np.float32),
         rng.random((R, Mn + Mx)).astype(np.float32),
@@ -87,7 +108,8 @@ def make_inputs(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8):
 
 
 def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn() after two warm-ups."""
+    """Median of `reps` CUDA-event timings of fn() after two warm-ups: the
+    host's time to issue the call and the card's to run it."""
     fn()
     fn()
     times = []
@@ -101,6 +123,35 @@ def cuda_ms(fn, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, n: int):
+    """Device time per call of fn(i), i < n: the device-side events (kernels,
+    copies, fills) that torch.profiler records, summed and divided by n.
+    Where the profiler records no device time, CUDA events around the n
+    back-to-back calls.  Returns (ms, timer, ms by kernel name, events by
+    kernel name): the counts show a window that caught more or fewer
+    events than the n calls launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn(0)
+    fn(1 % n)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for i in range(n):
+            fn(i)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    by_name = {e.key: e.self_device_time_total / 1e3 / n for e in dev}
+    if sum(by_name.values()) > 0:
+        return sum(by_name.values()), "profiler", by_name, {e.key: e.count for e in dev}
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for i in range(n):
+        fn(i)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / n, "events", {}, {}
+
+
 def bound(R, G, Ms, Mn, Mx):
     """Least time the card could take: each input byte read once, each
     output written once, at the HBM rate; against one add or compare per
@@ -111,8 +162,8 @@ def bound(R, G, Ms, Mn, Mx):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel_shape(R, G, Ms, Mn, Mx, device, seed, mask_p=0.8):
-    args = make_inputs(R, G, Ms, Mn, Mx, device, seed, mask_p)
+def check_kernel_shape(R, G, Ms, Mn, Mx, device, seed, mask_p=0.8, skewed=False):
+    args = make_inputs(R, G, Ms, Mn, Mx, device, seed, mask_p, skewed)
     if mask_p == 0.0:
         args[2].zero_()
     got = cuda_groupby.cuda_partial_aggregate(*args, num_groups=G, num_min=Mn, num_max=Mx)
@@ -139,6 +190,59 @@ def check_kernel_shape(R, G, Ms, Mn, Mx, device, seed, mask_p=0.8):
     return args, max_abs, max_rel
 
 
+def time_kernel(args, R, G, Ms, Mn, Mx, device):
+    """Times of the kernel, its plain version and the library call at one
+    shape, beside the bound."""
+    set_bytes = sum(t.numel() * t.element_size() for t in args)
+    n = max(20, -(-int(ROTATE_BYTES) // set_bytes))
+    sets = [args] + [[t.clone() for t in args] for _ in range(n - 1)]
+    kw = dict(num_groups=G, num_min=Mn, num_max=Mx)
+    ms, timer, by_name, events = device_ms(
+        lambda i: cuda_groupby.cuda_partial_aggregate(*sets[i], **kw), n)
+    # the same launch on L2-resident inputs, and with every row masked
+    # (staging, set-up and the combines only): what is left when HBM and the
+    # per-row work are taken away
+    l2_ms, _, _, l2_events = device_ms(
+        lambda i: cuda_groupby.cuda_partial_aggregate(*args, **kw), n)
+    masked = [[g, torch.zeros_like(m), sv, mmv, mmm] for g, m, sv, mmv, mmm in sets]
+    floor_ms, _, _, floor_events = device_ms(
+        lambda i: cuda_groupby.cuda_partial_aggregate(*masked[i], **kw), n)
+    del masked
+    lib_in = [
+        (torch.where(m, g.long(), torch.full_like(g.long(), G)), sv)
+        for g, m, sv, _, _ in sets
+    ]
+    del sets
+
+    def library(i):
+        seg, sv = lib_in[i]
+        return torch.zeros(G + 1, Ms, device=device).index_add_(0, seg, sv)
+
+    library_ms, _, _, _ = device_ms(library, n)
+    del lib_in
+    b_ms, b_by = bound(R, G, Ms, Mn, Mx)
+    return {
+        "ms": ms,
+        "timer": timer,
+        "pass_ms": {
+            next((w for w in ("partial_pass", "fold_pass") if w in k), k[:40]): v
+            for k, v in by_name.items()
+        },
+        "l2_ms": l2_ms,
+        "floor_ms": floor_ms,
+        # device events per window: 2n (partial_pass, fold_pass) when clean
+        "events": [sum(e.values()) for e in (events, l2_events, floor_events)],
+        "rotated_sets": n,
+        "call_ms": cuda_ms(lambda: cuda_groupby.cuda_partial_aggregate(*args, **kw)),
+        "plain_ms": cuda_ms(lambda: cuda_groupby.plain_partial_aggregate(*args, G, Mn, Mx), reps=3),
+        "library_ms": library_ms,
+        "bound_ms": b_ms,
+        "bound_by": b_by,
+        "bound_share": b_ms / ms,
+        "below_library": ms < library_ms,
+    }
+
+
 def kernel_phase(device):
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's product in full f32
     rows = []
@@ -148,25 +252,17 @@ def kernel_phase(device):
     check_kernel_shape(2048, 10, 2, 1, 1, device, seed=9, mask_p=0.0)
     rows.append({"shape": (2048, 10, 2, 1, 1), "all_masked": True})
     timed = []
-    for i, (R, G, Ms, Mn, Mx) in enumerate(MAIN_SHAPES):
-        args, max_abs, max_rel = check_kernel_shape(R, G, Ms, Mn, Mx, device, seed=100 + i)
-        gid, mask, sv = args[:3]
-        seg = torch.where(mask, gid.long(), torch.full_like(gid.long(), G))
-
-        def library(seg=seg, sv=sv, G=G, Ms=Ms):
-            return torch.zeros(G + 1, Ms, device=device).index_add_(0, seg, sv)
-
-        b_ms, b_by = bound(R, G, Ms, Mn, Mx)
+    cases = [(shape, False) for shape in MAIN_SHAPES] + [(SKEWED, True)]
+    for i, ((R, G, Ms, Mn, Mx), skewed) in enumerate(cases):
+        args, max_abs, max_rel = check_kernel_shape(
+            R, G, Ms, Mn, Mx, device, seed=100 + i, skewed=skewed)
         timed.append({
             "shape": (R, G, Ms, Mn, Mx),
+            "skewed": skewed,
+            "geometry": cuda_groupby.geometry(R, G, Ms, Mn + Mx)._asdict(),
             "max_abs_err": max_abs,
             "max_rel_err": max_rel,
-            "ms": cuda_ms(lambda: cuda_groupby.cuda_partial_aggregate(
-                *args, num_groups=G, num_min=Mn, num_max=Mx)),
-            "plain_ms": cuda_ms(lambda: cuda_groupby.plain_partial_aggregate(*args, G, Mn, Mx)),
-            "library_ms": cuda_ms(library),
-            "bound_ms": b_ms,
-            "bound_by": b_by,
+            **time_kernel(args, R, G, Ms, Mn, Mx, device),
         })
         emit("kernel_timing", **timed[-1])
     emit("kernel_check", cases=rows, rtol=KERNEL_RTOL, bit_stable=True)
@@ -322,7 +418,7 @@ def profile_queries(engine: Engine, workloads, summaries):
             and e.self_device_time_total > 0
         }
         busy = sum(dev.values())
-        groupby = sum(v for k, v in dev.items() if "partial_pass" in k or "finish_pass" in k)
+        groupby = sum(v for k, v in dev.items() if "partial_pass" in k or "fold_pass" in k)
         emit(
             "profile", query=name, wall_p50_ms=p50[name], device_busy_ms=busy,
             groupby_kernel_ms=groupby,
@@ -366,7 +462,7 @@ def main(argv=None) -> int:
         raise AssertionError("the main path never launched the kernel")
     profile_queries(engine, workloads, queries)
 
-    head = next(t for t in timed if t["shape"][1] == HEADLINE_G)
+    head = next(t for t in timed if t["shape"] == HEADLINE and not t["skewed"])
     print(json.dumps({"kernels": [{
         "name": "groupby_partial",
         "route": "cuda",
@@ -380,6 +476,8 @@ def main(argv=None) -> int:
         "bound_ms": head["bound_ms"],
         "bound_by": head["bound_by"],
         "library_ms": head["library_ms"],
+        "call_ms": head["call_ms"],
+        "bound_share": head["bound_share"],
         "shape": head["shape"],
         "shapes": timed,
     }]}), flush=True)

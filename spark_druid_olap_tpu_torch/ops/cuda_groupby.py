@@ -10,8 +10,10 @@ root, at first use) and bound with ctypes: a few seconds of `nvcc`, where a
 minutes on every fresh machine.  The C entry point returns the CUDA error of
 each launch (`cudaGetLastError`), which the wrapper raises on.
 
-`cuda_partial_aggregate` launches the kernel for CUDA tensors and counts
-each launch in `LAUNCHES`; for CPU tensors it runs
+`geometry` picks each launch's chunks, staged tiles, column blocks and
+accumulator regime from the shapes alone, so the same shapes always sum in
+the same order.  `cuda_partial_aggregate` launches the kernel for CUDA
+tensors and counts each launch in `LAUNCHES`; for CPU tensors it runs
 `plain_partial_aggregate`, the plain PyTorch version the tests and
 `chip_smoke.py` compare the kernel with.  There is no fallback: a CUDA
 tensor the kernel does not take raises.
@@ -20,13 +22,14 @@ tensor the kernel does not take raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -42,12 +45,21 @@ _SRC = Path(__file__).resolve().parent.parent / "csrc" / "groupby_partial.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_ext"
 _ARCH_FLAGS = ["-gencode=arch=compute_90a,code=sm_90a"]
 
-# rows each pass-1 block folds: 1024 (one staged tile) unless that makes
-# more than this many blocks, then doubled up to _MAX_CHUNK_ROWS
-_TARGET_BLOCKS = 8 * 132
-_MAX_CHUNK_ROWS = 8192
-_STAGE_ROWS = 1024
-_COLS_PER_BLOCK = 8
+# geometry of a launch (see `geometry`); the kernel source checks the same
+# limits and refuses a launch outside them
+_THREADS = 256  # threads per block
+_WARPS = 8
+_MAX_COLS = 8  # aggregate columns one block accumulates
+_RING = 2  # staged row tiles per block
+_SMEM_MAX = 232448  # shared memory one block may have on sm_90
+_SMEM_TWO_BLOCKS = 115 << 10  # at most this, two blocks share an SM
+_LANE_ACC_MAX = 96 << 10  # a copy of the accumulators per thread up to this
+_WARP_ACC_MAX = 64 << 10  # a copy per warp up to this
+_TILE_ROWS = (1024, 512, 256)  # largest that fits is taken
+_TAG_SLOTS = 128  # election slots per warp
+# the accumulators' home, as the kernel numbers it (enum Regime)
+_REGIMES = {"block": 0, "warp": 1, "lane": 2}
+_COPIES = {"block": 1, "warp": _WARPS, "lane": _THREADS}
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -94,31 +106,62 @@ def _library():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             p, i = ctypes.c_void_p, ctypes.c_int
-            lib.sdol_groupby_partial.argtypes = [p] * 9 + [i] * 6 + [p]
+            lib.sdol_groupby_partial.argtypes = [p] * 9 + [i] * 9 + [p]
             lib.sdol_groupby_partial.restype = i
             lib.sdol_error_string.argtypes = [i]
             lib.sdol_error_string.restype = ctypes.c_char_p
-            lib.sdol_groupby_stage_rows.restype = i
-            if lib.sdol_groupby_stage_rows() != _STAGE_ROWS:
-                raise RuntimeError("kernel library and wrapper disagree on the staged tile")
             _lib = lib
         return _lib
 
 
-def chunk_rows_for(R: int, G: int, M: int) -> int:
-    """Rows per pass-1 block: enough blocks to fill the card, few enough
-    chunks that the scratch and the fixed-order second pass stay small."""
-    gt = 1
-    while gt < G and gt < 256:
-        gt <<= 1
-    per_chunk = -(-G // gt) * -(-M // _COLS_PER_BLOCK)
-    rows = _STAGE_ROWS
-    while (
-        rows < _MAX_CHUNK_ROWS
-        and -(-R // rows) * per_chunk > _TARGET_BLOCKS
-    ):
-        rows *= 2
-    return rows
+def _round16(n: int) -> int:
+    return -(-n // 16) * 16
+
+
+class Geometry(NamedTuple):
+    chunk_rows: int  # rows each partial_pass block folds
+    tile_rows: int  # rows of one staged tile
+    cols: int  # aggregate columns per block (grid y)
+    regime: str  # accumulators per thread ("lane"), per warp, or per block
+    n_chunks: int
+    smem_bytes: int  # shared memory of one partial_pass block
+    scratch_floats: int  # chunk partials, [n_chunks, M, G]
+
+
+def _regime(G: int, cols: int) -> str:
+    if _THREADS * G * cols * 4 <= _LANE_ACC_MAX:
+        return "lane"
+    return "warp" if _WARPS * G * cols * 4 <= _WARP_ACC_MAX else "block"
+
+
+@functools.lru_cache(maxsize=1024)
+def geometry(R: int, G: int, Ms: int, Mnx: int) -> Geometry:
+    """The launch geometry, from the shapes alone: the same (R, G, M) always
+    gives the same chunks and so the same order of adds.  Takes the most
+    columns per block, then the largest staged tile, whose shared memory
+    fits; 2048-row chunks (256 per 512K-row segment) where two blocks share
+    an SM, else 4096."""
+    M = Ms + Mnx
+    for cols in sorted({min(max(M, 1), _MAX_COLS), 4, 2, 1}, reverse=True):
+        if cols > max(M, 1):
+            continue
+        regime = _regime(G, cols)
+        acc = _round16(_COPIES[regime] * G * cols * 4)
+        for T in _TILE_ROWS:
+            tile = 4 * T + _round16(T) + 4 * T * Ms + 4 * T * Mnx + _round16(T * Mnx)
+            # the block regime buckets a tile's rows by owner warp; the
+            # warp and block regimes elect writers in a table per warp
+            buckets = _round16(3 * T + 4 * _WARPS) if regime == "block" else 0
+            tags = 0 if regime == "lane" else _WARPS * _TAG_SLOTS * 4
+            smem = acc + buckets + tags + _RING * tile
+            if smem <= _SMEM_MAX:
+                chunk = 2048 if smem <= _SMEM_TWO_BLOCKS else 4096
+                n_chunks = -(-R // chunk)
+                return Geometry(chunk, T, cols, regime, n_chunks, smem,
+                                n_chunks * M * G)
+    raise ValueError(
+        f"{M} aggregate columns at {G} groups do not fit the kernel's shared memory"
+    )
 
 
 def plain_partial_aggregate(
@@ -191,13 +234,12 @@ def cuda_partial_aggregate(
             raise ValueError(f"{name} is on {t.device}, gid on {gid.device}")
     dev = gid.device
     M = Ms + Mnx
-    rows = chunk_rows_for(R, num_groups, M)
-    n_chunks = -(-R // rows)
+    geo = geometry(R, num_groups, Ms, Mnx)
     sums = torch.empty((num_groups, Ms), dtype=torch.float32, device=dev)
     mins = torch.empty((num_groups, num_min), dtype=torch.float32, device=dev)
     maxs = torch.empty((num_groups, num_max), dtype=torch.float32, device=dev)
     scratch = torch.empty(
-        (max(n_chunks * M * num_groups, 1),), dtype=torch.float32, device=dev
+        (max(geo.scratch_floats, 1),), dtype=torch.float32, device=dev
     )
     lib = _library()
     with torch.cuda.device(dev):
@@ -205,7 +247,8 @@ def cuda_partial_aggregate(
             gid.data_ptr(), mask.data_ptr(), sum_values.data_ptr(),
             minmax_values.data_ptr(), minmax_masks.data_ptr(),
             sums.data_ptr(), mins.data_ptr(), maxs.data_ptr(),
-            scratch.data_ptr(), R, num_groups, Ms, num_min, num_max, rows,
+            scratch.data_ptr(), R, num_groups, Ms, num_min, num_max,
+            geo.chunk_rows, geo.tile_rows, geo.cols, _REGIMES[geo.regime],
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:

@@ -53,9 +53,7 @@ def _mk(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8):
     return [torch.from_numpy(a).to(device) for a in arrs]
 
 
-@pytest.mark.parametrize("R,G,Ms,Mn,Mx", SHAPES)
-def test_kernel_matches_plain(card, R, G, Ms, Mn, Mx):
-    arrs = _mk(R, G, Ms, Mn, Mx, card, seed=6)
+def _held_to_plain(arrs, G, Mn, Mx):
     before = cg.LAUNCHES
     got = cg.cuda_partial_aggregate(*arrs, num_groups=G, num_min=Mn, num_max=Mx)
     again = cg.cuda_partial_aggregate(*arrs, num_groups=G, num_min=Mn, num_max=Mx)
@@ -63,9 +61,64 @@ def test_kernel_matches_plain(card, R, G, Ms, Mn, Mx):
     torch.cuda.synchronize()
     assert cg.LAUNCHES == before + 2
     for a, b in zip(got, again):
-        assert torch.equal(a, b)  # bit-identical run to run
-    assert torch.equal(got[1], want[1]) and torch.equal(got[2], want[2])
+        # bit-identical run to run (NaN compares equal to NaN here)
+        np.testing.assert_array_equal(a.cpu().numpy(), b.cpu().numpy())
+    np.testing.assert_array_equal(got[1].cpu().numpy(), want[1].cpu().numpy())
+    np.testing.assert_array_equal(got[2].cpu().numpy(), want[2].cpu().numpy())
     np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(), rtol=1e-5)
+
+
+@pytest.mark.parametrize("R,G,Ms,Mn,Mx", SHAPES)
+def test_kernel_matches_plain(card, R, G, Ms, Mn, Mx):
+    _held_to_plain(_mk(R, G, Ms, Mn, Mx, card, seed=6), G, Mn, Mx)
+
+
+def _sorted_runs(gid, G, runs):
+    """gid in `runs` sorted runs: a time-sorted segment spans a few groups."""
+    R = gid.shape[0]
+    return np.minimum(np.arange(R) * runs // R + G // 2, G - 1).astype(np.int32)
+
+
+# (R, G, Ms, Mn, Mx, gid layout): each is a regime or an edge of the design
+LAYOUTS = {
+    "one_group": (65536, 12, 2, 1, 1, lambda g, G: np.full_like(g, 5)),
+    "sorted_runs": (65536, 84, 2, 0, 0, lambda g, G: _sorted_runs(g, G, 2)),
+    "sorted_many_runs": (65536, 208, 2, 1, 1, lambda g, G: np.sort(g)),
+    "lane_edge": (65536, 48, 2, 0, 0, None),
+    "warp_edge_low": (65536, 49, 2, 0, 0, None),
+    "warp_edge": (65536, 1024, 2, 0, 0, None),
+    "shared_edge": (65536, 1025, 2, 0, 0, None),
+    "two_column_blocks": (65536, 12, 8, 1, 1, None),
+    "short_last_chunk": (3072, 10, 2, 1, 1, None),
+    "shared_short_last_chunk": (5120, 3000, 2, 1, 1, None),
+}
+
+
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+def test_kernel_layouts_match_plain(card, layout):
+    R, G, Ms, Mn, Mx, gid_fn = LAYOUTS[layout]
+    arrs = _mk(R, G, Ms, Mn, Mx, card, seed=11)
+    if gid_fn is not None:
+        arrs[0] = torch.from_numpy(gid_fn(arrs[0].cpu().numpy(), G)).to(card)
+    geo = cg.geometry(R, G, Ms, Mn + Mx)
+    regime = {"lane_edge": "lane", "warp_edge_low": "warp", "warp_edge": "warp",
+              "shared_edge": "block", "shared_short_last_chunk": "block"}.get(layout)
+    assert regime in (None, geo.regime)
+    if layout == "two_column_blocks":
+        assert Ms + Mn + Mx > geo.cols
+    if "short_last_chunk" in layout:
+        assert R % geo.chunk_rows
+    _held_to_plain(arrs, G, Mn, Mx)
+
+
+def test_kernel_nan_in_minmax(card):
+    gid, mask, sv, mmv, mmm = _mk(8192, 30, 2, 2, 2, card, seed=12)
+    mmv[::97, 1] = float("nan")
+    mmv[5::131, 2] = float("nan")
+    _held_to_plain([gid, mask, sv, mmv, mmm], 30, 2, 2)
+    mins = cg.cuda_partial_aggregate(gid, mask, sv, mmv, mmm, num_groups=30,
+                                     num_min=2, num_max=2)[1]
+    assert bool(torch.isnan(mins[:, 1]).any())
 
 
 def test_kernel_all_masked(card):

@@ -135,10 +135,67 @@ def test_choose_block_rows_matches_reference():
         assert tgb.choose_block_rows(R, G) == jgb.choose_block_rows(R, G)
 
 
+# (R, G, Ms, Mn+Mx): the main path's segment shapes and the edges
+GEOMETRY_SHAPES = [
+    (524288, 1, 2, 0), (524288, 12, 8, 0), (524288, 84, 2, 0),
+    (524288, 208, 4, 2), (524288, 4096, 4, 2), (524288, 4096, 8, 2),
+    (524288, 4096, 40, 20), (3072, 10, 2, 2), (1024, 5, 1, 0), (0, 3, 1, 0),
+]
+
+
 def test_chunk_rows_fill_the_card_within_limits():
-    for R, G, M in [(524288, 1, 6), (524288, 12, 12), (524288, 4096, 6), (1024, 5, 1)]:
-        rows = cg.chunk_rows_for(R, G, M)
-        assert rows % 1024 == 0 and 1024 <= rows <= 8192
+    for R, G, Ms, Mnx in GEOMETRY_SHAPES:
+        geo = cg.geometry(R, G, Ms, Mnx)
+        assert geo.chunk_rows % geo.tile_rows == 0 and geo.tile_rows % 256 == 0
+        assert geo.n_chunks * geo.chunk_rows >= R > (geo.n_chunks - 1) * geo.chunk_rows
+        assert 1 <= geo.cols <= 8 and geo.cols <= max(Ms + Mnx, 1)
+        assert geo.smem_bytes <= 232448  # one block's shared memory on sm_90
+    # one 512K-row segment: one or two blocks per SM of an H100
+    assert cg.geometry(524288, 84, 2, 0).n_chunks == 256
+    assert cg.geometry(524288, 4096, 4, 2).n_chunks == 128
+    # the main path's shapes in their regimes
+    assert [cg.geometry(524288, G, Ms, 0).regime for G, Ms in
+            [(1, 2), (26, 2), (12, 8), (84, 2), (208, 2)]] == [
+        "lane", "lane", "lane", "warp", "warp"]
+    assert cg.geometry(524288, 4096, 4, 2).regime == "block"
+
+
+@pytest.mark.parametrize("R,G,Ms,Mnx", GEOMETRY_SHAPES)
+def test_geometry_is_fixed_by_shapes(R, G, Ms, Mnx):
+    geo = cg.geometry(R, G, Ms, Mnx)
+    assert cg.geometry(R, G, Ms, Mnx) == geo  # same shapes, same order of adds
+    # the scratch holds one [M, G] partial per chunk
+    assert geo.scratch_floats == geo.n_chunks * (Ms + Mnx) * G
+    # the accumulators and the ring of staged tiles fit the shared memory
+    T = geo.tile_rows
+    tile = 4 * T + T + 4 * T * Ms + 5 * T * Mnx
+    copies = {"lane": 256, "warp": 8, "block": 1}[geo.regime]
+    acc = copies * G * geo.cols * 4
+    buckets = 3 * T + 32 if geo.regime == "block" else 0  # rows by owner warp
+    tags = 0 if geo.regime == "lane" else 8 * 128 * 4  # election slots
+    assert acc + buckets + tags + 2 * tile <= geo.smem_bytes <= 232448
+    slots = G * geo.cols
+    want = "lane" if 256 * slots * 4 <= 96 << 10 else (
+        "warp" if 8 * slots * 4 <= 64 << 10 else "block")
+    assert geo.regime == want
+
+
+def test_geometry_refuses_what_cannot_fit():
+    with pytest.raises(ValueError, match="shared memory"):
+        cg.geometry(524288, 4096, 400, 0)
+
+
+@pytest.mark.parametrize("runs", [1, 2, 40])
+def test_plain_matches_reference_on_skewed_gids(runs):
+    # a time-sorted segment: gid in a few sorted runs, the kernel's one-group path
+    R, G, Ms, Mn, Mx = 8192, 84, 2, 1, 1
+    gid, mask, sv, mmv, mmm = _mk(R, G, Ms, Mn, Mx, seed=7)
+    gid = (np.arange(R) * runs // R + 3).astype(np.int32)
+    arrs = [gid, mask, sv, mmv, mmm]
+    want = jgb.dense_partial_aggregate(
+        *_jax(arrs), num_groups=G, block_rows=1024, num_min=Mn, num_max=Mx
+    )
+    _check(cg.plain_partial_aggregate(*_torch(arrs), G, Mn, Mx), want)
 
 
 def test_wrapper_rejects_other_devices():
