@@ -30,7 +30,21 @@ Phases, one JSON line each:
    twice for bit-identical frames; p50 of the warm runs, rows scanned per
    second, strategy and the kernel launches each query made;
 5. profile: one more warm run of each query under torch.profiler, its
-   device time by kernel and the device's idle share of the p50.
+   device time by kernel and the device's idle share of the p50;
+6. sql: each workload's data registered into its own `TPUOlapContext`
+   (whose engine ran that workload in phases 4 and 5, so the columns are
+   already resident) with its star schema and its normalized dimension
+   tables; the 13 SSB queries and every TPC-H query sent as joined SQL
+   through `ctx.sql`.  Each query's planned Druid JSON must equal its
+   native spec where one exists; its frame must be bit-identical to the
+   native path's frame for the planned spec (same columns), hold against
+   the float64 oracle, and be bit-identical over two runs; the kernel must
+   launch for every query with G <= 4096.  Reported per query: plan ms
+   cold (parse + plan of the text, no plan cache) and cached (the
+   plan-cache hit); warm `ctx.sql` and native runs of the same spec
+   interleaved in pairs, the side that goes first alternating, with the
+   p50 of each side and the median of the per-pair differences; the
+   launches of the `ctx.sql` runs.
 
 Then the `kernels` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failed check raises: the script
@@ -49,7 +63,7 @@ import time
 import numpy as np
 import torch
 
-from spark_druid_olap_tpu_torch.exec.engine import Engine
+from spark_druid_olap_tpu_torch.api import TPUOlapContext
 from spark_druid_olap_tpu_torch.ops import cuda_groupby
 from spark_druid_olap_tpu_torch.workloads import ssb, tpch
 
@@ -75,6 +89,7 @@ HEADLINE = (524288, 208, 4, 1, 1)
 SKEWED = (524288, 84, 2, 0, 0)
 ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
 WARM_RUNS = 5
+SQL_PAIRS = 6  # interleaved SQL/native pairs per query in phase 6 (even)
 
 
 def emit(phase: str, **kw) -> None:
@@ -297,11 +312,51 @@ def _frame_check(name, got, want, keys, rtol=ORACLE_RTOL):
     return worst
 
 
+_ORACLES = {}
+
+
+def oracle(workload, name, frame):
+    """The float64 oracle of one query, computed once per run (phases 4 and
+    6 check the same queries)."""
+    key = (workload, name)
+    if key not in _ORACLES:
+        _ORACLES[key] = (tpch if workload == "tpch" else ssb).oracle(frame, name)
+    return _ORACLES[key]
+
+
+def _top_k_check(name, got, want, value):
+    """ORDER BY value DESC LIMIT k against the oracle's top k, tie-aware:
+    the values agree in order, every returned key that the oracle also
+    returns carries its value, and a key the oracle left out sits at the
+    cut (a float32 near-tie)."""
+    g = np.asarray(got[value], dtype=np.float64)
+    w = np.asarray(want[value], dtype=np.float64)
+    if len(g) != len(w) or (np.diff(g) > 0).any():
+        raise AssertionError(f"{name}: wrong length or order")
+    if not (np.abs(g - w) <= ORACLE_RTOL * np.abs(w)).all():
+        raise AssertionError(f"{name}: top-{len(w)} values differ from the oracle")
+    keys = [c for c in want.columns if c != value]
+    wmap = dict(zip(map(tuple, want[keys].astype(str).to_numpy()), w))
+    for k, v in zip(map(tuple, got[keys].astype(str).to_numpy()), g):
+        ref = wmap.get(k, w[-1])
+        if abs(v - ref) > ORACLE_RTOL * abs(ref):
+            raise AssertionError(f"{name}: {k} {v} vs oracle {ref}")
+    return float((np.abs(g - w) / np.abs(w)).max()) if len(w) else 0.0
+
+
 def check_against_oracle(name, got, frame, workload):
     if workload == "tpch":
-        want = tpch.oracle(frame, name)
-        return _frame_check(name, got[list(want.columns)], want, ["l_returnflag", "l_linestatus"])
-    want = ssb.oracle(frame, name)
+        want = oracle(workload, name, frame)
+        if isinstance(want, float):
+            g = float(got.iloc[0, -1])
+            if len(got) != 1 or abs(g - want) > ORACLE_RTOL * abs(want):
+                raise AssertionError(f"{name}: {g} vs oracle {want}")
+            return abs(g - want) / abs(want)
+        if name in ("q3", "q10"):  # ORDER BY revenue DESC LIMIT k
+            return _top_k_check(name, got[list(want.columns)], want, "revenue")
+        keys = [c for c in want.columns if want[c].dtype.kind not in "f"]
+        return _frame_check(name, got[list(want.columns)], want, keys)
+    want = oracle(workload, name, frame)
     if isinstance(want, float):
         g = float(got["revenue"].iloc[0])
         if len(got) != 1 or abs(g - want) > ORACLE_RTOL * abs(want):
@@ -330,6 +385,9 @@ def check_against_oracle(name, got, frame, workload):
 
 
 def build_workloads(ssb_scale: float, tpch_scale: float, seed: int = 7):
+    """The flat datasources and oracle frames of both workloads, and the
+    normalized dimension tables the SQL phase registers.  The fact tables'
+    raw columns are freed once flattened."""
     t0 = time.perf_counter()
     tables = ssb.gen_tables(ssb_scale, seed=seed)
     cols, dicts = ssb.flat_columns(tables)
@@ -341,13 +399,18 @@ def build_workloads(ssb_scale: float, tpch_scale: float, seed: int = 7):
     tcols, tdicts = tpch.flat_columns(tt)
     tpch_ds = tpch.datasource(tcols, tdicts, rows_per_segment=1 << 19)
     tpch_frame = tpch.flat_frame(tt)
+    del tcols, tt["lineitem"]
     emit(
         "data", ssb_scale=ssb_scale, ssb_rows=ssb_ds.num_rows,
         ssb_segments=len(ssb_ds.segments), tpch_scale=tpch_scale,
         tpch_rows=tpch_ds.num_rows, tpch_segments=len(tpch_ds.segments),
         seconds=time.perf_counter() - t0,
     )
-    return {"ssb": (ssb_ds, ssb_frame), "tpch": (tpch_ds, tpch_frame)}
+    return {
+        "ssb": (ssb_ds, ssb_frame),
+        "tpch": (tpch_ds, tpch_frame),
+        "dims": {"ssb": tables, "tpch": tt},
+    }
 
 
 def main_path_queries():
@@ -358,13 +421,15 @@ def main_path_queries():
     )
 
 
-def run_main_path(engine: Engine, workloads, warm_runs: int = WARM_RUNS):
-    """Drive every query of the main path; returns one summary per query."""
+def run_main_path(engines, workloads, warm_runs: int = WARM_RUNS):
+    """Drive every query of the main path through its workload's engine
+    (`engines`: workload -> Engine); returns one summary per query."""
     import pandas as pd
 
     out = []
     for workload, name, q in main_path_queries():
         ds, frame = workloads[workload]
+        engine = engines[workload]
         before = cuda_groupby.LAUNCHES
         first = engine.execute(q, ds)  # cold: moves the columns to the card
         m = engine.last_metrics
@@ -398,7 +463,7 @@ def run_main_path(engine: Engine, workloads, warm_runs: int = WARM_RUNS):
     return out
 
 
-def profile_queries(engine: Engine, workloads, summaries):
+def profile_queries(engines, workloads, summaries):
     """One more warm run of each query under torch.profiler: device time by
     kernel, the group-by kernel's share, and the device's idle share of the
     query's unprofiled p50 wall time."""
@@ -408,7 +473,7 @@ def profile_queries(engine: Engine, workloads, summaries):
     for workload, name, q in main_path_queries():
         ds, _ = workloads[workload]
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            engine.execute(q, ds)
+            engines[workload].execute(q, ds)
         # device-side events only (kernels, copies): an aten op's average
         # repeats its kernels' device time
         dev = {
@@ -425,6 +490,129 @@ def profile_queries(engine: Engine, workloads, summaries):
             device_idle_share=(1 - busy / p50[name]) if busy else None,
             top_device_ms=sorted(dev.items(), key=lambda kv: -kv[1])[:4],
         )
+
+
+# -- phase 6: the SQL front end -----------------------------------------------
+
+
+def register_sql(ctxs, workloads) -> float:
+    """Register each workload's flat datasource with its star schema, and
+    its normalized dimension tables, into its own context (`ctxs`:
+    workload -> TPUOlapContext; SSB and TPC-H both name a customer,
+    supplier and part table); returns seconds."""
+    t0 = time.perf_counter()
+    dims = workloads["dims"]
+    s, t = ctxs["ssb"], ctxs["tpch"]
+    s.register_datasource(workloads["ssb"][0], star_schema=ssb.STAR_SCHEMA)
+    s.register_table("dwdate", dims["ssb"]["dwdate"], time_column="d_datekey")
+    t.register_datasource(workloads["tpch"][0], star_schema=tpch.STAR_SCHEMA)
+    t.register_table("orders", dims["tpch"]["orders"], time_column="o_orderdate")
+    for name in ("customer", "supplier", "part"):
+        s.register_table(name, dims["ssb"][name])
+        t.register_table(name, dims["tpch"][name])
+    return time.perf_counter() - t0
+
+
+def sql_queries():
+    return [("ssb", n, q) for n, q in ssb.QUERIES.items()] + [
+        ("tpch", n, q) for n, q in tpch.QUERIES.items()
+    ]
+
+
+def _median_ms(fn, n: int) -> float:
+    times = []
+    for _ in range(n):
+        t0 = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def _interleaved_ms(sql_fn, native_fn, pairs: int):
+    """`pairs` runs of each function, interleaved: SQL then native in even
+    pairs, native then SQL in odd ones, so neither side always runs first.
+    Returns (SQL ms, native ms, kernel launches of the SQL runs)."""
+    sql_ms, native_ms, launches = [], [], 0
+    for i in range(pairs):
+        for side in (("sql", "native") if i % 2 == 0 else ("native", "sql")):
+            before = cuda_groupby.LAUNCHES
+            t0 = time.perf_counter()
+            (sql_fn if side == "sql" else native_fn)()
+            ms = (time.perf_counter() - t0) * 1e3
+            if side == "sql":
+                sql_ms.append(ms)
+                launches += cuda_groupby.LAUNCHES - before
+            else:
+                native_ms.append(ms)
+    return sql_ms, native_ms, launches
+
+
+def run_sql_path(ctxs, workloads, pairs: int = SQL_PAIRS):
+    """Drive every SQL query through its workload's `ctx.sql` (`ctxs`:
+    workload -> TPUOlapContext); returns one summary per query.  Only the
+    launches of the `ctx.sql` calls are counted."""
+    import pandas as pd
+
+    natives = {"ssb": ssb.NATIVE_QUERIES, "tpch": tpch.NATIVE_QUERIES}
+    out = []
+    for workload, name, sql in sql_queries():
+        ctx = ctxs[workload]
+        _, frame = workloads[workload]
+        plan_cold = _median_ms(lambda: ctx.plan_sql(sql), 3)
+        rw = ctx.plan_sql(sql)
+        spec = natives[workload].get(name)
+        planned = json.dumps(rw.query.to_druid(), sort_keys=True, default=str)
+        if spec is not None and planned != json.dumps(
+            spec.to_druid(), sort_keys=True, default=str
+        ):
+            raise AssertionError(f"{name}: planned JSON differs from the native spec")
+        launches = cuda_groupby.LAUNCHES
+        first = ctx.sql(sql)
+        m = ctx.last_metrics
+        second = ctx.sql(sql)
+        launches = cuda_groupby.LAUNCHES - launches
+        pd.testing.assert_frame_equal(first, second, check_exact=True)
+        plan_cached = _median_ms(lambda: ctx.plan_cached(sql), 20)
+        ds = ctx.catalog.get(rw.datasource)
+        native_q = spec if spec is not None else rw.query
+        native = ctx.engine.execute(native_q, ds)
+        native_strategy = ctx.last_metrics.strategy
+        sql_ms, native_ms, warm_launches = _interleaved_ms(
+            lambda: ctx.sql(sql), lambda: ctx.engine.execute(native_q, ds), pairs)
+        launches += warm_launches
+        if ctx.engine.device.type == "cuda" and m.num_groups <= 4096 and launches == 0:
+            raise AssertionError(f"{name}: G={m.num_groups} but the kernel never launched")
+        diffs = [a - b for a, b in zip(sql_ms, native_ms)]
+        cols = [c for c in first.columns if c in native.columns]
+        pd.testing.assert_frame_equal(
+            first[cols].reset_index(drop=True), native[cols].reset_index(drop=True),
+            check_exact=True,
+        )
+        if native_strategy != m.strategy:
+            raise AssertionError(f"{name}: SQL ran {m.strategy}, native {native_strategy}")
+        out.append({
+            "query": f"{name} (TPC-H)" if workload == "tpch" else name,
+            "json_equals_native": None if spec is None else True,
+            "strategy": m.strategy,
+            "num_groups": m.num_groups,
+            "segments": m.segments,
+            "result_rows": len(first),
+            "plan_cold_ms": plan_cold,
+            "plan_cached_ms": plan_cached,
+            "sql_p50_ms": statistics.median(sql_ms),
+            "native_p50_ms": statistics.median(native_ms),
+            # per pair, SQL ms minus native ms: median, and the pairs where
+            # SQL went first / native went first
+            "sql_minus_native_ms": statistics.median(diffs),
+            "diff_sql_first_ms": diffs[0::2],
+            "diff_native_first_ms": diffs[1::2],
+            "kernel_launches": launches,
+            "oracle_max_rel_err": check_against_oracle(name, first, frame, workload),
+            "bit_identical": True,
+            "bit_identical_to_native": True,
+        })
+        emit("sql_query", **out[-1])
+    return out
 
 
 def main(argv=None) -> int:
@@ -448,19 +636,38 @@ def main(argv=None) -> int:
     _, timed = kernel_phase(device)
 
     workloads = build_workloads(args.ssb_scale, args.tpch_scale)
-    engine = Engine(device=device)
+    # one context per workload: its engine drives that workload through
+    # phases 4 to 6, which share its residency
+    ctxs = {w: TPUOlapContext(device=device) for w in ("ssb", "tpch")}
+    engines = {w: c.engine for w, c in ctxs.items()}
+
+    def resident():
+        return sum(e.bytes_resident() for e in engines.values())
+
     torch.cuda.reset_peak_memory_stats(device)
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
-    queries = run_main_path(engine, workloads)
+    queries = run_main_path(engines, workloads)
     launches = cuda_groupby.LAUNCHES
     emit("main_path", queries=len(queries), seconds=time.perf_counter() - t0,
-         kernel_launches=launches, bytes_resident=engine.bytes_resident(),
+         kernel_launches=launches, bytes_resident=resident(),
          peak_device_bytes=torch.cuda.max_memory_allocated(device),
          ssb_scale=args.ssb_scale, tpch_scale=args.tpch_scale)
     if launches == 0:
         raise AssertionError("the main path never launched the kernel")
-    profile_queries(engine, workloads, queries)
+    profile_queries(engines, workloads, queries)
+
+    reg_s = register_sql(ctxs, workloads)
+    cuda_groupby.LAUNCHES = 0  # count only the SQL path's launches
+    t0 = time.perf_counter()
+    sql = run_sql_path(ctxs, workloads)
+    sql_launches = sum(q["kernel_launches"] for q in sql)
+    emit("sql", queries=len(sql), seconds=time.perf_counter() - t0,
+         register_seconds=reg_s, kernel_launches=sql_launches,
+         bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if sql_launches == 0:
+        raise AssertionError("the SQL path never launched the kernel")
 
     head = next(t for t in timed if t["shape"] == HEADLINE and not t["skewed"])
     print(json.dumps({"kernels": [{
@@ -468,7 +675,9 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/groupby_partial.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
-        "launches": launches,
+        "launches": launches + sql_launches,
+        "launches_native": launches,
+        "launches_sql": sql_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),
         "ms": head["ms"],

@@ -1,0 +1,58 @@
+"""Metadata cache: the registry of datasources and their star schemas.
+
+Datasources are registered (ingested) into the cache; entries are immutable
+by construction (frozen dataclasses holding arrays nobody mutates), and
+`clear()` is the clear-metadata-cache command.  Every mutation bumps
+`version`, which the SQL plan cache keys on, so a re-registered table
+invalidates cached rewrites.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Optional
+
+from .segment import DataSource
+from .star import StarSchemaInfo
+
+
+class MetadataCache:
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._tables: Dict[str, DataSource] = {}
+        self._stars: Dict[str, StarSchemaInfo] = {}
+        self.version = 0
+
+    def put(self, ds: DataSource, star: Optional[StarSchemaInfo] = None):
+        """Publish a datasource (and its star schema, when given).  Returns
+        the published DataSource."""
+        with self._lock:
+            self._tables[ds.name] = ds
+            if star is not None:
+                self._stars[ds.name] = star
+            self.version += 1
+        return ds
+
+    def get(self, name: str) -> Optional[DataSource]:
+        with self._lock:
+            return self._tables.get(name)
+
+    def star_schema(self, name: str) -> Optional[StarSchemaInfo]:
+        with self._lock:
+            return self._stars.get(name)
+
+    def tables(self):
+        with self._lock:
+            return list(self._tables)
+
+    def drop(self, name: str):
+        with self._lock:
+            self._tables.pop(name, None)
+            self._stars.pop(name, None)
+            self.version += 1
+
+    def clear(self):
+        with self._lock:
+            self._tables.clear()
+            self._stars.clear()
+            self.version += 1

@@ -122,9 +122,50 @@ def apply_strfunc(fn: str, args: tuple, s: str):
     raise ValueError(f"unsupported string fn {fn!r}")
 
 
+def map_expr(e, fn):
+    """Bottom-up structural map over an expression tree: children are
+    mapped first, the node is rebuilt, then `fn` transforms the result.
+    The one place that knows how Expr dataclasses hold children (direct
+    Expr fields and tuples of Exprs).  Opaque fields (a subquery's `stmt`)
+    are not descended."""
+    if not isinstance(e, Expr):
+        return e
+    kw = {}
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, Expr):
+            kw[f.name] = map_expr(v, fn)
+        elif isinstance(v, tuple) and v and isinstance(v[0], Expr):
+            kw[f.name] = tuple(map_expr(x, fn) for x in v)
+    return fn(dataclasses.replace(e, **kw) if kw else e)
+
+
+def any_node(e, pred) -> bool:
+    """True when `pred` holds for any node of an expression tree (the
+    read-only sibling of `map_expr`)."""
+    if not isinstance(e, Expr):
+        return False
+    if pred(e):
+        return True
+    for f in dataclasses.fields(e):
+        v = getattr(e, f.name)
+        if isinstance(v, Expr):
+            if any_node(v, pred):
+                return True
+        elif isinstance(v, tuple):
+            for x in v:
+                if isinstance(x, Expr) and any_node(x, pred):
+                    return True
+    return False
+
+
 def _collect_cols(e: Expr, out: list):
     if isinstance(e, Col):
         out.append(e.name)
+    refs = getattr(e, "outer_refs", None)
+    if refs:
+        # a correlated subquery reads outer columns by their bare names
+        out.extend(_outer_bare(refs))
     for f in dataclasses.fields(e):  # type: ignore[arg-type]
         v = getattr(e, f.name)
         if isinstance(v, Expr):
@@ -208,6 +249,64 @@ class InExpr(Expr):
 
     def __str__(self):
         return f"({self.operand} in {self.values})"
+
+
+def _outer_bare(outer_refs) -> tuple:
+    """Bare outer column names a correlated subquery reads (its outer refs
+    are qualified, `alias.col`)."""
+    return tuple(q.split(".", 1)[1] for q in (outer_refs or ()))
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class InSubquery(Expr):
+    """`x IN (SELECT c FROM ...)`, a semi-join.  The planner rejects every
+    subquery with a RewriteError; the parser still builds the node so the
+    logical plan matches the reference's.  `stmt` is a sql.parser.SelectStmt
+    (typed Any to keep plan/ independent of the SQL layer); `outer_refs`
+    (qualified outer columns) marks correlation."""
+
+    operand: Expr
+    stmt: Any
+    aliases: Any = None  # alias->table mapping captured at parse time
+    outer_refs: Any = None  # tuple of "alias.col" correlation references
+
+    def columns(self):
+        return tuple(self.operand.columns()) + _outer_bare(self.outer_refs)
+
+    def __str__(self):
+        # the id keeps two different subqueries apart under the analyzer's
+        # string-keyed aggregate dedup
+        return f"({self.operand} IN (<subquery#{id(self.stmt):x}>))"
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class ExistsSubquery(Expr):
+    """`EXISTS (SELECT ...)`."""
+
+    stmt: Any
+    aliases: Any = None
+    outer_refs: Any = None
+
+    def columns(self):
+        return _outer_bare(self.outer_refs)
+
+    def __str__(self):
+        return f"EXISTS(<subquery#{id(self.stmt):x}>)"
+
+
+@dataclasses.dataclass(frozen=True, eq=True)
+class ScalarSubquery(Expr):
+    """`(SELECT agg FROM ...)` in expression position."""
+
+    stmt: Any
+    aliases: Any = None
+    outer_refs: Any = None
+
+    def columns(self):
+        return _outer_bare(self.outer_refs)
+
+    def __str__(self):
+        return f"(<scalar subquery#{id(self.stmt):x}>)"
 
 
 @dataclasses.dataclass(frozen=True, eq=True)
@@ -732,6 +831,222 @@ def _time_extract(t_ms: torch.Tensor, field: str):
     if field == "day":
         return d.to(torch.int32)
     raise ValueError(f"EXTRACT field {field!r}")
+
+
+_UNARY_NP = {
+    "-": np.negative,
+    "abs": np.abs,
+    "floor": np.floor,
+    "ceil": np.ceil,
+    "sqrt": np.sqrt,
+    "exp": np.exp,
+    "ln": np.log,
+    "round": lambda x: np.sign(x) * np.floor(np.abs(x) + 0.5),
+}
+
+
+def _host_valid(xo: np.ndarray, kind) -> np.ndarray:
+    """Rows of an object column that hold a value of `kind` (SQL
+    three-valued logic: NULL never satisfies a comparison)."""
+    if kind is str:
+        return np.array([isinstance(v, str) for v in xo], dtype=bool)
+    return np.array(
+        [
+            isinstance(v, (int, float))
+            and not isinstance(v, bool)
+            and not (isinstance(v, float) and np.isnan(v))
+            for v in xo
+        ],
+        dtype=bool,
+    )
+
+
+def _compile_host_comparison(e: "Comparison"):
+    lit = {s: x for s, x in (("left", e.left), ("right", e.right))
+           if isinstance(x, Literal)}
+    if any(v.value is None for v in lit.values()):
+        other = e.right if "left" in lit and lit["left"].value is None else e.left
+        of = compile_host_expr(other)
+        if e.op in (">", ">=", "<", "<="):
+            return lambda cols: np.zeros(np.shape(np.asarray(of(cols))), bool)
+        # IS [NOT] NULL: nulls are None (object columns) or NaN (metrics)
+        import pandas as pd
+
+        eq = e.op == "=="
+
+        def isnull(cols):
+            isn = np.asarray(pd.isna(np.asarray(of(cols))))
+            return isn if eq else ~isn
+
+        return isnull
+    num = {s: x.value for s, x in lit.items()
+           if isinstance(x.value, (int, float)) and not isinstance(x.value, bool)}
+    if num:
+        from ..utils.floatcmp import f32_adjusted_compare
+
+        side = "right" if "right" in num else "left"
+        lit_val = num[side]
+        of = compile_host_expr(e.left if side == "right" else e.right)
+        op = e.op if side == "right" else _FLIP[e.op]
+        cmp32 = f32_adjusted_compare(op, float(lit_val))
+
+        def cmp_num(cols):
+            x = np.asarray(of(cols))
+            if x.dtype.kind == "O":
+                valid = _host_valid(x, float)
+                res = np.zeros(x.shape, dtype=bool)
+                if valid.any():
+                    res[valid] = _CMP[op](x[valid].astype(np.float64), lit_val)
+                return res
+            if x.dtype == np.float32:
+                return cmp32(torch.from_numpy(np.ascontiguousarray(x))).numpy()
+            return _CMP[op](x, lit_val)
+
+        return cmp_num
+    lf, rf = compile_host_expr(e.left), compile_host_expr(e.right)
+    op = _CMP[e.op]
+    strs = {s: x.value for s, x in lit.items() if isinstance(x.value, str)}
+    if not strs:
+        return lambda cols: op(np.asarray(lf(cols)), np.asarray(rf(cols)))
+    flip = "left" in strs
+    str_lit = strs["left" if flip else "right"]
+    of = rf if flip else lf
+    numv = coerce_str_literal(str_lit)
+
+    def cmp_mixed(cols):
+        # a string literal against a numeric column (time ms vs an ISO
+        # date) coerces; against decoded strings it compares as text
+        x = np.asarray(of(cols))
+        if x.dtype.kind in ("i", "u", "f") and numv is not None:
+            return op(numv, x) if flip else op(x, numv)
+        if x.dtype.kind == "O":
+            valid = _host_valid(x, str)
+            res = np.zeros(x.shape, dtype=bool)
+            if valid.any():
+                vx = x[valid].astype(str)
+                res[valid] = op(str_lit, vx) if flip else op(vx, str_lit)
+            return res
+        return op(str_lit, x) if flip else op(x, str_lit)
+
+    return cmp_mixed
+
+
+def compile_host_expr(e: Expr) -> Callable[[Mapping[str, Any]], Any]:
+    """Compile an Expr into `fn(columns) -> numpy array` over a result
+    table on the host: decoded dimension values (strings, or Python ints
+    with None for null) and float64 metrics.  This is what HAVING residues
+    and post-expressions run on after finalize (the JAX package's
+    `compile_expr(..., raw_strings=True)`), with the same null and string
+    semantics."""
+    if isinstance(e, (Col, AggRef)):
+        name = e.name
+        return lambda cols: cols[name]
+    if isinstance(e, Literal):
+        v = e.value
+        return lambda cols: v
+    if isinstance(e, BinaryOp):
+        lf, rf, op = compile_host_expr(e.left), compile_host_expr(e.right), _BINARY[e.op]
+        return lambda cols: op(lf(cols), rf(cols))
+    if isinstance(e, UnaryOp):
+        f, op = compile_host_expr(e.operand), _UNARY_NP[e.op]
+        return lambda cols: op(np.asarray(f(cols)))
+    if isinstance(e, Comparison):
+        return _compile_host_comparison(e)
+    if isinstance(e, BoolOp):
+        fs = [compile_host_expr(o) for o in e.operands]
+        if e.op == "not":
+            return lambda cols: np.logical_not(fs[0](cols))
+        op = np.logical_and if e.op == "and" else np.logical_or
+
+        def fold(cols):
+            acc = fs[0](cols)
+            for f in fs[1:]:
+                acc = op(acc, f(cols))
+            return acc
+
+        return fold
+    if isinstance(e, InExpr):
+        f = compile_host_expr(e.operand)
+        if any(isinstance(v, str) for v in e.values):
+            vals = list(e.values)
+            return lambda cols: np.isin(np.asarray(f(cols), dtype=object), vals)
+        # NaN never matches; pandas isin hashes for every dtype
+        values = [v for v in e.values if not (isinstance(v, float) and v != v)]
+
+        def host_in(cols):
+            import pandas as pd
+
+            return pd.Series(np.asarray(f(cols))).isin(values).to_numpy()
+
+        return host_in
+    if isinstance(e, IfExpr):
+        cf, tf, of = (compile_host_expr(x) for x in (e.cond, e.then, e.otherwise))
+
+        def host_if(cols):
+            c = np.asarray(cf(cols)).astype(bool)
+            t, o, _ = np.broadcast_arrays(np.asarray(tf(cols)), np.asarray(of(cols)), c)
+            return np.where(c, t, o)
+
+        return host_if
+    if isinstance(e, Cast):
+        f = compile_host_expr(e.operand)
+        dt = {"double": np.float32, "long": np.int32, "bool": np.bool_}[e.to]
+        return lambda cols: np.asarray(f(cols)).astype(dt)
+    if isinstance(e, TimeBucket):
+        f, p = compile_host_expr(e.operand), e.period_ms
+        if p is not None:
+            return lambda cols: (np.asarray(f(cols)) // p * p).astype(np.int64)
+        from ..utils.granularity import _iso_calendar_months
+
+        k = _iso_calendar_months(e.granularity)
+
+        def cal_trunc(cols):
+            t = np.asarray(f(cols)).astype("datetime64[ms]")
+            months = t.astype("datetime64[M]").astype(np.int64)
+            b = ((months // k) * k).astype("datetime64[M]")
+            return b.astype("datetime64[ms]").astype(np.int64)
+
+        return cal_trunc
+    if isinstance(e, TimeExtract):
+        if e.field not in _EXTRACT_FIELDS:
+            raise ValueError(
+                f"EXTRACT field {e.field!r}; supported: {sorted(_EXTRACT_FIELDS)}"
+            )
+        f, field = compile_host_expr(e.operand), e.field
+        return lambda cols: _time_extract(
+            torch.from_numpy(np.asarray(f(cols), dtype=np.int64)), field
+        ).numpy()
+    if isinstance(e, LikeExpr):
+        import re
+
+        from ..ops.filters import _like_to_regex
+
+        rx, f, neg = re.compile(_like_to_regex(e.pattern)), compile_host_expr(e.operand), e.negated
+
+        def like_host(cols):
+            vals = np.asarray(f(cols), dtype=object)
+            m = np.array([v is not None and bool(rx.search(str(v))) for v in vals], bool)
+            if not neg:
+                return m
+            # NULL NOT LIKE p is NULL -> excluded
+            return np.array([v is not None for v in vals], bool) & ~m
+
+        return like_host
+    if isinstance(e, StrFunc) and e.fn != "lookup":
+        f = compile_host_expr(e.operand)
+
+        def str_host(cols, fn=e.fn, a=e.args):
+            import pandas as pd
+
+            def ap(v):
+                if pd.isna(v):
+                    return None
+                return apply_strfunc(fn, a, v if isinstance(v, str) else str(v))
+
+            return np.array([ap(v) for v in np.asarray(f(cols))], dtype=object)
+
+        return str_host
+    raise TypeError(f"cannot compile host expression {e!r}")
 
 
 def col(name: str) -> Col:

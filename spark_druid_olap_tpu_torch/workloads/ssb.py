@@ -8,7 +8,13 @@ specs, and float64 pandas oracles.
   datasource (the "Druid index"): string attributes become codes via
   per-attribute dictionaries built on the SMALL dim tables, then gathered
   through the fact's foreign keys.
-* `NATIVE_QUERIES` are the 13 SSB queries as `GroupByQuery` specs, in the
+* `STAR_SCHEMA` declares the star (fact, four dimension tables, functional
+  dependencies) that lets the SQL planner eliminate the joins;
+  `register(ctx, ...)` registers the flat datasource with it plus the four
+  normalized dimension tables into a `TPUOlapContext`.
+* `QUERIES` are the 13 SSB queries as SQL over the normalized star (joins
+  included).
+* `NATIVE_QUERIES` are the same 13 queries as `GroupByQuery` specs, in the
   form the SQL planner lowers the joined SQL to (star joins eliminated,
   filters pushed into the flat datasource).  Filter constants are adapted
   to this generator's value domains; the query shapes (filter arity,
@@ -26,6 +32,7 @@ from typing import Dict, Tuple
 import numpy as np
 
 from ..catalog.segment import DataSource, DimensionDict, build_datasource, code_dtype
+from ..catalog.star import FunctionalDependency, StarRelationInfo, StarSchemaInfo
 from ..models import aggregations as A
 from ..models import filters as F
 from ..models import query as Q
@@ -68,6 +75,26 @@ FLAT_METRICS = [
     # (HLL/theta over lo_custkey)
     "lo_custkey",
 ]
+
+STAR_SCHEMA = StarSchemaInfo(
+    fact_table="lineorder",
+    relations=(
+        StarRelationInfo("dwdate", (("lo_orderdate", "d_datekey"),)),
+        StarRelationInfo("customer", (("lo_custkey", "c_custkey"),)),
+        StarRelationInfo("supplier", (("lo_suppkey", "s_suppkey"),)),
+        StarRelationInfo("part", (("lo_partkey", "p_partkey"),)),
+    ),
+    functional_dependencies=(
+        FunctionalDependency("customer", "c_city", "c_nation"),
+        FunctionalDependency("customer", "c_nation", "c_region"),
+        FunctionalDependency("supplier", "s_city", "s_nation"),
+        FunctionalDependency("supplier", "s_nation", "s_region"),
+        FunctionalDependency("part", "p_brand1", "p_category"),
+        FunctionalDependency("part", "p_category", "p_mfgr"),
+        FunctionalDependency("dwdate", "d_datekey", "d_year"),
+    ),
+)
+
 
 def _geo(n: int, rng) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     reg = rng.choice(REGIONS, size=n)
@@ -237,6 +264,141 @@ def datasource(cols, dicts, rows_per_segment: int = 1 << 19) -> DataSource:
         "lineorder", cols, FLAT_DIMS, FLAT_METRICS, time_col="lo_orderdate",
         rows_per_segment=rows_per_segment, dicts=dicts,
     )
+
+
+def register(ctx, scale: float = 0.01, seed: int = 7,
+             rows_per_segment: int = 1 << 19, tables=None,
+             sort_by=("lo_orderdate",)):
+    """Register the flat fact datasource (with the star schema) and the four
+    normalized dimension tables into a TPUOlapContext.
+
+    Rows are time-sorted into 512K-row segments by default, as Druid ingests
+    (segments are time partitions): the date-derived SSB predicates
+    (d_year, d_yearmonthnum, ...) then prune most segments by zone map
+    before any kernel runs."""
+    tables = tables if tables is not None else gen_tables(scale, seed)
+    cols, dicts = flat_columns(tables)
+    ctx.register_table(
+        "lineorder", cols,
+        dimensions=FLAT_DIMS, metrics=FLAT_METRICS,
+        time_column="lo_orderdate", star_schema=STAR_SCHEMA,
+        rows_per_segment=rows_per_segment, dicts=dicts,
+        sort_by=list(sort_by),
+    )
+    ctx.register_table("dwdate", tables["dwdate"], time_column="d_datekey")
+    for t in ("customer", "supplier", "part"):
+        ctx.register_table(t, tables[t])
+    return tables
+
+
+# ---------------------------------------------------------------------------
+# The 13 SSB queries, joined form (constants adapted to gen_tables domains)
+# ---------------------------------------------------------------------------
+
+_J_DATE = "JOIN dwdate ON lo_orderdate = d_datekey"
+_J_CUST = "JOIN customer ON lo_custkey = c_custkey"
+_J_SUPP = "JOIN supplier ON lo_suppkey = s_suppkey"
+_J_PART = "JOIN part ON lo_partkey = p_partkey"
+
+QUERIES: Dict[str, str] = {
+    "q1_1": f"""
+        SELECT sum(lo_extendedprice * lo_discount) AS revenue
+        FROM lineorder {_J_DATE}
+        WHERE d_year = 1993 AND lo_discount BETWEEN 1 AND 3
+          AND lo_quantity < 25
+    """,
+    "q1_2": f"""
+        SELECT sum(lo_extendedprice * lo_discount) AS revenue
+        FROM lineorder {_J_DATE}
+        WHERE d_yearmonthnum = 199401 AND lo_discount BETWEEN 4 AND 6
+          AND lo_quantity BETWEEN 26 AND 35
+    """,
+    "q1_3": f"""
+        SELECT sum(lo_extendedprice * lo_discount) AS revenue
+        FROM lineorder {_J_DATE}
+        WHERE d_weeknuminyear = 6 AND d_year = 1994
+          AND lo_discount BETWEEN 5 AND 7 AND lo_quantity BETWEEN 26 AND 35
+    """,
+    "q2_1": f"""
+        SELECT sum(lo_revenue) AS revenue, d_year, p_brand1
+        FROM lineorder {_J_DATE} {_J_PART} {_J_SUPP}
+        WHERE p_category = 'MFGR#12' AND s_region = 'AMERICA'
+        GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1
+    """,
+    "q2_2": f"""
+        SELECT sum(lo_revenue) AS revenue, d_year, p_brand1
+        FROM lineorder {_J_DATE} {_J_PART} {_J_SUPP}
+        WHERE p_brand1 BETWEEN 'MFGR#22-1' AND 'MFGR#22-8'
+          AND s_region = 'ASIA'
+        GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1
+    """,
+    "q2_3": f"""
+        SELECT sum(lo_revenue) AS revenue, d_year, p_brand1
+        FROM lineorder {_J_DATE} {_J_PART} {_J_SUPP}
+        WHERE p_brand1 = 'MFGR#22-9' AND s_region = 'EUROPE'
+        GROUP BY d_year, p_brand1 ORDER BY d_year, p_brand1
+    """,
+    "q3_1": f"""
+        SELECT c_nation, s_nation, d_year, sum(lo_revenue) AS revenue
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_DATE}
+        WHERE c_region = 'ASIA' AND s_region = 'ASIA'
+          AND d_year >= 1992 AND d_year <= 1997
+        GROUP BY c_nation, s_nation, d_year
+        ORDER BY d_year ASC, revenue DESC
+    """,
+    "q3_2": f"""
+        SELECT c_city, s_city, d_year, sum(lo_revenue) AS revenue
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_DATE}
+        WHERE c_nation = 'UNITED STATES' AND s_nation = 'UNITED STATES'
+          AND d_year >= 1992 AND d_year <= 1997
+        GROUP BY c_city, s_city, d_year
+        ORDER BY d_year ASC, revenue DESC
+    """,
+    "q3_3": f"""
+        SELECT c_city, s_city, d_year, sum(lo_revenue) AS revenue
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_DATE}
+        WHERE c_city IN ('UNITED KINGDOM1', 'UNITED KINGDOM5')
+          AND s_city IN ('UNITED KINGDOM1', 'UNITED KINGDOM5')
+          AND d_year >= 1992 AND d_year <= 1997
+        GROUP BY c_city, s_city, d_year
+        ORDER BY d_year ASC, revenue DESC
+    """,
+    "q3_4": f"""
+        SELECT c_city, s_city, d_year, sum(lo_revenue) AS revenue
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_DATE}
+        WHERE c_city IN ('UNITED KINGDOM1', 'UNITED KINGDOM5')
+          AND s_city IN ('UNITED KINGDOM1', 'UNITED KINGDOM5')
+          AND d_yearmonth = '1997-12'
+        GROUP BY c_city, s_city, d_year
+        ORDER BY d_year ASC, revenue DESC
+    """,
+    "q4_1": f"""
+        SELECT d_year, c_nation, sum(lo_revenue - lo_supplycost) AS profit
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_PART} {_J_DATE}
+        WHERE c_region = 'AMERICA' AND s_region = 'AMERICA'
+          AND (p_mfgr = 'MFGR#1' OR p_mfgr = 'MFGR#2')
+        GROUP BY d_year, c_nation ORDER BY d_year, c_nation
+    """,
+    "q4_2": f"""
+        SELECT d_year, s_nation, p_category,
+               sum(lo_revenue - lo_supplycost) AS profit
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_PART} {_J_DATE}
+        WHERE c_region = 'AMERICA' AND s_region = 'AMERICA'
+          AND (d_year = 1997 OR d_year = 1998)
+          AND (p_mfgr = 'MFGR#1' OR p_mfgr = 'MFGR#2')
+        GROUP BY d_year, s_nation, p_category
+        ORDER BY d_year, s_nation, p_category
+    """,
+    "q4_3": f"""
+        SELECT d_year, s_city, p_brand1,
+               sum(lo_revenue - lo_supplycost) AS profit
+        FROM lineorder {_J_CUST} {_J_SUPP} {_J_PART} {_J_DATE}
+        WHERE c_region = 'AMERICA' AND s_nation = 'UNITED STATES'
+          AND (d_year = 1997 OR d_year = 1998) AND p_category = 'MFGR#14'
+        GROUP BY d_year, s_city, p_brand1
+        ORDER BY d_year, s_city, p_brand1
+    """,
+}
 
 
 # ---------------------------------------------------------------------------

@@ -1,17 +1,24 @@
 """TPC-H workload: a normalized TPC-H subset, its flat dictionary-encoded
-`lineitem` datasource, Q1 as a native query spec, and its float64 pandas
-oracle.
+`lineitem` datasource with its snowflake star declaration, the query classes
+as joined SQL, Q1 as a native query spec, and float64 pandas oracles.
 
 * `gen_tables(scale)` builds `lineitem` + `orders` / `customer` /
   `supplier` / `part` (customer hangs off orders: a snowflake edge resolved
   at flatten time).
+* `STAR_SCHEMA` declares that snowflake with its functional dependencies;
+  `register(ctx, ...)` registers the flat fact with it plus the normalized
+  tables into a `TPUOlapContext`.
+* `QUERIES`: Q1 (AVG rewrite), Q3 (l_orderkey groups, ORDER BY revenue
+  LIMIT 10: a TopN), Q10 (FD grouping pruning), Q5, Q6, Q12 (CASE counts),
+  Q7 (EXTRACT year), Q14 (a ratio post-aggregation), Q19, and Q8 twice
+  (a year column and EXTRACT(YEAR FROM o_orderdate)).
 * `NATIVE_QUERIES["q1"]` is the pricing summary report in the form the SQL
   planner lowers it to: the AVG rewrite into sum / count post-aggregations
   and the shipdate predicate as the query interval.
-* `oracle(flat_frame(tables), "q1")` computes it in float64 pandas.
+* `oracle(flat_frame(tables), name)` computes each in float64 pandas.
 
-Constants are adapted to this generator's value domains; the query shape
-follows the TPC-H spec.
+Constants are adapted to this generator's value domains; the query shapes
+follow the TPC-H spec.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import Dict
 import numpy as np
 
 from ..catalog.segment import DataSource, DimensionDict, build_datasource
+from ..catalog.star import FunctionalDependency, StarRelationInfo, StarSchemaInfo
 from ..models import aggregations as A
 from ..models import query as Q
 from ..models.dimensions import DimensionSpec
@@ -64,6 +72,27 @@ DIM_ATTRS = {
 FLAT_METRICS = [
     "l_quantity", "l_extendedprice", "l_discount", "l_tax",
 ]
+
+STAR_SCHEMA = StarSchemaInfo(
+    fact_table="lineitem",
+    relations=(
+        StarRelationInfo("orders", (("l_orderkey", "o_orderkey"),)),
+        StarRelationInfo(
+            "customer", (("o_custkey", "c_custkey"),), parent="orders"
+        ),
+        StarRelationInfo("supplier", (("l_suppkey", "s_suppkey"),)),
+        StarRelationInfo("part", (("l_partkey", "p_partkey"),)),
+    ),
+    functional_dependencies=(
+        FunctionalDependency("customer", "c_custkey", "c_name"),
+        FunctionalDependency("customer", "c_custkey", "c_nation"),
+        FunctionalDependency("customer", "c_custkey", "c_mktsegment"),
+        FunctionalDependency("customer", "c_nation", "c_region"),
+        FunctionalDependency("supplier", "s_nation", "s_region"),
+        FunctionalDependency("orders", "o_orderkey", "o_orderpriority"),
+    ),
+)
+
 
 def _geo(n: int, rng):
     reg = rng.choice(np.array(REGIONS, dtype=object), size=n)
@@ -218,6 +247,173 @@ def datasource(cols, dicts, rows_per_segment: int = 1 << 22) -> DataSource:
     )
 
 
+def register(ctx, scale: float = 0.01, seed: int = 13,
+             rows_per_segment: int = 1 << 22, tables=None):
+    """Register the flat fact (with snowflake star schema) + normalized
+    dims — the reference's orderLineItemPartSupplier DDL analog."""
+    tables = tables if tables is not None else gen_tables(scale, seed)
+    cols, dicts = flat_columns(tables)
+    ctx.register_table(
+        "lineitem", cols,
+        dimensions=FLAT_DIMS, metrics=FLAT_METRICS,
+        time_column="l_shipdate", star_schema=STAR_SCHEMA,
+        rows_per_segment=rows_per_segment, dicts=dicts,
+    )
+    ctx.register_table("orders", tables["orders"], time_column="o_orderdate")
+    for t in ("customer", "supplier", "part"):
+        ctx.register_table(t, tables[t])
+    return tables
+
+
+_J_ORD = "JOIN orders ON l_orderkey = o_orderkey"
+_J_CUST = "JOIN customer ON o_custkey = c_custkey"
+_J_SUPP = "JOIN supplier ON l_suppkey = s_suppkey"
+_J_PART = "JOIN part ON l_partkey = p_partkey"
+
+QUERIES: Dict[str, str] = {
+    # Q1: pricing summary report — AVG rewrite + expression aggregates
+    "q1": """
+        SELECT l_returnflag, l_linestatus,
+               sum(l_quantity) AS sum_qty,
+               sum(l_extendedprice) AS sum_base_price,
+               sum(l_extendedprice * (1 - l_discount)) AS sum_disc_price,
+               sum(l_extendedprice * (1 - l_discount) * (1 + l_tax)) AS sum_charge,
+               avg(l_quantity) AS avg_qty,
+               avg(l_extendedprice) AS avg_price,
+               avg(l_discount) AS avg_disc,
+               count(*) AS count_order
+        FROM lineitem
+        WHERE l_shipdate <= '1998-09-02'
+        GROUP BY l_returnflag, l_linestatus
+        ORDER BY l_returnflag, l_linestatus
+    """,
+    # Q3-class: shipping priority — snowflake join + huge group domain
+    # (l_orderkey: the sparse-groupby shape) + ORDER BY revenue LIMIT 10
+    "q3": f"""
+        SELECT l_orderkey,
+               sum(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM lineitem {_J_ORD} {_J_CUST}
+        WHERE c_mktsegment = 'BUILDING'
+          AND o_orderdate < '1995-03-15'
+          AND l_shipdate > '1995-03-15'
+        GROUP BY l_orderkey
+        ORDER BY revenue DESC
+        LIMIT 10
+    """,
+    # Q10-class: returned-item reporting — GROUP BY customer attributes;
+    # exercises FD grouping pruning (c_custkey determines c_name/c_nation:
+    # the kernel groups by c_custkey alone, pruned columns ride hidden
+    # code aggregations)
+    "q10": f"""
+        SELECT c_custkey, c_name, c_nation,
+               sum(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM lineitem {_J_ORD} {_J_CUST}
+        WHERE o_orderdate >= '1993-10-01' AND o_orderdate < '1994-01-01'
+          AND l_returnflag = 'R'
+        GROUP BY c_custkey, c_name, c_nation
+        ORDER BY revenue DESC
+        LIMIT 20
+    """,
+    # Q5-class: local supplier volume — both dim branches constrained to one
+    # region, grouped by supplier nation
+    "q5": f"""
+        SELECT s_nation, sum(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM lineitem {_J_ORD} {_J_CUST} {_J_SUPP}
+        WHERE c_region = 'ASIA' AND s_region = 'ASIA'
+          AND o_orderdate >= '1994-01-01' AND o_orderdate < '1995-01-01'
+        GROUP BY s_nation
+        ORDER BY revenue DESC
+    """,
+    # Q6: forecasting revenue change — pure interval + bound filters into an
+    # expression aggregate, no grouping
+    "q6": """
+        SELECT sum(l_extendedprice * l_discount) AS revenue
+        FROM lineitem
+        WHERE l_shipdate >= '1994-01-01' AND l_shipdate < '1995-01-01'
+          AND l_discount >= 0.05 AND l_discount <= 0.07
+          AND l_quantity < 24
+    """,
+    # Q12-class: shipmode line-priority counts — CASE inside SUM
+    "q12": f"""
+        SELECT l_shipmode,
+               sum(CASE WHEN o_orderpriority = '1-URGENT'
+                         OR o_orderpriority = '2-HIGH'
+                        THEN 1 ELSE 0 END) AS high_line_count,
+               sum(CASE WHEN o_orderpriority <> '1-URGENT'
+                        AND o_orderpriority <> '2-HIGH'
+                        THEN 1 ELSE 0 END) AS low_line_count
+        FROM lineitem {_J_ORD}
+        WHERE l_shipmode IN ('MAIL', 'SHIP')
+          AND l_shipdate >= '1994-01-01' AND l_shipdate < '1995-01-01'
+        GROUP BY l_shipmode
+        ORDER BY l_shipmode
+    """,
+    # Q7-class: volume shipping between two nations — OR-of-ANDs across two
+    # dimension branches + EXTRACT over the time column as a grouping dim
+    "q7": f"""
+        SELECT s_nation, c_nation,
+               EXTRACT(YEAR FROM l_shipdate) AS l_year,
+               sum(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM lineitem {_J_ORD} {_J_CUST} {_J_SUPP}
+        WHERE ((s_nation = 'FRANCE' AND c_nation = 'GERMANY')
+            OR (s_nation = 'GERMANY' AND c_nation = 'FRANCE'))
+          AND l_shipdate >= '1995-01-01' AND l_shipdate <= '1996-12-31'
+        GROUP BY s_nation, c_nation, EXTRACT(YEAR FROM l_shipdate)
+        ORDER BY s_nation, c_nation, l_year
+    """,
+    # Q14-class: promo revenue — LIKE inside CASE, ratio of two aggregates
+    # as a post-aggregation (constants adapted to this generator's p_type
+    # domain: 'MEDIUM%' plays the role of 'PROMO%')
+    "q14": f"""
+        SELECT 100 * sum(CASE WHEN p_type LIKE 'MEDIUM%'
+                              THEN l_extendedprice * (1 - l_discount)
+                              ELSE 0 END)
+                 / sum(l_extendedprice * (1 - l_discount)) AS promo_revenue
+        FROM lineitem {_J_PART}
+        WHERE l_shipdate >= '1995-09-01' AND l_shipdate < '1995-10-01'
+    """,
+    # Q19-class: discounted revenue — disjunction of conjunct blocks mixing
+    # string dims and numeric metric bounds
+    "q19": f"""
+        SELECT sum(l_extendedprice * (1 - l_discount)) AS revenue
+        FROM lineitem {_J_PART}
+        WHERE (p_brand = 'Brand#12' AND l_quantity >= 1 AND l_quantity <= 11
+               AND l_shipmode IN ('AIR', 'REG AIR'))
+           OR (p_brand = 'Brand#23' AND l_quantity >= 10 AND l_quantity <= 20
+               AND l_shipmode IN ('AIR', 'REG AIR'))
+           OR (p_brand = 'Brand#34' AND l_quantity >= 20 AND l_quantity <= 30
+               AND l_shipmode IN ('AIR', 'REG AIR'))
+    """,
+    # Q8 via EXTRACT(YEAR FROM o_orderdate) — no pre-materialized year
+    # column needed (dictionary-backed EXTRACT dimension)
+    "q8_extract": f"""
+        SELECT EXTRACT(YEAR FROM o_orderdate) AS o_orderdate_year,
+               sum(CASE WHEN s_nation = 'BRAZIL'
+                        THEN l_extendedprice * (1 - l_discount)
+                        ELSE 0 END) AS brazil_volume,
+               sum(l_extendedprice * (1 - l_discount)) AS total_volume
+        FROM lineitem {_J_ORD} {_J_CUST} {_J_SUPP} {_J_PART}
+        WHERE c_region = 'AMERICA' AND p_type = 'ECONOMY ANODIZED STEEL'
+          AND o_orderdate >= '1995-01-01' AND o_orderdate <= '1996-12-31'
+        GROUP BY EXTRACT(YEAR FROM o_orderdate)
+        ORDER BY o_orderdate_year
+    """,
+    # Q8-class: market share numerator/denominator via CASE over nation
+    "q8": f"""
+        SELECT o_orderdate_year,
+               sum(CASE WHEN s_nation = 'BRAZIL'
+                        THEN l_extendedprice * (1 - l_discount)
+                        ELSE 0 END) AS brazil_volume,
+               sum(l_extendedprice * (1 - l_discount)) AS total_volume
+        FROM lineitem {_J_ORD} {_J_CUST} {_J_SUPP} {_J_PART}
+        WHERE c_region = 'AMERICA' AND p_type = 'ECONOMY ANODIZED STEEL'
+          AND o_orderdate >= '1995-01-01' AND o_orderdate <= '1996-12-31'
+        GROUP BY o_orderdate_year
+        ORDER BY o_orderdate_year
+    """,
+}
+
+
 def _avg(name: str, field: str):
     """SQL AVG as the planner rewrites it: a sum, a count and their
     quotient as a post-aggregation."""
@@ -305,8 +501,7 @@ def _ms(s: str) -> int:
 
 
 def oracle(f, name: str):
-    """float64 reference result for NATIVE_QUERIES[name] over flat_frame
-    output."""
+    """float64 reference result for QUERIES[name] over flat_frame output."""
     rev = f.l_extendedprice * (1 - f.l_discount)
     if name == "q1":
         m = f.l_shipdate <= _ms("1998-09-02")
@@ -327,6 +522,135 @@ def oracle(f, name: str):
         return out.sort_values(["l_returnflag", "l_linestatus"]).reset_index(
             drop=True
         )
+    if name == "q3":
+        m = (
+            (f.c_mktsegment == "BUILDING")
+            & (f.o_orderdate < _ms("1995-03-15"))
+            & (f.l_shipdate > _ms("1995-03-15"))
+        )
+        g = (
+            f[m].assign(revenue=rev[m])
+            .groupby("l_orderkey", as_index=False)["revenue"].sum()
+        )
+        return g.sort_values("revenue", ascending=False).head(10).reset_index(
+            drop=True
+        )
+    if name == "q10":
+        m = (
+            (f.o_orderdate >= _ms("1993-10-01"))
+            & (f.o_orderdate < _ms("1994-01-01"))
+            & (f.l_returnflag == "R")
+        )
+        g = (
+            f[m].assign(revenue=rev[m])
+            .groupby(["c_custkey", "c_name", "c_nation"], as_index=False)[
+                "revenue"
+            ].sum()
+        )
+        return g.sort_values("revenue", ascending=False).head(20).reset_index(
+            drop=True
+        )
+    if name == "q5":
+        m = (
+            (f.c_region == "ASIA") & (f.s_region == "ASIA")
+            & (f.o_orderdate >= _ms("1994-01-01"))
+            & (f.o_orderdate < _ms("1995-01-01"))
+        )
+        g = (
+            f[m].assign(revenue=rev[m])
+            .groupby("s_nation", as_index=False)["revenue"].sum()
+        )
+        return g.sort_values("revenue", ascending=False).reset_index(drop=True)
+    if name == "q6":
+        m = (
+            (f.l_shipdate >= _ms("1994-01-01"))
+            & (f.l_shipdate < _ms("1995-01-01"))
+            & (f.l_discount >= 0.05) & (f.l_discount <= 0.07)
+            & (f.l_quantity < 24)
+        )
+        return float((f.l_extendedprice[m] * f.l_discount[m]).sum())
+    if name == "q12":
+        m = (
+            f.l_shipmode.isin(["MAIL", "SHIP"])
+            & (f.l_shipdate >= _ms("1994-01-01"))
+            & (f.l_shipdate < _ms("1995-01-01"))
+        )
+        g = f[m]
+        high = g.o_orderpriority.isin(["1-URGENT", "2-HIGH"])
+        out = (
+            g.assign(high=high.astype(np.int64), low=(~high).astype(np.int64))
+            .groupby("l_shipmode", as_index=False)
+            .agg(high_line_count=("high", "sum"), low_line_count=("low", "sum"))
+        )
+        return out.sort_values("l_shipmode").reset_index(drop=True)
+    if name == "q7":
+        m = (
+            (
+                ((f.s_nation == "FRANCE") & (f.c_nation == "GERMANY"))
+                | ((f.s_nation == "GERMANY") & (f.c_nation == "FRANCE"))
+            )
+            & (f.l_shipdate >= _ms("1995-01-01"))
+            & (f.l_shipdate <= _ms("1996-12-31"))
+        )
+        g = f[m]
+        l_year = (
+            np.asarray(g.l_shipdate, dtype="datetime64[ms]")
+            .astype("datetime64[Y]")
+            .astype(int)
+            + 1970
+        )
+        out = (
+            g.assign(l_year=l_year, revenue=rev[m])
+            .groupby(["s_nation", "c_nation", "l_year"], as_index=False)[
+                "revenue"
+            ]
+            .sum()
+        )
+        return out.sort_values(
+            ["s_nation", "c_nation", "l_year"]
+        ).reset_index(drop=True)
+    if name == "q14":
+        m = (f.l_shipdate >= _ms("1995-09-01")) & (
+            f.l_shipdate < _ms("1995-10-01")
+        )
+        g = f[m]
+        grev = rev[m]
+        promo = np.where(
+            g.p_type.str.startswith("MEDIUM"), grev, 0.0
+        ).sum()
+        return float(100.0 * promo / grev.sum())
+    if name == "q19":
+        block = lambda brand, lo, hi: (
+            (f.p_brand == brand)
+            & (f.l_quantity >= lo)
+            & (f.l_quantity <= hi)
+            & f.l_shipmode.isin(["AIR", "REG AIR"])
+        )
+        m = block("Brand#12", 1, 11) | block("Brand#23", 10, 20) | block(
+            "Brand#34", 20, 30
+        )
+        return float(rev[m].sum())
+    if name in ("q8", "q8_extract"):  # the same answer, two plans
+        m = (
+            (f.c_region == "AMERICA")
+            & (f.p_type == "ECONOMY ANODIZED STEEL")
+            & (f.o_orderdate >= _ms("1995-01-01"))
+            & (f.o_orderdate <= _ms("1996-12-31"))
+        )
+        g = f[m]
+        grev = rev[m]
+        out = (
+            g.assign(
+                brazil_volume=np.where(g.s_nation == "BRAZIL", grev, 0.0),
+                total_volume=grev,
+            )
+            .groupby("o_orderdate_year", as_index=False)
+            .agg(
+                brazil_volume=("brazil_volume", "sum"),
+                total_volume=("total_volume", "sum"),
+            )
+        )
+        return out.sort_values("o_orderdate_year").reset_index(drop=True)
     raise KeyError(name)
 
 
