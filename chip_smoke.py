@@ -10,8 +10,9 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches (one 512K-row segment at each query's G and
-   column counts, plus a time-sorted Timeseries segment): mins/maxs
+   the main path launches in phases 4 to 7 (one 512K-row segment at each
+   query's and grouping set's G and column counts, plus a time-sorted
+   Timeseries segment; phase 7 fails on a shape left out): mins/maxs
    exactly equal, sums within rtol 1e-5 (another summation order over
    512K rows), two launches bit-equal.  At those shapes it times the
    kernel (`ms`) and one library call computing the same sums
@@ -44,7 +45,26 @@ Phases, one JSON line each:
    plan-cache hit); warm `ctx.sql` and native runs of the same spec
    interleaved in pairs, the side that goes first alternating, with the
    p50 of each side and the median of the per-pair differences; the
-   launches of the `ctx.sql` runs.
+   launches of the `ctx.sql` runs;
+7. sketches: first the sketch ops on the card against the same functions
+   on the CPU, bit for bit: HLL (p = 11 and p = 4), theta (K = 4096) and
+   quantile (K = 1024) partials and their merges over the first 4 in-scope
+   SSB segments, at the group ids of the queries below, and `_rho` over
+   ±8192 around every power of two below 2^28 against the reference's
+   values (the exact floor(log2) with the committed exception table).
+   Then `ssb.SKETCH_QUERIES` through `ctx.sql` (TopN + HLL, the same
+   TopN over a filter that masks half of each segment's rows, CUBE + HLL,
+   CUBE + theta, APPROX_QUANTILE), 2 cold and 5 warm runs each: frames
+   bit-identical from run to run and held against the exact oracle
+   (`ssb.check_sketch_answer`: sums within rtol 2e-5, distinct counts
+   within 4 standard errors, quantiles within 4 standard errors in rank
+   (±6.25% at the median, ±3.75% at p90, K = 1024; the largest rank error
+   of each fraction is reported), every CUBE grouping id with its nulls),
+   and the kernel launched once per in-scope segment per run for every
+   grouping set.  Reported per query: p50, device busy ms and idle share
+   (one more run under torch.profiler), and the sketch ops' own device ms
+   (a replay of just the sketch partials and merges over the query's
+   segments under torch.profiler).
 
 Then the `kernels` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failed check raises: the script
@@ -63,8 +83,21 @@ import time
 import numpy as np
 import torch
 
-from spark_druid_olap_tpu_torch.api import TPUOlapContext
-from spark_druid_olap_tpu_torch.ops import cuda_groupby
+from spark_druid_olap_tpu_torch.api import TPUOlapContext, grouping_set_queries
+from spark_druid_olap_tpu_torch.exec.engine import (
+    merge_sketch_states,
+    segments_in_scope,
+    sketch_partials,
+)
+from spark_druid_olap_tpu_torch.exec.metrics import QueryMetrics
+from spark_druid_olap_tpu_torch.exec.lowering import (
+    groupby_with_time_granularity,
+    lower_groupby,
+    topn_to_groupby,
+)
+from spark_druid_olap_tpu_torch.models import aggregations as A
+from spark_druid_olap_tpu_torch.models import query as Q
+from spark_druid_olap_tpu_torch.ops import cuda_groupby, hll
 from spark_druid_olap_tpu_torch.workloads import ssb, tpch
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM published memory rate
@@ -83,6 +116,13 @@ MAIN_SHAPES = [
     (524288, 208, 2, 0, 0),  # q4.1
     (524288, 208, 4, 1, 1),  # the headline row of PR 1, min/max included
     (524288, 4096, 4, 1, 1),  # min/max at the scatter cutover
+    # phase 7: revenue and count at each sketch query's and CUBE set's G
+    (524288, 6, 2, 0, 0),  # CUBE sets (c_region), (s_region)
+    (524288, 8, 2, 0, 0),  # CUBE set (d_year); the quantile query
+    (524288, 36, 2, 0, 0),  # CUBE set (c_region, s_region)
+    (524288, 48, 2, 0, 0),  # CUBE sets (c_region, d_year), (s_region, d_year)
+    (524288, 251, 2, 0, 0),  # topn_hll, filtered_hll (c_city)
+    (524288, 288, 2, 0, 0),  # CUBE set (c_region, s_region, d_year)
 ]
 HEADLINE = (524288, 208, 4, 1, 1)
 # Timeseries over a time-sorted segment: one or two months per segment
@@ -90,6 +130,15 @@ SKEWED = (524288, 84, 2, 0, 0)
 ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
 WARM_RUNS = 5
 SQL_PAIRS = 6  # interleaved SQL/native pairs per query in phase 6 (even)
+SKETCH_COLD, SKETCH_WARM = 2, 5  # runs of each sketch query in phase 7
+OP_CHECK_SEGMENTS = 4
+# the sketch ops checked at each query's group ids
+OP_CHECKS = {
+    "topn_hll": (A.HyperUnique("hll11", "lo_custkey", precision=11),
+                 A.HyperUnique("hll4", "lo_custkey", precision=4)),
+    "cube_theta": (A.ThetaSketch("theta", "lo_custkey", size=4096),),
+    "quantiles": (A.QuantilesSketch("quantiles", "lo_revenue", size=1024),),
+}
 
 
 def emit(phase: str, **kw) -> None:
@@ -615,6 +664,201 @@ def run_sql_path(ctxs, workloads, pairs: int = SQL_PAIRS):
     return out
 
 
+# -- phase 7: sketches --------------------------------------------------------
+
+
+def _sketch_sets(ctx, name, full=False):
+    """The group-by specs one sketch query runs, one per grouping set, as
+    `api.execute_grouping_sets` splits them; with `full`, only its grouping
+    by every dimension."""
+    import dataclasses
+
+    rw = ctx.plan_sql(ssb.SKETCH_QUERIES[name])
+    q = rw.query
+    if isinstance(q, Q.TopNQuery):
+        q = topn_to_groupby(q)
+    if full or not rw.grouping_sets:
+        qs = [dataclasses.replace(q, subtotals=())]
+    else:
+        qs = grouping_set_queries(q, rw.grouping_sets)
+    return [groupby_with_time_granularity(x) for x in qs]
+
+
+def sketch_op_checks(ctx):
+    """The engine's sketch partials and merges (`sketch_partials`,
+    `merge_sketch_states`) on the context's device against the same
+    functions on the CPU over the same inputs, bit for bit: over the first
+    OP_CHECK_SEGMENTS in-scope SSB segments (their resident columns), at the
+    group ids of each query's grouping by every dimension; one summary per
+    op."""
+    import dataclasses
+
+    ds = ctx.catalog.get("lineorder")
+    out = []
+    for name, aggs in OP_CHECKS.items():
+        (q,) = _sketch_sets(ctx, name, full=True)
+        q = dataclasses.replace(q, aggregations=aggs, post_aggregations=(), limit_spec=None)
+        lowering = lower_groupby(q, ds)
+        acc = {"card": {}, "cpu": {}}
+        segs = segments_in_scope(q, ds)[:OP_CHECK_SEGMENTS]
+        for seg in segs:
+            cols = ctx.engine._cols_for_segment(seg, ds, lowering.columns, QueryMetrics())
+            gid, mask = lowering.row_arrays(cols)[:2]
+            new = {
+                "card": sketch_partials(lowering, cols, gid, mask),
+                "cpu": sketch_partials(
+                    lowering, {k: v.cpu() for k, v in cols.items()}, gid.cpu(), mask.cpu()),
+            }
+            for k in acc:
+                merge_sketch_states(lowering.la, acc[k], new[k])
+            for agg in aggs:
+                for what, states in (("partial", new), ("merge", acc)):
+                    if not torch.equal(states["card"][agg.name].cpu(), states["cpu"][agg.name]):
+                        raise AssertionError(f"{agg.name}: {what} on the card differs from the CPU")
+        for agg in aggs:
+            out.append({"op": agg.name, "query": name, "num_groups": lowering.num_groups,
+                        "segments": len(segs), "state_shape": list(acc["card"][agg.name].shape),
+                        "bit_equal_to_cpu": True})
+            emit("sketch_op_check", **out[-1])
+    return out
+
+
+def rho_check(device):
+    """`hll._rho` on `device` over ±8192 around every power of two below
+    2^28 (p = 4) against the reference's values computed on the host: the
+    float32 exponent of w with the committed exception table applied."""
+    half, top = 8192, 28
+    w = np.unique(np.concatenate([
+        np.arange(max((1 << k) - half, 0), min((1 << k) + half, 1 << top)) for k in range(top)
+    ]))
+    lg = np.frexp(np.maximum(w, 1).astype(np.float32))[1].astype(np.int64) - 1
+    for a, b, v in hll._LOG2_EXCEPTIONS:
+        lg[(w >= a) & (w <= b)] = v
+    want = np.where(w == 0, top + 1, top - lg)
+    got = hll._rho(torch.from_numpy(w << 4).to(device), 4).cpu().numpy()
+    bad = int((got != want).sum())
+    emit("rho_check", values=len(w), mismatches=bad, exceptions_applied=int(
+        sum(b - a + 1 for a, b, _ in hll._LOG2_EXCEPTIONS)))
+    if bad:
+        raise AssertionError(f"_rho on {device} differs from the reference at {bad} values")
+    return {"values": len(w), "mismatches": bad}
+
+
+def run_sketch_queries(ctx, frame, cold=SKETCH_COLD, warm=SKETCH_WARM):
+    """Each SKETCH_QUERIES entry through `ctx.sql`, `cold` + `warm` runs:
+    bit-identical frames, the exact oracle, and one kernel launch per
+    in-scope segment per run for every grouping set; one summary each."""
+    import pandas as pd
+
+    ds = ctx.catalog.get("lineorder")
+    out, oracles = [], {}
+    for name, sql in ssb.SKETCH_QUERIES.items():
+        sets = _sketch_sets(ctx, name)
+        t_query = time.perf_counter()
+        before = cuda_groupby.LAUNCHES
+        frames, times = [], []
+        for _ in range(cold + warm):
+            t0 = time.perf_counter()
+            frames.append(ctx.sql(sql))
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = cuda_groupby.LAUNCHES - before
+        for f in frames[1:]:
+            pd.testing.assert_frame_equal(frames[0], f, check_exact=True)
+        per_run = sum(len(segments_in_scope(q, ds)) for q in sets)
+        lowered = [lower_groupby(q, ds) for q in sets]
+        for lw in lowered:
+            la = lw.la
+            shape = (lw.num_groups, len(la.sum_names), len(la.min_names), len(la.max_names))
+            if shape not in {s[1:] for s in MAIN_SHAPES}:
+                raise AssertionError(f"{name}: kernel shape {shape} not checked in phase 3")
+        on_card = ctx.engine.device.type == "cuda"
+        if on_card and launches != per_run * (cold + warm):
+            raise AssertionError(
+                f"{name}: {launches} kernel launches, want {per_run} per run")
+        runs_s = time.perf_counter() - t_query
+        t0 = time.perf_counter()
+        key = "cube" if name.startswith("cube") else name  # one answer for both cubes
+        if key not in oracles:
+            oracles[key] = ssb.sketch_oracle(frame, name)
+        want = oracles[key]
+        oracle_s = time.perf_counter() - t0
+        out.append({
+            "query": name,
+            "grouping_sets": len(sets),
+            "num_groups": [lw.num_groups for lw in lowered],
+            "segments_per_run": per_run,
+            "result_rows": len(frames[0]),
+            "cold_ms": times[:cold],
+            "p50_ms": statistics.median(times[cold:]),
+            "kernel_launches": launches,
+            **ssb.check_sketch_answer(name, frames[0], want),
+            "runs_seconds": runs_s,
+            "oracle_seconds": oracle_s,
+            "bit_identical": True,
+        })
+        emit("sketch_query", **out[-1])
+    return out
+
+
+def _device_events_ms(prof):
+    """Device time by kernel name (kernels, copies, memsets), summed from the
+    profiler's raw device events: parsing a trace of a whole CUBE into
+    `key_averages()` costs tens of seconds.  Raises when the window holds
+    no device event."""
+    out = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6
+    if not out:
+        raise AssertionError("the profiler recorded no device time")
+    return out
+
+
+def profile_sketch_queries(ctx, summaries):
+    """One more run of each sketch query under torch.profiler (device busy
+    ms, idle share of the p50), and a replay of only its sketch partials
+    and merges over its segments, in the engine's order, under the
+    profiler: the sketch ops' device ms, by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ds = ctx.catalog.get("lineorder")
+    engine = ctx.engine
+    for s in summaries:
+        name = s["query"]
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            ctx.sql(ssb.SKETCH_QUERIES[name])
+        busy = sum(_device_events_ms(prof).values())
+        by_kernel = {}
+        for q in _sketch_sets(ctx, name):
+            lowering = engine._lowering_for(q, ds)
+            inputs = []
+            for seg in segments_in_scope(q, ds):
+                cols = lowering.add_virtual(dict(engine._cols_for_segment(
+                    seg, ds, lowering.columns, QueryMetrics())))  # resident
+                inputs.append((cols, *lowering.row_arrays(cols)[:2]))
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                acc = {}
+                for cols, gid, mask in inputs:
+                    merge_sketch_states(lowering.la, acc, sketch_partials(lowering, cols, gid, mask))
+                torch.cuda.synchronize()
+            del inputs
+            for k, v in _device_events_ms(prof).items():
+                by_kernel[k] = by_kernel.get(k, 0.0) + v
+        sketch_ms = sum(by_kernel.values())
+        s.update(
+            device_busy_ms=busy,
+            device_idle_share=(1 - busy / s["p50_ms"]) if busy else None,
+            sketch_ops_device_ms=sketch_ms,
+            sketch_ops_top_kernels=sorted(by_kernel.items(), key=lambda kv: -kv[1])[:5],
+        )
+        emit("sketch_profile", query=name, wall_p50_ms=s["p50_ms"], device_busy_ms=busy,
+             device_idle_share=s["device_idle_share"], sketch_ops_device_ms=sketch_ms,
+             sketch_ops_top_kernels=[(k[:60], v) for k, v in s["sketch_ops_top_kernels"]],
+             seconds=time.perf_counter() - t0)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ssb-scale", type=float, default=10.0)
@@ -669,15 +913,31 @@ def main(argv=None) -> int:
     if sql_launches == 0:
         raise AssertionError("the SQL path never launched the kernel")
 
+    t0 = time.perf_counter()
+    ops = sketch_op_checks(ctxs["ssb"])
+    rho = rho_check(device)
+    checks_s = time.perf_counter() - t0
+    cuda_groupby.LAUNCHES = 0  # count only the sketch path's launches
+    sketches = run_sketch_queries(ctxs["ssb"], workloads["ssb"][1])
+    sketch_launches = cuda_groupby.LAUNCHES
+    profile_sketch_queries(ctxs["ssb"], sketches)
+    emit("sketches", queries=len(sketches), seconds=time.perf_counter() - t0,
+         checks_seconds=checks_s, op_checks=len(ops), rho_values=rho["values"], kernel_launches=sketch_launches,
+         bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if sketch_launches == 0:
+        raise AssertionError("the sketch path never launched the kernel")
+
     head = next(t for t in timed if t["shape"] == HEADLINE and not t["skewed"])
     print(json.dumps({"kernels": [{
         "name": "groupby_partial",
         "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/groupby_partial.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
-        "launches": launches + sql_launches,
+        "launches": launches + sql_launches + sketch_launches,
         "launches_native": launches,
         "launches_sql": sql_launches,
+        "launches_sketch": sketch_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),
         "ms": head["ms"],

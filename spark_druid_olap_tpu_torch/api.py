@@ -14,16 +14,21 @@ aggregate mapping, TopN/Timeseries routing) to a Druid query spec, through
 `exec.engine.Engine` on the device, and through host post-processing here
 (FD restores, host post-expressions, residual HAVING, output projection).
 
+CUBE, ROLLUP and GROUPING SETS run one engine pass per set
+(`execute_grouping_sets`); approximate distinct counts and APPROX_QUANTILE
+run as sketch aggregators on the device.
+
 What this package does not execute yet raises rather than being answered
 another way: a statement the planner cannot rewrite (a subquery, an
-unconforming join) raises `RewriteError`; exact COUNT(DISTINCT), sketch
-aggregators, CUBE/ROLLUP grouping sets and non-aggregate scans raise
-NotImplementedError naming the ROADMAP item that ports them.
+unconforming join) raises `RewriteError`; exact COUNT(DISTINCT) and
+non-aggregate scans raise NotImplementedError naming the ROADMAP item that
+ports them.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional, Sequence
+import dataclasses
+from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
 
@@ -32,6 +37,8 @@ from .catalog.segment import DataSource, build_datasource
 from .catalog.star import StarSchemaInfo
 from .config import SessionConfig
 from .exec.engine import Engine
+from .exec.finalize import apply_limit_spec
+from .models import query as Q
 from .plan import expr as E
 from .plan.planner import Planner, Rewrite, RewriteError
 from .sql.parser import parse_sql
@@ -210,18 +217,15 @@ class TPUOlapContext:
         return self.execute_rewrite(rw)
 
     def execute_rewrite(self, rw: Rewrite):
-        if rw.grouping_sets:
-            raise NotImplementedError(
-                "CUBE/ROLLUP/GROUPING SETS run one pass per set "
-                "(execute_grouping_sets); not ported yet: ROADMAP queue A "
-                "item 3"
-            )
         ds = self.catalog.get(rw.datasource)
         if ds is None:
             raise RewriteError(f"unknown table {rw.datasource!r}")
         # the engine resolves its own group-by strategy from G: the CUDA
         # kernel at G <= SCATTER_CUTOVER on a card, scatter above
-        df = self.engine.execute(rw.query, ds)
+        if rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
+            df = execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine)
+        else:
+            df = self.engine.execute(rw.query, ds)
         return self._post_process(rw, ds, df)
 
     def _post_process(self, rw: Rewrite, ds, df):
@@ -244,9 +248,54 @@ class TPUOlapContext:
             mask = np.asarray(_eval_host(rw.residual_having, df), dtype=bool)
             df = df[mask].reset_index(drop=True)
         cols = [c for c in rw.output_columns if c in df.columns]
+        if cols and "__grouping_id" in df.columns and "__grouping_id" not in cols:
+            cols.append("__grouping_id")  # the grouping sets' GROUPING_ID
         if cols and cols != list(df.columns):  # a pandas selection copies
             df = df[cols]
         return df
+
+
+def grouping_set_queries(q: Q.GroupByQuery, grouping_sets) -> List[Q.GroupByQuery]:
+    """The GroupBy spec each grouping set runs: the set's dimensions, no
+    subtotals, and no limit (it applies to the combined result)."""
+    return [
+        dataclasses.replace(
+            q,
+            dimensions=tuple(q.dimensions[i] for i in s),
+            subtotals=(),
+            limit_spec=None,
+        )
+        for s in grouping_sets
+    ]
+
+
+def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
+    """CUBE/ROLLUP/GROUPING SETS: one engine pass per set, absent
+    dimensions emitted as nulls, plus a __grouping_id bitmask (SQL
+    GROUPING_ID semantics: bit i set => dim i aggregated away).  The
+    limit/order spec applies to the combined result, not per set: a per-set
+    sort would fail on sets that drop the orderBy dimension."""
+    import pandas as pd
+
+    all_dims = q.dimensions
+    k = len(all_dims)
+    frames = []
+    for s, sub in zip(grouping_sets, grouping_set_queries(q, grouping_sets)):
+        f = engine.execute(sub, ds)
+        gid = 0
+        present = set(s)
+        for i in range(k):
+            if i not in present:
+                gid |= 1 << (k - 1 - i)
+                f[all_dims[i].name] = None
+        f["__grouping_id"] = gid
+        frames.append(f)
+    df = pd.concat(frames, ignore_index=True)
+    order = [d.name for d in all_dims]
+    df = df[order + [c for c in df.columns if c not in order]]
+    if q.limit_spec is not None:
+        df = apply_limit_spec(df, q.limit_spec).reset_index(drop=True)
+    return df
 
 
 def _eval_host(e: E.Expr, df) -> np.ndarray:

@@ -21,11 +21,18 @@ class SessionConfig:
     enable_topn_rewrite: bool = True  # Sort+Limit -> TopN
     enable_join_collapse: bool = True  # star-schema join elimination
 
+    # approx-distinct mapping (reference: pushHLLTODruid / useApproxCountDistinct)
+    approx_count_distinct_sketch: str = "hll"  # "hll" | "theta"
+    hll_precision: int = 11
+    theta_size: int = 4096
     # COUNT(DISTINCT x) handling: "approx" rewrites to a sketch (Druid
-    # default); "exact" uses the exact distinct path; "error" rejects.
-    # Neither sketches nor the exact path are ported: both raise
-    # NotImplementedError (ROADMAP queue A item 4).
+    # default); "exact" uses the exact distinct path, which is not ported
+    # and raises NotImplementedError (ROADMAP queue A item 4); "error"
+    # rejects.
     count_distinct_mode: str = "approx"
+    # APPROX_QUANTILE sample size K (quantilesDoublesSketch k analog):
+    # rank error ~ O(sqrt(p(1-p)/K)), ~±1.5% at the median for 1024
+    quantiles_k: int = 1024
 
     # result guard (reference: maxCardinality / maxResultCardinality)
     max_result_cardinality: int = 1 << 22

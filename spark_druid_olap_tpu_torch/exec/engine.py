@@ -11,13 +11,16 @@ over a datasource's segments:
    combined group id and the pre-masked value columns, and
    `ops/groupby.partial_aggregate` reduces them to [G, M] partial states —
    on a CUDA device through the hand-written kernel (`ops/cuda_groupby.py`)
-   for G <= SCATTER_CUTOVER;
+   for G <= SCATTER_CUTOVER; from the same group ids and mask,
+   `sketch_partials` builds each sketch aggregator's partial state (HLL
+   registers, theta hash sets, quantile samples: `ops/hll.py`,
+   `ops/theta.py`, `ops/quantiles.py`);
 4. the partials fold in canonical segment order (sums add, min/max take
-   `torch.minimum`/`torch.maximum`), so a query's float sums are
-   bit-identical from run to run;
-5. only the merged [G, M] state comes back to the host, where
-   `exec/finalize.py` decodes groups, evaluates post-aggregations, having
-   and limit, and builds the DataFrame.
+   `torch.minimum`/`torch.maximum`, sketches merge by type), so a query's
+   float sums and sketch states are bit-identical from run to run;
+5. only the merged state comes back to the host, in one fetch, where
+   `exec/finalize.py` decodes groups, finalizes sketches, evaluates
+   post-aggregations, having and limit, and builds the DataFrame.
 
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 device given and no GPU present, `Engine()` raises.
@@ -41,10 +44,12 @@ from ..utils.lru import ByteBudgetCache, CountBudgetCache
 from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
 from .lowering import (
     GroupByLowering,
+    LoweredAggs,
     _query_key,
     empty_partials,
     groupby_with_time_granularity,
     lower_groupby,
+    sketch_ops,
     timeseries_to_groupby,
     topn_to_groupby,
 )
@@ -177,6 +182,44 @@ def segments_in_scope(q, ds: DataSource) -> List[Segment]:
     return segs
 
 
+def sketch_partials(
+    lowering: GroupByLowering, cols, gid: torch.Tensor, mask: torch.Tensor
+) -> Dict[str, torch.Tensor]:
+    """One segment's sketch partial states, from the group ids and row mask
+    its sums use.  A sketch's FILTER clause narrows the mask as it does for
+    sum/min/max columns.  `cols` must hold the virtual columns
+    (`lowering.add_virtual`)."""
+    la, G = lowering.la, lowering.num_groups
+    sk = {}
+    for agg in la.sketch_aggs:
+        mfn = la.mask_fns.get(agg.name)
+        amask = mask & mfn(cols) if mfn is not None else mask
+        sk[agg.name] = sketch_ops(agg).partial(agg, cols, gid, amask, G)
+    return sk
+
+
+def merge_sketch_states(
+    la: LoweredAggs, acc: Dict[str, torch.Tensor], new: Dict[str, torch.Tensor]
+) -> None:
+    """Fold one segment's sketch partials into the accumulator in place,
+    the accumulator first (HLL registers max-merge; theta and quantile
+    states union, keeping the bottom K)."""
+    for agg in la.sketch_aggs:
+        prev = acc.get(agg.name)
+        st = new[agg.name]
+        acc[agg.name] = st if prev is None else sketch_ops(agg).merge_states(prev, st, agg)
+
+
+def sketch_states_to_reference(
+    la: LoweredAggs, states: Dict[str, torch.Tensor]
+) -> Dict[str, np.ndarray]:
+    """Fetch merged sketch states to the host in the reference's layout."""
+    return {
+        agg.name: sketch_ops(agg).to_reference_state(states[agg.name])
+        for agg in la.sketch_aggs
+    }
+
+
 LOWERING_CACHE_ENTRIES = 256
 
 
@@ -301,8 +344,11 @@ class Engine:
         )
         t_dev = time.perf_counter()
         sums = mins = maxs = None
+        sketches: Dict[str, torch.Tensor] = {}
         for seg in segs:  # canonical segment order: the fold order
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
+            if la.sketch_aggs:
+                cols = lowering.add_virtual(dict(cols))  # sketches read virtuals
             gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
             s, mn, mx = partial_aggregate(
                 gid, mask, sv, mmv, mmm,
@@ -314,14 +360,19 @@ class Engine:
             sums = s if sums is None else sums + s
             mins = mn if mins is None else torch.minimum(mins, mn)
             maxs = mx if maxs is None else torch.maximum(maxs, mx)
+            if la.sketch_aggs:
+                merge_sketch_states(
+                    la, sketches, sketch_partials(lowering, cols, gid, mask)
+                )
         if sums is None:
             # every segment pruned: a valid, complete zero-row answer
-            sums, mins, maxs = empty_partials(la, G, self.device)
+            sums, mins, maxs, sketches = empty_partials(la, G, self.device)
         # the one host fetch of the query (synchronises the device)
         sums, mins, maxs = (t.cpu().numpy() for t in (sums, mins, maxs))
+        sketches = sketch_states_to_reference(la, sketches)
         m.device_ms = (time.perf_counter() - t_dev) * 1e3 - m.h2d_ms
         t0 = time.perf_counter()
-        out = finalize_groupby(q, lowering.dims, la, sums, mins, maxs)
+        out = finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
         m.finalize_ms = (time.perf_counter() - t0) * 1e3
         m.total_ms = (time.perf_counter() - t_total) * 1e3
         m.bytes_resident = self.bytes_resident()

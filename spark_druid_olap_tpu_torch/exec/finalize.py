@@ -1,21 +1,23 @@
 """Host-side result finalization: the broker's merge tail.
 
 Everything that turns merged partial aggregate state (host numpy arrays)
-into the result DataFrame: group-id decode, post-aggregations, having,
-sort/limit, empty-bucket fill and TopN ranking.
+into the result DataFrame: group-id decode, sketch estimates,
+post-aggregations, having, sort/limit, empty-bucket fill and TopN ranking.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Mapping
+from typing import Dict, List, Mapping, Optional
 
 import numpy as np
 
 from ..catalog.segment import DataSource
 from ..models import aggregations as A
 from ..models import query as Q
+from ..ops import hll, quantiles, theta
 from ..utils.granularity import bucket_starts
-from .lowering import LoweredAggs, ResolvedDim
+from .lowering import LoweredAggs, ResolvedDim, sketch_ops
+
 
 def finalize_timeseries(df, q: Q.TimeseriesQuery, ds: DataSource):
     """Timeseries finalization: empty-bucket zero-fill + ordering."""
@@ -71,14 +73,20 @@ def finalize_topn(df, q: Q.TopNQuery):
 
 
 def eval_post_agg(
-    p: A.PostAggregation, table: Mapping[str, np.ndarray]
+    p: A.PostAggregation,
+    table: Mapping[str, np.ndarray],
+    states: Optional[Mapping[str, np.ndarray]] = None,
 ) -> np.ndarray:
+    """`states` maps sketch-agg name -> raw per-group sketch state in the
+    reference's layout (HLL registers / theta hash sets / quantile samples);
+    sketch post-aggs finalize from the raw state, not from the
+    already-finalized estimate column in `table`."""
     if isinstance(p, A.FieldAccess):
         return np.asarray(table[p.field_name])
     if isinstance(p, A.ConstantPost):
         return np.asarray(p.value)
     if isinstance(p, A.Arithmetic):
-        vals = [eval_post_agg(f, table) for f in p.fields]
+        vals = [eval_post_agg(f, table, states) for f in p.fields]
         acc = vals[0].astype(np.float64)
         for v in vals[1:]:
             if p.fn == "+":
@@ -103,6 +111,46 @@ def eval_post_agg(
             else:
                 raise ValueError(f"arithmetic fn {p.fn!r}")
         return acc
+    if isinstance(p, A.HyperUniqueCardinality):
+        if states is None or p.field_name not in states:
+            raise KeyError(
+                f"hyperUniqueCardinality over {p.field_name!r}: no raw HLL "
+                "state available (field must name a hyperUnique/cardinality "
+                "aggregation in the same query)"
+            )
+        return hll.estimate(states[p.field_name])
+    if isinstance(p, A.QuantileFromSketch):
+        if states is None or p.field_name not in states:
+            raise KeyError(
+                f"quantilesDoublesSketchToQuantile over {p.field_name!r}: "
+                "no raw quantiles state available (field must name a "
+                "quantilesDoublesSketch aggregation in the same query)"
+            )
+        return quantiles.estimate(states[p.field_name], p.fraction)
+    if isinstance(p, A.ThetaSketchEstimate):
+        if states is None or p.field_name not in states:
+            raise KeyError(
+                f"thetaSketchEstimate over {p.field_name!r}: no raw theta "
+                "state available (field must name a thetaSketch aggregation "
+                "in the same query)"
+            )
+        return theta.estimate(states[p.field_name])
+    if isinstance(p, A.ThetaSketchSetOp):
+        bad = [
+            f
+            for f in p.field_names
+            if states is None
+            or f not in states
+            # theta KMV states are uint32 hash arrays; an HLL register
+            # array here would silently produce a garbage estimate
+            or np.asarray(states[f]).dtype != np.uint32
+        ]
+        if bad:
+            raise KeyError(
+                f"thetaSketchSetOp over {bad}: fields must name "
+                "thetaSketch aggregations in the same query"
+            )
+        return theta.set_op_estimate(p.fn, [states[f] for f in p.field_names])
     raise NotImplementedError(f"post-aggregation {type(p).__name__}")
 
 
@@ -139,9 +187,11 @@ def finalize_groupby(
     sums: np.ndarray,
     mins: np.ndarray,
     maxs: np.ndarray,
+    sketch_states: Mapping[str, np.ndarray],
 ):
-    """Merged partial state -> result DataFrame (decode, post-aggs, having,
-    order/limit)."""
+    """Merged partial state -> result DataFrame (decode, sketch estimates,
+    post-aggs, having, order/limit).  `sketch_states` are host arrays in the
+    reference's layout (`exec/engine.sketch_states_to_reference`)."""
     import pandas as pd
 
     rows_per_group = sums[:, 0]
@@ -190,9 +240,15 @@ def finalize_groupby(
     for j, n in enumerate(la.max_names):
         table[n] = _finalize_extremum(maxs[sel, j], la.long_valued[n])
 
+    raw_states: Dict[str, np.ndarray] = {}
+    for agg in la.sketch_aggs:
+        st = sketch_states[agg.name][sel]
+        raw_states[agg.name] = st
+        table[agg.name] = sketch_ops(agg).finalize(agg, st)
+
     for p in q.post_aggregations:
         table[p.name] = np.broadcast_to(
-            eval_post_agg(p, table), sel.shape
+            eval_post_agg(p, table, raw_states), sel.shape
         ).copy()
 
     if q.having is not None:

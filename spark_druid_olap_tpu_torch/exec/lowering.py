@@ -26,6 +26,7 @@ from ..models import aggregations as A
 from ..models import query as Q
 from ..models.dimensions import DimensionSpec
 from ..models.filters import Filter
+from ..ops import hll, quantiles, theta
 from ..ops.filters import DecodedView, compile_filter
 from ..ops.groupby import combine_group_ids
 from ..plan.expr import DeviceConst, as_tensor, compile_expr
@@ -217,6 +218,7 @@ class LoweredAggs:
     sum_names: List[str]
     min_names: List[str]
     max_names: List[str]
+    sketch_aggs: List[A.Aggregation]
     long_valued: Dict[str, bool]
     value_fns: Dict[str, Callable]  # name -> fn(cols) -> f32[R]
     mask_fns: Dict[str, Optional[Callable]]  # name -> extra-mask fn or None
@@ -231,7 +233,7 @@ class LoweredAggs:
 def _lower_aggs(
     aggs: Sequence[A.Aggregation], ds: DataSource
 ) -> LoweredAggs:
-    la = LoweredAggs(["__rows"], [], [], {"__rows": True}, {}, {})
+    la = LoweredAggs(["__rows"], [], [], [], {"__rows": True}, {}, {})
     la.value_fns["__rows"] = lambda cols: None  # ones; handled specially
     la.mask_fns["__rows"] = None
 
@@ -305,6 +307,9 @@ def _lower_aggs(
             la.value_fns[name] = lambda cols, fn=fn, dicts=dicts: as_tensor(
                 fn(DecodedView(cols, dicts)), cols["__valid"]
             ).to(torch.float32)
+        elif sketch_ops(agg) is not None:
+            la.sketch_aggs.append(agg)
+            la.long_valued[name] = True
         else:
             raise NotImplementedError(f"aggregation {type(agg).__name__}")
 
@@ -618,7 +623,26 @@ def empty_partials(la: LoweredAggs, G: int, device):
     maxs = torch.full(
         (G, len(la.max_names)), -float("inf"), dtype=torch.float32, device=device
     )
-    return sums, mins, maxs
+    sketch_states = {
+        agg.name: sketch_ops(agg).empty_state(agg, G, device) for agg in la.sketch_aggs
+    }
+    return sums, mins, maxs, sketch_states
+
+
+def sketch_ops(agg: A.Aggregation):
+    """The ops module of a sketch aggregator's state, the one place that
+    maps sketch types to modules: `ops/hll` (hyperUnique, cardinality),
+    `ops/theta` or `ops/quantiles`, each with `partial(agg, cols, gid,
+    mask, G)`, `merge_states(a, b, agg)`, `finalize(agg, state)`,
+    `empty_state` and `to_reference_state`; None for an aggregator that is
+    not a sketch."""
+    if isinstance(agg, (A.HyperUnique, A.CardinalityAgg)):
+        return hll
+    if isinstance(agg, A.ThetaSketch):
+        return theta
+    if isinstance(agg, A.QuantilesSketch):
+        return quantiles
+    return None
 
 
 def groupby_with_time_granularity(q: Q.GroupByQuery) -> Q.GroupByQuery:
@@ -646,6 +670,8 @@ def _agg_columns(a: A.Aggregation) -> List[str]:
         return list(a.expression.columns())
     if isinstance(a, A.Count):
         return []
+    if isinstance(a, A.CardinalityAgg):
+        return list(a.field_names)
     return [a.field_name]  # type: ignore[attr-defined]
 
 

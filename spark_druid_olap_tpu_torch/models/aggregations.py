@@ -1,18 +1,21 @@
 """Aggregation + post-aggregation spec families — Druid JSON mirror.
 
 Count, long/double sum/min/max, expression ("javascript") and filtered
-aggregators, and the arithmetic / fieldAccess / constant post-aggregators.
-AVG arrives as a sum plus a count and an arithmetic post-aggregation.
-Sketch aggregators come with a later part of the port.
+aggregators; the sketch aggregators (hyperUnique, cardinality, thetaSketch,
+quantilesDoublesSketch); and the arithmetic / fieldAccess / constant and
+sketch-finalizing post-aggregators.  AVG arrives as a sum plus a count and
+an arithmetic post-aggregation; approx_count_distinct as an HLL or theta
+sketch.
 
 `merge_op` names how partial states of one aggregator combine across
-segments: "psum" adds, "pmin"/"pmax" take the extremum.
+segments: "psum" adds, "pmin"/"pmax" take the extremum (HLL registers
+take the max), "union" unions sketch samples (theta, quantiles).
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Tuple
 
 from .filters import Filter
 
@@ -102,6 +105,71 @@ class DoubleMax(Aggregation):
         return {"type": "doubleMax", "name": self.name, "fieldName": self.field_name}
 
     merge_op = "pmax"
+
+
+@dataclasses.dataclass(frozen=True)
+class HyperUnique(Aggregation):
+    """Approximate COUNT(DISTINCT) via HyperLogLog register arrays.
+
+    Druid's `hyperUnique` aggregates a pre-built HLL metric; its `cardinality`
+    aggregator builds HLL from dimension values at query time.  Here both
+    are the same op (ops/hll.py): hash -> (bucket, rho) -> per-group
+    register-max.  Partial state = int32 registers[G, 2^p]; merge =
+    element-wise max.
+    """
+
+    name: str
+    field_name: str
+    precision: int = 11  # 2^11 = 2048 registers; ~2.3% relative std error
+
+    def to_druid(self):
+        return {"type": "hyperUnique", "name": self.name, "fieldName": self.field_name}
+
+    merge_op = "pmax"
+
+
+@dataclasses.dataclass(frozen=True)
+class CardinalityAgg(Aggregation):
+    """Druid `cardinality` aggregator (HLL over dimension values at query time)."""
+
+    name: str
+    field_names: tuple
+    by_row: bool = False
+    precision: int = 11
+
+    def to_druid(self):
+        return {
+            "type": "cardinality",
+            "name": self.name,
+            "fields": list(self.field_names),
+            "byRow": self.by_row,
+        }
+
+    merge_op = "pmax"
+
+
+@dataclasses.dataclass(frozen=True)
+class ThetaSketch(Aggregation):
+    """KMV/theta sketch distinct-count: keep the K smallest hashes.
+
+    Partial state = sorted hashes[G, K]; merge = concat + sort + take-K
+    (set union in the KMV sense), as Druid merges theta sketches on the
+    broker.
+    """
+
+    name: str
+    field_name: str
+    size: int = 4096  # K
+
+    def to_druid(self):
+        return {
+            "type": "thetaSketch",
+            "name": self.name,
+            "fieldName": self.field_name,
+            "size": self.size,
+        }
+
+    merge_op = "union"
 
 
 @dataclasses.dataclass(frozen=True)
@@ -222,3 +290,101 @@ class DimCodeMax(Aggregation):
 
     merge_op = "pmax"
 
+
+@dataclasses.dataclass(frozen=True)
+class QuantilesSketch(Aggregation):
+    """Approximate-quantile sketch (Druid `quantilesDoublesSketch` analog).
+
+    State = per-group bottom-K random-priority value sample plus an exact
+    N counter, int32[G, K+1, 2] (ops/quantiles.py); merge = concat +
+    sort-by-priority + take-K, counters add.  The agg's own output column
+    finalizes to the exact row count N (Druid's sketch finalization);
+    quantile values come from the `QuantileFromSketch` post-agg
+    (`APPROX_QUANTILE(col, p)` in SQL)."""
+
+    name: str
+    field_name: str
+    size: int = 1024  # K; ~±1.5% rank error at the median
+
+    def to_druid(self):
+        return {
+            "type": "quantilesDoublesSketch",
+            "name": self.name,
+            "fieldName": self.field_name,
+            "k": self.size,
+        }
+
+    merge_op = "union"
+
+
+@dataclasses.dataclass(frozen=True)
+class HyperUniqueCardinality(PostAggregation):
+    """Finalize an HLL state into a cardinality estimate."""
+
+    name: str
+    field_name: str
+
+    def to_druid(self):
+        return {
+            "type": "hyperUniqueCardinality",
+            "name": self.name,
+            "fieldName": self.field_name,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class ThetaSketchEstimate(PostAggregation):
+    name: str
+    field_name: str
+
+    def to_druid(self):
+        return {
+            "type": "thetaSketchEstimate",
+            "name": self.name,
+            "field": {"type": "fieldAccess", "fieldName": self.field_name},
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class QuantileFromSketch(PostAggregation):
+    """Finalize a quantiles-sketch state into the value at `fraction`
+    (Druid `quantilesDoublesSketchToQuantile`)."""
+
+    name: str
+    field_name: str
+    fraction: float
+
+    def to_druid(self):
+        return {
+            "type": "quantilesDoublesSketchToQuantile",
+            "name": self.name,
+            "field": {"type": "fieldAccess", "fieldName": self.field_name},
+            "fraction": self.fraction,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class ThetaSketchSetOp(PostAggregation):
+    """Estimate of a set operation over theta sketch states (Druid's
+    `thetaSketchSetOp` wrapped in `thetaSketchEstimate`): UNION / INTERSECT /
+    NOT over the named thetaSketch aggregations in the same query.  Evaluated
+    from raw per-group KMV states at finalize (ops/theta.py set_op_estimate)."""
+
+    name: str
+    fn: str  # "UNION" | "INTERSECT" | "NOT"
+    field_names: Tuple[str, ...]
+
+    def to_druid(self):
+        return {
+            "type": "thetaSketchEstimate",
+            "name": self.name,
+            "field": {
+                "type": "thetaSketchSetOp",
+                "name": f"{self.name}__setop",
+                "func": self.fn,
+                "fields": [
+                    {"type": "fieldAccess", "fieldName": f}
+                    for f in self.field_names
+                ],
+            },
+        }

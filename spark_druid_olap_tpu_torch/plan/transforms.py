@@ -8,8 +8,8 @@ The transform pipeline, in order:
   * `AggregateTransform` -> `translate_aggregate` (grouping exprs to
     DimensionSpecs incl. time-granularity buckets and dictionary extractions;
     SUM/MIN/MAX/COUNT to AggregationSpecs; AVG to sum+count plus an arithmetic
-    post-agg; COUNT(DISTINCT) to HLL/theta sketch aggs per session config,
-    which raise NotImplementedError until sketches are ported;
+    post-agg; approximate COUNT(DISTINCT) to HLL/theta sketch aggs per
+    session config; APPROX_QUANTILE to a quantiles sketch plus a post-agg;
     FILTER clauses to `filtered` aggregators)
   * post-agg / having     -> `translate_post_exprs` / `translate_having`
   * `LimitTransform`      -> `apply_sort_limit` (Sort+Limit over a
@@ -527,17 +527,73 @@ def translate_aggregate(
             # COUNT(DISTINCT) honors the mode (the SQL parser lifts it to
             # fn="count_distinct", the builder API to fn="count"+distinct)
             raise RewritePolicyError("COUNT(DISTINCT) disabled by config")
-        # every approximate distinct count plans to an HLL or theta sketch
-        # aggregator, which this package does not lower yet
-        raise NotImplementedError(
-            f"{fn.upper()} plans to a sketch aggregator (HLL/theta), which "
-            "this package does not execute yet: ROADMAP queue A item 4"
+        # Druid SQL's DataSketches variants pin the sketch family and take
+        # an optional size/precision argument
+        if fn == "approx_count_distinct_ds_theta":
+            k = int(agg.args[0]) if agg.args else cfg.theta_size
+            if k < 1:
+                raise RewritePolicyError("theta sketch size must be >= 1")
+            return [wrap(A.ThetaSketch(name, arg.name, size=k))], [], b
+        if fn == "approx_count_distinct_ds_hll":
+            p = int(agg.args[0]) if agg.args else cfg.hll_precision
+            if not 4 <= p <= 18:
+                raise RewritePolicyError(
+                    "HLL precision must be in [4, 18]"
+                )
+            return (
+                [wrap(A.HyperUnique(name, arg.name, precision=p))],
+                [],
+                b,
+            )
+        sketch = cfg.approx_count_distinct_sketch
+        if sketch == "theta":
+            return [wrap(A.ThetaSketch(name, arg.name, size=cfg.theta_size))], [], b
+        return (
+            [wrap(A.HyperUnique(name, arg.name, precision=cfg.hll_precision))],
+            [],
+            b,
         )
 
     if fn == "approx_quantile":
-        raise NotImplementedError(
-            "APPROX_QUANTILE plans to a quantiles sketch aggregator, which "
-            "this package does not execute yet: ROADMAP queue A item 4"
+        # APPROX_QUANTILE(col, fraction[, k]) -> hidden quantiles sketch +
+        # quantile-extracting post-agg (the Druid SQL APPROX_QUANTILE_DS
+        # lowering: quantilesDoublesSketch + ...ToQuantile)
+        if not isinstance(arg, E.Col):
+            raise RewriteError("APPROX_QUANTILE over expressions unsupported")
+        try:
+            ds.meta(arg.name)
+        except KeyError:
+            raise RewriteError(f"unknown column {arg.name!r}")
+        if arg.name in ds.dicts:
+            # dimension columns hold dictionary CODES on device; a quantile
+            # over codes is not a quantile over values — reject rather than
+            # silently answer the wrong question
+            raise RewritePolicyError(
+                "APPROX_QUANTILE requires a numeric metric column"
+            )
+        if not agg.args:
+            raise RewritePolicyError("APPROX_QUANTILE requires a fraction")
+        frac = float(agg.args[0])
+        if not 0.0 <= frac <= 1.0:
+            raise RewritePolicyError("APPROX_QUANTILE fraction must be in [0, 1]")
+        k = int(agg.args[1]) if len(agg.args) > 1 else cfg.quantiles_k
+        if k < 1:
+            # k=0 would build a zero-width sample and return NaN for every
+            # group — a silent wrong answer, not an error
+            raise RewritePolicyError("APPROX_QUANTILE k must be >= 1")
+        # content-keyed sketch name: N fractions over the same (column, k)
+        # share ONE sketch (the planner dedupes identical aggregations), as
+        # Druid SQL does — a per-output name would multiply device state and
+        # per-row sort work for a p10/p50/p90 query.  A FILTER clause makes
+        # the sketch query-output-specific again.
+        if agg.filter is None:
+            sk_name = f"__qsk_{arg.name}_{k}"
+        else:
+            sk_name = f"{name}__qsk"
+        return (
+            [wrap(A.QuantilesSketch(sk_name, arg.name, size=k))],
+            [A.QuantileFromSketch(name, sk_name, frac)],
+            b,
         )
 
     if agg.distinct and fn in ("sum", "avg"):

@@ -20,9 +20,14 @@ specs, and float64 pandas oracles.
   to this generator's value domains; the query shapes (filter arity,
   group-bys, ordering) follow the SSB spec.  `TIMESERIES_QUERY` and
   `TOPN_QUERY` are one Timeseries and one TopN over the same datasource.
+* `SKETCH_QUERIES` are the approximate queries of BASELINE configs #3
+  (TopN + HLL, and the same over a filter) and #5 (CUBE + distinct count,
+  as HLL and as theta) and an APPROX_QUANTILE query, over the flat fact.
 * `oracle(frame, name)` computes each result in float64 pandas, over
   `flat_frame(tables)` (decoded strings, small scales) or
-  `coded_frame(cols, dicts)` (categoricals over the codes, any scale).
+  `coded_frame(cols, dicts)` (categoricals over the codes, any scale);
+  `sketch_oracle(frame, name)` the exact answers the sketch queries
+  approximate (distinct counts, quantiles and the values they rank in).
 """
 
 from __future__ import annotations
@@ -401,6 +406,65 @@ QUERIES: Dict[str, str] = {
 }
 
 
+# The approximate queries.  `topn_hll` is BASELINE config #3's text and
+# `cube_hll` config #5's (bench.py); approx_count_distinct plans to HLL under
+# the default `approx_count_distinct_sketch`, so `cube_theta` pins the theta
+# sketch that config #5 names.  `filtered_hll` is config #3 over the rows of
+# a filter on a non-time column, which masks about half of every segment's
+# rows instead of pruning segments.
+CUBE_DIMS = ("c_region", "s_region", "d_year")
+_CUBE = (
+    "SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue, "
+    "{fn}(lo_custkey) AS uniq_custs "
+    "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)"
+)
+_TOPN = (
+    "SELECT c_city, sum(lo_revenue) AS revenue, "
+    "approx_count_distinct(lo_custkey) AS uniq_custs "
+    "FROM lineorder {where}GROUP BY c_city ORDER BY revenue DESC LIMIT 100"
+)
+FILTERED_QUANTITY = 25  # filtered_hll keeps lo_quantity < 25
+SKETCH_QUERIES: Dict[str, str] = {
+    "topn_hll": _TOPN.format(where=""),
+    "filtered_hll": _TOPN.format(where=f"WHERE lo_quantity < {FILTERED_QUANTITY} "),
+    "cube_hll": _CUBE.format(fn="approx_count_distinct"),
+    "cube_theta": _CUBE.format(fn="approx_count_distinct_ds_theta"),
+    "quantiles": (
+        "SELECT d_year, APPROX_QUANTILE(lo_revenue, 0.5) AS p50, "
+        "APPROX_QUANTILE(lo_revenue, 0.9) AS p90, sum(lo_revenue) AS revenue "
+        "FROM lineorder GROUP BY d_year"
+    ),
+}
+QUANTILE_FRACTIONS = {"p50": 0.5, "p90": 0.9}
+
+
+def quantile_rank_bound(fraction: float, k: int = 1024) -> float:
+    """Four standard errors in rank of a K-row uniform sample's quantile,
+    4 * sqrt(f (1 - f) / K): 0.0625 at the median, 0.0375 at p90."""
+    return 4 * float(np.sqrt(fraction * (1 - fraction) / k))
+
+
+def quantile_rank_error(values: np.ndarray, estimate: float, fraction: float) -> float:
+    """How far `estimate` sits in rank from `fraction` among a group's
+    sorted exact `values`: its ranks run from the share of values below it
+    to the share at or below it (ties span a range), and the error is the
+    distance from `fraction` to that range, 0 inside it."""
+    n = len(values)
+    lo = np.searchsorted(values, estimate, "left") / n
+    hi = np.searchsorted(values, estimate, "right") / n
+    return float(max(lo - fraction, fraction - hi, 0.0))
+
+
+# four standard errors of a distinct count: HLL at p = 11 (1.04 / sqrt(m))
+# and theta at K = 4096 (1 / sqrt(K - 1))
+DISTINCT_REL_BOUND = {
+    "topn_hll": 4 * 1.04 / np.sqrt(2048),
+    "filtered_hll": 4 * 1.04 / np.sqrt(2048),
+    "cube_hll": 4 * 1.04 / np.sqrt(2048),
+    "cube_theta": 4 / np.sqrt(4095),
+}
+
+
 # ---------------------------------------------------------------------------
 # The 13 SSB queries as native specs (constants adapted to gen_tables domains)
 # ---------------------------------------------------------------------------
@@ -707,3 +771,141 @@ def oracle(f, name: str):
             .reset_index(drop=True)
         )
     raise KeyError(name)
+
+
+def _factorize(col):
+    """(codes, decoded values) of a grouping column, values sorted."""
+    import pandas as pd
+
+    codes, uniq = pd.factorize(col, sort=True)
+    return codes, np.asarray(uniq, dtype=object)
+
+
+def _distinct(gid: np.ndarray, G: int, key: np.ndarray) -> np.ndarray:
+    """Exact distinct keys per group: a presence map over (group, key)."""
+    n = int(key.max()) + 1 if len(key) else 1
+    seen = np.zeros((G, n), dtype=bool)
+    seen[gid, key] = True
+    return seen
+
+
+def sketch_oracle(f, name: str):
+    """Exact float64 answers to SKETCH_QUERIES[name] over a `flat_frame` or
+    `coded_frame`, one row per group: revenue, the exact distinct
+    `uniq_custs` (uncut: "topn_hll" and "filtered_hll" give every city by
+    revenue, descending), and for "quantiles" the exact p50/p90 and each
+    group's sorted `values`.  Cube rows carry None for the dimensions their
+    set aggregates away and `__grouping_id`."""
+    import itertools
+
+    import pandas as pd
+
+    rev = np.asarray(f.lo_revenue, dtype=np.float64)
+    cust = np.asarray(f.lo_custkey).astype(np.int64)
+    if name in ("topn_hll", "filtered_hll"):
+        codes, vals = _factorize(f.c_city)
+        G = len(vals)
+        if name == "filtered_hll":
+            keep = np.asarray(f.lo_quantity) < FILTERED_QUANTITY
+            codes, rev, cust = codes[keep], rev[keep], cust[keep]
+        out = pd.DataFrame({
+            "c_city": vals,
+            "revenue": np.bincount(codes, weights=rev, minlength=G),
+            "uniq_custs": _distinct(codes, G, cust).sum(axis=1),
+        })
+        return out.sort_values("revenue", ascending=False, kind="stable").reset_index(drop=True)
+    if name in ("cube_hll", "cube_theta"):
+        fact = [_factorize(f[d]) for d in CUBE_DIMS]
+        shape = tuple(len(v) for _, v in fact)
+        gid = np.ravel_multi_index([c for c, _ in fact], shape)
+        G = int(np.prod(shape))
+        rows = np.bincount(gid, minlength=G).reshape(shape)
+        revenue = np.bincount(gid, weights=rev, minlength=G).reshape(shape)
+        seen = _distinct(gid, G, cust).reshape(shape + (-1,))
+        frames = []
+        k = len(CUBE_DIMS)
+        for r in range(k, -1, -1):
+            for keep in itertools.combinations(range(k), r):
+                away = tuple(i for i in range(k) if i not in keep)
+                n = rows.sum(axis=away)
+                cells = np.argwhere(n > 0)
+                out = {
+                    d: (fact[i][1][cells[:, keep.index(i)]] if i in keep
+                        else np.full(len(cells), None, dtype=object))
+                    for i, d in enumerate(CUBE_DIMS)
+                }
+                at = tuple(cells.T)
+                out["revenue"] = revenue.sum(axis=away)[at]
+                out["uniq_custs"] = seen.any(axis=away).sum(axis=-1)[at]
+                out["__grouping_id"] = sum(1 << (k - 1 - i) for i in away)
+                frames.append(pd.DataFrame(out))
+        return pd.concat(frames, ignore_index=True)
+    if name == "quantiles":
+        codes, years = _factorize(f.d_year)
+        out = {"d_year": years, "revenue": np.bincount(codes, weights=rev)}
+        out["values"] = [np.sort(rev[codes == g]) for g in range(len(years))]
+        for p, frac in QUANTILE_FRACTIONS.items():
+            out[p] = [np.quantile(v, frac) for v in out["values"]]
+        return pd.DataFrame(out)
+    raise KeyError(name)
+
+
+def _row_keys(df, cols):
+    return [tuple(map(str, r)) for r in df[list(cols)].astype(object).to_numpy()]
+
+
+def check_sketch_answer(name: str, got, want, rtol: float = 2e-5) -> Dict[str, float]:
+    """Hold a SKETCH_QUERIES frame against `sketch_oracle`: the same groups
+    (for the TopNs the top 100 by revenue, ties at the cut allowed), sums
+    within `rtol`, distinct counts within DISTINCT_REL_BOUND of the exact
+    count, quantiles within `quantile_rank_bound` in rank
+    (`quantile_rank_error`), and for the cubes every GROUPING_ID with nulls
+    exactly where its bits say.  Raises AssertionError; returns the largest
+    errors seen (for quantiles, per fraction: the rank error and the
+    relative distance in value from the exact quantile)."""
+    topn = name in ("topn_hll", "filtered_hll")
+    dims = ("c_city",) if topn else {"quantiles": ("d_year",)}.get(
+        name, CUBE_DIMS + ("__grouping_id",)
+    )
+    wmap = dict(zip(_row_keys(want, dims), range(len(want))))
+    idx = [wmap.get(k) for k in _row_keys(got, dims)]
+    if None in idx:
+        raise AssertionError(f"{name}: a group the oracle does not have")
+    w = want.iloc[idx].reset_index(drop=True)
+    rev, wrev = np.asarray(got.revenue, np.float64), np.asarray(w.revenue)
+    err = {"revenue_max_rel_err": float((np.abs(rev - wrev) / np.abs(wrev)).max())}
+    if err["revenue_max_rel_err"] > rtol:
+        raise AssertionError(f"{name}: revenue off by {err['revenue_max_rel_err']}")
+    if topn:
+        k = min(100, len(want))
+        if len(got) != k or (np.diff(rev) > 0).any():
+            raise AssertionError(f"{name}: not the top {k} by revenue")
+        left_out = np.setdiff1d(np.arange(len(want)), idx)
+        if len(left_out) and want.revenue.iloc[left_out].max() > rev[-1] * (1 + rtol):
+            raise AssertionError(f"{name}: a city above the cut was left out")
+    elif len(got) != len(want):
+        raise AssertionError(f"{name}: {len(got)} groups, oracle {len(want)}")
+    if name == "quantiles":
+        for p, frac in QUANTILE_FRACTIONS.items():
+            est = np.asarray(got[p], np.float64)
+            rank = max(quantile_rank_error(v, e, frac) for v, e in zip(w["values"], est))
+            err[f"{p}_rank_err"] = rank
+            exact = np.asarray(w[p], np.float64)
+            err[f"{p}_value_rel_err"] = float((np.abs(est - exact) / np.abs(exact)).max())
+            if rank > quantile_rank_bound(frac):
+                raise AssertionError(f"{name}: {p} off by {rank} in rank")
+        return err
+    exact = np.asarray(w.uniq_custs, np.float64)
+    rel = np.abs(np.asarray(got.uniq_custs, np.float64) - exact) / exact
+    err["distinct_max_rel_err"] = float(rel.max())
+    if err["distinct_max_rel_err"] > DISTINCT_REL_BOUND[name]:
+        raise AssertionError(f"{name}: distinct count off by {rel.max()}")
+    if not topn:
+        gids = np.asarray(got["__grouping_id"])
+        if sorted(set(gids.tolist())) != list(range(1 << len(CUBE_DIMS))):
+            raise AssertionError(f"{name}: grouping ids {sorted(set(gids.tolist()))}")
+        for i, d in enumerate(CUBE_DIMS):
+            away = (gids >> (len(CUBE_DIMS) - 1 - i)) & 1 == 1
+            if not np.array_equal(got[d].isna().to_numpy(), away):
+                raise AssertionError(f"{name}: nulls of {d} do not follow the grouping id")
+    return err

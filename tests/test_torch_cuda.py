@@ -1,7 +1,8 @@
-"""The hand-written CUDA kernel on the card.
+"""The hand-written CUDA kernel, and the sketch ops, on the card.
 
-Every test here needs a CUDA card (the kernel has no CPU mode), carries the
-`cuda` marker and skips without one.  The file imports only the PyTorch
+Every test here needs a CUDA card (the kernel has no CPU mode; the sketch
+ops are held against their own CPU runs), carries the `cuda` marker and
+skips without one.  The file imports only the PyTorch
 port, so it also runs where JAX is not installed:
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda.py
@@ -9,7 +10,9 @@ port, so it also runs where JAX is not installed:
 Tolerances: mins and maxs exactly equal to the plain version; sums within
 rtol 1e-5 (the kernel sums in another order over up to 512K rows); two
 launches bit-equal; engine frames on the card against the CPU within the
-parity bound rtol 2e-5.
+parity bound rtol 2e-5.  Sketch states (HLL registers, theta hash sets,
+quantile samples) and `_rho` on the card are bit-equal to the CPU's, and
+so are the sketch columns of the sketch queries' frames.
 """
 
 import numpy as np
@@ -17,8 +20,12 @@ import pandas as pd
 import pytest
 import torch
 
+from spark_druid_olap_tpu_torch.api import TPUOlapContext
 from spark_druid_olap_tpu_torch.exec.engine import Engine
+from spark_druid_olap_tpu_torch.exec.lowering import sketch_ops
+from spark_druid_olap_tpu_torch.models import aggregations as A
 from spark_druid_olap_tpu_torch.ops import cuda_groupby as cg
+from spark_druid_olap_tpu_torch.ops import hll
 from spark_druid_olap_tpu_torch.workloads import ssb, tpch
 
 pytestmark = pytest.mark.cuda
@@ -174,3 +181,59 @@ def test_engine_on_card_matches_cpu(card):
             elif name != "topn" and not name.startswith("q3"):
                 # ordered by float aggregates: rows may swap on near-ties
                 np.testing.assert_array_equal(got[c].to_numpy(), want[c].to_numpy(), name)
+
+
+SKETCHES = {
+    "hll11": A.HyperUnique("s", "a", precision=11),
+    "hll4": A.HyperUnique("s", "a", precision=4),
+    "theta": A.ThetaSketch("s", "a", size=4096),
+    "quantiles": A.QuantilesSketch("s", "v", size=1024),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(SKETCHES))
+def test_sketch_ops_on_card_equal_cpu(card, kind):
+    agg = SKETCHES[kind]
+    ops = sketch_ops(agg)
+    states = {"cpu": [], "card": []}
+    for seed in (1, 2):
+        rng = np.random.default_rng(seed)
+        R, G = 65536, 250
+        arrs = {
+            "a": rng.integers(-3, 300_000, R).astype(np.int32),
+            "v": (rng.random(R) * 1000).astype(np.float32),
+            "gid": rng.integers(0, G, R).astype(np.int32),
+            "mask": rng.random(R) < 0.8,
+        }
+        for where, dev in (("cpu", "cpu"), ("card", card)):
+            t = {k: torch.from_numpy(v).to(dev) for k, v in arrs.items()}
+            states[where].append(ops.partial(agg, t, t["gid"], t["mask"], G))
+    for a, b in zip(states["card"], states["cpu"]):
+        assert torch.equal(a.cpu(), b)
+    merged = {k: ops.merge_states(*v, agg) for k, v in states.items()}
+    assert torch.equal(merged["card"].cpu(), merged["cpu"])
+
+
+def test_rho_on_card_matches_cpu(card):
+    w = np.concatenate([np.arange(max((1 << k) - 8192, 0), (1 << k) + 8192) for k in range(28)])
+    h = torch.from_numpy(np.unique(w) << 4)
+    assert torch.equal(hll._rho(h.to(card), 4).cpu(), hll._rho(h, 4))
+
+
+def test_sketch_queries_on_card_match_cpu(card):
+    tables = ssb.gen_tables(0.01, seed=11)
+    ctxs = {d: TPUOlapContext(device=d) for d in ("cpu", card)}
+    for ctx in ctxs.values():
+        ssb.register(ctx, tables=tables, rows_per_segment=16384)
+    frame = ssb.flat_frame(tables)
+    for name, sql in ssb.SKETCH_QUERIES.items():
+        before = cg.LAUNCHES
+        got, want = ctxs[card].sql(sql), ctxs["cpu"].sql(sql)
+        assert cg.LAUNCHES > before, name
+        pd.testing.assert_frame_equal(ctxs[card].sql(sql), got, check_exact=True)
+        ssb.check_sketch_answer(name, got, ssb.sketch_oracle(frame, name))
+        keys = [c for c in want.columns if c != "revenue"]
+        got = got.sort_values(keys, na_position="last").reset_index(drop=True)
+        want = want.sort_values(keys, na_position="last").reset_index(drop=True)
+        pd.testing.assert_frame_equal(got[keys], want[keys], check_exact=True)
+        np.testing.assert_allclose(got.revenue, want.revenue, rtol=2e-5, err_msg=name)

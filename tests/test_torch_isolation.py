@@ -1,8 +1,9 @@
-"""The PyTorch port stands alone: neither the package nor `chip_smoke.py`
-imports JAX or anything of the JAX package.
+"""The PyTorch port stands alone: neither the package nor its scripts
+(`chip_smoke.py`, `quantile_rank_sweep.py`) import JAX or anything of the
+JAX package.
 
-A subprocess imports every module of the port and the smoke script's
-helpers and checks what that added to `sys.modules`; an AST scan checks
+A subprocess imports every module of the port and the scripts' helpers
+and checks what that added to `sys.modules`; an AST scan checks
 every import statement, including the ones inside functions.
 """
 
@@ -17,6 +18,7 @@ import spark_druid_olap_tpu_torch
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "spark_druid_olap_tpu_torch"
 FORBIDDEN = ("jax", "jaxlib", "spark_druid_olap_tpu")
+SCRIPTS = ("chip_smoke", "quantile_rank_sweep")
 
 
 def _port_modules():
@@ -32,7 +34,7 @@ def _is_forbidden(name: str) -> bool:
 
 
 def test_importing_the_port_loads_no_jax():
-    mods = _port_modules() + ["chip_smoke"]
+    mods = _port_modules() + list(SCRIPTS)
     code = (
         "import importlib, sys\n"
         "before = set(sys.modules)\n"
@@ -45,12 +47,12 @@ def test_importing_the_port_loads_no_jax():
         text=True, check=True,
     ).stdout.split()
     assert "spark_druid_olap_tpu_torch.exec.engine" in out
-    assert "chip_smoke" in out
+    assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []
 
 
 def test_no_import_statement_names_jax():
-    files = sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PKG.rglob("*.py")) + [ROOT / f"{s}.py" for s in SCRIPTS]
     assert len(files) > 20
     bad = []
     for path in files:

@@ -228,12 +228,10 @@ def test_sql_strategy_equals_native_strategy(ctxs):
         )
 
 
-def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
-    """The engine resolves strategies as on a CUDA device: every query with
-    G <= SCATTER_CUTOVER must go to the kernel's wrapper (here a spy running
-    the plain version on the CPU tensors), none to `dense_partial_aggregate`
-    directly."""
-    _, port = ctxs
+def _card_spies(monkeypatch):
+    """Make the engine resolve strategies as on a CUDA device, with the
+    kernel's wrapper a counting spy that runs the plain version on the CPU
+    tensors and `dense_partial_aggregate` a spy that fails."""
     resolve = tgroupby.resolve_strategy
     monkeypatch.setattr(
         tengine, "resolve_strategy", lambda s, g, device: resolve(s, g, "cuda")
@@ -250,6 +248,15 @@ def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
 
     monkeypatch.setattr(tcuda, "cuda_partial_aggregate", kernel_spy)
     monkeypatch.setattr(tgroupby, "dense_partial_aggregate", dense_spy)
+    return calls
+
+
+def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
+    """The engine resolves strategies as on a CUDA device: every query with
+    G <= SCATTER_CUTOVER must go to the kernel's wrapper, none to
+    `dense_partial_aggregate` directly."""
+    _, port = ctxs
+    calls = _card_spies(monkeypatch)
     for sql in WORKLOAD_SQL:
         before = calls["kernel"]
         port.sql(sql)
@@ -259,4 +266,20 @@ def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
             assert calls["kernel"] - before == m.segments, sql
         else:
             assert m.strategy == "segment", sql
+    assert calls["dense"] == 0
+
+
+def test_sketch_sql_reaches_the_kernel_once_per_segment_and_set(ctxs, monkeypatch):
+    """The sketch queries, CUBE included, as on a card: one kernel call per
+    in-scope segment for every grouping set, none of the plain twin."""
+    _, port = ctxs
+    calls = _card_spies(monkeypatch)
+    ds = port.catalog.get("lineorder")
+    for sql in tssb.SKETCH_QUERIES.values():
+        rw = port.plan_sql(sql)
+        before = calls["kernel"]
+        port.sql(sql)
+        sets = max(len(rw.grouping_sets), 1)
+        assert calls["kernel"] - before == sets * len(tengine.segments_in_scope(rw.query, ds))
+        assert port.last_metrics.strategy == "cuda"
     assert calls["dense"] == 0

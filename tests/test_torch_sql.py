@@ -5,15 +5,22 @@
   star) under the parity contract: keys and counts exact, sums within
   rtol 1e-6, and the float64 oracle within rtol 2e-5.  A second run is
   bit-identical.
+* Sketch and grouping-set SQL (the five `SKETCH_QUERIES`, a ROLLUP, and
+  COUNT(DISTINCT) and CUBE over TPC-H lineitem) plans to the reference's
+  JSON and gives its frames: sketch columns (distinct counts, quantiles)
+  and keys exact, sums within rtol 1e-6; the SSB ones also hold against
+  their exact oracles within the sketches' error bounds.
 * Commands (CREATE TABLE ... OPTIONS, CREATE VIEW, SET, SHOW TABLES,
   DESCRIBE) give the reference's frames.
 * What the port does not execute yet raises, where the reference answers
-  on its host fallback or its sketch and grouping-set paths: a subquery
-  and a SELECT over a view (RewriteError), exact and approximate
-  COUNT(DISTINCT), CUBE and a non-aggregate scan (NotImplementedError),
-  and SET on a flag of a tier the port does not have (KeyError).
-  `TPUOlapContext()` with no GPU and no device raises.
+  on its host fallback or its exact-distinct path: a subquery and a SELECT
+  over a view (RewriteError), exact COUNT(DISTINCT) and a non-aggregate
+  scan (NotImplementedError), and SET on a flag of a tier the port does
+  not have (KeyError).  `TPUOlapContext()` with no GPU and no device raises.
 """
+
+import json
+
 
 import numpy as np
 import pandas as pd
@@ -129,6 +136,50 @@ def test_sql_frame_matches_reference_and_oracle(ctxs, frames, workload, name):
     pd.testing.assert_frame_equal(port.sql(mod.QUERIES[name]), got)
 
 
+SKETCH_CASES = [("ssb", k, q) for k, q in tssb.SKETCH_QUERIES.items()] + [
+    ("ssb", "rollup",
+     "SELECT c_region, d_year, sum(lo_revenue) AS revenue, "
+     "approx_count_distinct_ds_theta(lo_custkey, 256) AS uniq, "
+     "APPROX_QUANTILE(lo_quantity, 0.25) AS q25 "
+     "FROM lineorder GROUP BY ROLLUP (c_region, d_year) ORDER BY c_region, d_year"),
+    ("tpch", "approx_count_distinct",
+     "SELECT l_returnflag, count(DISTINCT l_shipmode) AS m FROM lineitem "
+     "GROUP BY l_returnflag"),
+    ("tpch", "cube",
+     "SELECT l_returnflag, l_linestatus, sum(l_quantity) AS q FROM lineitem "
+     "GROUP BY CUBE (l_returnflag, l_linestatus)"),
+]
+SKETCH_FLOATS = {"p50", "p90", "q25"}  # quantile estimates: exact, not summed
+
+
+def assert_sketch_frames_match(got, want):
+    """Keys, counts and sketch columns exact; sums within RTOL."""
+    assert list(got.columns) == list(want.columns)
+    assert len(got) == len(want)
+    keys = [c for c in want.columns if want[c].dtype.kind != "f"]
+    got = got.sort_values(keys, kind="stable", na_position="last").reset_index(drop=True)
+    want = want.sort_values(keys, kind="stable", na_position="last").reset_index(drop=True)
+    for c in want.columns:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if c in keys or c in SKETCH_FLOATS:
+            np.testing.assert_array_equal(g, w, err_msg=c)
+        else:
+            np.testing.assert_allclose(g.astype(float), w.astype(float), rtol=RTOL, err_msg=c)
+
+
+@pytest.mark.parametrize("workload,name,sql", SKETCH_CASES, ids=[c[1] for c in SKETCH_CASES])
+def test_sketch_sql_matches_reference(ctxs, frames, workload, name, sql):
+    ref, port = ctxs
+    assert json.dumps(port.plan_sql(sql).query.to_druid(), sort_keys=True, default=str) == (
+        json.dumps(ref.plan_sql(sql).query.to_druid(), sort_keys=True, default=str)
+    )
+    got, want = port.sql(sql), ref.sql(sql)
+    assert_sketch_frames_match(got, want)
+    pd.testing.assert_frame_equal(port.sql(sql), got)
+    if name in tssb.SKETCH_QUERIES:
+        tssb.check_sketch_answer(name, got, tssb.sketch_oracle(frames[workload], name))
+
+
 def test_repeated_text_is_planned_once(ctxs):
     _, port = ctxs
     sql = tssb.QUERIES["q2_1"]
@@ -203,16 +254,6 @@ GAPS = {
         "SELECT l_returnflag, count(DISTINCT l_shipmode) AS m FROM lineitem "
         "GROUP BY l_returnflag",
         NotImplementedError, "exact",
-    ),
-    "approx_count_distinct": (
-        "SELECT l_returnflag, count(DISTINCT l_shipmode) AS m FROM lineitem "
-        "GROUP BY l_returnflag",
-        NotImplementedError, None,
-    ),
-    "cube": (
-        "SELECT l_returnflag, l_linestatus, sum(l_quantity) AS q FROM lineitem "
-        "GROUP BY CUBE (l_returnflag, l_linestatus)",
-        NotImplementedError, None,
     ),
     "scan": (
         "SELECT l_returnflag, l_quantity FROM lineitem WHERE l_quantity > 49 "
