@@ -10,9 +10,11 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches in phases 4 to 7 (one 512K-row segment at each
-   query's and grouping set's G and column counts, plus a time-sorted
-   Timeseries segment; phase 7 fails on a shape left out): mins/maxs
+   the main path launches in phases 4 to 8 (one 512K-row segment at each
+   query's and grouping set's G and column counts, at the tier's presence
+   counts and compacted domains, plus a time-sorted Timeseries segment and
+   the sparse tier's 4096 slots on rows sorted by slot; a shape left out
+   fails the run): mins/maxs
    exactly equal, sums within rtol 1e-5 (another summation order over
    512K rows), two launches bit-equal.  At those shapes it times the
    kernel (`ms`) and one library call computing the same sums
@@ -64,7 +66,33 @@ Phases, one JSON line each:
    grouping set.  Reported per query: p50, device busy ms and idle share
    (one more run under torch.profiler), and the sketch ops' own device ms
    (a replay of just the sketch partials and merges over the query's
-   segments under torch.profiler).
+   segments under torch.profiler);
+8. tiers: the high-cardinality tier at the data of phase 4, resident.
+   First its ops on the card against the same functions on the CPU over the
+   first 4 in-scope segments of SSB q3.2 and of the exact-distinct inner
+   grouping (by c_city and lo_custkey): `compact_rows`,
+   `sparse_partial_aggregate` at 4096 slots (the kernel inner) and at 2^18
+   (the segmented reduce), their fold by `merge_sparse_states`, the
+   presence counts and the compacted codes: gids, counts, mins, maxs,
+   flags, `n_rows` and `n_real` equal, sums within rtol 1e-5, two launches
+   bit-equal; and the host syncs of one sparse pass and one compacted pass.
+   Then the 11 high-cardinality SQL queries (SSB q2.x, q3.x, q4.2, q4.3;
+   TPC-H q3, q10) under "auto", "sparse" and "segment": under "auto" the
+   adaptive or sparse tier answers (scatter only after a recorded
+   decline), the kernel launches for every pass at most 4096 wide, frames
+   hold against the oracle, are bit-identical over two runs and agree
+   across tiers (keys exact, sums within 2e-5); per query and tier the
+   tier taken, G', the rungs, launches, the p50 of 5 warm runs, and device
+   busy ms and idle share from one profiled run.  Last, exact
+   COUNT(DISTINCT lo_custkey) (BASELINE config #3's TopN with the sketch
+   replaced, and a global count) under count_distinct_mode = 'exact' over
+   `ssb.key_dimension_datasource`: equal to the exact oracle, answered on a
+   segmented-reduce rung.  Every kernel launch of phases 4 to 8 is at a
+   (G, Ms, Mn, Mx) that phase 3 checked, or the run fails.
+
+Phases 4 and 6 also check the route of every query above 4096 groups, and
+that the kernel launched for every query whose pass (G, G' or the slots)
+is at most 4096 wide.
 
 Then the `kernels` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failed check raises: the script
@@ -123,10 +151,27 @@ MAIN_SHAPES = [
     (524288, 48, 2, 0, 0),  # CUBE sets (c_region, d_year), (s_region, d_year)
     (524288, 251, 2, 0, 0),  # topn_hll, filtered_hll (c_city)
     (524288, 288, 2, 0, 0),  # CUBE set (c_region, s_region, d_year)
+    # phase 6, TPC-H SQL: q6, q14, q19 (one group, three sums), q8 and
+    # q8_extract (years), q7 (nation pairs x years)
+    (524288, 1, 3, 0, 0),
+    (524288, 8, 3, 0, 0),
+    (524288, 1352, 2, 0, 0),
 ]
+# phase 8 and the high-cardinality queries of phases 4 and 6: the adaptive
+# tier's presence counts (one count column at a dimension's cardinality,
+# null slot included: d_year, nations, cities, brands) and its compacted
+# passes at each query's G' (SSB SF10)
+MAIN_SHAPES += [(524288, G, 1, 0, 0) for G in (8, 26, 251, 1001)]
+MAIN_SHAPES += [(524288, G, 2, 0, 0) for G in (4, 7, 24, 100, 150, 273, 280, 600, 800)]
 HEADLINE = (524288, 208, 4, 1, 1)
 # Timeseries over a time-sorted segment: one or two months per segment
 SKEWED = (524288, 84, 2, 0, 0)
+# the sparse tier's pass over 4096 slots, on rows sorted by slot, at each
+# query's column counts: SSB and TPC-H q3 (revenue, rows), TPC-H q10 (two
+# hidden max carriers), the exact-distinct inner groupings (rows alone; rows
+# and revenue, with c_city's hidden max carrier)
+SORTED_SHAPES = [(524288, 4096, 2, 0, 0), (524288, 4096, 1, 0, 0), (524288, 4096, 2, 0, 2),
+                 (524288, 4096, 2, 0, 1)]
 ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
 WARM_RUNS = 5
 SQL_PAIRS = 6  # interleaved SQL/native pairs per query in phase 6 (even)
@@ -155,12 +200,17 @@ def card_line() -> str:
 # -- phase 3: the kernel against its plain version ---------------------------
 
 
-def make_inputs(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8, skewed=False):
+def make_inputs(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8, layout="random"):
+    """Kernel inputs; `layout` "two_runs": the segment spans two adjacent
+    groups (a time-sorted Timeseries segment); "sorted": rows sorted by
+    group id, as the sparse tier hands them over."""
     rng = np.random.default_rng(seed)
     mask = rng.random(R) < mask_p
     gid = rng.integers(0, G, R).astype(np.int32)
-    if skewed:  # two sorted runs: the segment spans two adjacent groups
+    if layout == "two_runs":
         gid = np.where(np.arange(R) < R * 3 // 5, G // 2, G // 2 + 1).astype(np.int32)
+    elif layout == "sorted":
+        gid = np.sort(gid)
     arrs = (
         gid,
         mask,
@@ -226,8 +276,8 @@ def bound(R, G, Ms, Mn, Mx):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def check_kernel_shape(R, G, Ms, Mn, Mx, device, seed, mask_p=0.8, skewed=False):
-    args = make_inputs(R, G, Ms, Mn, Mx, device, seed, mask_p, skewed)
+def check_kernel_shape(R, G, Ms, Mn, Mx, device, seed, mask_p=0.8, layout="random"):
+    args = make_inputs(R, G, Ms, Mn, Mx, device, seed, mask_p, layout)
     if mask_p == 0.0:
         args[2].zero_()
     got = cuda_groupby.cuda_partial_aggregate(*args, num_groups=G, num_min=Mn, num_max=Mx)
@@ -316,13 +366,14 @@ def kernel_phase(device):
     check_kernel_shape(2048, 10, 2, 1, 1, device, seed=9, mask_p=0.0)
     rows.append({"shape": (2048, 10, 2, 1, 1), "all_masked": True})
     timed = []
-    cases = [(shape, False) for shape in MAIN_SHAPES] + [(SKEWED, True)]
-    for i, ((R, G, Ms, Mn, Mx), skewed) in enumerate(cases):
+    cases = ([(shape, "random") for shape in MAIN_SHAPES] + [(SKEWED, "two_runs")]
+             + [(shape, "sorted") for shape in SORTED_SHAPES])
+    for i, ((R, G, Ms, Mn, Mx), layout) in enumerate(cases):
         args, max_abs, max_rel = check_kernel_shape(
-            R, G, Ms, Mn, Mx, device, seed=100 + i, skewed=skewed)
+            R, G, Ms, Mn, Mx, device, seed=100 + i, layout=layout)
         timed.append({
             "shape": (R, G, Ms, Mn, Mx),
-            "skewed": skewed,
+            "layout": layout,
             "geometry": cuda_groupby.geometry(R, G, Ms, Mn + Mx)._asdict(),
             "max_abs_err": max_abs,
             "max_rel_err": max_rel,
@@ -334,6 +385,70 @@ def kernel_phase(device):
 
 
 # -- phase 4: the main path --------------------------------------------------
+
+
+def uses_kernel(m: QueryMetrics) -> bool:
+    """Whether a query's path ran a pass at most 4096 groups wide, which the
+    kernel carries: the plain path at G <= 4096, the adaptive tier's
+    compacted pass at G' <= 4096, the sparse tier over 4096 slots."""
+    if m.strategy == "adaptive":
+        return 0 < (m.compact_groups or 0) <= 4096
+    if m.strategy == "sparse":
+        return m.sparse_slots <= 4096
+    return m.strategy == "cuda" and m.segments > 0
+
+
+def check_route(name: str, m: QueryMetrics, strategy: str = "auto") -> None:
+    """Above 4096 groups, under "auto" the adaptive or sparse tier answers,
+    and the scatter path only after a recorded decline; a forced tier
+    answers itself unless it recorded a decline."""
+    if m.num_groups <= 4096 or m.segments == 0:
+        return
+    want = {"auto": ("adaptive", "sparse"), "sparse": ("sparse",), "segment": ("segment",)}
+    if m.strategy not in want[strategy] and not (m.strategy == "segment" and m.declines):
+        raise AssertionError(f"{name}: {strategy} took {m.strategy} ({m.declines})")
+
+
+def tier_fields(m: QueryMetrics) -> dict:
+    return {"compact_groups": m.compact_groups, "kept_source": m.kept_source,
+            "inner_strategy": m.inner_strategy, "sparse_slots": m.sparse_slots,
+            "sparse_row_capacity": m.sparse_row_capacity,
+            "sparse_passes": m.sparse_passes, "declines": m.declines}
+
+
+class KernelShapes:
+    """Counts the (G, Ms, Mn, Mx) of every kernel launch on the card between
+    `start` and `stop`, by wrapping the wrapper (which still counts each
+    launch)."""
+
+    def __init__(self):
+        self.seen = {}
+        self._orig = None
+
+    def start(self):
+        self._orig = orig = cuda_groupby.cuda_partial_aggregate
+
+        def recorded(gid, mask, sv, mmv, mmm, num_groups, num_min, num_max):
+            if gid.is_cuda:
+                key = (num_groups, sv.shape[1], num_min, num_max)
+                self.seen[key] = self.seen.get(key, 0) + 1
+            return orig(gid, mask, sv, mmv, mmm, num_groups=num_groups,
+                        num_min=num_min, num_max=num_max)
+
+        cuda_groupby.cuda_partial_aggregate = recorded
+        return self
+
+    def stop(self):
+        cuda_groupby.cuda_partial_aggregate = self._orig
+
+    def check(self):
+        """Fails on a launched shape that phase 3 did not check."""
+        checked = {s[1:] for s in MAIN_SHAPES + SORTED_SHAPES}
+        missing = sorted(k for k in self.seen if k not in checked)
+        emit("kernel_shapes", launched={str(k): v for k, v in sorted(self.seen.items())},
+             unchecked=missing)
+        if missing:
+            raise AssertionError(f"kernel shapes (G, Ms, Mn, Mx) not checked in phase 3: {missing}")
 
 
 def _frame_check(name, got, want, keys, rtol=ORACLE_RTOL):
@@ -490,13 +605,16 @@ def run_main_path(engines, workloads, warm_runs: int = WARM_RUNS):
             engine.execute(q, ds)
             times.append((time.perf_counter() - t0) * 1e3)
         launches = cuda_groupby.LAUNCHES - before
-        if engine.device.type == "cuda" and m.num_groups <= 4096 and launches == 0:
-            raise AssertionError(f"{name}: G={m.num_groups} but the kernel never launched")
+        if engine.device.type == "cuda":
+            check_route(name, m)
+            if uses_kernel(m) and launches == 0:
+                raise AssertionError(f"{name}: {m.describe()} but the kernel never launched")
         p50 = statistics.median(times)
         out.append({
             "query": name,
             "strategy": m.strategy,
             "num_groups": m.num_groups,
+            **tier_fields(m),
             "segments": m.segments,
             "rows_scanned": m.rows_scanned,
             "result_rows": len(first),
@@ -629,8 +747,10 @@ def run_sql_path(ctxs, workloads, pairs: int = SQL_PAIRS):
         sql_ms, native_ms, warm_launches = _interleaved_ms(
             lambda: ctx.sql(sql), lambda: ctx.engine.execute(native_q, ds), pairs)
         launches += warm_launches
-        if ctx.engine.device.type == "cuda" and m.num_groups <= 4096 and launches == 0:
-            raise AssertionError(f"{name}: G={m.num_groups} but the kernel never launched")
+        if ctx.engine.device.type == "cuda":
+            check_route(name, m)
+            if uses_kernel(m) and launches == 0:
+                raise AssertionError(f"{name}: {m.describe()} but the kernel never launched")
         diffs = [a - b for a, b in zip(sql_ms, native_ms)]
         cols = [c for c in first.columns if c in native.columns]
         pd.testing.assert_frame_equal(
@@ -644,6 +764,7 @@ def run_sql_path(ctxs, workloads, pairs: int = SQL_PAIRS):
             "json_equals_native": None if spec is None else True,
             "strategy": m.strategy,
             "num_groups": m.num_groups,
+            **tier_fields(m),
             "segments": m.segments,
             "result_rows": len(first),
             "plan_cold_ms": plan_cold,
@@ -800,16 +921,17 @@ def run_sketch_queries(ctx, frame, cold=SKETCH_COLD, warm=SKETCH_WARM):
     return out
 
 
-def _device_events_ms(prof):
+def _device_events_ms(prof, allow_empty=False):
     """Device time by kernel name (kernels, copies, memsets), summed from the
     profiler's raw device events: parsing a trace of a whole CUBE into
     `key_averages()` costs tens of seconds.  Raises when the window holds
-    no device event."""
+    no device event, unless `allow_empty` (a query whose answer needs no
+    device work, such as an empty kept set recalled from the memo)."""
     out = {}
     for e in prof.profiler.kineto_results.events():
         if e.device_type() == torch.autograd.DeviceType.CUDA:
             out[e.name()] = out.get(e.name(), 0.0) + e.duration_ns() / 1e6
-    if not out:
+    if not out and not allow_empty:
         raise AssertionError("the profiler recorded no device time")
     return out
 
@@ -859,6 +981,256 @@ def profile_sketch_queries(ctx, summaries):
              seconds=time.perf_counter() - t0)
 
 
+# -- phase 8: the high-cardinality tier ---------------------------------------
+
+HIGH_G = [("ssb", n) for n in ("q2_1", "q2_2", "q2_3", "q3_1", "q3_2", "q3_3", "q3_4",
+                               "q4_2", "q4_3")] + [("tpch", "q3"), ("tpch", "q10")]
+TIER_STRATEGIES = ("auto", "sparse", "segment")
+TIER_SLOTS = (4096, 1 << 18)  # the kernel over slots; the segmented reduce
+
+
+def _compare_states(what, card, cpu):
+    """Sparse states on the card against the CPU: flags and counts equal;
+    unless overflowed, gids, mins and maxs equal and sums within
+    KERNEL_RTOL.  Returns (overflowed, max rel err of the sums)."""
+    for k in ("overflow", "row_overflow", "n_rows", "n_real"):
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise AssertionError(f"{what}: {k} on the card differs from the CPU")
+    if bool(cpu["overflow"]):
+        return True, 0.0
+    for k in ("gids", "mins", "maxs"):
+        if not torch.equal(card[k].cpu(), cpu[k]):
+            raise AssertionError(f"{what}: {k} on the card differs from the CPU")
+    a, b = card["sums"].cpu().double(), cpu["sums"].double()
+    if not bool(((a - b).abs() <= KERNEL_RTOL * b.abs()).all()):
+        raise AssertionError(f"{what}: sums off by more than rtol {KERNEL_RTOL}")
+    return False, float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+
+
+def _bit_equal(what, a, b):
+    if any(not torch.equal(a[k], b[k]) for k in a):
+        raise AssertionError(f"{what}: two launches on the card differ")
+
+
+def _syncs(fn):
+    """Where a second call of fn() makes the host wait on the card (torch's
+    sync debug mode; the first call warms up): {file:line: count}; None
+    where there is no card."""
+    import warnings
+
+    if not torch.cuda.is_available():
+        return None
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = {}
+    for w in caught:
+        if "called a synchronizing" in str(w.message):
+            site = f"{w.filename.rsplit('/', 1)[-1]}:{w.lineno}"
+            sites[site] = sites.get(site, 0) + 1
+    return sites
+
+
+def tier_op_checks(cases):
+    """The tier's ops on the card against the same functions on the CPU,
+    over the first OP_CHECK_SEGMENTS in-scope segments of each (name,
+    context, SQL) case: `compact_rows` at the query's first row-capacity
+    rung, `sparse_partial_aggregate` at 4096 slots (the kernel inner; its
+    plain version on the CPU) and at 2^18 (the segmented reduce), their
+    fold by `merge_sparse_states`, the presence counts and the compacted
+    codes; two launches on the card bit-equal.  Also the host syncs of one
+    sparse pass and one compacted pass over the same segments."""
+    from spark_druid_olap_tpu_torch.exec.adaptive_exec import compacted_lowering
+    from spark_druid_olap_tpu_torch.exec.engine import Engine
+    from spark_druid_olap_tpu_torch.ops import sparse_groupby as sg
+
+    out = []
+    cpu_engine = Engine(device="cpu")
+    for name, ctx, sql in cases:
+        rw = ctx.plan_sql(sql)
+        q = groupby_with_time_granularity(rw.query)
+        ds = ctx.catalog.get(rw.datasource)
+        engine = ctx.engine
+        lowering = engine._lowering_for(q, ds)
+        la, G = lowering.la, lowering.num_groups
+        segs = segments_in_scope(q, ds)[:OP_CHECK_SEGMENTS]
+        cap = engine._first_row_capacity(q, ds, segs)
+        kw = dict(num_groups=G, num_min=len(la.min_names), num_max=len(la.max_names),
+                  row_capacity=cap)
+        acc = {n: {"card": None, "cpu": None} for n in TIER_SLOTS}
+        worst, overflowed, cols_by_seg = 0.0, {}, []
+        for seg in segs:
+            cols = engine._cols_for_segment(seg, ds, lowering.columns, QueryMetrics())
+            cols_by_seg.append(cols)
+            arrs = {"card": lowering.row_arrays(cols),
+                    "cpu": lowering.row_arrays({k: v.cpu() for k, v in cols.items()})}
+            packed = {w: sg.compact_rows(*a, capacity=cap or 4096) for w, a in arrs.items()}
+            for a, b in zip(packed["card"], packed["cpu"]):
+                if not torch.equal(a.cpu(), b):
+                    raise AssertionError(f"{name}: compact_rows on the card differs from the CPU")
+            for slots in TIER_SLOTS:
+                st = {
+                    "card": sg.sparse_partial_aggregate(
+                        *arrs["card"], slots=slots, inner_strategy="cuda", **kw),
+                    "cpu": sg.sparse_partial_aggregate(
+                        *arrs["cpu"], slots=slots, inner_strategy="dense", **kw),
+                }
+                _bit_equal(f"{name} at {slots} slots", st["card"], sg.sparse_partial_aggregate(
+                    *arrs["card"], slots=slots, inner_strategy="cuda", **kw))
+                _, err = _compare_states(f"{name} partial at {slots} slots", st["card"], st["cpu"])
+                worst = max(worst, err)
+                a = acc[slots]
+                if a["card"] is None:
+                    a.update(st)
+                else:
+                    merged = sg.merge_sparse_states(a["card"], st["card"], G)
+                    _bit_equal(f"{name} merge at {slots} slots", merged,
+                               sg.merge_sparse_states(a["card"], st["card"], G))
+                    a["card"], a["cpu"] = merged, sg.merge_sparse_states(a["cpu"], st["cpu"], G)
+                ov, err = _compare_states(f"{name} merge at {slots} slots", a["card"], a["cpu"])
+                overflowed[slots] = ov
+                worst = max(worst, err)
+        counts = {"card": engine._presence_counts(q, ds, lowering, segs, QueryMetrics()),
+                  "cpu": cpu_engine._presence_counts(q, ds, lowering, segs, QueryMetrics())}
+        for a, b in zip(counts["card"], counts["cpu"]):
+            if not np.array_equal(a, b):
+                raise AssertionError(f"{name}: presence counts on the card differ from the CPU")
+        kept = [np.nonzero(c > 0)[0].astype(np.int32) for c in counts["card"]]
+        clow = compacted_lowering(lowering, kept)
+        for cols in cols_by_seg:
+            gid = clow.row_arrays(cols)[0]
+            if not torch.equal(gid.cpu(), clow.row_arrays({k: v.cpu() for k, v in cols.items()})[0]):
+                raise AssertionError(f"{name}: compacted codes on the card differ from the CPU")
+        syncs = {
+            "sparse_pass": _syncs(lambda: engine._sparse_pass(
+                ds, lowering, segs, cap, TIER_SLOTS[0], QueryMetrics())),
+        }
+        if clow.num_groups <= 4096:
+            syncs["compacted_pass"] = _syncs(lambda: engine._partials_for_query(
+                clow, segs, ds, "cuda", QueryMetrics()))
+        out.append({"case": name, "num_groups": G, "segments": len(segs), "row_capacity": cap,
+                    "compact_groups": clow.num_groups, "presence_cards": [len(c) for c in kept],
+                    "merged_overflow": {str(k): v for k, v in overflowed.items()},
+                    "sums_max_rel_err": worst, "host_syncs": syncs, "bit_equal_to_cpu": True})
+        emit("tier_op_check", **out[-1])
+    return out
+
+
+def _cross_tier_check(name, frames):
+    """The same keys and counts under every tier; sums within ORACLE_RTOL
+    (each tier adds in its own order)."""
+    base = frames["auto"]
+    keys = [c for c in base.columns if base[c].dtype.kind not in "f"]
+    a = base.sort_values(keys, kind="stable").reset_index(drop=True)
+    for tier, f in frames.items():
+        b = f.sort_values(keys, kind="stable").reset_index(drop=True)
+        if list(b.columns) != list(a.columns) or len(b) != len(a):
+            raise AssertionError(f"{name}: {tier} frame differs in shape from auto's")
+        for c in a.columns:
+            x, y = np.asarray(a[c]), np.asarray(b[c])
+            if c in keys:
+                if not np.array_equal(x.astype(object), y.astype(object)):
+                    raise AssertionError(f"{name}: {tier} column {c} differs from auto's")
+            elif not (np.abs(x - y) <= ORACLE_RTOL * np.abs(x)).all():
+                raise AssertionError(f"{name}: {tier} column {c} off from auto's")
+
+
+def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
+    """The 11 high-cardinality queries through `ctx.sql` under each of
+    TIER_STRATEGIES: the route, the oracle, bit-identical runs, the kernel
+    launched where a pass is at most 4096 wide, the same answer across
+    tiers; p50 of the warm runs and, from one profiled run, device busy ms
+    and idle share.  One summary per query and tier."""
+    from torch.profiler import ProfilerActivity, profile
+
+    out, frames = [], {}
+    for strategy in TIER_STRATEGIES:
+        for workload, name in HIGH_G:
+            ctx = ctxs[workload]
+            ctx.engine.strategy = strategy
+            sql = (tpch if workload == "tpch" else ssb).QUERIES[name]
+            before = cuda_groupby.LAUNCHES
+            t0 = time.perf_counter()
+            first = ctx.sql(sql)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            m = ctx.last_metrics
+            second = ctx.sql(sql)
+            import pandas as pd
+
+            pd.testing.assert_frame_equal(first, second, check_exact=True)
+            times = []
+            for _ in range(warm):
+                t0 = time.perf_counter()
+                ctx.sql(sql)
+                times.append((time.perf_counter() - t0) * 1e3)
+            launches = cuda_groupby.LAUNCHES - before
+            check_route(name, m, strategy)
+            if ctx.engine.device.type == "cuda" and uses_kernel(m) and launches == 0:
+                raise AssertionError(f"{name}: {m.describe()} but the kernel never launched")
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                ctx.sql(sql)
+            busy = sum(_device_events_ms(prof, allow_empty=m.compact_groups == 0).values())
+            p50 = statistics.median(times)
+            if "LIMIT" not in sql:
+                frames.setdefault(name, {})[strategy] = first
+            out.append({
+                "query": name, "workload": workload, "strategy_asked": strategy,
+                "strategy": m.strategy, "num_groups": m.num_groups, **tier_fields(m),
+                "segments": m.segments, "result_rows": len(first), "cold_ms": cold_ms,
+                "p50_ms": p50, "kernel_launches": launches, "device_busy_ms": busy,
+                "device_idle_share": 1 - busy / p50,
+                "oracle_max_rel_err": check_against_oracle(name, first, workloads[workload][1],
+                                                           workload),
+                "bit_identical": True,
+            })
+            emit("tier_query", **out[-1])
+    for ctx in ctxs.values():
+        ctx.engine.strategy = "auto"
+    for name, by_tier in frames.items():
+        _cross_tier_check(name, by_tier)
+    return out
+
+
+def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
+    """`ssb.EXACT_DISTINCT_QUERIES` through `ctx.sql` under count_distinct_mode
+    = 'exact': bit-identical runs, distinct counts equal to the exact oracle,
+    the inner grouping answered by the sparse tier on a segmented-reduce
+    rung; the rungs and the p50."""
+    import pandas as pd
+
+    out = []
+    for name, sql in ssb.EXACT_DISTINCT_QUERIES.items():
+        before = cuda_groupby.LAUNCHES
+        t0 = time.perf_counter()
+        first = ctx.sql(sql)
+        cold_ms = (time.perf_counter() - t0) * 1e3
+        m = ctx.last_metrics  # the inner grouping's
+        pd.testing.assert_frame_equal(first, ctx.sql(sql), check_exact=True)
+        times = []
+        for _ in range(warm):
+            t0 = time.perf_counter()
+            ctx.sql(sql)
+            times.append((time.perf_counter() - t0) * 1e3)
+        check_route(name, m)
+        if m.strategy != "sparse" or m.sparse_slots <= 4096:
+            raise AssertionError(f"{name}: the inner grouping took {m.describe()}")
+        out.append({
+            "query": name, "strategy": m.strategy, "num_groups": m.num_groups, **tier_fields(m),
+            "segments": m.segments, "result_rows": len(first), "cold_ms": cold_ms,
+            "p50_ms": statistics.median(times), "kernel_launches": cuda_groupby.LAUNCHES - before,
+            **ssb.check_sketch_answer(name, first, ssb.sketch_oracle(frame, name)),
+            "bit_identical": True,
+        })
+        emit("exact_distinct_query", **out[-1])
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ssb-scale", type=float, default=10.0)
@@ -889,6 +1261,7 @@ def main(argv=None) -> int:
         return sum(e.bytes_resident() for e in engines.values())
 
     torch.cuda.reset_peak_memory_stats(device)
+    shapes = KernelShapes().start()  # every launch of phases 4 to 8
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
     queries = run_main_path(engines, workloads)
@@ -928,16 +1301,43 @@ def main(argv=None) -> int:
     if sketch_launches == 0:
         raise AssertionError("the sketch path never launched the kernel")
 
-    head = next(t for t in timed if t["shape"] == HEADLINE and not t["skewed"])
+    t0 = time.perf_counter()
+    dims = workloads["dims"]["ssb"]
+    exact = TPUOlapContext(device=device)
+    exact.engine = ctxs["ssb"].engine  # the same segments, already resident
+    exact.register_datasource(
+        ssb.key_dimension_datasource(workloads["ssb"][0], len(dims["customer"]["c_custkey"])),
+        star_schema=ssb.KEYED_STAR_SCHEMA)
+    exact.sql("SET count_distinct_mode = 'exact'")
+    tier_ops = tier_op_checks([
+        ("q3_2", ctxs["ssb"], ssb.QUERIES["q3_2"]),
+        ("exact_inner", exact, ssb.EXACT_DISTINCT_QUERIES["topn_exact"]),
+    ])
+    checks_s = time.perf_counter() - t0
+    cuda_groupby.LAUNCHES = 0  # count only the tier phase's launches
+    tiers = run_tier_queries(ctxs, workloads)
+    distinct = run_exact_distinct(exact, workloads["ssb"][1])
+    tier_launches = cuda_groupby.LAUNCHES
+    shapes.stop()
+    emit("tiers", queries=len(tiers), exact_distinct_queries=len(distinct),
+         seconds=time.perf_counter() - t0, checks_seconds=checks_s, op_checks=len(tier_ops),
+         kernel_launches=tier_launches, bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if tier_launches == 0:
+        raise AssertionError("the tier phase never launched the kernel")
+    shapes.check()
+
+    head = next(t for t in timed if t["shape"] == HEADLINE and t["layout"] == "random")
     print(json.dumps({"kernels": [{
         "name": "groupby_partial",
         "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/groupby_partial.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
-        "launches": launches + sql_launches + sketch_launches,
+        "launches": launches + sql_launches + sketch_launches + tier_launches,
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
+        "launches_tier": tier_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),
         "ms": head["ms"],

@@ -16,13 +16,15 @@ aggregate mapping, TopN/Timeseries routing) to a Druid query spec, through
 
 CUBE, ROLLUP and GROUPING SETS run one engine pass per set
 (`execute_grouping_sets`); approximate distinct counts and APPROX_QUANTILE
-run as sketch aggregators on the device.
+run as sketch aggregators on the device.  Under `count_distinct_mode =
+'exact'` a COUNT(DISTINCT) runs its inner grouping on the device (a
+high-cardinality group-by, carried by the engine's tiers) and re-aggregates
+on the host (`_execute_exact_distinct`).
 
 What this package does not execute yet raises rather than being answered
 another way: a statement the planner cannot rewrite (a subquery, an
-unconforming join) raises `RewriteError`; exact COUNT(DISTINCT) and
-non-aggregate scans raise NotImplementedError naming the ROADMAP item that
-ports them.
+unconforming join) raises `RewriteError`; non-aggregate scans raise
+NotImplementedError naming the ROADMAP item that ports them.
 """
 
 from __future__ import annotations
@@ -168,9 +170,9 @@ class TPUOlapContext:
 
     def explain(self, sql_text: str) -> str:
         """EXPLAIN DRUID REWRITE analog: logical plan -> chosen query spec
-        JSON -> the group-by strategy this context's engine resolves."""
+        JSON -> the paths this context's engine tries for it."""
         lp, _, _ = parse_sql(sql_text, views=self.views)
-        return self._planner().explain(lp, self.engine.device)
+        return self._planner().explain(lp, self.engine)
 
     # -- execution -----------------------------------------------------------
 
@@ -210,13 +212,15 @@ class TPUOlapContext:
             if explain:
                 import pandas as pd
 
-                text = planner.explain(lp, self.engine.device)
+                text = planner.explain(lp, self.engine)
                 return pd.DataFrame({"plan": text.split("\n")})
             rw = planner.plan(lp)
             self._plan_cache[key] = rw
         return self.execute_rewrite(rw)
 
     def execute_rewrite(self, rw: Rewrite):
+        if rw.exact_distinct is not None:
+            return self._execute_exact_distinct(rw.exact_distinct)
         ds = self.catalog.get(rw.datasource)
         if ds is None:
             raise RewriteError(f"unknown table {rw.datasource!r}")
@@ -227,6 +231,55 @@ class TPUOlapContext:
         else:
             df = self.engine.execute(rw.query, ds)
         return self._post_process(rw, ds, df)
+
+    def _execute_exact_distinct(self, spec):
+        """Two-phase exact COUNT(DISTINCT): the inner rewrite (grouped by the
+        dimensions and the distinct columns) on the device, then the
+        re-aggregation on the host, where a distinct output counts the
+        unique non-null values of its column."""
+        import pandas as pd
+
+        inner = self.execute_rewrite(spec.inner)
+        agg_kwargs = {
+            name: pd.NamedAgg(column=name, aggfunc=op) for name, op in spec.outer_ops
+        }
+        for out, col in spec.distinct_outs:
+            # nunique skips None/NaN: SQL COUNT(DISTINCT) semantics
+            agg_kwargs[out] = pd.NamedAgg(column=col, aggfunc="nunique")
+        if spec.dim_names:
+            df = inner.groupby(list(spec.dim_names), as_index=False, dropna=False).agg(
+                **agg_kwargs
+            )
+        else:
+            df = pd.DataFrame({
+                name: [getattr(inner[a.column], a.aggfunc)()]
+                for name, a in agg_kwargs.items()
+            })
+        for c in spec.count_like:
+            if c in df:
+                df[c] = df[c].astype(np.int64)
+        for out, _ in spec.distinct_outs:
+            df[out] = df[out].astype(np.int64)
+        for name, s, c in spec.avg_div:
+            with np.errstate(divide="ignore", invalid="ignore"):
+                df[name] = np.where(df[c] != 0, df[s] / np.where(df[c] == 0, 1, df[c]), np.nan)
+        for name, e in spec.post_exprs:
+            df[name] = _eval_host(e, df)
+        if spec.having is not None:
+            mask = np.asarray(_eval_host(spec.having, df), dtype=bool)
+            df = df[mask].reset_index(drop=True)
+        if spec.sort_keys:
+            df = df.sort_values(
+                [c for c, _ in spec.sort_keys],
+                ascending=[a for _, a in spec.sort_keys],
+                kind="stable",
+            )
+        if spec.offset:
+            df = df.iloc[spec.offset:]
+        if spec.limit is not None:
+            df = df.head(spec.limit)
+        cols = [c for c in spec.output_columns if c in df.columns]
+        return df[cols].reset_index(drop=True)
 
     def _post_process(self, rw: Rewrite, ds, df):
         """Host-side result shaping every engine answer passes through."""

@@ -26,9 +26,8 @@ class SessionConfig:
     hll_precision: int = 11
     theta_size: int = 4096
     # COUNT(DISTINCT x) handling: "approx" rewrites to a sketch (Druid
-    # default); "exact" uses the exact distinct path, which is not ported
-    # and raises NotImplementedError (ROADMAP queue A item 4); "error"
-    # rejects.
+    # default); "exact" groups by x on the device and counts on the host
+    # (plan/planner._plan_exact_distinct); "error" rejects.
     count_distinct_mode: str = "approx"
     # APPROX_QUANTILE sample size K (quantilesDoublesSketch k analog):
     # rank error ~ O(sqrt(p(1-p)/K)), ~±1.5% at the median for 1024

@@ -1,0 +1,322 @@
+"""Adaptive dictionary-domain compaction for huge combined group domains.
+
+SSB q3/q4-class queries group over a combined domain in the hundreds of
+thousands (c_city x s_city x d_year = 504K cells) while the filter admits a
+few codes of each dimension (c_nation = 'UNITED STATES' leaves 10 of 250
+cities).  This tier finds the codes of each grouped dimension that are
+present under the query's row mask, then runs the ordinary group-by over
+the compacted domain:
+
+  presence  one pass over the segments: per dimension, a count of rows per
+            code under the row mask (the group-by kernel at the dimension's
+            cardinality when it is at most SCATTER_CUTOVER, an `index_add_`
+            of the mask above), summed over the segments on the card and
+            read once;
+  host      kept_d = codes with a count; G' = prod |kept_d|; a remap
+            code -> compact code (-1 = absent);
+  compacted the engine's segment loop over a lowering whose dimensions read
+            their codes through the remap, so the kernel runs at G' instead
+            of scatter at G.  Sketch aggregators ride along unchanged.
+
+When the filter pins every grouped dimension (a Selector, In or Bound
+conjunct on it), the kept sets come from the dictionaries with no pass at
+all (`filter_derived_kept`).  Kept sets are remembered per query
+(`lowering.memo_key`): a repeat runs the compacted pass alone.
+
+Soundness: presence is measured under the very row mask the compacted pass
+applies, so every kept row's codes are in kept_d; only masked rows can read
+-1 from the remap, and `combine_group_ids` clamps them into slot 0, which
+their mask keeps out of every aggregate.
+
+The remap is one gather through a device table, or nothing when a
+dimension keeps every code.  The reference also has an unrolled
+compare-and-select chain for small kept sets, picked by backend because a
+table gather was slow on a TPU; both give identical codes, and on a GPU a
+gather from a small table is one cached load per row, so the port keeps the
+gather alone.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import List, Optional, Set
+
+import numpy as np
+import torch
+
+from ..catalog.segment import DataSource
+from ..models import filters as F
+from ..ops.filters import numeric_dict_code_bounds
+from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate
+from ..plan.expr import DeviceConst
+from .lowering import (
+    GroupByLowering,
+    ResolvedDim,
+    _filter_columns,
+    _query_key,
+    empty_partials,
+    memo_key,
+)
+
+# Decline compaction when the compacted domain is still bigger than this:
+# the pass over G' would gain nothing on the scatter path.
+ADAPTIVE_MAX_COMPACT_GROUPS = 1 << 17
+
+# ... and when the domain barely shrinks.
+ADAPTIVE_MIN_SHRINK = 0.5
+
+
+def presence_columns(q, lowering: GroupByLowering, ds) -> List[str]:
+    """Columns the presence pass reads: what the row mask and the dimension
+    codes need, not the aggregates' inputs.  The physical time column stays
+    whenever the lowering reads it (`row_mask` reads "__time", which the
+    engine aliases from ds.time_column)."""
+    keep = {"__valid", "__time"}
+    if ds.time_column:
+        keep.add(ds.time_column)
+    for d in lowering.dims:
+        keep.add(d.spec.dimension)
+    if q.filter is not None:
+        keep.update(_filter_columns(q.filter))
+    for v in q.virtual_columns:
+        keep.update(v.expression.columns())
+    return [c for c in lowering.columns if c in keep]
+
+
+def filter_derived_kept(q, lowering: GroupByLowering, ds) -> Optional[List[np.ndarray]]:
+    """Kept code sets from the query's own filter, over the host-side
+    dictionaries, with no pass over the data.
+
+    When every grouped dimension is a plain dictionary dimension pinned by
+    an AND-conjunct (Selector, In, or a Bound the device compile translates
+    the same way), the accepted codes are computable in O(cardinality).
+    Every kept row satisfies every conjunct, so the derived set is a
+    superset of the measured one (it may cost a few empty groups).  Returns
+    None when a dimension is unpinned: a presence pass is needed."""
+    conjuncts: List[object] = []
+
+    def collect(f):
+        if isinstance(f, F.And):
+            for c in f.fields:
+                collect(c)
+        elif f is not None:
+            conjuncts.append(f)
+
+    collect(getattr(q, "filter", None))
+    kept: List[np.ndarray] = []
+    for d in lowering.dims:
+        spec = d.spec
+        if (
+            spec.dimension == "__time"
+            or spec.granularity is not None
+            or spec.extraction is not None
+            or spec.dimension not in ds.dicts
+        ):
+            return None
+        dic = ds.dicts[spec.dimension]
+        # each branch mirrors the device filter compile (ops/filters.py):
+        # the derived set must hold every code the device mask accepts
+        acc: Optional[Set[int]] = None
+        for f in conjuncts:
+            if getattr(f, "dimension", None) != spec.dimension:
+                continue
+            cur: Optional[Set[int]] = None
+            if isinstance(f, F.Selector):
+                if f.value is None:
+                    cur = {d.cardinality - 1}  # the null slot
+                else:
+                    c = dic.code_of(f.value)
+                    cur = set() if c is None else {c}
+            elif isinstance(f, F.InFilter):
+                cur = {c for c in (dic.code_of(v) for v in f.values) if c is not None}
+            elif isinstance(f, F.Bound):
+                cur = _bound_accepted_codes(f, dic)
+            if cur is not None:
+                acc = cur if acc is None else (acc & cur)
+        if acc is None:
+            return None
+        kept.append(np.array(sorted(acc), dtype=np.int32))
+    return kept
+
+
+def _bound_accepted_codes(f, dic) -> Optional[Set[int]]:
+    """Dictionary codes a Bound conjunct accepts, branch for branch as the
+    device compile translates it; None where that cannot be mirrored
+    soundly (the dimension then needs the presence pass)."""
+    nv = dic.numeric_values
+    card = dic.cardinality
+    if nv is not None:
+        cb = numeric_dict_code_bounds(f, np.asarray(nv))
+        if cb is not None:
+            lo_c, hi_c = cb
+            lo_c = 0 if lo_c is None else lo_c
+            hi_c = card - 1 if hi_c is None else hi_c
+            return set(range(max(0, lo_c), min(card - 1, hi_c) + 1))
+        # a non-numeric literal: the device compares stringified values
+        vals = [str(v) for v in dic.values]
+        ok = set(range(card))
+        if f.lower is not None:
+            lo_s = str(f.lower)
+            ok = {i for i in ok if (vals[i] > lo_s if f.lower_strict else vals[i] >= lo_s)}
+        if f.upper is not None:
+            hi_s = str(f.upper)
+            ok = {i for i in ok if (vals[i] < hi_s if f.upper_strict else vals[i] <= hi_s)}
+        return ok
+    if f.ordering == "lexicographic":
+        vals = np.asarray(dic.values, dtype=str)
+        lo_c, hi_c = 0, card - 1
+        if f.lower is not None:
+            lo_c = int(np.searchsorted(vals, f.lower, side="right" if f.lower_strict else "left"))
+        if f.upper is not None:
+            hi_c = int(np.searchsorted(vals, f.upper, side="left" if f.upper_strict else "right")) - 1
+        return set(range(max(0, lo_c), min(card - 1, hi_c) + 1))
+    # a string dictionary under numeric ordering: the device compares raw
+    # codes, so decline rather than risk a narrower set than the mask
+    return None
+
+
+def compacted_lowering(lowering: GroupByLowering, kept: List[np.ndarray]) -> GroupByLowering:
+    """The same lowered query over the compacted code domain: each
+    dimension reads its codes through a device table original -> compact
+    code (-1 = absent), or unchanged when it keeps every code; `decode`
+    maps compact codes back through kept_d, so finalization is unchanged."""
+    new_dims: List[ResolvedDim] = []
+    G = 1
+    for d, kd in zip(lowering.dims, kept):
+        if len(kd) == d.cardinality:
+            codes_fn = d.codes_fn
+        else:
+            lut = np.full(d.cardinality, -1, np.int32)
+            lut[kd] = np.arange(len(kd), dtype=np.int32)
+
+            def codes_fn(cols, base=d.codes_fn, lut=DeviceConst(lut), card=d.cardinality):
+                c = base(cols)
+                # a masked row may carry an out-of-range code (a time
+                # bucket before the first); clamp, its mask excludes it
+                return lut.on(c.device)[c.clamp(0, card - 1).long()]
+
+        def decode(codes, base=d.decode, kd=kd):
+            return base(kd[np.asarray(codes, dtype=np.int64)])
+
+        new_dims.append(ResolvedDim(d.spec, len(kd), codes_fn, decode))
+        G *= len(kd)
+    return dataclasses.replace(lowering, dims=new_dims, num_groups=G)
+
+
+class AdaptiveDomainMixin:
+    """Engine mixin (`exec/engine.Engine`): the adaptive tier.  It uses the
+    engine's `_adaptive_kept` (memo key -> kept sets), `_adaptive_declined`
+    (memo key -> reason), residency and segment loop."""
+
+    def _adaptive_eligible(self, lowering: GroupByLowering) -> bool:
+        """Under "auto" or "adaptive", for a grouped query above the
+        scatter cutover, sketches included.  An explicit kernel strategy
+        ("cuda", "dense", "segment", "sparse") is honoured as such."""
+        return (
+            self.strategy in ("auto", "adaptive")
+            and lowering.num_groups > SCATTER_CUTOVER
+            and bool(lowering.dims)
+        )
+
+    def _presence_counts(self, q, ds, lowering: GroupByLowering, segs, m) -> List[np.ndarray]:
+        """Rows per code of each grouped dimension under the row mask, summed
+        over `segs` on the device and read with one fetch.  Counts of ones
+        in float32 are exact (a segment has far fewer than 2^24 rows), so
+        the unordered `index_add_` above the kernel's range gives the same
+        counts on every run."""
+        need = presence_columns(q, lowering, ds)
+        counts = None
+        for seg in segs:
+            cols = lowering.add_virtual(dict(self._cols_for_segment(seg, ds, need, m)))
+            mask = lowering.row_mask(cols)
+            R = mask.shape[0]
+            ones = mask.to(torch.float32)[:, None]
+            none_f = torch.zeros((R, 0), dtype=torch.float32, device=mask.device)
+            none_b = torch.zeros((R, 0), dtype=torch.bool, device=mask.device)
+            per = []
+            for d in lowering.dims:
+                card = d.cardinality
+                codes = d.codes_fn(cols).clamp(0, card - 1)
+                if card <= SCATTER_CUTOVER:
+                    s, _, _ = partial_aggregate(
+                        codes, mask, ones, none_f, none_b, num_groups=card,
+                        num_min=0, num_max=0, strategy=self._kernel_class(),
+                    )
+                    per.append(s[:, 0])
+                else:
+                    per.append(
+                        torch.zeros(card, dtype=torch.float32, device=mask.device)
+                        .index_add_(0, codes.long(), ones[:, 0])
+                    )
+            counts = per if counts is None else [a + b for a, b in zip(counts, per)]
+        host = torch.cat(counts).cpu().numpy()  # the pass's one fetch
+        out, at = [], 0
+        for d in lowering.dims:
+            out.append(host[at:at + d.cardinality])
+            at += d.cardinality
+        return out
+
+    def _adaptive_kept_codes(self, q, ds, lowering: GroupByLowering, segs, m):
+        """The kept code sets of each grouped dimension, or None when the
+        tier declines (the reason goes to `m.declines` and the decline
+        memo).  A measured set is only valid for the segment set it scanned,
+        so it carries that set and is measured again when it moved; a set
+        derived from the filter is a superset on any segment set."""
+        qkey = memo_key(q, ds)
+        seg_sig = tuple(s.uid for s in segs)
+        entry = self._adaptive_kept.get(qkey)
+        kept = None
+        if entry is not None:
+            if entry[0] == "derived":
+                kept = entry[1]
+            elif entry[1] == seg_sig:
+                kept = entry[2]
+            if kept is not None:
+                m.kept_source = "memo"
+        if kept is None:
+            kept = filter_derived_kept(q, lowering, ds)
+            if kept is not None:
+                self._adaptive_kept[qkey] = ("derived", kept)
+                m.kept_source = "derived"
+        if kept is None:
+            counts = self._presence_counts(q, ds, lowering, segs, m)
+            kept = [np.nonzero(c > 0)[0].astype(np.int32) for c in counts]
+            self._adaptive_kept[qkey] = ("measured", seg_sig, kept)
+            m.kept_source = "measured"
+        Gc = 1
+        for kd in kept:
+            Gc *= len(kd)
+        m.compact_groups = Gc
+        reason = None
+        if Gc > ADAPTIVE_MAX_COMPACT_GROUPS:
+            reason = f"adaptive: G'={Gc} > ADAPTIVE_MAX_COMPACT_GROUPS={ADAPTIVE_MAX_COMPACT_GROUPS}"
+        elif Gc > ADAPTIVE_MIN_SHRINK * lowering.num_groups:
+            reason = f"adaptive: G'={Gc} > ADAPTIVE_MIN_SHRINK * G={lowering.num_groups}"
+        if reason is not None:
+            self._adaptive_declined[qkey] = reason
+            self._adaptive_kept.pop(qkey, None)
+            m.declines.append(reason)
+            return None
+        return kept
+
+    def _groupby_adaptive(self, q, ds: DataSource, lowering: GroupByLowering, segs, m):
+        """The adaptive tier over the (non-empty) segment scope: the
+        compacted lowering and the host state of its pass (sums, mins,
+        maxs, sketch states, no slot gids), or None when it declines."""
+        kept = self._adaptive_kept_codes(q, ds, lowering, segs, m)
+        if kept is None:
+            return None
+        if any(len(kd) == 0 for kd in kept):
+            # a grouped dimension has no code under the filter: the exact
+            # answer is the empty grouped frame
+            m.inner_strategy = "none"
+            la = lowering.la
+            return (lowering, *self._host_state(la, empty_partials(la, 0, self.device)))
+        key = _query_key(q, ds) + ("adaptive",) + tuple(kd.tobytes() for kd in kept)
+        clow = self._lowering_cache.get(key)
+        if clow is None:
+            clow = compacted_lowering(lowering, kept)
+            self._lowering_cache[key] = clow
+        m.inner_strategy = self._resolve_strategy(clow.num_groups)
+        state = self._partials_for_query(clow, segs, ds, m.inner_strategy, m)
+        return (clow, *self._host_state(clow.la, state))

@@ -11,7 +11,12 @@ over a datasource's segments:
    combined group id and the pre-masked value columns, and
    `ops/groupby.partial_aggregate` reduces them to [G, M] partial states —
    on a CUDA device through the hand-written kernel (`ops/cuda_groupby.py`)
-   for G <= SCATTER_CUTOVER; from the same group ids and mask,
+   for G <= SCATTER_CUTOVER.  Above it the high-cardinality tiers go first:
+   adaptive domain compaction (`exec/adaptive_exec.py`) runs the kernel over
+   the codes present under the filter, the sparse tier
+   (`exec/sparse_exec.py`) over the present group ids compacted to slots,
+   and the scatter path runs only after both declined.  From the same group
+   ids and mask,
    `sketch_partials` builds each sketch aggregator's partial state (HLL
    registers, theta hash sets, quantile samples: `ops/hll.py`,
    `ops/theta.py`, `ops/quantiles.py`);
@@ -41,6 +46,7 @@ from ..models import query as Q
 from ..ops.filters import numeric_dict_code_bounds
 from ..ops.groupby import partial_aggregate, resolve_strategy
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
+from .adaptive_exec import AdaptiveDomainMixin
 from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
 from .lowering import (
     GroupByLowering,
@@ -49,11 +55,13 @@ from .lowering import (
     empty_partials,
     groupby_with_time_granularity,
     lower_groupby,
+    memo_key,
     sketch_ops,
     timeseries_to_groupby,
     topn_to_groupby,
 )
 from .metrics import QueryMetrics
+from .sparse_exec import SparseExecMixin
 
 
 def _bytes_scanned(segs, columns) -> int:
@@ -249,21 +257,61 @@ def resolve_device(device=None) -> torch.device:
     return device
 
 
-class Engine:
+STRATEGIES = ("auto", "adaptive", "sparse", "segment", "cuda", "dense")
+
+
+class Engine(AdaptiveDomainMixin, SparseExecMixin):
     """Executes GroupBy, Timeseries and TopN query specs on one device.
 
-    The group-by strategy follows `ops/groupby.resolve_strategy`: scatter
-    above SCATTER_CUTOVER groups; at or below it the CUDA kernel on a CUDA
-    device and the plain dense version on the CPU."""
+    `strategy` takes the reference's names:
 
-    def __init__(self, device=None):
+    * "auto" (the default): at G <= SCATTER_CUTOVER the group-by kernel (its
+      plain version on the CPU); above it the adaptive tier, then, on a
+      card, the sparse tier, and the scatter path only after both declined;
+    * "adaptive": the adaptive tier, then the sparse tier (on any device);
+    * "sparse": the sparse tier alone above the cutover;
+    * "segment": the scatter path at every G;
+    * "cuda": the kernel at every G (it takes G <= SCATTER_CUTOVER);
+    * "dense": the one-hot class: the kernel on a card, its plain version
+      on the CPU, and on a card the sparse tier above the cutover.
+
+    A tier declines only for the deterministic reasons it records in
+    `QueryMetrics.declines`; an error raises."""
+
+    def __init__(self, device=None, strategy: str = "auto"):
+        if strategy not in STRATEGIES:
+            raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
         self.device = resolve_device(device)
+        self.strategy = strategy
         # LRU residency of device columns under a byte budget
         self._device_cache = ByteBudgetCache(_default_device_budget(self.device))
         # (query json, datasource schema) -> GroupByLowering: lowering is
         # host work that also stages device constants
         self._lowering_cache = CountBudgetCache(LOWERING_CACHE_ENTRIES)
         self.last_metrics: Optional[QueryMetrics] = None
+        # what the tiers learn per query (memo_key): the adaptive kept sets
+        # and declines, the sparse rungs, and the queries pinned off the
+        # sparse tier because their groups overflow its top rung
+        self._adaptive_kept: Dict = {}
+        self._adaptive_declined: Dict = {}
+        self._sparse_row_capacity: Dict = {}
+        self._sparse_slots: Dict = {}
+        self._sparse_disabled: Dict = {}
+
+    def _kernel_class(self) -> str:
+        """The one-hot kernel class on this engine's device: "cuda" (the
+        hand-written kernel) on a card, its plain version "dense" on the
+        CPU."""
+        return resolve_strategy("auto", 1, self.device)
+
+    def _resolve_strategy(self, num_groups: int) -> str:
+        """The kernel strategy of a pass over `num_groups` groups outside the
+        tiers."""
+        if self.strategy in ("auto", "adaptive", "sparse"):
+            return resolve_strategy("auto", num_groups, self.device)
+        if self.strategy == "dense":
+            return self._kernel_class()
+        return self.strategy
 
     # -- segment residency ---------------------------------------------------
 
@@ -325,24 +373,31 @@ class Engine:
             self._lowering_cache[key] = lowering
         return lowering
 
-    def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource):
-        t_total = time.perf_counter()
+    def tiers(self, q: Q.QuerySpec, ds: DataSource) -> List[str]:
+        """The paths this engine tries for a group-by, in order: the tiers
+        that apply to it, then the kernel strategy that answers when they
+        decline."""
+        if isinstance(q, Q.TimeseriesQuery):
+            q = timeseries_to_groupby(q)
+        elif isinstance(q, Q.TopNQuery):
+            q = topn_to_groupby(q)
         q = groupby_with_time_granularity(q)
         lowering = self._lowering_for(q, ds)
-        segs = segments_in_scope(q, ds)
+        out = []
+        if self._adaptive_eligible(lowering):
+            out.append("adaptive")
+        if self._sparse_eligible(lowering):
+            out.append("sparse")
+        return out + [self._resolve_strategy(lowering.num_groups)]
+
+    def _partials_for_query(
+        self, lowering: GroupByLowering, segs, ds: DataSource, strategy: str,
+        m: QueryMetrics,
+    ):
+        """The segment loop: each segment's partial state by `strategy`,
+        folded in canonical segment order on the device.  Returns (sums,
+        mins, maxs, sketch states), or None when no segment is in scope."""
         la, G = lowering.la, lowering.num_groups
-        strategy = resolve_strategy("auto", G, self.device)
-        m = QueryMetrics(
-            query_type="groupBy",
-            strategy=strategy,
-            datasource=ds.name,
-            device=str(self.device),
-            rows_scanned=sum(s.num_rows for s in segs),
-            bytes_scanned=_bytes_scanned(segs, lowering.columns),
-            segments=len(segs),
-            num_groups=G,
-        )
-        t_dev = time.perf_counter()
         sums = mins = maxs = None
         sketches: Dict[str, torch.Tensor] = {}
         for seg in segs:  # canonical segment order: the fold order
@@ -365,16 +420,64 @@ class Engine:
                     la, sketches, sketch_partials(lowering, cols, gid, mask)
                 )
         if sums is None:
-            # every segment pruned: a valid, complete zero-row answer
-            sums, mins, maxs, sketches = empty_partials(la, G, self.device)
-        # the one host fetch of the query (synchronises the device)
+            return None
+        return sums, mins, maxs, sketches
+
+    def _host_state(self, la: LoweredAggs, state):
+        """A merged device state fetched to the host in one go: (sums, mins,
+        maxs, sketch states in the reference's layout, no slot gids)."""
+        sums, mins, maxs, sketches = state
         sums, mins, maxs = (t.cpu().numpy() for t in (sums, mins, maxs))
-        sketches = sketch_states_to_reference(la, sketches)
+        return sums, mins, maxs, sketch_states_to_reference(la, sketches), None
+
+    def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource):
+        t_total = time.perf_counter()
+        q = groupby_with_time_granularity(q)
+        lowering = self._lowering_for(q, ds)
+        segs = segments_in_scope(q, ds)
+        la, G = lowering.la, lowering.num_groups
+        m = QueryMetrics(
+            query_type="groupBy",
+            strategy=self._resolve_strategy(G),
+            datasource=ds.name,
+            device=str(self.device),
+            rows_scanned=sum(s.num_rows for s in segs),
+            bytes_scanned=_bytes_scanned(segs, lowering.columns),
+            segments=len(segs),
+            num_groups=G,
+        )
+        t_dev = time.perf_counter()
+        qkey = memo_key(q, ds)
+        out = None
+        if segs and self._adaptive_eligible(lowering):
+            if qkey in self._adaptive_declined:
+                m.declines.append(self._adaptive_declined[qkey])
+            else:
+                out = self._groupby_adaptive(q, ds, lowering, segs, m)
+                if out is not None:
+                    m.strategy = "adaptive"
+        if out is None and segs and self._sparse_eligible(lowering):
+            if qkey in self._sparse_disabled:
+                m.declines.append(self._sparse_disabled[qkey])
+            else:
+                out = self._groupby_sparse(q, ds, lowering, segs, m)
+                if out is not None:
+                    m.strategy = "sparse"
+        if out is None:
+            m.strategy = self._resolve_strategy(G)
+            state = self._partials_for_query(lowering, segs, ds, m.strategy, m)
+            if state is None:
+                # every segment pruned: a valid, complete zero-row answer
+                state = empty_partials(la, G, self.device)
+            out = (lowering, *self._host_state(la, state))
+        low, sums, mins, maxs, sketches, slot_gids = out
         m.device_ms = (time.perf_counter() - t_dev) * 1e3 - m.h2d_ms
         t0 = time.perf_counter()
-        out = finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
+        df = finalize_groupby(
+            q, low.dims, la, sums, mins, maxs, sketches, slot_gids=slot_gids
+        )
         m.finalize_ms = (time.perf_counter() - t0) * 1e3
         m.total_ms = (time.perf_counter() - t_total) * 1e3
         m.bytes_resident = self.bytes_resident()
         self.last_metrics = m
-        return out
+        return df

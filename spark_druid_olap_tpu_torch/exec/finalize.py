@@ -188,21 +188,31 @@ def finalize_groupby(
     mins: np.ndarray,
     maxs: np.ndarray,
     sketch_states: Mapping[str, np.ndarray],
+    slot_gids: Optional[np.ndarray] = None,
 ):
     """Merged partial state -> result DataFrame (decode, sketch estimates,
     post-aggs, having, order/limit).  `sketch_states` are host arrays in the
-    reference's layout (`exec/engine.sketch_states_to_reference`)."""
+    reference's layout (`exec/engine.sketch_states_to_reference`).
+
+    `slot_gids` switches to the sparse tier's layout
+    (`ops/sparse_groupby.py`): the arrays are indexed by slot, and
+    slot_gids maps a slot to its combined group id (-1 = empty slot)."""
     import pandas as pd
 
     rows_per_group = sums[:, 0]
-    present = rows_per_group > 0
-    if not dims:
-        # SQL: a global aggregate always yields one row (COUNT=0, SUM/
-        # MIN/MAX=NULL when nothing matched) — never an empty result
-        present = np.ones_like(present, dtype=bool)
-    sel = np.nonzero(present)[0]
-    idx = sel.astype(np.int64)
-    empty_group = rows_per_group[sel] == 0
+    if slot_gids is not None:
+        sel = np.nonzero((slot_gids >= 0) & (rows_per_group > 0))[0]
+        idx = slot_gids[sel].astype(np.int64)  # combined gid per kept slot
+        empty_group = np.zeros(len(sel), dtype=bool)
+    else:
+        present = rows_per_group > 0
+        if not dims:
+            # SQL: a global aggregate always yields one row (COUNT=0, SUM/
+            # MIN/MAX=NULL when nothing matched) — never an empty result
+            present = np.ones_like(present, dtype=bool)
+        sel = np.nonzero(present)[0]
+        idx = sel.astype(np.int64)
+        empty_group = rows_per_group[sel] == 0
 
     table: Dict[str, np.ndarray] = {}
     # decode combined gid -> per-dimension codes (row-major order)

@@ -480,6 +480,21 @@ def schema_signature(ds: DataSource) -> Tuple:
     )
 
 
+def memo_key(q: Q.QuerySpec, ds: DataSource) -> Tuple:
+    """Identity of (query, datasource schema) for what the engine learns
+    about a query: its adaptive kept sets and declines, its sparse rungs.
+    Unlike `_query_key` it leaves out the segment set, so an append keeps
+    the learned rungs; dictionary content stays in, because a dictionary
+    extension changes what the codes mean."""
+    import json as _json
+
+    return (
+        _json.dumps(q.to_druid(), sort_keys=True, default=str),
+        ds.name,
+        _dict_signature(ds),
+    )
+
+
 def _dict_signature(ds: DataSource) -> Tuple:
     return tuple(
         (

@@ -8,11 +8,22 @@ Phase semantics (wall clock, single process):
     merged [G, M] state.
   * `finalize_ms` — host-side result materialization.
   * `total_ms` — the whole execution.
+
+Tier fields (`exec/adaptive_exec.py`, `exec/sparse_exec.py`): `strategy`
+names the path that answered ("adaptive", "sparse", or the kernel strategy
+"cuda", "dense", "segment"); `declines` holds the reason of every tier that
+declined the query on the way there.  Adaptive: `compact_groups` (G'),
+`kept_source` ("measured" by a presence pass, "derived" from the filter,
+or "memo") and `inner_strategy` (the compacted pass's kernel strategy).
+Sparse: `sparse_slots` and `sparse_row_capacity` (the rungs that answered;
+0 = a full-segment sort), `sparse_passes` (passes over the segments, one
+more for every rung climbed) and `inner_strategy`.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import List, Optional
 
 
 @dataclasses.dataclass
@@ -33,6 +44,13 @@ class QueryMetrics:
     finalize_ms: float = 0.0
     total_ms: float = 0.0
     bytes_resident: int = 0
+    declines: List[str] = dataclasses.field(default_factory=list)
+    inner_strategy: str = ""
+    compact_groups: Optional[int] = None
+    kept_source: str = ""
+    sparse_slots: Optional[int] = None
+    sparse_row_capacity: Optional[int] = None
+    sparse_passes: int = 0
 
     @property
     def rows_per_sec(self) -> float:
@@ -50,6 +68,8 @@ class QueryMetrics:
             f"QueryMetrics[{self.query_type} strategy={self.strategy} "
             f"device={self.device} rows={self.rows_scanned} "
             f"segments={self.segments} groups={self.num_groups} "
+            f"compact_groups={self.compact_groups} slots={self.sparse_slots} "
+            f"row_capacity={self.sparse_row_capacity} declines={self.declines} "
             f"total={self.total_ms:.2f}ms (h2d={self.h2d_ms:.2f}ms/"
             f"{self.h2d_bytes}B device={self.device_ms:.2f}ms "
             f"finalize={self.finalize_ms:.2f}ms) "

@@ -1,0 +1,138 @@
+"""Sparse (sort-compaction) tier of the engine: the high-cardinality
+group-by of `ops/sparse_groupby.py` over a query's segments, with its two
+ladders.
+
+* Row capacity: a selective query packs each segment's surviving rows into
+  a rung of ROW_CAPACITY_LADDER before the sort.  The first rung comes from
+  the filter's estimated selectivity; when a segment has more survivors,
+  the exact count the state carries picks the smallest rung that holds
+  them (a full-segment sort past the top), and the query runs again.
+* Slots: SPARSE_SLOTS present groups fit the kernel's one pass over slots;
+  when more are present, the count the state carries picks the next rung
+  of SLOTS_LADDER (a segmented reduce over sorted runs), and the query runs
+  again.  Past the top rung the tier declines, and the query is pinned to
+  the scatter path.
+
+The per-segment states merge on the device in canonical segment order, so
+a query's sums are the same on every run, and the flags that decide the
+ladders ride the merged state: one small fetch per pass decides it.  The
+rungs a query needed are remembered (`lowering.memo_key`), so a repeat
+starts on them.  Only these deterministic declines route a query to
+another tier; an error raises.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import sparse_groupby as sg
+from ..ops.groupby import SCATTER_CUTOVER
+from ..plan.cost import estimate_selectivity
+from .lowering import GroupByLowering, memo_key
+
+
+class SparseExecMixin:
+    """Engine mixin (`exec/engine.Engine`): the sparse tier.  It uses the
+    engine's `_sparse_row_capacity` and `_sparse_slots` (memo key -> the
+    rung learned) and `_sparse_disabled` (memo key -> reason)."""
+
+    def _sparse_eligible(self, lowering: GroupByLowering) -> bool:
+        """Above the scatter cutover, for plain aggregates over real
+        dimensions (sketch states are dense per group; those queries stay
+        on the adaptive tier or scatter).  Under "sparse" or "adaptive"; and
+        under "auto" or "dense" where the kernel serves the device, the
+        counterpart of the reference's TPU-only upgrade: on the CPU the
+        scatter path beats the sort."""
+        if self.strategy in ("sparse", "adaptive"):
+            chosen = True
+        else:
+            chosen = self.strategy in ("auto", "dense") and self._kernel_class() == "cuda"
+        return (
+            chosen
+            and lowering.num_groups > SCATTER_CUTOVER
+            and not lowering.la.sketch_aggs
+            and bool(lowering.dims)
+        )
+
+    def _first_row_capacity(self, q, ds, segs):
+        """The first row-capacity rung: None (a full-segment sort) for an
+        unfiltered query, whose every row survives; else from the filter's
+        estimated selectivity with 2x headroom."""
+        if q.filter is None and not q.intervals:
+            return None
+        sel = estimate_selectivity(q.filter, ds) if q.filter is not None else 1.0
+        if sel >= 1.0:
+            return sg.ROW_CAPACITY  # nothing to act on: the default rung
+        need = 2.0 * sel * max(s.num_rows for s in segs)
+        return next((c for c in sg.ROW_CAPACITY_LADDER if c >= need), None)
+
+    def _sparse_pass(self, ds, lowering: GroupByLowering, segs, row_capacity, slots, m):
+        """One pass over the segments at the given rungs: the merged state,
+        on the device."""
+        la = lowering.la
+        G = lowering.num_groups
+        state = None
+        m.sparse_passes += 1
+        for seg in segs:  # canonical segment order: the merge order
+            cols = self._cols_for_segment(seg, ds, lowering.columns, m)
+            gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
+            st = sg.sparse_partial_aggregate(
+                gid, mask, sv, mmv, mmm,
+                num_groups=G, num_min=len(la.min_names), num_max=len(la.max_names),
+                slots=slots, inner_strategy=self._kernel_class(),
+                row_capacity=row_capacity,
+            )
+            state = st if state is None else sg.merge_sparse_states(state, st, G)
+        return state
+
+    @staticmethod
+    def _flags(state):
+        """(overflow, row_overflow, n_rows, n_real) in one fetch."""
+        keys = ("overflow", "row_overflow", "n_rows", "n_real")
+        ov, rov, n_rows, n_real = torch.stack([state[k].to(torch.int64) for k in keys]).tolist()
+        return bool(ov), bool(rov), n_rows, n_real
+
+    def _groupby_sparse(self, q, ds, lowering: GroupByLowering, segs, m):
+        """The sparse tier over the (non-empty) segment scope: the host state
+        (lowering, sums, mins, maxs, sketch states, slot gids), or None when
+        the present groups overflow the top of SLOTS_LADDER (the query is
+        then pinned to the scatter path)."""
+        qkey = memo_key(q, ds)
+        if qkey in self._sparse_row_capacity:
+            cap = self._sparse_row_capacity[qkey]
+        else:
+            cap = self._first_row_capacity(q, ds, segs)
+        slots = self._sparse_slots.get(qkey, sg.SPARSE_SLOTS)
+        m.inner_strategy = (
+            self._kernel_class() if slots <= sg.SPARSE_SLOTS else "segmented_reduce"
+        )
+        while True:
+            state = self._sparse_pass(ds, lowering, segs, cap, slots, m)
+            overflow, row_overflow, n_rows, n_real = self._flags(state)
+            if cap is not None and row_overflow:
+                # the smallest rung that holds the largest segment's
+                # survivors, or a full-segment sort past the top
+                cap = next(
+                    (c for c in sg.ROW_CAPACITY_LADDER if c >= n_rows and c > cap), None)
+                self._sparse_row_capacity[qkey] = cap
+                continue
+            if not overflow:
+                break
+            # more present groups than slots: the smallest rung that holds
+            # the count; an overflowed merge reports a lower bound, so past
+            # the top of the ladder climb one rung and let the rerun decide
+            new = next((s for s in sg.SLOTS_LADDER if s >= n_real and s > slots), None)
+            if new is None:
+                new = next((s for s in sg.SLOTS_LADDER if s > slots), None)
+            if new is None:
+                reason = (f"sparse: more than {slots} groups present "
+                          "(the top of SLOTS_LADDER)")
+                self._sparse_disabled[qkey] = reason
+                m.declines.append(reason)
+                return None
+            slots = self._sparse_slots[qkey] = new
+            m.inner_strategy = "segmented_reduce"
+        m.sparse_slots = slots
+        m.sparse_row_capacity = 0 if cap is None else cap
+        host = {k: state[k].cpu().numpy() for k in ("gids", "sums", "mins", "maxs")}
+        return lowering, host["sums"], host["mins"], host["maxs"], {}, host["gids"]

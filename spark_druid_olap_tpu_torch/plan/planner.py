@@ -4,11 +4,14 @@ Folds the transforms over the logical plan, threading an immutable
 `QueryBuilder`; the surviving builder picks the most specific query type
 (Timeseries, TopN, GroupBy).  Plans that cannot be rewritten raise
 `RewriteError` with the reason (surfaced by `explain`, the `EXPLAIN DRUID
-REWRITE` analog).  A non-aggregate plan would become a Scan query and an
-exact COUNT(DISTINCT) a two-phase plan, neither of which this package
-executes yet: planning either raises NotImplementedError.  There is no cost
-model: the engine picks the group-by strategy from the group count
-(`ops/groupby.resolve_strategy`), and `explain` prints that choice.
+REWRITE` analog).  Under `count_distinct_mode = 'exact'` a COUNT(DISTINCT x)
+plans in two phases: an inner grouping by the query's dimensions and x (a
+high-cardinality group-by, which the engine's tiers carry) and a host
+re-aggregation (`ExactDistinctOuter`, run by `api`).  A non-aggregate plan
+would become a Scan query, which this package does not execute yet:
+planning one raises NotImplementedError.  There is no cost model: the
+engine picks the group-by path from the group count, and `explain` prints
+the paths it tries.
 """
 
 from __future__ import annotations
@@ -20,7 +23,6 @@ from typing import Dict, List, Optional, Tuple
 from ..catalog.segment import DataSource
 from ..config import SessionConfig
 from ..models import query as Q
-from ..ops.groupby import resolve_strategy
 from ..utils.log import get_logger
 from . import expr as E
 from . import logical as L
@@ -38,6 +40,29 @@ from .transforms import (
 )
 
 log = get_logger("plan.planner")
+
+
+@dataclasses.dataclass
+class ExactDistinctOuter:
+    """The host re-aggregation of an exact COUNT(DISTINCT) plan
+    (count_distinct_mode = 'exact', the reference's pushHLLTODruid = false).
+    The inner rewrite groups by (dims..., distinct columns...); the outer
+    pass re-aggregates on the host: re-aggregable aggregates fold with
+    `outer_ops`, a distinct output counts the unique non-null values of its
+    column, an AVG is recomputed from its sum and count parts."""
+
+    inner: "Rewrite"
+    dim_names: Tuple[str, ...]  # outer grouping columns
+    distinct_outs: Tuple[Tuple[str, str], ...]  # (output name, inner column)
+    outer_ops: Tuple[Tuple[str, str], ...]  # (column, "sum"|"min"|"max")
+    count_like: Tuple[str, ...]  # columns cast back to int64 after the fold
+    avg_div: Tuple[Tuple[str, str, str], ...]  # (name, sum col, count col)
+    post_exprs: Tuple[Tuple[str, E.Expr], ...]
+    having: Optional[E.Expr]
+    sort_keys: Tuple[Tuple[str, bool], ...]  # (column, ascending)
+    limit: Optional[int]
+    offset: int
+    output_columns: Tuple[str, ...]
 
 
 @dataclasses.dataclass
@@ -59,6 +84,9 @@ class Rewrite:
     # FD grouping pruning: (output column, hidden dimCodeMax agg, source
     # dimension) triples the API decodes back after execution
     fd_restores: Tuple[Tuple[str, str, str], ...] = ()
+    # set for an exact COUNT(DISTINCT) plan: `query` is then the inner
+    # grouping and this is its host re-aggregation
+    exact_distinct: Optional[ExactDistinctOuter] = None
 
     def to_json(self) -> str:
         return json.dumps(self.query.to_druid(), indent=2, default=str)
@@ -156,10 +184,8 @@ class Planner:
         if self.cfg.count_distinct_mode == "exact" and any(
             _is_count_distinct(ae) for ae in agg.agg_exprs
         ):
-            raise NotImplementedError(
-                "exact COUNT(DISTINCT) plans an inner grouping by the "
-                "distinct column and re-aggregates on the host, which this "
-                "package does not execute yet: ROADMAP queue A item 4"
+            return self._plan_exact_distinct(
+                agg, limit, offset, sort_keys, having_cond, top_projections
             )
         table, env, filters = self._collapse_below(agg.child)
         ds = self._ds(table)
@@ -378,6 +404,140 @@ class Planner:
             fd_restores=tuple(fd_restores),
         )
 
+    # -- exact COUNT(DISTINCT): two-phase plan -------------------------------
+
+    def _plan_exact_distinct(
+        self,
+        agg: L.Aggregate,
+        limit: Optional[int],
+        offset: int,
+        sort_keys: List[L.SortKey],
+        having_cond: Optional[E.Expr],
+        top_projections,
+    ) -> Rewrite:
+        """COUNT(DISTINCT x) becomes x added to an inner grouping, finished
+        on the host.  Every other aggregate must re-aggregate exactly
+        (sum/count -> sum, min/max -> min/max, avg -> its sum and count
+        parts); approximate sketches cannot, and are rejected."""
+        if agg.grouping_sets:
+            raise RewriteError(
+                "exact COUNT(DISTINCT) with CUBE/ROLLUP unsupported "
+                "(set count_distinct_mode='approx')"
+            )
+        distinct_outs: List[Tuple[str, str]] = []
+        inner_aggs: List[L.AggExpr] = []
+        outer_ops: List[Tuple[str, str]] = []
+        count_like: List[str] = []
+        avg_div: List[Tuple[str, str, str]] = []
+        extra_dims: Dict[str, E.Expr] = {}
+        for ae in agg.agg_exprs:
+            if ae.distinct and ae.fn in ("sum", "avg"):
+                raise RewriteError(
+                    f"{ae.fn.upper()}(DISTINCT) cannot re-aggregate exactly"
+                )
+            if _is_count_distinct(ae):
+                if not isinstance(ae.arg, E.Col):
+                    raise RewriteError(
+                        "exact COUNT(DISTINCT) over expressions unsupported"
+                    )
+                if ae.filter is not None:
+                    raise RewriteError("exact COUNT(DISTINCT) with FILTER unsupported")
+                extra_dims.setdefault(ae.arg.name, ae.arg)
+                distinct_outs.append((ae.name, ae.arg.name))
+            elif ae.fn == "approx_count_distinct":
+                raise RewriteError(
+                    "cannot mix exact COUNT(DISTINCT) with approx sketches "
+                    "in one query (sketch states do not re-aggregate "
+                    "exactly); use count_distinct_mode='approx'"
+                )
+            elif ae.fn == "avg":
+                # not the "__sum"/"__cnt" suffixes: the inner plan's default
+                # projection drops those as AVG-rewrite helpers
+                sname, cname = f"__ed_{ae.name}_sum", f"__ed_{ae.name}_cnt"
+                inner_aggs.append(L.AggExpr(sname, "sum", ae.arg, False, ae.filter))
+                inner_aggs.append(L.AggExpr(cname, "count", None, False, ae.filter))
+                outer_ops += [(sname, "sum"), (cname, "sum")]
+                count_like.append(cname)
+                avg_div.append((ae.name, sname, cname))
+            elif ae.fn in ("sum", "count"):
+                inner_aggs.append(ae)
+                outer_ops.append((ae.name, "sum"))
+                if ae.fn == "count":
+                    count_like.append(ae.name)
+            elif ae.fn in ("min", "max"):
+                inner_aggs.append(ae)
+                outer_ops.append((ae.name, ae.fn))
+            else:
+                raise RewriteError(
+                    f"aggregate {ae.fn!r} cannot re-aggregate exactly "
+                    "alongside exact COUNT(DISTINCT)"
+                )
+
+        inner = L.Aggregate(
+            agg.group_exprs + tuple((f"__dist_{n}", e) for n, e in extra_dims.items()),
+            tuple(inner_aggs),
+            agg.child,
+        )
+        try:
+            inner_rw = self._plan_aggregate(inner, None, 0, [], None, None)
+        except RewritePolicyError:
+            raise  # a policy rejection keeps its type
+        except RewriteError as e:
+            raise RewriteError(
+                "exact COUNT(DISTINCT) plans its argument as an inner "
+                f"grouping dimension, which failed: {e} (metric-typed "
+                "arguments need count_distinct_mode='approx')"
+            ) from e
+        distinct_outs = [(name, f"__dist_{col}") for name, col in distinct_outs]
+
+        dim_names = tuple(n for n, _ in agg.group_exprs)
+        known = (
+            set(dim_names)
+            | {n for n, _ in outer_ops}
+            | {n for n, _ in distinct_outs}
+            | {n for n, _, _ in avg_div}
+        )
+        post_exprs: List[Tuple[str, E.Expr]] = []
+        output_columns: List[str] = []
+        out_exprs = top_projections if top_projections is not None else agg.post_exprs
+        if out_exprs:
+            for name, pe in out_exprs:
+                if isinstance(pe, (E.Col, E.AggRef)) and pe.name in known:
+                    output_columns.append(pe.name)
+                    continue
+                post_exprs.append((name, pe))
+                output_columns.append(name)
+        else:
+            # declaration order, as the approx path's default: the column
+            # order must not depend on count_distinct_mode
+            output_columns = list(dim_names) + [ae.name for ae in agg.agg_exprs]
+
+        skeys: List[Tuple[str, bool]] = []
+        for sk in sort_keys:
+            if not isinstance(sk.expr, (E.Col, E.AggRef)):
+                raise RewriteError(
+                    "exact COUNT(DISTINCT) supports ORDER BY on named columns only"
+                )
+            skeys.append((sk.expr.name, sk.ascending))
+
+        return dataclasses.replace(
+            inner_rw,
+            exact_distinct=ExactDistinctOuter(
+                inner=inner_rw,
+                dim_names=dim_names,
+                distinct_outs=tuple(distinct_outs),
+                outer_ops=tuple(outer_ops),
+                count_like=tuple(count_like),
+                avg_div=tuple(avg_div),
+                post_exprs=tuple(post_exprs),
+                having=having_cond,
+                sort_keys=tuple(skeys),
+                limit=limit,
+                offset=offset,
+                output_columns=tuple(output_columns),
+            ),
+        )
+
     # -- scan path -----------------------------------------------------------
 
     def _plan_scan(
@@ -390,21 +550,27 @@ class Planner:
 
     # -- explain (EXPLAIN DRUID REWRITE analog) ------------------------------
 
-    def explain(self, lp: L.LogicalPlan, device="cpu") -> str:
-        """The logical plan, the rewritten query spec, and the group-by
-        strategy the engine on `device` resolves at the estimated G."""
+    def explain(self, lp: L.LogicalPlan, engine) -> str:
+        """The logical plan, the rewritten query spec, and the paths
+        `engine` tries for it (`Engine.tiers`): the first is printed as the
+        strategy, the rest are where it goes on a decline."""
         lines = ["== Logical Plan ==", lp.pretty(), ""]
         try:
             rw = self.plan(lp)
-            strategy = resolve_strategy("auto", rw.num_groups, device)
+            tiers = engine.tiers(rw.query, self._ds(rw.datasource))
             lines += [
                 "== Rewrite: %s ==" % type(rw.query).__name__,
                 rw.to_json(),
                 "",
                 "== Physical Plan ==",
-                f"strategy={strategy} estimated_groups={rw.num_groups} "
-                f"device={device}",
+                f"strategy={tiers[0]} tiers={'>'.join(tiers)} "
+                f"estimated_groups={rw.num_groups} device={engine.device}",
             ]
+            if rw.exact_distinct is not None:
+                lines.append(
+                    "exact COUNT(DISTINCT) (host): re-aggregates the inner "
+                    "grouping by " + ", ".join(rw.exact_distinct.dim_names or ("()",))
+                )
             if rw.residual_having is not None:
                 lines.append(f"residual HAVING (host): {rw.residual_having}")
             if rw.host_post_exprs:

@@ -32,11 +32,18 @@ specs, and float64 pandas oracles.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, Tuple
 
 import numpy as np
 
-from ..catalog.segment import DataSource, DimensionDict, build_datasource, code_dtype
+from ..catalog.segment import (
+    ColumnMeta,
+    DataSource,
+    DimensionDict,
+    build_datasource,
+    code_dtype,
+)
 from ..catalog.star import FunctionalDependency, StarRelationInfo, StarSchemaInfo
 from ..models import aggregations as A
 from ..models import filters as F
@@ -271,6 +278,40 @@ def datasource(cols, dicts, rows_per_segment: int = 1 << 19) -> DataSource:
     )
 
 
+# The star of `key_dimension_datasource`: the customer key determines the
+# customer's city, so a grouping by (c_city, lo_custkey) groups by the key
+# alone and carries the city (the planner's FD pruning), where the product
+# of the two cardinalities (251 x 300001 at SF10) would pass the lowering's
+# 2^26 bound on a combined domain.
+KEYED_STAR_SCHEMA = dataclasses.replace(
+    STAR_SCHEMA,
+    functional_dependencies=STAR_SCHEMA.functional_dependencies
+    + (FunctionalDependency("customer", "lo_custkey", "c_city"),),
+)
+
+
+def key_dimension_datasource(ds: DataSource, n_keys: int, key: str = "lo_custkey") -> DataSource:
+    """The flat datasource with the fact's foreign key `key` (a metric) made a
+    dimension, so that an exact COUNT(DISTINCT key) can group by it: the
+    same segments and arrays, the key's dictionary its dense values
+    0..n_keys-1, so its codes are its values and its resident device column
+    is shared with the metric's.  Register it with KEYED_STAR_SCHEMA."""
+    dic = DimensionDict(values=tuple(range(n_keys)))
+    segs = tuple(
+        dataclasses.replace(
+            s,
+            dims={**s.dims, key: s.metrics[key]},
+            metrics={k: v for k, v in s.metrics.items() if k != key},
+        )
+        for s in ds.segments
+    )
+    cols = tuple(
+        ColumnMeta(key, "dimension", "long", cardinality=n_keys) if c.name == key else c
+        for c in ds.columns
+    )
+    return dataclasses.replace(ds, columns=cols, dicts={**ds.dicts, key: dic}, segments=segs)
+
+
 def register(ctx, scale: float = 0.01, seed: int = 7,
              rows_per_segment: int = 1 << 19, tables=None,
              sort_by=("lo_orderdate",)):
@@ -436,6 +477,15 @@ SKETCH_QUERIES: Dict[str, str] = {
     ),
 }
 QUANTILE_FRACTIONS = {"p50": 0.5, "p90": 0.9}
+# Exact COUNT(DISTINCT): config #3's TopN with the sketch replaced by an
+# exact count, and a global count, planned under count_distinct_mode =
+# 'exact' over `key_dimension_datasource` (the distinct column must be a
+# dimension: its inner grouping is by c_city and lo_custkey).
+EXACT_DISTINCT_QUERIES: Dict[str, str] = {
+    "topn_exact": SKETCH_QUERIES["topn_hll"].replace(
+        "approx_count_distinct(lo_custkey)", "COUNT(DISTINCT lo_custkey)"),
+    "count_distinct": "SELECT count(DISTINCT lo_custkey) AS uniq_custs FROM lineorder",
+}
 
 
 def quantile_rank_bound(fraction: float, k: int = 1024) -> float:
@@ -462,6 +512,7 @@ DISTINCT_REL_BOUND = {
     "filtered_hll": 4 * 1.04 / np.sqrt(2048),
     "cube_hll": 4 * 1.04 / np.sqrt(2048),
     "cube_theta": 4 / np.sqrt(4095),
+    "topn_exact": 0.0,  # exact: equal to the oracle's count
 }
 
 
@@ -802,7 +853,9 @@ def sketch_oracle(f, name: str):
 
     rev = np.asarray(f.lo_revenue, dtype=np.float64)
     cust = np.asarray(f.lo_custkey).astype(np.int64)
-    if name in ("topn_hll", "filtered_hll"):
+    if name == "count_distinct":
+        return pd.DataFrame({"uniq_custs": [len(np.unique(cust))]})
+    if name in ("topn_hll", "filtered_hll", "topn_exact"):
         codes, vals = _factorize(f.c_city)
         G = len(vals)
         if name == "filtered_hll":
@@ -863,7 +916,11 @@ def check_sketch_answer(name: str, got, want, rtol: float = 2e-5) -> Dict[str, f
     exactly where its bits say.  Raises AssertionError; returns the largest
     errors seen (for quantiles, per fraction: the rank error and the
     relative distance in value from the exact quantile)."""
-    topn = name in ("topn_hll", "filtered_hll")
+    if name == "count_distinct":
+        if list(got.uniq_custs) != list(want.uniq_custs):
+            raise AssertionError(f"{name}: {list(got.uniq_custs)} vs {list(want.uniq_custs)}")
+        return {"distinct_max_rel_err": 0.0}
+    topn = name in ("topn_hll", "filtered_hll", "topn_exact")
     dims = ("c_city",) if topn else {"quantiles": ("d_year",)}.get(
         name, CUBE_DIMS + ("__grouping_id",)
     )

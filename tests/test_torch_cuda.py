@@ -237,3 +237,90 @@ def test_sketch_queries_on_card_match_cpu(card):
         want = want.sort_values(keys, na_position="last").reset_index(drop=True)
         pd.testing.assert_frame_equal(got[keys], want[keys], check_exact=True)
         np.testing.assert_allclose(got.revenue, want.revenue, rtol=2e-5, err_msg=name)
+
+
+def _sparse_inputs(seed, R, G, distinct, p):
+    """Rows over the same `distinct` group ids (seed 0) whatever the seed."""
+    pool = np.random.default_rng(0).choice(G, size=distinct, replace=False).astype(np.int32)
+    rng = np.random.default_rng(seed)
+    mask = rng.random(R) < p
+    return (pool[rng.integers(0, distinct, R)], mask,
+            (rng.random((R, 2)) * 100 * mask[:, None]).astype(np.float32),
+            rng.random((R, 2)).astype(np.float32), rng.random((R, 2)) < 0.9)
+
+
+@pytest.mark.parametrize("slots,cap", [(4096, None), (4096, 8192), (1 << 18, None)])
+def test_sparse_tier_ops_on_card_match_cpu(card, slots, cap):
+    """sparse_partial_aggregate (the kernel over 4096 slots, the segmented
+    reduce above) and merge_sparse_states on the card against the CPU:
+    gids, mins, maxs, flags and counts equal, sums within rtol 1e-5, and
+    two launches bit-equal."""
+    from spark_druid_olap_tpu_torch.ops import sparse_groupby as sg
+
+    G = 1 << 22
+    states = {"cpu": None, "card": None}
+    for seed in (1, 2):
+        arrs = _sparse_inputs(seed, 65536, G, 3000 if slots <= 4096 else 40000, 0.7)
+        for where, dev, inner in (("cpu", "cpu", "dense"), ("card", card, "cuda")):
+            t = [torch.from_numpy(a).to(dev) for a in arrs]
+            kw = dict(num_groups=G, num_min=1, num_max=1, slots=slots,
+                      inner_strategy=inner, row_capacity=cap)
+            st = sg.sparse_partial_aggregate(*t, **kw)
+            if where == "card":
+                again = sg.sparse_partial_aggregate(*t, **kw)
+                assert all(torch.equal(st[k], again[k]) for k in st)
+            prev = states[where]
+            states[where] = st if prev is None else sg.merge_sparse_states(prev, st, G)
+    got, want = states["card"], states["cpu"]
+    assert not bool(want["overflow"])
+    for k in want:
+        if k == "sums":
+            np.testing.assert_allclose(got[k].cpu().numpy(), want[k].numpy(), rtol=1e-5)
+        else:
+            assert torch.equal(got[k].cpu(), want[k]), k
+
+
+def test_high_cardinality_tiers_on_card_match_cpu(card):
+    """The high-cardinality SSB queries and the exact-distinct queries on
+    the card under "auto", "sparse" and "segment" against the CPU: the same
+    path, keys and counts equal, sums within 2e-5, a second run bit-equal,
+    and the kernel launched by every tier pass at most 4096 wide."""
+    tables = ssb.gen_tables(0.01, seed=11)
+    cols, dicts = ssb.flat_columns(tables)
+    ds = ssb.datasource(cols, dicts, rows_per_segment=16384)
+    keyed = ssb.key_dimension_datasource(ds, len(tables["customer"]["c_custkey"]))
+    names = ["q2_1", "q2_2", "q2_3", "q3_1", "q3_2", "q3_3", "q3_4", "q4_2", "q4_3"]
+    exact = {}
+    for where in ("cpu", card):
+        ctx = TPUOlapContext(device=where)
+        ctx.register_datasource(keyed, star_schema=ssb.KEYED_STAR_SCHEMA)
+        ctx.sql("SET count_distinct_mode = 'exact'")
+        exact[where] = ctx
+    for strategy in ("auto", "sparse", "segment"):
+        cpu = Engine(device="cpu", strategy=strategy)
+        gpu = Engine(device=card, strategy=strategy)
+        for name in names:
+            q = ssb.NATIVE_QUERIES[name]
+            before = cg.LAUNCHES
+            got = gpu.execute(q, ds)
+            m = gpu.last_metrics
+            pd.testing.assert_frame_equal(gpu.execute(q, ds), got, check_exact=True)
+            want = cpu.execute(q, ds)
+            if strategy == "auto":
+                assert m.strategy in ("adaptive", "sparse") or m.declines, m.describe()
+            if (m.strategy == "adaptive" and 0 < m.compact_groups <= 4096) or (
+                    m.strategy == "sparse" and m.sparse_slots <= 4096):
+                assert m.inner_strategy == "cuda" and cg.LAUNCHES > before, m.describe()
+            keys = [c for c in want.columns if want[c].dtype.kind != "f"]
+            got = got.sort_values(keys).reset_index(drop=True)
+            want = want.sort_values(keys).reset_index(drop=True)
+            pd.testing.assert_frame_equal(got[keys], want[keys], check_exact=True)
+            for c in want.columns.difference(keys):
+                np.testing.assert_allclose(got[c], want[c], rtol=2e-5, err_msg=name)
+    frame = ssb.flat_frame(tables)
+    for name, sql in ssb.EXACT_DISTINCT_QUERIES.items():
+        got = exact[card].sql(sql)
+        pd.testing.assert_frame_equal(exact[card].sql(sql), got, check_exact=True)
+        ssb.check_sketch_answer(name, got, ssb.sketch_oracle(frame, name))
+        want = exact["cpu"].sql(sql)
+        np.testing.assert_array_equal(got.uniq_custs, want.uniq_custs)

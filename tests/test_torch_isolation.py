@@ -46,7 +46,11 @@ def test_importing_the_port_loads_no_jax():
         [sys.executable, "-c", code], cwd=ROOT, capture_output=True,
         text=True, check=True,
     ).stdout.split()
-    assert "spark_druid_olap_tpu_torch.exec.engine" in out
+    assert {
+        f"spark_druid_olap_tpu_torch.{m}"
+        for m in ("exec.engine", "exec.adaptive_exec", "exec.sparse_exec",
+                  "ops.sparse_groupby", "plan.cost")
+    } <= set(out)
     assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []
 

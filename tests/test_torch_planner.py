@@ -8,10 +8,12 @@ planner parity, and the strategy hand-off to the engine.
   between the packages for the rewrite-golden cases (and equals
   `tests/goldens/rewrites.json`), the 13 SSB queries and every TPC-H query;
   the SSB and TPC-H Q1 plans also equal the port's own native specs.
-* On the SQL path the engine resolves the same group-by strategy as the
-  native path for the same spec, and on a card no SQL query reaches the
-  kernel's plain twin (`dense_partial_aggregate`): checked by making the
-  engine resolve strategies for a CUDA device while it runs on the CPU.
+* On the SQL path the engine takes the same path (tier or kernel strategy)
+  as the native path for the same spec, and on a card no SQL query reaches
+  the kernel's plain twin (`dense_partial_aggregate`), while every pass of
+  the high-cardinality tiers at most SCATTER_CUTOVER wide reaches the
+  kernel: checked by making the engine resolve strategies for a CUDA device
+  while it runs on the CPU.
 """
 
 import dataclasses
@@ -194,11 +196,11 @@ def test_star_join_collapses_onto_the_flat_datasource(ctxs):
     assert [r[0] for r in rw.fd_restores] == ["c_name", "c_nation"]
 
 
-@pytest.mark.parametrize("name,strategy", [("q1_1", "dense"), ("q3_2", "segment")])
+@pytest.mark.parametrize("name,strategy", [("q1_1", "dense"), ("q3_2", "adaptive")])
 def test_explain_prints_the_engines_strategy(ctxs, name, strategy):
-    """`explain` prints the strategy the context's engine resolves at the
-    planned G (on the CPU the kernel's twin "dense" at G <= 4096), and the
-    engine then runs that strategy."""
+    """`explain` prints the first path the context's engine tries (on the
+    CPU the kernel's twin "dense" at G <= 4096, the adaptive tier above),
+    and the engine then runs that path."""
     _, port = ctxs
     text = port.explain(tssb.QUERIES[name])
     assert "== Rewrite: GroupByQuery ==" in text
@@ -223,9 +225,14 @@ def test_sql_strategy_equals_native_strategy(ctxs):
         native = port.last_metrics
         assert via_sql.strategy == native.strategy, sql
         assert via_sql.num_groups == native.num_groups, sql
-        assert via_sql.strategy == tgroupby.resolve_strategy(
-            "auto", native.num_groups, "cpu"
-        )
+        tiers = port.engine.tiers(rw.query, port.catalog.get(rw.datasource))
+        assert via_sql.strategy in tiers, sql
+        if native.num_groups <= tgroupby.SCATTER_CUTOVER:
+            assert via_sql.strategy == tgroupby.resolve_strategy(
+                "auto", native.num_groups, "cpu"
+            )
+        elif via_sql.strategy == "segment":  # only after the tiers declined
+            assert via_sql.declines, sql
 
 
 def _card_spies(monkeypatch):
@@ -254,7 +261,9 @@ def _card_spies(monkeypatch):
 def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
     """The engine resolves strategies as on a CUDA device: every query with
     G <= SCATTER_CUTOVER must go to the kernel's wrapper, none to
-    `dense_partial_aggregate` directly."""
+    `dense_partial_aggregate` directly; above it the adaptive or sparse
+    tier answers, and the kernel carries every pass whose compacted
+    domain or slot count is at most SCATTER_CUTOVER."""
     _, port = ctxs
     calls = _card_spies(monkeypatch)
     for sql in WORKLOAD_SQL:
@@ -264,8 +273,14 @@ def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
         if m.num_groups <= tgroupby.SCATTER_CUTOVER:
             assert m.strategy == "cuda", sql
             assert calls["kernel"] - before == m.segments, sql
-        else:
-            assert m.strategy == "segment", sql
+            continue
+        assert m.strategy in ("adaptive", "sparse") or m.declines, sql
+        if m.strategy == "adaptive" and 0 < m.compact_groups <= tgroupby.SCATTER_CUTOVER:
+            assert m.inner_strategy == "cuda", sql
+            assert calls["kernel"] - before >= m.segments, sql
+        if m.strategy == "sparse" and m.sparse_slots <= tgroupby.SCATTER_CUTOVER:
+            assert m.inner_strategy == "cuda", sql
+            assert calls["kernel"] - before == m.segments * m.sparse_passes, sql
     assert calls["dense"] == 0
 
 

@@ -13,10 +13,11 @@
 * Commands (CREATE TABLE ... OPTIONS, CREATE VIEW, SET, SHOW TABLES,
   DESCRIBE) give the reference's frames.
 * What the port does not execute yet raises, where the reference answers
-  on its host fallback or its exact-distinct path: a subquery and a SELECT
-  over a view (RewriteError), exact COUNT(DISTINCT) and a non-aggregate
-  scan (NotImplementedError), and SET on a flag of a tier the port does
-  not have (KeyError).  `TPUOlapContext()` with no GPU and no device raises.
+  on its host fallback: a subquery and a SELECT over a view (RewriteError),
+  a non-aggregate scan (NotImplementedError), and SET on a flag of a tier
+  the port does not have (KeyError).  (Exact COUNT(DISTINCT), once such a
+  gap, is held to the reference in `test_torch_exact_distinct.py`.)
+  `TPUOlapContext()` with no GPU and no device raises.
 """
 
 import json
@@ -31,7 +32,6 @@ import spark_druid_olap_tpu as sd
 from spark_druid_olap_tpu.workloads import ssb as jssb
 from spark_druid_olap_tpu.workloads import tpch as jtpch
 from spark_druid_olap_tpu_torch.api import TPUOlapContext
-from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.plan.planner import RewriteError
 from spark_druid_olap_tpu_torch.workloads import ssb as tssb
 from spark_druid_olap_tpu_torch.workloads import tpch as ttpch
@@ -248,37 +248,25 @@ GAPS = {
         "SELECT l_returnflag, sum(l_quantity) AS q FROM lineitem WHERE "
         "l_orderkey IN (SELECT l_orderkey FROM lineitem WHERE l_quantity > 49) "
         "GROUP BY l_returnflag",
-        RewriteError, None,
-    ),
-    "exact_count_distinct": (
-        "SELECT l_returnflag, count(DISTINCT l_shipmode) AS m FROM lineitem "
-        "GROUP BY l_returnflag",
-        NotImplementedError, "exact",
+        RewriteError,
     ),
     "scan": (
         "SELECT l_returnflag, l_quantity FROM lineitem WHERE l_quantity > 49 "
         "LIMIT 5",
-        NotImplementedError, None,
+        NotImplementedError,
     ),
     # a flag of a tier the port does not have yet (the host fallback)
-    "unported_flag": ("SET fallback_execution = true", KeyError, None),
+    "unported_flag": ("SET fallback_execution = true", KeyError),
 }
 
 
 @pytest.mark.parametrize("name", list(GAPS))
 def test_unported_shapes_raise_where_the_reference_answers(ctxs, name):
     ref, port = ctxs
-    sql, exc, mode = GAPS[name]
-    old_ref, old_port = ref.config.count_distinct_mode, port.config
-    try:
-        if mode is not None:
-            ref.config.count_distinct_mode = mode
-            port.config = SessionConfig(count_distinct_mode=mode)
-        assert len(ref.sql(sql)) > 0
-        with pytest.raises(exc):
-            port.sql(sql)
-    finally:
-        ref.config.count_distinct_mode, port.config = old_ref, old_port
+    sql, exc = GAPS[name]
+    assert len(ref.sql(sql)) > 0
+    with pytest.raises(exc):
+        port.sql(sql)
 
 
 def test_context_without_cuda_raises(monkeypatch):
