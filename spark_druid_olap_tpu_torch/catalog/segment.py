@@ -278,6 +278,38 @@ class DataSource:
         return (min(i[0] for i in ivs), max(i[1] for i in ivs))
 
 
+def schema_datasource(
+    name: str,
+    dims: Mapping[str, "DimensionDict"],
+    metric_cols: Mapping[str, str],
+    time_col: Optional[str] = None,
+) -> DataSource:
+    """A zero-segment DataSource carrying only schema and dictionaries: the
+    anchor of a stream (`exec/streaming.py`), whose row chunks never become
+    catalog segments.  `dims` values may be DimensionDicts or plain value
+    sequences; `metric_cols` maps name -> "long" | "double"."""
+    ddicts: Dict[str, DimensionDict] = {}
+    metas: List[ColumnMeta] = []
+    for d, v in dims.items():
+        dd = v if isinstance(v, DimensionDict) else DimensionDict(
+            values=tuple(sorted(set(v)))
+        )
+        ddicts[d] = dd
+        dtype = "long" if dd.numeric_values is not None else "string"
+        metas.append(ColumnMeta(d, "dimension", dtype, cardinality=dd.cardinality))
+    for m, dtype in metric_cols.items():
+        metas.append(ColumnMeta(m, "metric", dtype))
+    if time_col is not None:
+        metas.append(ColumnMeta(time_col, "time", "timestamp"))
+    return DataSource(
+        name=name,
+        columns=tuple(metas),
+        dicts=ddicts,
+        segments=(),
+        time_column=time_col,
+    )
+
+
 def compute_segment_stats(
     dims: Mapping[str, np.ndarray],
     metrics: Mapping[str, np.ndarray],

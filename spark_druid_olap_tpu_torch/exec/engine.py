@@ -228,6 +228,39 @@ def sketch_states_to_reference(
     }
 
 
+def shard_partials(lowering: GroupByLowering, cols, strategy: str):
+    """One shard's partial state (sums, mins, maxs, sketch states) from its
+    device columns: `row_arrays`, then `partial_aggregate`, then the sketch
+    partials.  The segment loop and the streaming chunk loop both call it,
+    so a chunk and a segment of the same rows run the same ops in the same
+    order."""
+    la = lowering.la
+    if la.sketch_aggs:
+        cols = lowering.add_virtual(dict(cols))  # sketches read virtuals
+    gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
+    s, mn, mx = partial_aggregate(
+        gid, mask, sv, mmv, mmm,
+        num_groups=lowering.num_groups,
+        num_min=len(la.min_names),
+        num_max=len(la.max_names),
+        strategy=strategy,
+    )
+    sk = sketch_partials(lowering, cols, gid, mask) if la.sketch_aggs else {}
+    return s, mn, mx, sk
+
+
+def fold_partials(la: LoweredAggs, acc, part):
+    """`acc` folded with one more shard's partial state, the accumulator
+    first: sums add, min/max take `torch.minimum`/`torch.maximum`, sketches
+    merge by type.  `acc` None starts the fold."""
+    s, mn, mx, sk = part
+    sketches: Dict[str, torch.Tensor] = {} if acc is None else acc[3]
+    if acc is not None:
+        s, mn, mx = acc[0] + s, torch.minimum(acc[1], mn), torch.maximum(acc[2], mx)
+    merge_sketch_states(la, sketches, sk)
+    return s, mn, mx, sketches
+
+
 LOWERING_CACHE_ENTRIES = 256
 
 
@@ -397,31 +430,13 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         """The segment loop: each segment's partial state by `strategy`,
         folded in canonical segment order on the device.  Returns (sums,
         mins, maxs, sketch states), or None when no segment is in scope."""
-        la, G = lowering.la, lowering.num_groups
-        sums = mins = maxs = None
-        sketches: Dict[str, torch.Tensor] = {}
+        state = None
         for seg in segs:  # canonical segment order: the fold order
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
-            if la.sketch_aggs:
-                cols = lowering.add_virtual(dict(cols))  # sketches read virtuals
-            gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
-            s, mn, mx = partial_aggregate(
-                gid, mask, sv, mmv, mmm,
-                num_groups=G,
-                num_min=len(la.min_names),
-                num_max=len(la.max_names),
-                strategy=strategy,
+            state = fold_partials(
+                lowering.la, state, shard_partials(lowering, cols, strategy)
             )
-            sums = s if sums is None else sums + s
-            mins = mn if mins is None else torch.minimum(mins, mn)
-            maxs = mx if maxs is None else torch.maximum(maxs, mx)
-            if la.sketch_aggs:
-                merge_sketch_states(
-                    la, sketches, sketch_partials(lowering, cols, gid, mask)
-                )
-        if sums is None:
-            return None
-        return sums, mins, maxs, sketches
+        return state
 
     def _host_state(self, la: LoweredAggs, state):
         """A merged device state fetched to the host in one go: (sums, mins,

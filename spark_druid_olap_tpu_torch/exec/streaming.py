@@ -1,0 +1,332 @@
+"""Streaming execution: aggregate row chunks that never fit on the device
+(or in host memory) at once.
+
+BASELINE config #4 is an hourly rollup over a 1B-row event stream, far
+beyond one card's memory.  The streaming executor holds O(chunk) rows on the
+device at any moment:
+
+  * chunks are normalized on a background producer thread (select the
+    needed columns, cast to the device dtypes, pad to one static shape)
+    straight into a slot of a pinned staging ring (`exec/pipeline.py`), so
+    host work on chunk k+1 overlaps the device's work on chunk k;
+  * time ships as int32 offsets plus an int64 base when a chunk's span
+    allows, and validity as the row count: the card rebuilds both
+    (`_prep`);
+  * with double buffering on, chunk k+1's copy is issued on a dedicated
+    copy stream before chunk k's compute, which waits on its own chunk's
+    copy event: the link streams behind the device;
+  * each chunk runs the engine's per-shard body (`engine.shard_partials`),
+    and only the [G, M] partial state and the sketch states persist across
+    chunks, folded in chunk order (`engine.fold_partials`), so a stream's
+    frame is bit-identical with double buffering on and off.
+
+The kernel strategy is the engine's (`Engine._resolve_strategy`): the
+group-by kernel at G <= 4096 on a card, its plain version on the CPU, the
+scatter path above 4096.  Only dense states apply; the adaptive and sparse
+tiers are not offered to a stream.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import threading
+import time
+from typing import Dict, Iterable, Iterator, Mapping, Optional
+
+import numpy as np
+import torch
+
+from ..catalog.segment import NULL_ID, ROW_PAD, DataSource
+from ..models import query as Q
+from .engine import Engine, fold_partials, shard_partials
+from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
+from .lowering import (
+    empty_partials,
+    groupby_with_time_granularity,
+    timeseries_to_groupby,
+    topn_to_groupby,
+)
+from .pipeline import StagingRing, pipelined_put
+
+_STOP = object()
+
+
+@dataclasses.dataclass
+class StreamStats:
+    rows: int = 0
+    chunks: int = 0
+    # stage seconds: normalize runs on the producer thread (overlapped with
+    # the device); put and dispatch are consumer-side walls of issuing the
+    # copies and the chunk's device work, not device time
+    normalize_s: float = 0.0
+    put_s: float = 0.0
+    dispatch_s: float = 0.0
+    # bytes shipped host -> device (post-normalization dtypes)
+    h2d_bytes: int = 0
+    strategy: str = ""  # the kernel strategy every chunk ran
+
+
+class StreamExecutor:
+    """Executes GroupBy, Timeseries and TopN over an iterator of host
+    row-chunks.
+
+    `chunks` yields dicts mapping column name -> numpy array (row-aligned;
+    dimension columns already dictionary-encoded as int32 codes of the
+    datasource's dictionaries).  Every chunk must have at most `chunk_rows`
+    rows; shorter chunks are padded, and a validity mask keeps the padding
+    out of every aggregate.  `double_buffer=False` issues each chunk's copy
+    on the compute stream just before its compute, with no chunk held back:
+    the serial counterfactual, with the same results."""
+
+    def __init__(
+        self,
+        engine: Optional[Engine] = None,
+        prefetch: int = 2,
+        double_buffer: bool = True,
+    ):
+        self.engine = engine or Engine()
+        self.prefetch = prefetch
+        self.double_buffer = double_buffer
+        self.stats = StreamStats()
+        # time narrowing pays where the chunk crosses a link; on the CPU the
+        # copy is a local memcpy and the narrowing's extra host passes
+        # (min, max, subtract) are pure loss
+        self._narrow_time = self.engine.device.type == "cuda"
+
+    def _prep(self, dev, base: int, nrows: int, time_col, chunk_rows: int):
+        """Device-side chunk reconstruction: int64 time from int32 offsets
+        plus the base, the validity mask from the row count."""
+        cols = dict(dev)
+        off = cols.pop("__time_off", None)
+        if off is not None:
+            t = off.to(torch.int64) + base
+            cols[time_col] = t
+            cols["__time"] = t
+        elif time_col and time_col in cols:
+            cols["__time"] = cols[time_col]
+        cols["__valid"] = (
+            torch.arange(chunk_rows, dtype=torch.int32, device=self.engine.device)
+            < nrows
+        )
+        return cols
+
+    # -- public entry points -------------------------------------------------
+
+    def execute(
+        self,
+        q: Q.QuerySpec,
+        ds: DataSource,
+        chunks: Iterable[Mapping[str, np.ndarray]],
+        chunk_rows: int,
+    ):
+        if isinstance(q, Q.TimeseriesQuery):
+            df = self._execute_groupby(
+                timeseries_to_groupby(q), ds, chunks, chunk_rows
+            )
+            return finalize_timeseries(df, q, ds)
+        if isinstance(q, Q.TopNQuery):
+            df = self._execute_groupby(topn_to_groupby(q), ds, chunks, chunk_rows)
+            return finalize_topn(df, q)
+        if isinstance(q, Q.GroupByQuery):
+            return self._execute_groupby(q, ds, chunks, chunk_rows)
+        raise NotImplementedError(
+            f"streaming {type(q).__name__} (scan/search need no aggregation "
+            "state — iterate chunks host-side instead)"
+        )
+
+    # -- core ----------------------------------------------------------------
+
+    def _execute_groupby(
+        self,
+        q: Q.GroupByQuery,
+        ds: DataSource,
+        chunks: Iterable[Mapping[str, np.ndarray]],
+        chunk_rows: int,
+    ):
+        q = groupby_with_time_granularity(q)
+        if chunk_rows % ROW_PAD:
+            chunk_rows = -(-chunk_rows // ROW_PAD) * ROW_PAD
+        if (
+            any(d.dimension == "__time" or d.granularity for d in q.dimensions)
+            and not q.intervals
+            and ds.interval() is None
+        ):
+            raise ValueError(
+                "streaming time-bucketed queries need explicit intervals "
+                "(a schema-only datasource has no segment time range to "
+                "derive buckets from)"
+            )
+        eng = self.engine
+        lowering = eng._lowering_for(q, ds)
+        la, G = lowering.la, lowering.num_groups
+        strategy = eng._resolve_strategy(G)
+        self.stats = StreamStats(strategy=strategy)
+        state = None
+        for dev, base, nrows in self._prefetched_device_chunks(
+            chunks, lowering.columns, ds, chunk_rows
+        ):
+            t0 = time.perf_counter()
+            cols = self._prep(dev, base, nrows, ds.time_column, chunk_rows)
+            # the fold is in chunk order, whatever the copy order
+            state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
+            self.stats.chunks += 1
+            self.stats.dispatch_s += time.perf_counter() - t0
+        if state is None:  # empty stream
+            state = empty_partials(la, G, eng.device)
+        sums, mins, maxs, sketches, _ = eng._host_state(la, state)
+        return finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
+
+    # -- chunk plumbing ------------------------------------------------------
+
+    def _normalize_chunk(
+        self,
+        chunk: Mapping[str, np.ndarray],
+        need,
+        ds: DataSource,
+        chunk_rows: int,
+        ring: StagingRing,
+        slot: int,
+    ) -> Dict:
+        """Host-side, into ring slot `slot`: the needed columns cast to the
+        device dtypes and padded to the static chunk shape; time as int32
+        offsets plus a base where narrowing applies.  Returns the slot's
+        host tensors by device column name, with "__rows", "__slot" and, for
+        narrowed time, "__time_base"."""
+        first = next(iter(chunk.values()))
+        rows = len(first)
+        if rows > chunk_rows:
+            raise ValueError(f"chunk has {rows} rows > chunk_rows={chunk_rows}")
+        out: Dict = {"__slot": slot, "__rows": rows}
+        for n in need:
+            a = np.asarray(chunk[n])[:rows]
+            if n in ds.dicts:
+                dtype, fill = np.int32, NULL_ID
+            elif ds.time_column and n == ds.time_column:
+                # a chunk's time span virtually always fits int32 ms (~24
+                # days): ship base + offsets, halving the widest column
+                a = a.astype(np.int64, copy=False)
+                narrow = rows and self._narrow_time
+                base = int(a.min()) if narrow else 0
+                span = int(a.max()) - base if narrow else 1 << 31
+                if span < (1 << 31):
+                    t = ring.view(slot, n, np.int32)
+                    v = t.numpy()
+                    np.subtract(a, base, out=v[:rows], casting="unsafe")
+                    v[rows:] = 0
+                    out["__time_off"] = t
+                    out["__time_base"] = base
+                    continue
+                dtype, fill = np.int64, 0
+            elif a.dtype.kind in ("i", "u", "b"):
+                dtype, fill = np.int32, 0
+            else:
+                dtype, fill = np.float32, 0
+            t = ring.view(slot, n, dtype)
+            v = t.numpy()
+            np.copyto(v[:rows], a, casting="unsafe")
+            v[rows:] = fill
+            out[n] = t
+        return out
+
+    def _prefetched_device_chunks(
+        self, chunks, need, ds: DataSource, chunk_rows: int
+    ) -> Iterator:
+        """A background thread normalizes host chunks into the staging ring;
+        this (consumer) side issues the copies and every other device call,
+        and yields (device columns, time base, rows) in chunk order, each
+        chunk's copy waited on by the compute stream."""
+        device = self.engine.device
+        # a slot for the producer, `prefetch` queued, one in the consumer's
+        # hand and one whose copy may be in flight: the producer never
+        # waits for a slot the consumer cannot free
+        ring = StagingRing(need, chunk_rows, self.prefetch + 3, device)
+        q: "queue.Queue" = queue.Queue(maxsize=self.prefetch)
+        cancelled = threading.Event()
+
+        def _put(item) -> bool:
+            # bounded put that gives up when the consumer is gone, so a
+            # failing query never leaves the producer parked in q.put
+            while not cancelled.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def produce():
+            try:
+                for chunk in chunks:
+                    slot = ring.acquire(cancelled)
+                    if slot is None:
+                        return
+                    t0 = time.perf_counter()
+                    item = self._normalize_chunk(
+                        chunk, need, ds, chunk_rows, ring, slot
+                    )
+                    self.stats.normalize_s += time.perf_counter() - t0
+                    if not _put(item):
+                        return
+                _put(_STOP)
+            except BaseException as e:  # surfaced to (re-raised by) the consumer
+                _put(e)
+
+        def release(slot, event):
+            if event is not None:
+                event.synchronize()  # the copy has read the slot
+            ring.release(slot)
+
+        def ready(entry):
+            dev, event, base, rows = entry
+            if event is not None:
+                torch.cuda.current_stream(device).wait_event(event)
+            return dev, base, rows
+
+        copy_stream = (
+            torch.cuda.Stream(device)
+            if self.double_buffer and device.type == "cuda"
+            else None
+        )
+        held = None
+        in_flight = None
+        t = threading.Thread(target=produce, daemon=True)
+        t.start()
+        try:
+            while True:
+                item = q.get()
+                if item is _STOP:
+                    break
+                if isinstance(item, BaseException):
+                    raise item
+                slot = item.pop("__slot")
+                rows = item.pop("__rows")
+                base = item.pop("__time_base", 0)
+                t0 = time.perf_counter()
+                dev, event, nbytes = pipelined_put(item, device, copy_stream)
+                self.stats.put_s += time.perf_counter() - t0
+                self.stats.h2d_bytes += nbytes
+                self.stats.rows += rows
+                # the previous chunk's copy was issued a chunk ago
+                if in_flight is not None:
+                    release(*in_flight)
+                in_flight = (slot, event)
+                entry = (dev, event, base, rows)
+                if not self.double_buffer:
+                    yield ready(entry)
+                    continue
+                # hold one back: chunk k+1's copy is issued before chunk k's
+                # compute
+                held, entry = entry, held
+                if entry is not None:
+                    yield ready(entry)
+            if held is not None:
+                yield ready(held)
+        finally:
+            cancelled.set()
+            while True:  # unblock a producer stuck on a full queue
+                try:
+                    q.get_nowait()
+                except queue.Empty:
+                    break
+            t.join(timeout=5.0)

@@ -1,4 +1,5 @@
-"""Synthetic benchmark data generators (TPC-H lineitem, SSB flat star).
+"""Synthetic benchmark data generators (TPC-H lineitem, SSB flat star, the
+event stream).
 
 Statistically shaped synthetic tables with the real schemas, cardinalities
 and value ranges; parity tests compare results against a float64 oracle
@@ -143,3 +144,51 @@ SSB_METRICS = [
     "lo_quantity", "lo_extendedprice", "lo_discount", "lo_revenue",
     "lo_supplycost",
 ]
+
+
+# ---------------------------------------------------------------------------
+# Event stream (BASELINE config #4: hourly rollup over a 1B-row stream)
+# ---------------------------------------------------------------------------
+
+EVENT_SITES = 32  # site dimension cardinality
+EVENT_KINDS = 8  # event-kind dimension cardinality
+EVENT_T0 = "2024-01-01"  # stream start
+EVENT_SPAN_HOURS = 24 * 7  # one week of events
+
+
+def event_stream_schema():
+    """Schema-only datasource of the event stream (`exec/streaming.py`).
+
+    The dimension dictionaries are the dense integer domains 0..K-1, so the
+    generated values are their own rank codes: chunks need no encoding."""
+    from ..catalog.segment import DimensionDict, schema_datasource
+
+    return schema_datasource(
+        "events",
+        dims={
+            "site": DimensionDict(values=tuple(range(EVENT_SITES))),
+            "kind": DimensionDict(values=tuple(range(EVENT_KINDS))),
+        },
+        metric_cols={"value": "double", "latency": "double"},
+        time_col="ts",
+    )
+
+
+def event_stream_interval():
+    lo = int(np.datetime64(EVENT_T0, "ms").astype(np.int64))
+    return (lo, lo + EVENT_SPAN_HOURS * 3_600_000)
+
+
+def gen_event_chunk(chunk_idx: int, rows: int) -> Dict[str, np.ndarray]:
+    """Chunk `chunk_idx` of the synthetic event stream, seeded by its index,
+    so a 1B-row stream is `gen_event_chunk(i, rows)` for i below
+    1B / rows, in O(rows) host memory."""
+    rng = np.random.default_rng(1000 + chunk_idx)
+    lo, hi = event_stream_interval()
+    return {
+        "ts": rng.integers(lo, hi, size=rows, dtype=np.int64),
+        "site": rng.integers(0, EVENT_SITES, size=rows, dtype=np.int32),
+        "kind": rng.integers(0, EVENT_KINDS, size=rows, dtype=np.int32),
+        "value": (rng.random(rows) * 100.0).astype(np.float32),
+        "latency": (rng.gamma(2.0, 15.0, size=rows)).astype(np.float32),
+    }
