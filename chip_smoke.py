@@ -10,9 +10,9 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches in phases 4 to 9 (one 512K-row segment at each
+   the main path launches in phases 4 to 10 (one 512K-row segment at each
    query's and grouping set's G and column counts, at the tier's presence
-   counts and compacted domains, plus a time-sorted Timeseries segment, the
+   counts and compacted domains, at the fallback's assisted subtrees, plus a time-sorted Timeseries segment, the
    sparse tier's 4096 slots on rows sorted by slot, and the stream's 2^21-row
    chunk; a shape left out fails the run): mins/maxs
    exactly equal, sums within rtol 1e-5 (another summation order over
@@ -88,7 +88,23 @@ Phases, one JSON line each:
    replaced, and a global count) under count_distinct_mode = 'exact' over
    `ssb.key_dimension_datasource`: equal to the exact oracle, answered on a
    segmented-reduce rung.
-9. stream: BASELINE config #4, the hourly rollup over the event stream, as
+9. fallback: the twelve extended TPC-H classes (`tpch.EXTENDED_QUERIES`:
+   q2, q4, q9, q11, q13, q15, q16, q17, q18, q20, q21, q22) through
+   `ctx.sql` on phase 6's TPC-H context (lineitem SF1 resident, orders
+   1.5M rows, customer, supplier, part), with `rawline` (the normalized
+   lineitem, 6M rows) and `partsupp` registered: the planner rewrites
+   none but q9, so they run on the host fallback with their GROUP BY
+   subtrees offered to the device assist.  Every frame against its
+   float64 oracle (keys and counts exact, sums within rtol 2e-5),
+   bit-identical over two runs, and equal to the same query with the
+   assist off (`device_assist_min_rows` above every table's rows);
+   executor "device" for q9, "fallback" or "device+fallback" for the
+   rest; the kernel launched in at least one assisted query.  Reported per
+   query: executor, assists and declines, the G and tier of each engine
+   run, launches, the p50 of 3 warm runs with the assist on and off, the
+   decode ms of a cold and a warm run, and device busy ms and idle share
+   from one profiled run.  No scale is cut.
+10. stream: BASELINE config #4, the hourly rollup over the event stream, as
    `bench.py` sends it: a Timeseries at hour granularity (Count, DoubleSum
    of value, DoubleMax of latency) through `StreamExecutor.execute` over
    2^21-row chunks of `gen_event_chunk`, generated on 8 threads, staged in
@@ -108,7 +124,7 @@ Phases, one JSON line each:
    its copies or kernels is taken again, up to 3 windows; after that the
    events' numbers stand in (`timer`).
 
-Every kernel launch of phases 4 to 9 is at a (G, Ms, Mn, Mx) that phase 3
+Every kernel launch of phases 4 to 10 is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.
 
 Phases 4 and 6 also check the route of every query above 4096 groups, and
@@ -190,6 +206,11 @@ MAIN_SHAPES = [
 # passes at each query's G' (SSB SF10)
 MAIN_SHAPES += [(524288, G, 1, 0, 0) for G in (8, 26, 251, 1001)]
 MAIN_SHAPES += [(524288, G, 2, 0, 0) for G in (4, 7, 24, 100, 150, 273, 280, 600, 800)]
+# phase 9, the fallback's assisted subtrees at TPC-H SF1: Q2's min by
+# (s_region, p_type) under its window (Q15's and Q16's groupings by
+# s_nation and p_brand, and the sparse tier's first rung under Q4's EXISTS,
+# are shapes above)
+MAIN_SHAPES.append((524288, 36, 1, 1, 0))
 # phase 9: one 2^21-row chunk of the event stream, hourly buckets over the
 # week (169 with the bucket at the interval's end), rows and value summed,
 # latency maxed
@@ -621,7 +642,7 @@ def build_workloads(ssb_scale: float, tpch_scale: float, seed: int = 7):
     tcols, tdicts = tpch.flat_columns(tt)
     tpch_ds = tpch.datasource(tcols, tdicts, rows_per_segment=1 << 19)
     tpch_frame = tpch.flat_frame(tt)
-    del tcols, tt["lineitem"]
+    del tcols  # tt["lineitem"] stays: phase 9 registers it as rawline
     emit(
         "data", ssb_scale=ssb_scale, ssb_rows=ssb_ds.num_rows,
         ssb_segments=len(ssb_ds.segments), tpch_scale=tpch_scale,
@@ -744,13 +765,17 @@ def sql_queries():
     ]
 
 
-def _median_ms(fn, n: int) -> float:
+def _runs_ms(fn, n: int) -> list:
     times = []
     for _ in range(n):
         t0 = time.perf_counter()
         fn()
         times.append((time.perf_counter() - t0) * 1e3)
-    return statistics.median(times)
+    return times
+
+
+def _median_ms(fn, n: int) -> float:
+    return statistics.median(_runs_ms(fn, n))
 
 
 def _interleaved_ms(sql_fn, native_fn, pairs: int):
@@ -1297,7 +1322,146 @@ def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
     return out
 
 
-# -- phase 9: streaming ---------------------------------------------------------
+# -- phase 9: the host fallback ------------------------------------------------
+
+FALLBACK_WARM = 3  # warm runs of each extended query, assist on and off
+
+
+class AssistLog:
+    """Records, per query, the engine's metrics of every `ctx.execute_rewrite`
+    call (the device assist's Aggregate subtrees while `ctx.sql` interprets
+    on the host), and the ms spent decoding segments."""
+
+    def __init__(self, ctx):
+        from spark_druid_olap_tpu_torch.exec import fallback
+
+        self.subtrees, self.decode_ms = [], 0.0
+        orig_rewrite, orig_decode = ctx.execute_rewrite, fallback.decoded_frame
+
+        def rewrite(rw):
+            out = orig_rewrite(rw)
+            self.subtrees.append(ctx.engine.last_metrics)
+            return out
+
+        def decode(ds, columns=None):
+            t0 = time.perf_counter()
+            out = orig_decode(ds, columns)
+            self.decode_ms += (time.perf_counter() - t0) * 1e3
+            return out
+
+        ctx.execute_rewrite = rewrite
+        fallback.decoded_frame = decode
+        self._undo = lambda: (delattr(ctx, "execute_rewrite"),
+                              setattr(fallback, "decoded_frame", orig_decode))
+
+    def reset(self):
+        self.subtrees, self.decode_ms = [], 0.0
+
+    def stop(self):
+        self._undo()
+
+
+def _extended_check(name, got, want, rtol=ORACLE_RTOL):
+    """Keys and counts exact, floats within rtol, rows compared after
+    sorting by the non-float columns (Q2's ties at a region's minimum
+    order by the frame); returns the largest relative error."""
+    if list(got.columns) != list(want.columns):
+        raise AssertionError(f"{name}: columns {list(got.columns)}, want {list(want.columns)}")
+    return _frame_check(name, got, want, [c for c in want.columns if want[c].dtype.kind != "f"],
+                        rtol=rtol)
+
+
+def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
+    """`tpch.EXTENDED_QUERIES` through `ctx.sql` on the TPC-H context
+    (lineitem resident since phase 4; `rawline` and `partsupp` registered
+    here): every frame against its float64 oracle, bit-identical over two
+    runs, and equal (keys and counts exact, sums within ORACLE_RTOL) to the
+    same query with the assist off (`device_assist_min_rows` above every
+    table's rows); `executor` "device" for q9 and "fallback" or
+    "device+fallback" for the rest.  Per query: the executor, assists and
+    declines, each assisted subtree's G and tier, kernel launches, the p50
+    of the warm runs with the assist on and off, decode ms (cold and warm),
+    and device busy ms and idle share from one profiled run; with `shapes`
+    (a started KernelShapes), the (G, Ms, Mn, Mx) of its launches."""
+    import pandas as pd
+
+    off_rows = max(ctx.catalog.get(t).num_rows for t in ctx.catalog.tables()) + 1
+    default_rows = ctx.config.device_assist_min_rows
+    log = AssistLog(ctx)
+    out = []
+    try:
+        for name, sql in tpch.EXTENDED_QUERIES.items():
+            t0 = time.perf_counter()
+            want = tpch.extended_oracle(tables, name, frame)
+            oracle_s = time.perf_counter() - t0
+            log.reset()
+            before = cuda_groupby.LAUNCHES
+            seen = dict(shapes.seen) if shapes is not None else {}
+            t0 = time.perf_counter()
+            first = ctx.sql(sql)
+            cold_ms = (time.perf_counter() - t0) * 1e3
+            m = ctx.last_metrics
+            subtrees, cold_decode_ms = log.subtrees, log.decode_ms
+            log.reset()
+            on_ms = []
+            for i in range(warm):
+                t1 = time.perf_counter()
+                again = ctx.sql(sql)
+                on_ms.append((time.perf_counter() - t1) * 1e3)
+                if i == 0:  # the first warm run holds the cold run's bits
+                    pd.testing.assert_frame_equal(first, again, check_exact=True)
+            warm_decode_ms = log.decode_ms / warm
+            launches = cuda_groupby.LAUNCHES - before
+            launched = sorted(str(k) for k, v in (shapes.seen if shapes else {}).items()
+                              if v > seen.get(k, 0))
+            want_exec = ("device",) if name == "q9" else ("fallback", "device+fallback")
+            if m.executor not in want_exec:
+                raise AssertionError(f"{name}: executor {m.executor}, want {want_exec}")
+            err = _extended_check(name, first, want)
+            # a query that launched nothing ran no device work to profile
+            busy = sum(profiled_device_ms(
+                lambda: ctx.sql(sql), allow_empty=m.executor == "fallback").values()
+            ) if launches else 0.0
+            ctx.sql(f"SET device_assist_min_rows = {off_rows}")
+            try:
+                off = ctx.sql(sql)
+                off_m = ctx.last_metrics
+                off_ms = _runs_ms(lambda: ctx.sql(sql), warm)
+            finally:
+                ctx.sql(f"SET device_assist_min_rows = {default_rows}")
+            if name != "q9" and off_m.assist_subplans:
+                raise AssertionError(f"{name}: the assist ran with device_assist_min_rows {off_rows}")
+            _extended_check(f"{name} (assist off)", off, first)
+            p50 = statistics.median(on_ms)
+            out.append({
+                "query": name, "executor": m.executor, "assist_subplans": m.assist_subplans,
+                "declines": m.declines if m.executor != "device" else [],
+                # the engine runs of the query: q9's own, or the assist's
+                "engine_runs": [{"num_groups": a.num_groups, "strategy": a.strategy,
+                                 "compact_groups": a.compact_groups,
+                                 "inner_strategy": a.inner_strategy,
+                                 "sparse_slots": a.sparse_slots, "segments": a.segments,
+                                 "rows_scanned": a.rows_scanned} for a in subtrees],
+                "rows_scanned": m.rows_scanned, "result_rows": len(first), "cold_ms": cold_ms,
+                "p50_ms": p50, "assist_off_p50_ms": statistics.median(off_ms),
+                "assist_off_executor": off_m.executor, "kernel_launches": launches,
+                "kernel_shapes": launched,
+                "decode_cold_ms": cold_decode_ms, "decode_warm_ms": warm_decode_ms,
+                "device_busy_ms": busy, "device_idle_share": 1 - busy / p50,
+                "oracle_max_rel_err": err, "oracle_seconds": oracle_s,
+                "bit_identical": True, "equal_assist_off": True,
+            })
+            emit("fallback_query", **out[-1])
+    finally:
+        log.stop()
+    if ctx.engine.device.type == "cuda" and not any(
+        q["kernel_launches"] for q in out if q["assist_subplans"]
+    ):
+        raise AssertionError("no assisted fallback query launched the kernel")
+    return out
+
+
+# -- phase 10: streaming ---------------------------------------------------------
 
 
 def stream_query():
@@ -1619,7 +1783,7 @@ def main(argv=None) -> int:
         return sum(e.bytes_resident() for e in engines.values())
 
     torch.cuda.reset_peak_memory_stats(device)
-    shapes = KernelShapes().start()  # every launch of phases 4 to 8
+    shapes = KernelShapes().start()  # every launch of phases 4 to 10
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
     queries = run_main_path(engines, workloads)
@@ -1683,7 +1847,21 @@ def main(argv=None) -> int:
     if tier_launches == 0:
         raise AssertionError("the tier phase never launched the kernel")
 
-    del ctxs, engines, exact, workloads, dims  # phase 9 needs host memory
+    t0 = time.perf_counter()
+    tctx = ctxs["tpch"]
+    tpch.register_extended(tctx, workloads["dims"]["tpch"])
+    reg_s = time.perf_counter() - t0
+    cuda_groupby.LAUNCHES = 0  # count only the fallback phase's launches
+    fallback = run_fallback_queries(tctx, workloads["dims"]["tpch"], workloads["tpch"][1],
+                                    shapes)
+    fallback_launches = cuda_groupby.LAUNCHES
+    emit("fallback", queries=len(fallback), seconds=time.perf_counter() - t0,
+         register_seconds=reg_s, kernel_launches=fallback_launches,
+         assisted_queries=sum(1 for q in fallback if q["assist_subplans"]),
+         bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+
+    del ctxs, engines, exact, workloads, dims, tctx  # phase 10 needs host memory
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1714,11 +1892,13 @@ def main(argv=None) -> int:
         "route": "cuda",
         "source": "spark_druid_olap_tpu_torch/csrc/groupby_partial.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
-        "launches": launches + sql_launches + sketch_launches + tier_launches + stream_launches,
+        "launches": (launches + sql_launches + sketch_launches + tier_launches
+                     + fallback_launches + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
         "launches_tier": tier_launches,
+        "launches_fallback": fallback_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

@@ -21,15 +21,21 @@ run as sketch aggregators on the device.  Under `count_distinct_mode =
 high-cardinality group-by, carried by the engine's tiers) and re-aggregates
 on the host (`_execute_exact_distinct`).
 
-What this package does not execute yet raises rather than being answered
-another way: a statement the planner cannot rewrite (a subquery, an
-unconforming join) raises `RewriteError`; non-aggregate scans raise
-NotImplementedError naming the ROADMAP item that ports them.
+A statement the planner cannot rewrite (a subquery, a window, a set
+operation, an unconforming join, an expression no transform covers) runs on
+the host fallback (`exec/fallback.py`, `_run_fallback`) under
+`SessionConfig.fallback_execution`: the same logical plan interpreted over
+decoded host frames, with every Aggregate subtree offered to the planner
+first (`device_subplan`), so a GROUP BY the planner can rewrite still runs
+on the engine.  `last_metrics.executor` says which ran: "device",
+"fallback" or "device+fallback".  A non-aggregate scan raises
+NotImplementedError naming the ROADMAP item that ports it.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Dict, List, Mapping, Optional, Sequence
 
 import numpy as np
@@ -39,12 +45,24 @@ from .catalog.segment import DataSource, build_datasource
 from .catalog.star import StarSchemaInfo
 from .config import SessionConfig
 from .exec.engine import Engine
+from .exec.fallback import (
+    assist_columns,
+    evict_decoded_segments,
+    execute_fallback,
+    plan_input_rows,
+    plan_tables,
+)
 from .exec.finalize import apply_limit_spec
+from .exec.metrics import QueryMetrics
 from .models import query as Q
 from .plan import expr as E
 from .plan.planner import Planner, Rewrite, RewriteError
+from .plan.transforms import RewritePolicyError
 from .sql.parser import parse_sql
+from .utils.log import get_logger
 from .utils.lru import CountBudgetCache
+
+log = get_logger("api")
 
 __all__ = ["TPUOlapContext", "RewriteError"]
 
@@ -67,6 +85,10 @@ class TPUOlapContext:
         # CREATE VIEW registry: view name -> defining SELECT text; the parser
         # expands references as derived tables
         self.views: Dict[str, str] = {}
+        # (metrics of the last host-fallback query, the engine's metrics
+        # object when it ended): `last_metrics` serves the first while the
+        # engine has run nothing since
+        self._fallback_metrics = None
 
     # -- registration (CREATE TABLE ... USING ... OPTIONS analog) -----------
 
@@ -145,18 +167,29 @@ class TPUOlapContext:
         return self.catalog.put(ds, star_schema)
 
     def drop_table(self, name: str):
+        ds = self.catalog.get(name)
         self.catalog.drop(name)
+        if ds is not None:
+            evict_decoded_segments(s.uid for s in ds.segments)
 
     def clear_cache(self):
         """Clear-metadata-cache command: drops the catalog, the device
-        residency and the plan cache."""
+        residency, the host fallback's decoded segments and the plan
+        cache."""
+        uids = [s.uid for t in self.catalog.tables() for s in self.catalog.get(t).segments]
         self.catalog.clear()
+        evict_decoded_segments(uids)
         self.engine.clear_cache()
         self._plan_cache.clear()
 
     @property
     def last_metrics(self):
-        """QueryMetrics of the most recent engine execution."""
+        """QueryMetrics of the most recent execution: the host fallback's
+        (executor "fallback" or "device+fallback") after a fallback query,
+        else the engine's."""
+        fb = self._fallback_metrics
+        if fb is not None and fb[1] is self.engine.last_metrics:
+            return fb[0]
         return self.engine.last_metrics
 
     # -- planning ------------------------------------------------------------
@@ -214,9 +247,82 @@ class TPUOlapContext:
 
                 text = planner.explain(lp, self.engine)
                 return pd.DataFrame({"plan": text.split("\n")})
-            rw = planner.plan(lp)
+            try:
+                rw = planner.plan(lp)
+            except RewriteError as err:
+                return self._run_fallback(lp, err)
             self._plan_cache[key] = rw
         return self.execute_rewrite(rw)
+
+    def _run_fallback(self, lp, err: RewriteError):
+        """Run a plan the planner could not rewrite on the host fallback.
+        A policy rejection (RewritePolicyError) and a disabled fallback
+        re-raise `err`.  Above `fallback_max_rows` input rows the fallback
+        raises FallbackSizeError."""
+        if isinstance(err, RewritePolicyError) or not self.config.fallback_execution:
+            raise err
+        log.warning("rewrite failed (%s); executing on the host fallback", err)
+        t0 = time.perf_counter()
+        assists = 0
+        declines: List[str] = []
+        cfg = self.config
+
+        def device_subplan(sub_lp):
+            """The device assist: an Aggregate subtree that the planner
+            rewrites runs on the engine.  It declines, recording why, when
+            the subtree's input is under `device_assist_min_rows`, when the
+            planner raises RewriteError, when the rewrite is not a GroupBy
+            (or is an exact COUNT(DISTINCT)) over fewer than
+            max(device_assist_min_rows, 2^23) rows unless
+            `device_assist_force`, and when the frame lacks a column the
+            node declares.  Any other error, of the planner, the engine or
+            the kernel, propagates."""
+            nonlocal assists
+            rows = plan_input_rows(sub_lp, self.catalog)
+            if rows < cfg.device_assist_min_rows:
+                declines.append(
+                    f"assist: {rows} input rows < device_assist_min_rows "
+                    f"{cfg.device_assist_min_rows}")
+                return None
+            try:
+                rw = self._planner().plan(sub_lp)
+            except RewriteError as e:
+                declines.append(f"assist: {e}")
+                return None
+            floor = max(cfg.device_assist_min_rows, 1 << 23)
+            kind = ("exact COUNT(DISTINCT)" if rw.exact_distinct is not None
+                    else type(rw.query).__name__)
+            if kind != "GroupByQuery" and rows < floor and not cfg.device_assist_force:
+                declines.append(f"assist: {kind} over {rows} rows < {floor}")
+                return None
+            # a column the node declares that the rewrite does not output
+            # (the hidden aggregate of a HAVING) is known before running it
+            spec = rw.exact_distinct or rw
+            missing = [c for c in assist_columns(sub_lp) if c not in spec.output_columns]
+            if not missing:
+                out = self.execute_rewrite(rw)
+                missing = [c for c in assist_columns(sub_lp) if c not in out.columns]
+            if missing:
+                declines.append(f"assist: the rewrite's frame lacks {missing}")
+                return None
+            assists += 1
+            return out
+
+        df = execute_fallback(lp, self.catalog, max_rows=cfg.fallback_max_rows,
+                              device_exec=device_subplan)
+        tables = sorted(plan_tables(lp))
+        m = QueryMetrics(
+            query_type="fallback",
+            strategy="host-pandas",
+            executor="device+fallback" if assists else "fallback",
+            datasource=tables[0] if len(tables) == 1 else "",
+            rows_scanned=plan_input_rows(lp, self.catalog),
+            total_ms=(time.perf_counter() - t0) * 1e3,
+            assist_subplans=assists,
+            declines=declines,
+        )
+        self._fallback_metrics = (m, self.engine.last_metrics)
+        return df
 
     def execute_rewrite(self, rw: Rewrite):
         if rw.exact_distinct is not None:

@@ -1,8 +1,8 @@
 """Session flags (the SQLConf analog).
 
 Only the flags this package reads, with the JAX package's defaults.  A flag
-of a tier the port does not have yet (cost model, host fallback, serving,
-ingest, storage, cluster, tracing) is absent, so `SET` on it raises
+of a tier the port does not have yet (cost model, serving, ingest, storage,
+cluster, tracing) is absent, so `SET` on it raises
 KeyError instead of reporting a change that nothing reads; each comes back
 with the slice that reads it.
 """
@@ -37,3 +37,18 @@ class SessionConfig:
     max_result_cardinality: int = 1 << 22
     # non-aggregate queries (reference: nonAggregateQueryHandling = push/scan)
     non_aggregate_query_handling: str = "scan"  # "scan" | "error"
+
+    # host fallback (exec/fallback.py): a plan the planner cannot rewrite is
+    # interpreted over decoded host frames instead of raising RewriteError;
+    # False surfaces the RewriteError
+    fallback_execution: bool = True
+    # ceiling on the summed base-table rows one fallback query may decode
+    # (single-threaded pandas); 0 disables the guard
+    fallback_max_rows: int = 50_000_000
+    # device assist: an Aggregate subtree of a fallback plan over at least
+    # this many input rows is offered to the planner and, when it rewrites,
+    # runs on the engine; below it the host answers in float64
+    device_assist_min_rows: int = 1 << 18
+    # assist a subtree even where the rules would decline it (a Timeseries,
+    # TopN or exact-distinct rewrite under 2^23 rows); the row floor stays
+    device_assist_force: bool = False

@@ -18,6 +18,12 @@ or "memo") and `inner_strategy` (the compacted pass's kernel strategy).
 Sparse: `sparse_slots` and `sparse_row_capacity` (the rungs that answered;
 0 = a full-segment sort), `sparse_passes` (passes over the segments, one
 more for every rung climbed) and `inner_strategy`.
+
+Host fallback (`api._run_fallback`): `executor` says which executor
+answered: "device" (the engine), "fallback" (the host interpreter of
+`exec/fallback.py`) or "device+fallback" (the interpreter, with
+`assist_subplans` Aggregate subtrees run on the engine); `declines` then
+holds one reason for every subtree the assist did not run.
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from typing import List, Optional
 class QueryMetrics:
     query_type: str = ""
     strategy: str = ""
+    executor: str = "device"
     datasource: str = ""
     device: str = ""
     rows_scanned: int = 0
@@ -51,6 +58,7 @@ class QueryMetrics:
     sparse_slots: Optional[int] = None
     sparse_row_capacity: Optional[int] = None
     sparse_passes: int = 0
+    assist_subplans: int = 0
 
     @property
     def rows_per_sec(self) -> float:
@@ -66,6 +74,7 @@ class QueryMetrics:
     def describe(self) -> str:
         return (
             f"QueryMetrics[{self.query_type} strategy={self.strategy} "
+            f"executor={self.executor} assists={self.assist_subplans} "
             f"device={self.device} rows={self.rows_scanned} "
             f"segments={self.segments} groups={self.num_groups} "
             f"compact_groups={self.compact_groups} slots={self.sparse_slots} "

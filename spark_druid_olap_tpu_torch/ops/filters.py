@@ -28,6 +28,7 @@ from ..catalog.segment import DataSource
 from ..models import filters as F
 from ..plan.expr import (
     DeviceConst,
+    as_tensor,
     coerce_str_literal,
     codes,
     compile_expr,
@@ -392,7 +393,8 @@ def _leaf_true(f: F.Filter, ds: DataSource) -> MaskFn:
     if isinstance(f, F.ExpressionFilter):
         fn = compile_expr(f.expression, ds.dicts)
         dicts = ds.dicts
-        return lambda cols: fn(DecodedView(cols, dicts)).to(torch.bool)
+        # a constant expression (WHERE FALSE) is a 0-d tensor: it broadcasts
+        return lambda cols: as_tensor(fn(DecodedView(cols, dicts)), cols["__valid"]).to(torch.bool)
 
     raise TypeError(f"cannot compile filter {f!r}")
 

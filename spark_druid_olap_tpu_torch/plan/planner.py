@@ -543,6 +543,40 @@ class Planner:
     def _plan_scan(
         self, node, limit, offset, sort_keys, top_projections
     ) -> Rewrite:
+        """What the reference's scan planning rejects raises RewriteError
+        (the host fallback answers it: windows, set operations, joins,
+        untranslatable filters, an ORDER BY over an expression); what it
+        would plan to a Scan query raises NotImplementedError."""
+        env: Dict[str, E.Expr] = {}
+        filters: List[E.Expr] = []
+        proj = top_projections
+        while not isinstance(node, L.Scan):
+            if isinstance(node, L.Filter):
+                filters.append(substitute(node.condition, env))
+                node = node.child
+            elif isinstance(node, L.Project):
+                if proj is None:
+                    proj = node.exprs
+                for name, e in node.exprs:
+                    env[name] = substitute(e, env)
+                node = node.child
+            else:
+                raise RewriteError(f"cannot rewrite scan node {type(node).__name__}")
+        ds = self._ds(node.table)
+        b = QueryBuilder(datasource=node.table)
+        for cond in filters:
+            b = translate_filter(cond, ds, b)
+        columns = [n for n, _ in proj] if proj else [c.name for c in ds.columns]
+        known = set(columns) | {c.name for c in ds.columns}
+        for sk in sort_keys or ():
+            if isinstance(sk.expr, E.Col) and sk.expr.name in set(columns):
+                continue
+            e = substitute(sk.expr, env)
+            if not isinstance(e, E.Col) or e.name not in known:
+                raise RewriteError(
+                    f"cannot ORDER BY {sk.expr} on a non-aggregate "
+                    "scan (only projected or physical columns)"
+                )
         raise NotImplementedError(
             "non-aggregate queries plan to a Scan query, which this package "
             "does not execute yet: ROADMAP queue A item 3"

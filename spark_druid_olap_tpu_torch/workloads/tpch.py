@@ -16,6 +16,16 @@ as joined SQL, Q1 as a native query spec, and float64 pandas oracles.
   planner lowers it to: the AVG rewrite into sum / count post-aggregations
   and the shipdate predicate as the query interval.
 * `oracle(flat_frame(tables), name)` computes each in float64 pandas.
+* `EXTENDED_QUERIES`: twelve classes the planner cannot rewrite whole
+  (correlated EXISTS and scalar subqueries, IN and NOT IN subqueries,
+  HAVING against a scalar subquery, a LEFT JOIN in a derived table, a
+  window rank, NOT EXISTS with SUBSTR), which run on the host fallback
+  with their GROUP BY subtrees on the device, plus a q9-class star
+  aggregate that stays on the device.  `register(..., extended=True)`
+  adds the tables they read beyond the star: `rawline` (the normalized
+  lineitem, which keeps l_partkey and l_suppkey) and `partsupp`
+  (`partsupp_columns`).  `extended_oracle(tables, name)` computes each in
+  float64 pandas.
 
 Constants are adapted to this generator's value domains; the query shapes
 follow the TPC-H spec.
@@ -248,9 +258,10 @@ def datasource(cols, dicts, rows_per_segment: int = 1 << 22) -> DataSource:
 
 
 def register(ctx, scale: float = 0.01, seed: int = 13,
-             rows_per_segment: int = 1 << 22, tables=None):
+             rows_per_segment: int = 1 << 22, tables=None, extended: bool = False):
     """Register the flat fact (with snowflake star schema) + normalized
-    dims — the reference's orderLineItemPartSupplier DDL analog."""
+    dims — the reference's orderLineItemPartSupplier DDL analog.  With
+    `extended`, also `rawline` and `partsupp`, which EXTENDED_QUERIES read."""
     tables = tables if tables is not None else gen_tables(scale, seed)
     cols, dicts = flat_columns(tables)
     ctx.register_table(
@@ -262,7 +273,31 @@ def register(ctx, scale: float = 0.01, seed: int = 13,
     ctx.register_table("orders", tables["orders"], time_column="o_orderdate")
     for t in ("customer", "supplier", "part"):
         ctx.register_table(t, tables[t])
+    if extended:
+        register_extended(ctx, tables)
     return tables
+
+
+def register_extended(ctx, tables):
+    """`rawline`, the normalized lineitem (the flat fact drops l_partkey
+    and l_suppkey), and `partsupp`, both with schemas inferred."""
+    ctx.register_table("rawline", tables["lineitem"], time_column="l_shipdate")
+    ctx.register_table("partsupp", partsupp_columns(tables))
+
+
+def partsupp_columns(tables, seed: int = 41):
+    """partsupp synthesized over the part and supplier keys, four rows per
+    part (the star omits it)."""
+    rng = np.random.default_rng(seed)
+    n_s = len(tables["supplier"]["s_suppkey"])
+    n_p = len(tables["part"]["p_partkey"])
+    n = 4 * n_p
+    return {
+        "ps_partkey": rng.integers(0, n_p, n).astype(np.int64),
+        "ps_suppkey": rng.integers(0, n_s, n).astype(np.int64),
+        "ps_availqty": rng.integers(1, 1000, n).astype(np.float32),
+        "ps_supplycost": (rng.random(n) * 100).astype(np.float32),
+    }
 
 
 _J_ORD = "JOIN orders ON l_orderkey = o_orderkey"
@@ -655,3 +690,215 @@ def oracle(f, name: str):
 
 
 NATIVE_QUERIES: Dict[str, Q.GroupByQuery] = {"q1": _q1()}
+
+
+EXTENDED_QUERIES: Dict[str, str] = {
+    # Q2-class: the cheapest p_type per region, as RANK() over a GROUP BY
+    "q2": """
+        SELECT s_region, p_type, mn, rnk FROM
+          (SELECT s_region, p_type, min(l_extendedprice) AS mn,
+                  RANK() OVER (PARTITION BY s_region
+                               ORDER BY min(l_extendedprice)) AS rnk
+           FROM lineitem GROUP BY s_region, p_type) x
+        WHERE rnk = 1 ORDER BY s_region
+    """,
+    # Q4: order priority checking, a correlated EXISTS against the fact
+    "q4": """
+        SELECT o_orderpriority, count(*) AS order_count
+        FROM orders o
+        WHERE o_orderdate >= '1995-01-01' AND o_orderdate < '1995-04-01'
+          AND EXISTS (SELECT l_orderkey FROM lineitem
+                      WHERE l_orderkey = o.o_orderkey AND l_discount > 0.05)
+        GROUP BY o_orderpriority ORDER BY o_orderpriority
+    """,
+    # Q9-class: profit by supplier nation and order year, a star aggregate
+    # that stays on the device
+    "q9": """
+        SELECT s_nation, o_orderdate_year AS yr,
+               sum(l_extendedprice * (1 - l_discount) - 10 * l_quantity)
+                   AS profit
+        FROM lineitem
+        JOIN supplier ON l_suppkey = s_suppkey
+        JOIN orders ON l_orderkey = o_orderkey
+        WHERE s_region = 'ASIA'
+        GROUP BY s_nation, o_orderdate_year
+        ORDER BY s_nation, yr DESC
+    """,
+    # Q11: important stock, HAVING against a scalar subquery of the same sum
+    "q11": """
+        SELECT ps_partkey, sum(ps_supplycost * ps_availqty) AS value
+        FROM partsupp
+        GROUP BY ps_partkey
+        HAVING sum(ps_supplycost * ps_availqty) >
+               (SELECT 0.002 * sum(ps_supplycost * ps_availqty)
+                FROM partsupp)
+        ORDER BY value DESC
+    """,
+    # Q13: the customer order-count distribution, a LEFT JOIN in a derived
+    # table; COUNT(col) counts matched rows only
+    "q13": """
+        SELECT c_count, count(*) AS custdist
+        FROM (SELECT c_custkey, count(o_orderkey) AS c_count
+              FROM customer LEFT JOIN orders ON c_custkey = o_custkey
+              GROUP BY c_custkey) co
+        GROUP BY c_count
+        ORDER BY custdist DESC, c_count DESC
+    """,
+    # Q15: the top supplier nation, a derived revenue view and a scalar max
+    "q15": """
+        SELECT s_nation, total FROM
+          (SELECT s_nation, sum(l_extendedprice * (1 - l_discount)) AS total
+           FROM lineitem
+           WHERE l_shipdate >= '1996-01-01' AND l_shipdate < '1996-04-01'
+           GROUP BY s_nation) r
+        WHERE total =
+          (SELECT max(total) FROM
+             (SELECT s_nation, sum(l_extendedprice * (1 - l_discount)) AS total
+              FROM lineitem
+              WHERE l_shipdate >= '1996-01-01' AND l_shipdate < '1996-04-01'
+              GROUP BY s_nation) r2)
+    """,
+    # Q16: supplier counting with exclusions, NOT IN over a subquery
+    "q16": """
+        SELECT p_brand, count(*) AS n
+        FROM lineitem
+        WHERE p_brand <> 'Brand#11'
+          AND l_orderkey NOT IN
+              (SELECT o_orderkey FROM orders
+               WHERE o_orderpriority = '1-URGENT')
+        GROUP BY p_brand ORDER BY p_brand
+    """,
+    # Q17: small-quantity-order revenue, a correlated scalar AVG per part
+    "q17": """
+        SELECT sum(l_extendedprice) / 7.0 AS avg_yearly
+        FROM rawline o
+        WHERE l_quantity <
+              (SELECT 0.5 * avg(l_quantity) FROM rawline
+               WHERE l_partkey = o.l_partkey)
+    """,
+    # Q18: large-volume customers, IN over a grouped HAVING subquery
+    "q18": """
+        SELECT c_name, l_orderkey, sum(l_quantity) AS total
+        FROM lineitem
+        WHERE l_orderkey IN
+              (SELECT l_orderkey FROM lineitem
+               GROUP BY l_orderkey HAVING sum(l_quantity) > 220.0)
+        GROUP BY c_name, l_orderkey
+        ORDER BY total DESC, l_orderkey LIMIT 10
+    """,
+    # Q20: potential part promotion, IN over a grouped HAVING subquery whose
+    # WHERE holds another IN subquery
+    "q20": """
+        SELECT s_nation, count(*) AS n FROM supplier
+        WHERE s_suppkey IN
+          (SELECT l_suppkey FROM rawline
+           WHERE l_partkey IN
+             (SELECT p_partkey FROM part
+              WHERE p_type = 'ECONOMY ANODIZED STEEL')
+           GROUP BY l_suppkey HAVING sum(l_quantity) > 50)
+        GROUP BY s_nation ORDER BY s_nation
+    """,
+    # Q21: suppliers who kept orders waiting, EXISTS and NOT EXISTS on the
+    # same correlation key
+    "q21": """
+        SELECT s_nation, count(*) AS n FROM supplier s
+        WHERE EXISTS (SELECT l_orderkey FROM rawline
+                      WHERE l_suppkey = s.s_suppkey AND l_quantity > 25)
+          AND NOT EXISTS (SELECT l_orderkey FROM rawline
+                          WHERE l_suppkey = s.s_suppkey
+                            AND l_extendedprice > 55400)
+        GROUP BY s_nation ORDER BY s_nation
+    """,
+    # Q22: global sales opportunity, a NOT EXISTS anti-join and SUBSTR
+    # grouping over the customer table
+    "q22": """
+        SELECT SUBSTR(c_name, 10, 1) AS cntry, count(*) AS numcust
+        FROM customer c
+        WHERE NOT EXISTS
+              (SELECT o_orderkey FROM orders WHERE o_custkey = c.c_custkey)
+        GROUP BY SUBSTR(c_name, 10, 1) ORDER BY cntry
+    """,
+}
+
+
+def extended_oracle(tables, name: str, frame=None):
+    """float64 pandas answer of EXTENDED_QUERIES[name] over the generated
+    tables (`frame`: their `flat_frame`, computed when not given), in the
+    query's column order.  Q2 keeps every p_type tied at a region's least
+    minimum."""
+    import pandas as pd
+
+    if frame is None and name in ("q2", "q9", "q15", "q16", "q18"):
+        frame = flat_frame(tables)
+    f = frame
+    o = pd.DataFrame(tables["orders"])
+    li = tables["lineitem"]
+
+    def counts(sel, key, out):
+        return sel.groupby(key).size().sort_index().rename(out).reset_index()
+
+    if name == "q2":
+        mn = f.groupby(["s_region", "p_type"])["l_extendedprice"].min().reset_index(name="mn")
+        best = mn[mn.mn == mn.groupby("s_region")["mn"].transform("min")]
+        return best.assign(rnk=1).sort_values(["s_region", "p_type"]).reset_index(drop=True)
+    if name == "q4":
+        lo, hi = _ms("1995-01-01"), _ms("1995-04-01")
+        disc = np.asarray(li["l_discount"], dtype=np.float64)
+        hot = np.unique(li["l_orderkey"][disc > 0.05])
+        sel = o[(o.o_orderdate >= lo) & (o.o_orderdate < hi) & o.o_orderkey.isin(hot)]
+        return counts(sel, "o_orderpriority", "order_count")
+    if name == "q9":
+        sel = f[f.s_region == "ASIA"]
+        sel = sel.assign(profit=sel.l_extendedprice * (1 - sel.l_discount) - 10 * sel.l_quantity)
+        out = sel.groupby(["s_nation", "o_orderdate_year"])["profit"].sum().reset_index()
+        out = out.sort_values(["s_nation", "o_orderdate_year"], ascending=[True, False])
+        return out.rename(columns={"o_orderdate_year": "yr"}).reset_index(drop=True)
+    if name == "q11":
+        ps = pd.DataFrame(partsupp_columns(tables)).astype(
+            {"ps_availqty": np.float64, "ps_supplycost": np.float64})
+        v = ps.ps_supplycost * ps.ps_availqty
+        per = v.groupby(ps.ps_partkey).sum()
+        want = per[per > 0.002 * v.sum()].sort_values(ascending=False)
+        return want.rename("value").rename_axis("ps_partkey").reset_index()
+    if name == "q13":
+        c = pd.DataFrame(tables["customer"])
+        merged = c.merge(o, left_on="c_custkey", right_on="o_custkey", how="left")
+        cc = merged.groupby("c_custkey")["o_orderkey"].count()
+        return (cc.value_counts().rename_axis("c_count").reset_index(name="custdist")
+                .sort_values(["custdist", "c_count"], ascending=False).reset_index(drop=True))
+    if name == "q15":
+        sel = f[(f.l_shipdate >= _ms("1996-01-01")) & (f.l_shipdate < _ms("1996-04-01"))]
+        rev = (sel.l_extendedprice * (1 - sel.l_discount)).groupby(sel.s_nation).sum()
+        return pd.DataFrame({"s_nation": [rev.idxmax()], "total": [rev.max()]})
+    if name == "q16":
+        urgent = o[o.o_orderpriority == "1-URGENT"].o_orderkey
+        sel = f[(f.p_brand != "Brand#11") & ~f.l_orderkey.isin(urgent)]
+        return counts(sel, "p_brand", "n")
+    if name == "q17":
+        rl = pd.DataFrame({k: li[k] for k in ("l_partkey", "l_quantity", "l_extendedprice")}
+                          ).astype({"l_quantity": np.float64, "l_extendedprice": np.float64})
+        thr = rl.groupby("l_partkey")["l_quantity"].transform("mean") * 0.5
+        return pd.DataFrame({"avg_yearly": [rl[rl.l_quantity < thr].l_extendedprice.sum() / 7.0]})
+    if name == "q18":
+        qty = f.groupby("l_orderkey")["l_quantity"].sum()
+        sel = f[f.l_orderkey.isin(qty[qty > 220.0].index)]
+        return (sel.groupby(["c_name", "l_orderkey"])["l_quantity"].sum().reset_index(name="total")
+                .sort_values(["total", "l_orderkey"], ascending=[False, True]).head(10)
+                .reset_index(drop=True))
+    sup = pd.DataFrame(tables["supplier"])
+    if name == "q20":
+        part = pd.DataFrame(tables["part"])
+        rl = pd.DataFrame({k: li[k] for k in ("l_suppkey", "l_partkey", "l_quantity")})
+        steel = part[part.p_type == "ECONOMY ANODIZED STEEL"].p_partkey
+        vol = rl[rl.l_partkey.isin(steel)].groupby("l_suppkey")["l_quantity"].sum()
+        return counts(sup[sup.s_suppkey.isin(vol[vol > 50].index)], "s_nation", "n")
+    if name == "q21":
+        big = np.unique(li["l_suppkey"][li["l_quantity"] > 25])
+        small = np.unique(li["l_suppkey"][li["l_extendedprice"] > 55400])
+        sel = sup[sup.s_suppkey.isin(big) & ~sup.s_suppkey.isin(small)]
+        return counts(sel, "s_nation", "n")
+    if name == "q22":
+        c = pd.DataFrame(tables["customer"])
+        sel = c[~c.c_custkey.isin(o.o_custkey)]
+        return counts(sel.assign(cntry=sel.c_name.str[9]), "cntry", "numcust")
+    raise KeyError(name)

@@ -400,3 +400,33 @@ def test_stream_longer_than_ring_matches_oracle(card):
         np.testing.assert_allclose(got["v"].to_numpy(np.float64),
                                    np.bincount(h, weights=value), rtol=2e-5)
         np.testing.assert_array_equal(got["mx"].to_numpy(np.float64), mx)
+
+
+def test_assisted_q18_class_on_card_equals_assist_off(card):
+    """A q18-class query (IN over a grouped HAVING subquery, the outer
+    GROUP BY over l_orderkey) on the host fallback of a context on the
+    card: the assist runs the outer grouping on the engine (the adaptive
+    tier, the kernel at its compacted G') and its frame equals the same
+    query with the assist off (keys and counts exact, sums within rtol
+    2e-5), and a second run is bit-identical."""
+    tables = tpch.gen_tables(0.05)
+    ctx = TPUOlapContext(device=card)
+    tpch.register(ctx, tables=tables, rows_per_segment=1 << 16)
+    sql = """
+        SELECT l_orderkey, sum(l_quantity) AS total FROM lineitem
+        WHERE l_orderkey IN (SELECT l_orderkey FROM lineitem
+                             GROUP BY l_orderkey HAVING sum(l_quantity) > 220.0)
+        GROUP BY l_orderkey ORDER BY total DESC, l_orderkey LIMIT 20
+    """
+    before = cg.LAUNCHES
+    got = ctx.sql(sql)
+    m = ctx.last_metrics
+    assert m.executor == "device+fallback" and m.assist_subplans == 1, m.describe()
+    assert cg.LAUNCHES > before
+    pd.testing.assert_frame_equal(ctx.sql(sql), got, check_exact=True)
+    ctx.sql(f"SET device_assist_min_rows = {ctx.catalog.get('lineitem').num_rows + 1}")
+    off = ctx.sql(sql)
+    assert ctx.last_metrics.executor == "fallback"
+    assert len(got) == 20
+    assert list(got.l_orderkey) == list(off.l_orderkey)
+    np.testing.assert_allclose(got.total, off.total, rtol=2e-5)

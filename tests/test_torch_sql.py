@@ -12,12 +12,14 @@
   their exact oracles within the sketches' error bounds.
 * Commands (CREATE TABLE ... OPTIONS, CREATE VIEW, SET, SHOW TABLES,
   DESCRIBE) give the reference's frames.
-* What the port does not execute yet raises, where the reference answers
-  on its host fallback: a subquery and a SELECT over a view (RewriteError),
-  a non-aggregate scan (NotImplementedError), and SET on a flag of a tier
-  the port does not have (KeyError).  (Exact COUNT(DISTINCT), once such a
-  gap, is held to the reference in `test_torch_exact_distinct.py`.)
-  `TPUOlapContext()` with no GPU and no device raises.
+* What the port does not execute yet raises where the reference answers:
+  a non-aggregate scan (NotImplementedError) and SET on a flag of a tier
+  the port does not have (KeyError).  A subquery and a SELECT over a view,
+  once such gaps, plan to a RewriteError and run on the host fallback, with
+  the reference's frame (the fallback is held to the reference in
+  `test_torch_fallback.py`; exact COUNT(DISTINCT) in
+  `test_torch_exact_distinct.py`).  `TPUOlapContext()` with no GPU and no
+  device raises.
 """
 
 import json
@@ -234,29 +236,35 @@ def test_commands_match_reference(tmp_path):
         )
     assert port.config.max_result_cardinality == 100000
     # a SELECT over a view is a derived table, which the planner does not
-    # rewrite: the reference answers it on its host fallback, the port raises
+    # rewrite: both packages answer it on their host fallback
     view_sql = "SELECT region, sum(clicks) AS total FROM busy GROUP BY region"
-    assert len(ref.sql(view_sql)) == 3
     with pytest.raises(RewriteError, match="SubqueryScan"):
-        port.sql(view_sql)
+        port.plan_sql(view_sql)
+    want = ref.sql(view_sql)
+    assert len(want) == 3 and ref.last_metrics.executor == "fallback"
+    pd.testing.assert_frame_equal(port.sql(view_sql), want, check_exact=True)
+    assert port.last_metrics.executor == "fallback"
 
 
 # -- gaps fail loudly -------------------------------------------------------
 
 GAPS = {
+    # no longer a gap: the planner raises RewriteError and the host
+    # fallback answers, as the reference does (exception None: the frames
+    # must be equal)
     "subquery": (
         "SELECT l_returnflag, sum(l_quantity) AS q FROM lineitem WHERE "
         "l_orderkey IN (SELECT l_orderkey FROM lineitem WHERE l_quantity > 49) "
         "GROUP BY l_returnflag",
-        RewriteError,
+        None,
     ),
     "scan": (
         "SELECT l_returnflag, l_quantity FROM lineitem WHERE l_quantity > 49 "
         "LIMIT 5",
         NotImplementedError,
     ),
-    # a flag of a tier the port does not have yet (the host fallback)
-    "unported_flag": ("SET fallback_execution = true", KeyError),
+    # a flag of a tier the port does not have yet (the result cache)
+    "unported_flag": ("SET result_cache_entries = 64", KeyError),
 }
 
 
@@ -264,7 +272,13 @@ GAPS = {
 def test_unported_shapes_raise_where_the_reference_answers(ctxs, name):
     ref, port = ctxs
     sql, exc = GAPS[name]
-    assert len(ref.sql(sql)) > 0
+    want = ref.sql(sql)
+    assert len(want) > 0
+    if exc is None:
+        with pytest.raises(RewriteError, match="subqueries"):
+            port.plan_sql(sql)
+        pd.testing.assert_frame_equal(port.sql(sql), want, check_exact=True)
+        return
     with pytest.raises(exc):
         port.sql(sql)
 
