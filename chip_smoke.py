@@ -10,7 +10,7 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches in phases 4 to 10 (one 512K-row segment at each
+   the main path launches in phases 4 to 11 (one 512K-row segment at each
    query's and grouping set's G and column counts, at the tier's presence
    counts and compacted domains, at the fallback's assisted subtrees, plus a time-sorted Timeseries segment, the
    sparse tier's 4096 slots on rows sorted by slot, and the stream's 2^21-row
@@ -88,7 +88,29 @@ Phases, one JSON line each:
    replaced, and a global count) under count_distinct_mode = 'exact' over
    `ssb.key_dimension_datasource`: equal to the exact oracle, answered on a
    segmented-reduce rung.
-9. fallback: the twelve extended TPC-H classes (`tpch.EXTENDED_QUERIES`:
+9. arena: one dispatch per query.  The engines' captured programs are
+   dropped; then every query of phases 4 and 6 (the tier's high-G SQL
+   queries among them) and three CUBEs (cube_hll and cube_theta of phase
+   7, and a CUBE of revenue alone, whose sets are all captured) run with
+   the arena on (SET arena_execution = true): a first run (eager), a
+   second (the capture) and a third (a replay), bit-identical and held
+   against the oracle; then 5 warm runs each way, on and off interleaved,
+   every frame bit-identical to the replay's; then one profiled run each
+   way.  The run fails where a pass neither replayed (one dispatch over
+   every in-scope segment) nor recorded an "arena:" decline, or where the
+   kernel did not launch once per in-scope segment of a replayed run
+   (replays counted).  Reported per query: dispatches of the first run,
+   on and off; captures and capture ms; launches on and off; p50 each way
+   and their ratio; device busy ms and idle share each way; the declines.
+   Each CUBE also runs its sets through `Engine.execute_groupby_batch`
+   against one after another, interleaved, bit-identical set by set: p50
+   each way.  Last, one cold SSB scope (q4.1, `Engine.drop_residency`
+   before each run) with the transfer pipeline on (copies from pinned
+   host copies) and off (pageable copies): the first pipelined run (which
+   pins the columns), then 4 runs each way interleaved: wall, h2d ms and
+   bytes, and from one profiled run each way the HtoD copy ms, kernel ms,
+   the share of copy time that overlaps a kernel and the idle share;
+10. fallback: the twelve extended TPC-H classes (`tpch.EXTENDED_QUERIES`:
    q2, q4, q9, q11, q13, q15, q16, q17, q18, q20, q21, q22) through
    `ctx.sql` on phase 6's TPC-H context (lineitem SF1 resident, orders
    1.5M rows, customer, supplier, part), with `rawline` (the normalized
@@ -101,10 +123,10 @@ Phases, one JSON line each:
    executor "device" for q9, "fallback" or "device+fallback" for the
    rest; the kernel launched in at least one assisted query.  Reported per
    query: executor, assists and declines, the G and tier of each engine
-   run, launches, the p50 of 3 warm runs with the assist on and off, the
+   run, launches, the p50 of 2 warm runs with the assist on and off, the
    decode ms of a cold and a warm run, and device busy ms and idle share
    from one profiled run.  No scale is cut.
-10. stream: BASELINE config #4, the hourly rollup over the event stream, as
+11. stream: BASELINE config #4, the hourly rollup over the event stream, as
    `bench.py` sends it: a Timeseries at hour granularity (Count, DoubleSum
    of value, DoubleMax of latency) through `StreamExecutor.execute` over
    2^21-row chunks of `gen_event_chunk`, generated on 8 threads, staged in
@@ -124,8 +146,10 @@ Phases, one JSON line each:
    its copies or kernels is taken again, up to 3 windows; after that the
    events' numbers stand in (`timer`).
 
-Every kernel launch of phases 4 to 10 is at a (G, Ms, Mn, Mx) that phase 3
-checked, or the run fails.
+Every kernel launch of phases 4 to 11, CUDA graph replays included
+(`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
+checked, or the run fails.  The arena is on (the default) in every phase
+but where phase 9 turns it off.
 
 Phases 4 and 6 also check the route of every query above 4096 groups, and
 that the kernel launched for every query whose pass (G, G' or the slots)
@@ -152,6 +176,7 @@ import numpy as np
 import torch
 
 from spark_druid_olap_tpu_torch.api import TPUOlapContext, grouping_set_queries
+from spark_druid_olap_tpu_torch.exec.arena import arena_disabled
 from spark_druid_olap_tpu_torch.exec.engine import (
     Engine,
     merge_sketch_states,
@@ -206,12 +231,12 @@ MAIN_SHAPES = [
 # passes at each query's G' (SSB SF10)
 MAIN_SHAPES += [(524288, G, 1, 0, 0) for G in (8, 26, 251, 1001)]
 MAIN_SHAPES += [(524288, G, 2, 0, 0) for G in (4, 7, 24, 100, 150, 273, 280, 600, 800)]
-# phase 9, the fallback's assisted subtrees at TPC-H SF1: Q2's min by
+# phase 10, the fallback's assisted subtrees at TPC-H SF1: Q2's min by
 # (s_region, p_type) under its window (Q15's and Q16's groupings by
 # s_nation and p_brand, and the sparse tier's first rung under Q4's EXISTS,
 # are shapes above)
 MAIN_SHAPES.append((524288, 36, 1, 1, 0))
-# phase 9: one 2^21-row chunk of the event stream, hourly buckets over the
+# phase 11: one 2^21-row chunk of the event stream, hourly buckets over the
 # week (169 with the bucket at the interval's end), rows and value summed,
 # latency maxed
 STREAM_SHAPE = (1 << 21, 169, 2, 0, 1)
@@ -484,7 +509,7 @@ def check_route(name: str, m: QueryMetrics, strategy: str = "auto") -> None:
     if m.num_groups <= 4096 or m.segments == 0:
         return
     want = {"auto": ("adaptive", "sparse"), "sparse": ("sparse",), "segment": ("segment",)}
-    if m.strategy not in want[strategy] and not (m.strategy == "segment" and m.declines):
+    if m.strategy not in want[strategy] and not (m.strategy == "segment" and m.tier_declines):
         raise AssertionError(f"{name}: {strategy} took {m.strategy} ({m.declines})")
 
 
@@ -496,29 +521,29 @@ def tier_fields(m: QueryMetrics) -> dict:
 
 
 class KernelShapes:
-    """Counts the (G, Ms, Mn, Mx) of every kernel launch on the card between
-    `start` and `stop`, by wrapping the wrapper (which still counts each
-    launch)."""
+    """The (G, Ms, Mn, Mx) of every kernel launch on the card between
+    `start` and `stop`, CUDA graph replays included: the wrapper's
+    per-shape counter (`cuda_groupby.LAUNCH_SHAPES`), less what it held at
+    `start`."""
 
     def __init__(self):
-        self.seen = {}
-        self._orig = None
+        self._base = {}
+        self._final = None
 
     def start(self):
-        self._orig = orig = cuda_groupby.cuda_partial_aggregate
-
-        def recorded(gid, mask, sv, mmv, mmm, num_groups, num_min, num_max):
-            if gid.is_cuda:
-                key = (num_groups, sv.shape[1], num_min, num_max)
-                self.seen[key] = self.seen.get(key, 0) + 1
-            return orig(gid, mask, sv, mmv, mmm, num_groups=num_groups,
-                        num_min=num_min, num_max=num_max)
-
-        cuda_groupby.cuda_partial_aggregate = recorded
+        self._base = dict(cuda_groupby.LAUNCH_SHAPES)
+        self._final = None
         return self
 
+    @property
+    def seen(self):
+        if self._final is not None:
+            return self._final
+        return {k: v - self._base.get(k, 0) for k, v in cuda_groupby.LAUNCH_SHAPES.items()
+                if v > self._base.get(k, 0)}
+
     def stop(self):
-        cuda_groupby.cuda_partial_aggregate = self._orig
+        self._final = self.seen
 
     def check(self):
         """Fails on a launched shape that phase 3 did not check."""
@@ -642,7 +667,7 @@ def build_workloads(ssb_scale: float, tpch_scale: float, seed: int = 7):
     tcols, tdicts = tpch.flat_columns(tt)
     tpch_ds = tpch.datasource(tcols, tdicts, rows_per_segment=1 << 19)
     tpch_frame = tpch.flat_frame(tt)
-    del tcols  # tt["lineitem"] stays: phase 9 registers it as rawline
+    del tcols  # tt["lineitem"] stays: phase 10 registers it as rawline
     emit(
         "data", ssb_scale=ssb_scale, ssb_rows=ssb_ds.num_rows,
         ssb_segments=len(ssb_ds.segments), tpch_scale=tpch_scale,
@@ -1206,8 +1231,9 @@ def tier_op_checks(cases):
                 ds, lowering, segs, cap, TIER_SLOTS[0], QueryMetrics())),
         }
         if clow.num_groups <= 4096:
-            syncs["compacted_pass"] = _syncs(lambda: engine._partials_for_query(
-                clow, segs, ds, "cuda", QueryMetrics()))
+            with arena_disabled():  # the eager loop's syncs
+                syncs["compacted_pass"] = _syncs(lambda: engine._partials_for_query(
+                    clow, segs, ds, "cuda", QueryMetrics()))
         out.append({"case": name, "num_groups": G, "segments": len(segs), "row_capacity": cap,
                     "compact_groups": clow.num_groups, "presence_cards": [len(c) for c in kept],
                     "merged_overflow": {str(k): v for k, v in overflowed.items()},
@@ -1322,9 +1348,288 @@ def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
     return out
 
 
-# -- phase 9: the host fallback ------------------------------------------------
+# -- phase 9: one dispatch per query, batch dispatch, the transfer pipeline -----
 
-FALLBACK_WARM = 3  # warm runs of each extended query, assist on and off
+ARENA_WARM = 5  # warm runs each way, arena on and off interleaved
+# a CUBE without sketches: every set's pass is captured (G 1 to 288, Ms 2)
+CUBE_REVENUE = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
+                "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")
+COLD_QUERY = "q4_1"  # the cold SSB scope: every segment, six columns
+COLD_RUNS = 4  # cold runs each way, pipeline on and off interleaved
+
+
+def _set(ctx, flag: str, on: bool) -> None:
+    ctx.sql(f"SET {flag} = {'true' if on else 'false'}")
+
+
+def _with_set_metrics(engine, fn):
+    """fn() and the engine's metrics of every group-by it resolved (one per
+    grouping set of a CUBE)."""
+    got = []
+    orig = engine._dispatch_groupby_once
+
+    def dispatch(q, ds):
+        resolve = orig(q, ds)
+
+        def recorded():
+            df = resolve()
+            got.append(engine.last_metrics)
+            return df
+
+        return recorded
+
+    engine._dispatch_groupby_once = dispatch
+    try:
+        return fn(), got
+    finally:
+        del engine._dispatch_groupby_once
+
+
+def arena_queries(ctxs, workloads):
+    """(label, workload, kind, run, check) of every main-path query (native
+    specs), every SQL query (the tier's high-G ones are kind "tier") and
+    the CUBEs: the two sketch CUBEs of phase 7 and one without sketches.
+    `run()` gives the frame; `check(frame)` holds it against its oracle and
+    returns the largest relative error."""
+    out = []
+    for workload, name, q in main_path_queries():
+        ds, frame = workloads[workload]
+        out.append((name, workload, "native",
+                    lambda e=ctxs[workload].engine, q=q, ds=ds: e.execute(q, ds),
+                    lambda f, n=name, w=workload, fr=frame: check_against_oracle(n, f, fr, w)))
+    for workload, name, sql in sql_queries():
+        frame = workloads[workload][1]
+        kind = "tier" if (workload, name) in HIGH_G else "sql"
+        out.append((f"{name} (SQL)", workload, kind, lambda c=ctxs[workload], t=sql: c.sql(t),
+                    lambda f, n=name, w=workload, fr=frame: check_against_oracle(n, f, fr, w)))
+    frame = workloads["ssb"][1]
+    cube = {}
+
+    def cube_check(name):
+        def check(f):
+            if not cube:  # the exact CUBE: groups, GROUPING_IDs, revenue, distinct counts
+                cube["want"] = ssb.sketch_oracle(frame, "cube_hll")
+            want = cube["want"]
+            if name == "cube_revenue":  # no distinct column to hold
+                f, want = f.assign(uniq_custs=1), want.assign(uniq_custs=1)
+            return ssb.check_sketch_answer(name if name != "cube_revenue" else "cube_hll",
+                                           f, want)["revenue_max_rel_err"]
+        return check
+
+    for name in ("cube_hll", "cube_theta", "cube_revenue"):
+        sql = CUBE_REVENUE if name == "cube_revenue" else ssb.SKETCH_QUERIES[name]
+        out.append((name, "ssb", "cube", lambda t=sql: ctxs["ssb"].sql(t), cube_check(name)))
+    return out
+
+
+def _timed(fn):
+    t0 = time.perf_counter()
+    out = fn()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def _busy_ms(fn):
+    """Device busy ms of one run from torch.profiler, or None where the
+    windows recorded no device event."""
+    dev = profiled_device_ms(fn, allow_empty=True)
+    return sum(dev.values()) if dev else None
+
+
+def _arena_check(label, sets, launches, on_card):
+    """Every set's pass was replayed from a graph, or the arena recorded
+    why it declined, or the set had no segment work; and on the card the
+    kernel launched once per in-scope segment of each set that runs it."""
+    for m in sets:
+        declined = [d for d in m.declines if d.startswith("arena:")]
+        covered = (m.dispatch_count == 1 and m.arena_segments == m.segments
+                   and m.graph_replays == int(on_card))
+        idle = m.segments == 0 or m.compact_groups == 0
+        if not (covered or declined or idle):
+            raise AssertionError(f"{label}: neither replayed nor a recorded decline: {m.describe()}")
+        if covered and declined:
+            raise AssertionError(f"{label}: replayed and declined: {m.describe()}")
+    want = sum(m.segments for m in sets if uses_kernel(m))
+    if on_card and launches != want:
+        raise AssertionError(f"{label}: {launches} kernel launches, want {want}")
+
+
+def run_arena_queries(ctxs, workloads, warm=ARENA_WARM):
+    """Every query of `arena_queries` with the arena on and off (SET
+    arena_execution): after the engines' programs are dropped, a first run
+    (eager, the warm-up), a second (the capture) and a third (a replay),
+    bit-identical to each other, to every arena-off run and to the oracle;
+    then `warm` runs each way, interleaved; then one profiled run each way.
+    Fails on a pass that neither replayed nor recorded an arena decline,
+    and on the card where the kernel did not launch once per in-scope
+    segment in a run, replays counted.  The CUBEs also run their sets
+    through `Engine.execute_groupby_batch` against one after another,
+    interleaved, bit-identical set by set.  One summary per query."""
+    import pandas as pd
+
+    for ctx in ctxs.values():
+        ctx.engine._arena.clear()
+    on_card = any(c.engine.device.type == "cuda" for c in ctxs.values())
+    out = []
+    for label, workload, kind, run, check in arena_queries(ctxs, workloads):
+        ctx = ctxs[workload]
+        engine = ctx.engine
+        _set(ctx, "arena_execution", True)
+        first, m_first = _with_set_metrics(engine, run)
+        captured, capture_wall = _timed(lambda: _with_set_metrics(engine, run))
+        captured, m_capture = captured
+        before = cuda_groupby.LAUNCHES
+        replayed, m_replay = _with_set_metrics(engine, run)
+        launches = cuda_groupby.LAUNCHES - before
+        for f in (captured, replayed):
+            pd.testing.assert_frame_equal(first, f, check_exact=True)
+        _arena_check(label, m_replay, launches, on_card)
+        err = check(replayed)
+        times = {"on": [], "off": []}
+        off_launches = None
+        for i in range(warm):
+            for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                _set(ctx, "arena_execution", side == "on")
+                before = cuda_groupby.LAUNCHES
+                (f, sets), ms = _timed(lambda: _with_set_metrics(engine, run))
+                times[side].append(ms)
+                pd.testing.assert_frame_equal(replayed, f, check_exact=True)
+                if side == "off" and off_launches is None:
+                    off_launches = cuda_groupby.LAUNCHES - before
+                    m_off = sets
+                    if any(m.graph_replays for m in sets):
+                        raise AssertionError(f"{label}: a replay with the arena off")
+        _set(ctx, "arena_execution", True)
+        busy_on = _busy_ms(run)
+        _set(ctx, "arena_execution", False)
+        busy_off = _busy_ms(run)
+        _set(ctx, "arena_execution", True)
+        p50 = {k: statistics.median(v) for k, v in times.items()}
+        row = {
+            "query": label, "workload": workload, "kind": kind,
+            "strategy": [m.strategy for m in m_replay], "sets": len(m_replay),
+            "segments": sum(m.segments for m in m_replay),
+            "dispatches_first": sum(m.dispatch_count for m in m_first),
+            "dispatches_on": sum(m.dispatch_count for m in m_replay),
+            "dispatches_off": sum(m.dispatch_count for m in m_off),
+            "graph_captures": sum(m.graph_captures for m in m_capture),
+            "graph_replays": sum(m.graph_replays for m in m_replay),
+            "capture_ms": sum(m.capture_ms for m in m_capture),
+            "capture_run_ms": capture_wall,
+            "kernel_launches_on": launches, "kernel_launches_off": off_launches,
+            "declines": sorted({d for m in m_replay for d in m.declines if d.startswith("arena:")}),
+            "p50_on_ms": p50["on"], "p50_off_ms": p50["off"],
+            "on_over_off": p50["on"] / p50["off"],
+            "device_busy_on_ms": busy_on, "device_busy_off_ms": busy_off,
+            "device_idle_share_on": None if busy_on is None else 1 - busy_on / p50["on"],
+            "device_idle_share_off": None if busy_off is None else 1 - busy_off / p50["off"],
+            "oracle_max_rel_err": err, "bit_identical_on_off": True,
+        }
+        if kind == "cube":
+            row.update(_batch_against_serial(ctx, label, warm))
+        out.append(row)
+        emit("arena_query", **row)
+    return out
+
+
+def _batch_against_serial(ctx, label, warm):
+    """A CUBE's sets through `execute_groupby_batch` (every set dispatched
+    before any fetch) against the same sets run one after another,
+    interleaved, arena on: p50 each way, frames bit-identical set by set."""
+    import pandas as pd
+
+    sql = CUBE_REVENUE if label == "cube_revenue" else ssb.SKETCH_QUERIES[label]
+    rw = ctx.plan_sql(sql)
+    ds = ctx.catalog.get(rw.datasource)
+    subs = grouping_set_queries(rw.query, rw.grouping_sets)
+    engine = ctx.engine
+    ways = {"batch": lambda: engine.execute_groupby_batch(subs, ds),
+            "serial": lambda: [engine.execute(q, ds) for q in subs]}
+    times, frames = {"batch": [], "serial": []}, {}
+    for i in range(warm):
+        for way in (("batch", "serial") if i % 2 == 0 else ("serial", "batch")):
+            got, ms = _timed(ways[way])
+            times[way].append(ms)
+            for a, b in zip(frames.setdefault("first", got), got):
+                pd.testing.assert_frame_equal(a, b, check_exact=True)
+    return {"batch_p50_ms": statistics.median(times["batch"]),
+            "serial_p50_ms": statistics.median(times["serial"]),
+            "batch_bit_identical_to_serial": True}
+
+
+def run_cold_pipeline(ctx, workloads, runs=COLD_RUNS):
+    """One cold SSB scope (`Engine.drop_residency` before every run) with
+    the transfer pipeline on (copies from pinned host copies) and off
+    (from the segments' pageable arrays), SET transfer_pipeline: first one
+    run with the pipeline on and no pinned host copy (it pins each column
+    as it copies it), then `runs` each way, interleaved, the pipeline's
+    from the pinned copies: wall ms, h2d ms and bytes; frames
+    bit-identical; then one profiled cold run each way: HtoD copy ms,
+    kernel ms, the share of copy time that overlaps a kernel, and the
+    device's busy and idle share of the p50."""
+    import pandas as pd
+    from torch.profiler import ProfilerActivity, profile
+
+    ds, frame = workloads["ssb"]
+    q = ssb.NATIVE_QUERIES[COLD_QUERY]
+    engine = ctx.engine
+    rows = {"on": [], "off": []}
+
+    def cold():
+        engine.drop_residency()
+        if engine.device.type == "cuda":
+            torch.cuda.synchronize()
+        return _timed(lambda: engine.execute(q, ds))
+
+    _set(ctx, "transfer_pipeline", True)
+    engine._pipeline.clear()  # no pinned copy yet
+    first, pinning_ms = cold()
+    m = engine.last_metrics
+    pinning = {"wall_ms": pinning_ms, "h2d_ms": m.h2d_ms, "h2d_bytes": m.h2d_bytes,
+               "pinned_bytes": engine._pipeline.to_dict()["pinned_bytes"]}
+    for i in range(runs):
+        for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            _set(ctx, "transfer_pipeline", side == "on")
+            df, ms = cold()
+            m = engine.last_metrics
+            pd.testing.assert_frame_equal(first, df, check_exact=True)
+            rows[side].append({"wall_ms": ms, "h2d_ms": m.h2d_ms, "h2d_bytes": m.h2d_bytes})
+    out = {"query": COLD_QUERY, "segments": engine.last_metrics.segments, "runs": runs,
+           "first_run_pinning": pinning,
+           "oracle_max_rel_err": check_against_oracle(COLD_QUERY, first, frame, "ssb")}
+    for side, rs in rows.items():
+        p50 = statistics.median(r["wall_ms"] for r in rs)
+        out[side] = {"p50_ms": p50, "runs": rs}
+        if engine.device.type != "cuda":
+            continue
+        _set(ctx, "transfer_pipeline", side == "on")
+        for windows in range(1, PROFILE_TRIES + 1):
+            engine.drop_residency()
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                engine.execute(q, ds)
+                torch.cuda.synchronize()
+            copies, kernels, every, names = _profiled_intervals(prof)
+            if copies and kernels:
+                break
+        out[side]["profiler_windows"] = windows
+        out[side]["profile"] = (
+            _overlap_summary(copies, kernels, every, p50, rs[0]["h2d_bytes"])
+            if copies and kernels else None)
+    _set(ctx, "transfer_pipeline", True)
+    out["on_over_off"] = out["on"]["p50_ms"] / out["off"]["p50_ms"]
+    on_card = engine.device.type == "cuda"
+    if (on_card and pinning["pinned_bytes"] != pinning["h2d_bytes"]) or any(
+            r["h2d_bytes"] != pinning["h2d_bytes"] for rs in rows.values() for r in rs):
+        raise AssertionError("cold scope: the pipeline did not copy every column "
+                             "once from a pinned copy")
+    return out
+
+
+# -- phase 10: the host fallback -----------------------------------------------
+
+# warm runs of each extended query, assist on and off: the host-only ones
+# take seconds each, and two keep the whole run near half its time limit
+FALLBACK_WARM = 2
 
 
 class AssistLog:
@@ -1461,7 +1766,7 @@ def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
     return out
 
 
-# -- phase 10: streaming ---------------------------------------------------------
+# -- phase 11: streaming ---------------------------------------------------------
 
 
 def stream_query():
@@ -1783,7 +2088,7 @@ def main(argv=None) -> int:
         return sum(e.bytes_resident() for e in engines.values())
 
     torch.cuda.reset_peak_memory_stats(device)
-    shapes = KernelShapes().start()  # every launch of phases 4 to 10
+    shapes = KernelShapes().start()  # every launch of phases 4 to 11
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
     queries = run_main_path(engines, workloads)
@@ -1848,6 +2153,18 @@ def main(argv=None) -> int:
         raise AssertionError("the tier phase never launched the kernel")
 
     t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the arena phase's launches
+    arena_rows = run_arena_queries(ctxs, workloads)
+    cold = run_cold_pipeline(ctxs["ssb"], workloads)
+    emit("cold_pipeline", **cold)
+    arena_launches = cuda_groupby.LAUNCHES
+    emit("arena", queries=len(arena_rows), seconds=time.perf_counter() - t0,
+         replayed=sum(1 for r in arena_rows if r["graph_replays"]),
+         declined=sum(1 for r in arena_rows if r["declines"]),
+         kernel_launches=arena_launches, bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+
+    t0 = time.perf_counter()
     tctx = ctxs["tpch"]
     tpch.register_extended(tctx, workloads["dims"]["tpch"])
     reg_s = time.perf_counter() - t0
@@ -1861,7 +2178,7 @@ def main(argv=None) -> int:
          bytes_resident=resident(),
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
 
-    del ctxs, engines, exact, workloads, dims, tctx  # phase 10 needs host memory
+    del ctxs, engines, exact, workloads, dims, tctx  # phase 11 needs host memory
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1893,11 +2210,12 @@ def main(argv=None) -> int:
         "source": "spark_druid_olap_tpu_torch/csrc/groupby_partial.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
         "launches": (launches + sql_launches + sketch_launches + tier_launches
-                     + fallback_launches + stream_launches),
+                     + arena_launches + fallback_launches + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
         "launches_tier": tier_launches,
+        "launches_arena": arena_launches,
         "launches_fallback": fallback_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),

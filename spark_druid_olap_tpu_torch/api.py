@@ -14,8 +14,9 @@ aggregate mapping, TopN/Timeseries routing) to a Druid query spec, through
 `exec.engine.Engine` on the device, and through host post-processing here
 (FD restores, host post-expressions, residual HAVING, output projection).
 
-CUBE, ROLLUP and GROUPING SETS run one engine pass per set
-(`execute_grouping_sets`); approximate distinct counts and APPROX_QUANTILE
+CUBE, ROLLUP and GROUPING SETS run one engine pass per set, every set
+dispatched before any is fetched (`execute_grouping_sets`,
+`Engine.execute_groupby_batch`); approximate distinct counts and APPROX_QUANTILE
 run as sketch aggregators on the device.  Under `count_distinct_mode =
 'exact'` a COUNT(DISTINCT) runs its inner grouping on the device (a
 high-cardinality group-by, carried by the engine's tiers) and re-aggregates
@@ -78,6 +79,7 @@ class TPUOlapContext:
         self.config = config or SessionConfig()
         self.catalog = MetadataCache()
         self.engine = Engine(device=device)
+        self.apply_config()
         # SQL text -> Rewrite: a repeated dashboard query pays
         # parse + plan once.  Keyed on the catalog version, views and config,
         # so any re-registration or session-flag change invalidates.
@@ -89,6 +91,11 @@ class TPUOlapContext:
         # object when it ended): `last_metrics` serves the first while the
         # engine has run nothing since
         self._fallback_metrics = None
+
+    def apply_config(self) -> None:
+        """Hands the session's execution flags to the engine (transfer
+        pipeline, arena); `SET` calls it after every change."""
+        self.engine.configure_pipeline(self.config)
 
     # -- registration (CREATE TABLE ... USING ... OPTIONS analog) -----------
 
@@ -429,7 +436,8 @@ def grouping_set_queries(q: Q.GroupByQuery, grouping_sets) -> List[Q.GroupByQuer
 
 
 def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
-    """CUBE/ROLLUP/GROUPING SETS: one engine pass per set, absent
+    """CUBE/ROLLUP/GROUPING SETS: one engine pass per set, all dispatched
+    before any is fetched (`Engine.execute_groupby_batch`), absent
     dimensions emitted as nulls, plus a __grouping_id bitmask (SQL
     GROUPING_ID semantics: bit i set => dim i aggregated away).  The
     limit/order spec applies to the combined result, not per set: a per-set
@@ -439,8 +447,8 @@ def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
     all_dims = q.dimensions
     k = len(all_dims)
     frames = []
-    for s, sub in zip(grouping_sets, grouping_set_queries(q, grouping_sets)):
-        f = engine.execute(sub, ds)
+    results = engine.execute_groupby_batch(grouping_set_queries(q, grouping_sets), ds)
+    for s, f in zip(grouping_sets, results):
         gid = 0
         present = set(s)
         for i in range(k):

@@ -52,3 +52,13 @@ class SessionConfig:
     # assist a subtree even where the rules would decline it (a Timeseries,
     # TopN or exact-distinct rewrite under 2^23 rows); the row floor stays
     device_assist_force: bool = False
+
+    # transfer pipeline (exec/pipeline.py): a cold segment column is
+    # copied from a pinned host copy kept per column, a DMA the host does
+    # not wait for; the first copy of a column pins it.  False: copies
+    # from the segments' pageable arrays.  The same bits either way
+    transfer_pipeline: bool = True
+    # one dispatch per query scope (exec/arena.py): a scope's segment loop
+    # is captured as a CUDA graph on its second execution and replayed
+    # after; the same bits as the loop.  False keeps every scope on the loop
+    arena_execution: bool = True

@@ -249,6 +249,7 @@ class AdaptiveDomainMixin:
                         .index_add_(0, codes.long(), ones[:, 0])
                     )
             counts = per if counts is None else [a + b for a, b in zip(counts, per)]
+            m.dispatch_count += 1
         host = torch.cat(counts).cpu().numpy()  # the pass's one fetch
         out, at = [], 0
         for d in lowering.dims:
@@ -301,8 +302,10 @@ class AdaptiveDomainMixin:
 
     def _groupby_adaptive(self, q, ds: DataSource, lowering: GroupByLowering, segs, m):
         """The adaptive tier over the (non-empty) segment scope: the
-        compacted lowering and the host state of its pass (sums, mins,
-        maxs, sketch states, no slot gids), or None when it declines."""
+        compacted lowering and the merged state of its pass on the device,
+        or None when it declines.  The kept sets identify the compacted
+        lowering, in the lowering cache and for the arena (`key_extra`),
+        so no program replays the constants of another kept set."""
         kept = self._adaptive_kept_codes(q, ds, lowering, segs, m)
         if kept is None:
             return None
@@ -310,13 +313,13 @@ class AdaptiveDomainMixin:
             # a grouped dimension has no code under the filter: the exact
             # answer is the empty grouped frame
             m.inner_strategy = "none"
-            la = lowering.la
-            return (lowering, *self._host_state(la, empty_partials(la, 0, self.device)))
-        key = _query_key(q, ds) + ("adaptive",) + tuple(kd.tobytes() for kd in kept)
+            return lowering, empty_partials(lowering.la, 0, self.device)
+        extra = ("adaptive",) + tuple(kd.tobytes() for kd in kept)
+        key = _query_key(q, ds) + extra
         clow = self._lowering_cache.get(key)
         if clow is None:
             clow = compacted_lowering(lowering, kept)
             self._lowering_cache[key] = clow
         m.inner_strategy = self._resolve_strategy(clow.num_groups)
-        state = self._partials_for_query(clow, segs, ds, m.inner_strategy, m)
-        return (clow, *self._host_state(clow.la, state))
+        state = self._partials_for_query(clow, segs, ds, m.inner_strategy, m, key_extra=extra)
+        return clow, state

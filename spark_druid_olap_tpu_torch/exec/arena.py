@@ -1,0 +1,319 @@
+"""One dispatch per query scope: the segment loop captured as a CUDA graph.
+
+The port's warm latency is host-bound: a query's segment loop issues 20-40
+small eager torch ops per segment (the row pipeline, the kernel, the fold).
+The reference removes that loop by tracing the whole in-scope fold into one
+program (its `exec/arena.py`, a `lax.scan` over stacked `[B, R]` columns).
+Here the same role falls to a CUDA graph, captured once per query scope and
+replayed with one host call.
+
+* **What the graph captures.**  The loop body itself: `shard_partials` then
+  `fold_partials` over each in-scope segment's resident columns, in
+  canonical segment order, ending in the folded (sums, mins, maxs).  A
+  graph binds addresses, not shapes, so nothing is stacked: no second copy
+  of the scope, and segments of unequal length are covered too.  A replay
+  runs the same kernels in the same order on the same inputs as the eager
+  loop, so the arena on and off give the same bits.
+* **When.**  A scope's first execution runs the eager loop, so a query
+  that runs once is never captured.  The second captures the graph and
+  replays it; later ones replay.  A capture runs the body once on its
+  stream first, the usual warm-up (the lazy `DeviceConst` copies, the
+  kernel's one-time `cudaFuncSetAttribute`, the allocator), so a capture
+  never copies from the host even when the lowering it captures is not
+  the one the first run warmed.  A replay marks the scope's columns
+  recently used in the residency cache, as the loop's reads would.  On
+  the CPU there is no graph: the program calls the same body eagerly, so
+  plans, declines, keys and invalidation behave the same on both devices.
+* **Keys.**  `arena_key`: the query's lowering-cache key, the kernel
+  strategy, `key_extra` (the adaptive tier's compacted domain) and the
+  in-scope segment uids.  Programs live in a count-bounded LRU
+  (`ArenaCache`).  A program holds references to the columns it reads, so
+  when the residency cache drops any of them (`ByteBudgetCache.on_evict`)
+  or `Engine.clear_cache` runs, every program pinning it is dropped first,
+  with its warm mark: the budget stays true and no graph replays freed
+  memory.
+* **Declines** (deterministic, each recorded in `QueryMetrics.declines`
+  with the prefix "arena:"): sketch aggregations; the scatter strategy
+  (`segment`), whose `nonzero` has a data-dependent size; a scope above
+  `ARENA_BUDGET_FRACTION` of the residency budget; the session flag
+  (`SessionConfig.arena_execution`) and the per-query opt-out
+  (`arena_disabled`).  The sparse tier answers before the arena is asked
+  (the engine records that decline).  A capture or replay that fails
+  raises; nothing reruns through the loop.
+* **Launches.**  A kernel launch recorded during capture is not counted;
+  the program keeps the captured shapes and `cuda_groupby.count_replay`
+  counts them at every replay.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import contextvars
+import threading
+import time
+from collections import OrderedDict
+from typing import Dict, List, Optional, Sequence, Set, Tuple
+
+import torch
+
+from ..ops import cuda_groupby
+from .lowering import _query_key
+from .pipeline import column_key
+
+# a program pins every column of its scope resident; a scope above this
+# share of the residency budget stays on the loop, so one query cannot
+# hold the whole working set
+ARENA_BUDGET_FRACTION = 0.5
+
+# programs kept (each holds its graph's memory pool: the scope's largest
+# per-segment intermediates, tens of MB at 512K-row segments)
+ARENA_PROGRAM_ENTRIES = 64
+
+_disabled: "contextvars.ContextVar[bool]" = contextvars.ContextVar(
+    "arena_disabled", default=False
+)
+
+
+@contextlib.contextmanager
+def arena_disabled():
+    """Runs the enclosed executions on the eager loop (the per-query
+    opt-out; `SessionConfig.arena_execution` is the session-wide one)."""
+    tok = _disabled.set(True)
+    try:
+        yield
+    finally:
+        _disabled.reset(tok)
+
+
+def query_disabled() -> bool:
+    return _disabled.get()
+
+
+def arena_key(query_key: Tuple, strategy: str, key_extra: Tuple, uids: Sequence) -> Tuple:
+    """Key of one scope's program: the lowering-cache key of its query,
+    the kernel strategy, `key_extra` (a compacted lowering's kept sets) and
+    the in-scope segment uids.  Tagged "arena" so it never equals a
+    residency key."""
+    return ("arena", query_key, strategy, tuple(key_extra), tuple(uids))
+
+
+def is_arena_key(key) -> bool:
+    return isinstance(key, tuple) and len(key) == 5 and key[0] == "arena"
+
+
+class ArenaPlan:
+    """One scope the arena covers: its key, lowering, strategy, segments
+    and the residency keys of the columns it reads."""
+
+    __slots__ = ("key", "lowering", "strategy", "segs", "col_keys", "nbytes")
+
+    def __init__(self, key, lowering, strategy, segs, col_keys, nbytes):
+        self.key = key
+        self.lowering = lowering
+        self.strategy = strategy
+        self.segs = list(segs)
+        self.col_keys = tuple(col_keys)
+        self.nbytes = int(nbytes)
+
+
+def plan_for(engine, lowering, segs, strategy: str, key_extra, ds, m) -> Optional[ArenaPlan]:
+    """The arena's plan for a (non-empty) scope, or None after recording
+    why it declines in `m.declines`."""
+    reason = None
+    if not engine.arena_execution:
+        reason = "arena: arena_execution is off"
+    elif query_disabled():
+        reason = "arena: disabled for this query"
+    elif lowering.la.sketch_aggs:
+        reason = "arena: sketch aggregations are not captured"
+    elif strategy == "segment":
+        reason = "arena: the scatter strategy's nonzero has a data-dependent size"
+    if reason is None:
+        names = (*lowering.columns, None)
+        nbytes = sum(
+            int((s.valid if n is None else s.column(n)).nbytes) for s in segs for n in names
+        )
+        budget = int(engine._device_cache.budget_bytes * ARENA_BUDGET_FRACTION)
+        if nbytes > budget:
+            reason = (f"arena: the scope's {nbytes} bytes exceed {ARENA_BUDGET_FRACTION} "
+                      f"of the residency budget ({budget})")
+    if reason is not None:
+        m.declines.append(reason)
+        return None
+    key = arena_key(_query_key(lowering.query, ds), strategy, key_extra,
+                    [s.uid for s in segs])
+    col_keys = [column_key(s, n) for s in segs for n in names]
+    return ArenaPlan(key, lowering, strategy, segs, col_keys, nbytes)
+
+
+class ArenaProgram:
+    """A scope's captured program: the CUDA graph and its output tensors
+    on a card, the body alone on the CPU; the columns it reads; and the
+    kernel launches it captured."""
+
+    __slots__ = ("plan", "cols", "body", "graph", "outputs", "launches", "capture_ms")
+
+    def __init__(self, plan, cols, body, graph=None, outputs=None, launches=(),
+                 capture_ms=0.0):
+        self.plan = plan
+        self.cols = cols  # keeps the captured columns alive
+        self.body = body
+        self.graph = graph
+        self.outputs = outputs
+        self.launches = tuple(launches)
+        self.capture_ms = capture_ms
+
+    def run(self):
+        """The scope's folded (sums, mins, maxs, {}): a replay, its
+        launches counted and its outputs copied out (the next replay
+        overwrites them); on the CPU, the body."""
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        cuda_groupby.count_replay(self.launches)
+        return (*(t.clone() for t in self.outputs), {})
+
+
+def _body(plan: ArenaPlan, cols_list):
+    from .engine import fold_partials, shard_partials
+
+    lowering, strategy = plan.lowering, plan.strategy
+
+    def body():
+        state = None
+        for cols in cols_list:  # canonical segment order: the fold order
+            state = fold_partials(lowering.la, state, shard_partials(lowering, cols, strategy))
+        return state
+
+    return body
+
+
+def build_arena_program(engine, plan: ArenaPlan, cols_list) -> ArenaProgram:
+    """The scope's program over its resident columns (`cols_list`, one
+    dict per segment in canonical order): on a card the body captured into
+    a CUDA graph on the engine's capture stream, after the compute stream's
+    pending work and one warm-up run of the body on that stream; on the CPU
+    the body alone.  A failed capture raises."""
+    body = _body(plan, cols_list)
+    dev = engine.device
+    if dev.type != "cuda":
+        return ArenaProgram(plan, cols_list, body)
+    t0 = time.perf_counter()
+    stream = engine._capture_stream()
+    stream.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(stream):
+        # the warm-up, on the stream that captures: whatever the body does
+        # once (a DeviceConst's host copy, the kernel's attribute call, a
+        # new allocator block) happens here, outside the capture.  The
+        # scope's first, eager run cannot stand in for it: the lowering
+        # cache may have rebuilt `plan.lowering` since, with no device copy
+        # of its constants yet
+        body()
+    graph = torch.cuda.CUDAGraph()
+    with cuda_groupby.capture_launches() as launches, torch.cuda.stream(stream):
+        graph.capture_begin()
+        try:
+            out = body()
+        except BaseException:
+            try:
+                graph.capture_end()
+            except RuntimeError:
+                pass  # the capture is void either way; the body's error stands
+            raise
+        graph.capture_end()
+    torch.cuda.current_stream(dev).wait_stream(stream)
+    return ArenaProgram(plan, cols_list, body, graph, out[:3], launches,
+                        (time.perf_counter() - t0) * 1e3)
+
+
+class ArenaCache:
+    """The engine's programs (count-bounded LRU), the scopes that ran
+    eagerly once and capture on their next execution (warm marks, bounded
+    alike), and the index residency key -> program or warm keys that
+    invalidation reads.  A key is a program or a warm mark, never both."""
+
+    def __init__(self, entries: int = ARENA_PROGRAM_ENTRIES):
+        self.entries = int(entries)
+        self._programs: "OrderedDict[Tuple, ArenaProgram]" = OrderedDict()
+        self._warm: "OrderedDict[Tuple, Tuple]" = OrderedDict()  # key -> col keys
+        self._by_col: Dict[Tuple, Set[Tuple]] = {}
+        self._lock = threading.RLock()
+
+    def keys(self) -> List[Tuple]:
+        with self._lock:
+            return list(self._programs)
+
+    def get(self, key) -> Optional[ArenaProgram]:
+        with self._lock:
+            prog = self._programs.get(key)
+            if prog is not None:
+                self._programs.move_to_end(key)
+            return prog
+
+    def is_warm(self, key) -> bool:
+        with self._lock:
+            return key in self._warm
+
+    def _unindex(self, key, col_keys) -> None:
+        for ck in col_keys:
+            keys = self._by_col.get(ck)
+            if keys is not None:
+                keys.discard(key)
+                if not keys:
+                    del self._by_col[ck]
+
+    def note_warm(self, plan: ArenaPlan) -> None:
+        """The scope ran eagerly: its next execution captures."""
+        with self._lock:
+            if plan.key in self._warm or plan.key in self._programs:
+                return
+            self._warm[plan.key] = plan.col_keys
+            for ck in plan.col_keys:
+                self._by_col.setdefault(ck, set()).add(plan.key)
+            while len(self._warm) > self.entries:
+                self._unindex(*self._warm.popitem(last=False))
+
+    def put(self, prog: ArenaProgram) -> None:
+        """Keeps a scope's program in place of its warm mark."""
+        with self._lock:
+            key = prog.plan.key
+            self._warm.pop(key, None)
+            self._programs[key] = prog
+            for ck in prog.plan.col_keys:
+                self._by_col.setdefault(ck, set()).add(key)
+            while len(self._programs) > self.entries:
+                old_key, old = self._programs.popitem(last=False)
+                self._unindex(old_key, old.plan.col_keys)
+
+    def invalidate_column(self, col_key) -> int:
+        """Drops every program and warm mark of a scope that reads
+        `col_key`; returns how many programs went."""
+        with self._lock:
+            keys = self._by_col.pop(col_key, ())
+            dropped = 0
+            for key in keys:
+                prog = self._programs.pop(key, None)
+                col_keys = prog.plan.col_keys if prog is not None else self._warm.pop(key)
+                dropped += prog is not None
+                self._unindex(key, col_keys)
+            return dropped
+
+    def clear(self) -> None:
+        with self._lock:
+            self._programs.clear()
+            self._warm.clear()
+            self._by_col.clear()
+
+
+def run_plan(engine, ds, plan: ArenaPlan, m):
+    """The scope's folded state from its program (`Engine._arena_program`),
+    or None on the scope's first execution (the caller runs the eager loop,
+    then `ArenaCache.note_warm`)."""
+    prog = engine._arena_program(plan, ds, m)
+    if prog is None:
+        return None
+    state = prog.run()
+    m.dispatch_count += 1
+    m.arena_segments += len(plan.segs)
+    m.graph_replays += prog.graph is not None
+    return state

@@ -27,6 +27,15 @@ over a datasource's segments:
    `exec/finalize.py` decodes groups, finalizes sketches, evaluates
    post-aggregations, having and limit, and builds the DataFrame.
 
+Steps 3 and 4 run as one host call per query scope where they can: the
+arena (`exec/arena.py`) captures a scope's segment loop as a CUDA graph on
+its second execution and replays it after; otherwise the eager loop runs.
+A column that is not resident reaches the card through the transfer
+pipeline (`exec/pipeline.py`): from a pinned host copy kept per column.
+`execute_groupby_batch` dispatches several group-bys before it fetches any
+(grouping sets).  `configure_pipeline` applies the session's
+`transfer_pipeline` and `arena_execution`.
+
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 device given and no GPU present, `Engine()` raises.
 """
@@ -46,6 +55,7 @@ from ..models import query as Q
 from ..ops.filters import numeric_dict_code_bounds
 from ..ops.groupby import partial_aggregate, resolve_strategy
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
+from . import arena
 from .adaptive_exec import AdaptiveDomainMixin
 from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
 from .lowering import (
@@ -61,6 +71,7 @@ from .lowering import (
     topn_to_groupby,
 )
 from .metrics import QueryMetrics
+from .pipeline import TransferPipeline, column_key
 from .sparse_exec import SparseExecMixin
 
 
@@ -316,8 +327,14 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
         self.device = resolve_device(device)
         self.strategy = strategy
-        # LRU residency of device columns under a byte budget
-        self._device_cache = ByteBudgetCache(_default_device_budget(self.device))
+        # LRU residency of device columns under a byte budget; a column that
+        # leaves it takes the arena programs that read it along
+        self._device_cache = ByteBudgetCache(
+            _default_device_budget(self.device), on_evict=self._on_evict)
+        self._pipeline = TransferPipeline(self)
+        self._arena = arena.ArenaCache()
+        self.arena_execution = True
+        self._graph_stream = None
         # (query json, datasource schema) -> GroupByLowering: lowering is
         # host work that also stages device constants
         self._lowering_cache = CountBudgetCache(LOWERING_CACHE_ENTRIES)
@@ -346,29 +363,47 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             return self._kernel_class()
         return self.strategy
 
+    def configure_pipeline(self, config) -> None:
+        """Applies the session's execution flags (`api.TPUOlapContext` calls
+        it at construction and on every SET): `transfer_pipeline` and
+        `arena_execution`."""
+        self._pipeline.configure(config)
+        self.arena_execution = bool(config.arena_execution)
+
+    def _capture_stream(self):
+        """The side stream CUDA graphs are captured on."""
+        if self._graph_stream is None:
+            self._graph_stream = torch.cuda.Stream(self.device)
+        return self._graph_stream
+
     # -- segment residency ---------------------------------------------------
 
+    def _on_evict(self, key, _value) -> None:
+        """A column left the residency cache: drop the arena programs that
+        hold it."""
+        self._arena.invalidate_column(key)
+
     def _device_col(self, key, host_fn, m: QueryMetrics) -> torch.Tensor:
+        """A resident column, else one copied now (`TransferPipeline.put`)."""
         t = self._device_cache.get(key)
-        if t is None:
-            host = host_fn()
-            t0 = time.perf_counter()
-            t = torch.from_numpy(np.ascontiguousarray(host)).to(self.device)
-            m.h2d_ms += (time.perf_counter() - t0) * 1e3
-            m.h2d_bytes += int(host.nbytes)
-            self._device_cache[key] = t
+        if t is not None:
+            return t
+        host = host_fn()
+        t0 = time.perf_counter()
+        t = self._pipeline.put(key, host)
+        m.h2d_ms += (time.perf_counter() - t0) * 1e3
+        m.h2d_bytes += int(host.nbytes)
+        self._device_cache[key] = t
         return t
 
     def _cols_for_segment(
         self, seg: Segment, ds: DataSource, names, m: QueryMetrics
     ) -> Dict[str, torch.Tensor]:
-        # "col"/"valid" key tags: a user column literally named "__valid"
-        # must not alias the validity-mask entry
         cols = {
-            n: self._device_col((seg.uid, "col", n), lambda n=n: seg.column(n), m)
+            n: self._device_col(column_key(seg, n), lambda n=n: seg.column(n), m)
             for n in names
         }
-        cols["__valid"] = self._device_col((seg.uid, "valid"), lambda: seg.valid, m)
+        cols["__valid"] = self._device_col(column_key(seg), lambda: seg.valid, m)
         if ds.time_column and ds.time_column in cols:
             cols["__time"] = cols[ds.time_column]
         return cols
@@ -377,10 +412,18 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         """Device bytes held by the segment residency cache."""
         return self._device_cache.bytes_used
 
-    def clear_cache(self):
-        """Drop the resident columns and the cached lowerings (which close
-        over staged device constants)."""
+    def drop_residency(self):
+        """Drop the arena programs (which hold resident columns) and the
+        resident columns: the next query of any scope starts cold.
+        Lowerings and pinned host copies stay."""
+        self._arena.clear()
         self._device_cache.clear()
+
+    def clear_cache(self):
+        """`drop_residency`, and drop the pinned host copies and the cached
+        lowerings (which close over staged device constants)."""
+        self.drop_residency()
+        self._pipeline.clear()
         self._lowering_cache.clear()
 
     # -- entry points --------------------------------------------------------
@@ -425,27 +468,88 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
 
     def _partials_for_query(
         self, lowering: GroupByLowering, segs, ds: DataSource, strategy: str,
-        m: QueryMetrics,
+        m: QueryMetrics, key_extra=(),
     ):
-        """The segment loop: each segment's partial state by `strategy`,
-        folded in canonical segment order on the device.  Returns (sums,
-        mins, maxs, sketch states), or None when no segment is in scope."""
+        """The scope's partial state by `strategy`, folded in canonical
+        segment order on the device: from the arena's program where it has
+        one (`key_extra` tells a compacted lowering's program from
+        another's), else from the eager loop.  Returns (sums, mins, maxs,
+        sketch states), or None when no segment is in scope."""
+        if not segs:
+            return None
+        plan = arena.plan_for(self, lowering, segs, strategy, key_extra, ds, m)
+        if plan is not None:
+            state = arena.run_plan(self, ds, plan, m)
+            if state is not None:
+                return state
+        state = self._segment_loop(lowering, segs, ds, strategy, m)
+        if plan is not None:
+            self._arena.note_warm(plan)
+        return state
+
+    def _arena_program(self, plan: "arena.ArenaPlan", ds: DataSource, m: QueryMetrics):
+        """The scope's arena program from the program cache; built (on a card,
+        captured) on the scope's second execution over its resident columns;
+        None on its first, which runs the eager loop."""
+        prog = self._arena.get(plan.key)
+        if prog is not None:
+            # a replay reads the columns: they stay as recent as the loop's
+            # reads would keep them
+            self._device_cache.touch(plan.col_keys)
+            return prog
+        if not self._arena.is_warm(plan.key):
+            return None
+        cols_list = [self._cols_for_segment(s, ds, plan.lowering.columns, m) for s in plan.segs]
+        prog = arena.build_arena_program(self, plan, cols_list)
+        self._arena.put(prog)
+        if prog.graph is not None:
+            m.graph_captures += 1
+            m.capture_ms += prog.capture_ms
+        return prog
+
+    def _segment_loop(self, lowering: GroupByLowering, segs, ds: DataSource,
+                      strategy: str, m: QueryMetrics):
+        """The eager segment loop: a pass per segment."""
         state = None
         for seg in segs:  # canonical segment order: the fold order
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
-            state = fold_partials(
-                lowering.la, state, shard_partials(lowering, cols, strategy)
-            )
+            state = fold_partials(lowering.la, state, shard_partials(lowering, cols, strategy))
+            m.dispatch_count += 1
         return state
 
     def _host_state(self, la: LoweredAggs, state):
-        """A merged device state fetched to the host in one go: (sums, mins,
-        maxs, sketch states in the reference's layout, no slot gids)."""
+        """A merged device state fetched to the host: (sums, mins, maxs,
+        sketch states in the reference's layout, no slot gids).  Sums, mins
+        and maxs come back in one copy, so one sync."""
         sums, mins, maxs, sketches = state
-        sums, mins, maxs = (t.cpu().numpy() for t in (sums, mins, maxs))
-        return sums, mins, maxs, sketch_states_to_reference(la, sketches), None
+        parts = (sums, mins, maxs)
+        flat = torch.cat([t.reshape(-1) for t in parts]).cpu().numpy()
+        out, at = [], 0
+        for t in parts:
+            out.append(flat[at:at + t.numel()].reshape(tuple(t.shape)))
+            at += t.numel()
+        return (*out, sketch_states_to_reference(la, sketches), None)
 
     def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource):
+        return self._dispatch_groupby_once(q, ds)()
+
+    def execute_groupby_batch(self, queries, ds: DataSource) -> List:
+        """Runs several group-bys (the sets of a CUBE or ROLLUP): every
+        query's device work is dispatched first, then each is fetched and
+        finalized in order, so the card runs query i + 1 while the host
+        waits on query i.  A failure raises; nothing reruns serially."""
+        resolves = [self._dispatch_groupby_once(q, ds) for q in queries]
+        out = []
+        for i in range(len(resolves)):
+            resolve, resolves[i] = resolves[i], None  # free its device state
+            out.append(resolve())
+        return out
+
+    def _dispatch_groupby_once(self, q: Q.GroupByQuery, ds: DataSource):
+        """The device half of one group-by: lowering, pruning, the tiers and
+        the segment work, up to the merged state on the device (the sparse
+        tier fetches as it climbs its ladders).  Returns `resolve() -> df`,
+        the host half: the fetch, finalization and the metrics."""
         t_total = time.perf_counter()
         q = groupby_with_time_granularity(q)
         lowering = self._lowering_for(q, ds)
@@ -463,7 +567,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         )
         t_dev = time.perf_counter()
         qkey = memo_key(q, ds)
-        out = None
+        low, state, host = lowering, None, None
         if segs and self._adaptive_eligible(lowering):
             if qkey in self._adaptive_declined:
                 m.declines.append(self._adaptive_declined[qkey])
@@ -471,28 +575,39 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 out = self._groupby_adaptive(q, ds, lowering, segs, m)
                 if out is not None:
                     m.strategy = "adaptive"
-        if out is None and segs and self._sparse_eligible(lowering):
+                    low, state = out
+        if state is None and segs and self._sparse_eligible(lowering):
             if qkey in self._sparse_disabled:
                 m.declines.append(self._sparse_disabled[qkey])
             else:
                 out = self._groupby_sparse(q, ds, lowering, segs, m)
                 if out is not None:
                     m.strategy = "sparse"
-        if out is None:
+                    m.declines.append(
+                        "arena: the sparse tier answered (its ladders read counts per pass)")
+                    low, host = out[0], out[1:]
+        if state is None and host is None:
             m.strategy = self._resolve_strategy(G)
             state = self._partials_for_query(lowering, segs, ds, m.strategy, m)
             if state is None:
                 # every segment pruned: a valid, complete zero-row answer
                 state = empty_partials(la, G, self.device)
-            out = (lowering, *self._host_state(la, state))
-        low, sums, mins, maxs, sketches, slot_gids = out
-        m.device_ms = (time.perf_counter() - t_dev) * 1e3 - m.h2d_ms
-        t0 = time.perf_counter()
-        df = finalize_groupby(
-            q, low.dims, la, sums, mins, maxs, sketches, slot_gids=slot_gids
-        )
-        m.finalize_ms = (time.perf_counter() - t0) * 1e3
-        m.total_ms = (time.perf_counter() - t_total) * 1e3
-        m.bytes_resident = self.bytes_resident()
-        self.last_metrics = m
-        return df
+        dispatch_ms = (time.perf_counter() - t_total) * 1e3
+        dispatch_dev_ms = (time.perf_counter() - t_dev) * 1e3
+
+        def resolve():
+            t_resolve = time.perf_counter()
+            sums, mins, maxs, sketches, slot_gids = (
+                host if host is not None else self._host_state(low.la, state))
+            m.device_ms = dispatch_dev_ms + (time.perf_counter() - t_resolve) * 1e3 - m.h2d_ms
+            t0 = time.perf_counter()
+            df = finalize_groupby(
+                q, low.dims, low.la, sums, mins, maxs, sketches, slot_gids=slot_gids
+            )
+            m.finalize_ms = (time.perf_counter() - t0) * 1e3
+            m.total_ms = dispatch_ms + (time.perf_counter() - t_resolve) * 1e3
+            m.bytes_resident = self.bytes_resident()
+            self.last_metrics = m
+            return df
+
+        return resolve

@@ -19,6 +19,15 @@ Sparse: `sparse_slots` and `sparse_row_capacity` (the rungs that answered;
 0 = a full-segment sort), `sparse_passes` (passes over the segments, one
 more for every rung climbed) and `inner_strategy`.
 
+Dispatch (`exec/arena.py`): `dispatch_count` counts the host calls that
+ran the query's segment work: one per arena program run (a CUDA graph
+replay on a card, the body called eagerly on the CPU) plus one per segment
+the eager loop ran.  `arena_segments` are the segments an arena program
+covered, `graph_captures` / `graph_replays` the graphs captured and
+replayed, `capture_ms` the capture's host time.  Every reason the arena
+declined a scope goes to `declines` with the prefix "arena:"
+(`tier_declines` leaves those out).
+
 Host fallback (`api._run_fallback`): `executor` says which executor
 answered: "device" (the engine), "fallback" (the host interpreter of
 `exec/fallback.py`) or "device+fallback" (the interpreter, with
@@ -59,6 +68,16 @@ class QueryMetrics:
     sparse_row_capacity: Optional[int] = None
     sparse_passes: int = 0
     assist_subplans: int = 0
+    dispatch_count: int = 0
+    arena_segments: int = 0
+    graph_captures: int = 0
+    graph_replays: int = 0
+    capture_ms: float = 0.0
+
+    @property
+    def tier_declines(self) -> List[str]:
+        """The declines of the tiers, without the arena's."""
+        return [d for d in self.declines if not d.startswith("arena:")]
 
     @property
     def rows_per_sec(self) -> float:
@@ -79,6 +98,8 @@ class QueryMetrics:
             f"segments={self.segments} groups={self.num_groups} "
             f"compact_groups={self.compact_groups} slots={self.sparse_slots} "
             f"row_capacity={self.sparse_row_capacity} declines={self.declines} "
+            f"dispatches={self.dispatch_count} arena_segments={self.arena_segments} "
+            f"captures={self.graph_captures} replays={self.graph_replays} "
             f"total={self.total_ms:.2f}ms (h2d={self.h2d_ms:.2f}ms/"
             f"{self.h2d_bytes}B device={self.device_ms:.2f}ms "
             f"finalize={self.finalize_ms:.2f}ms) "

@@ -1,4 +1,4 @@
-"""Host -> device transfer of streamed row chunks.
+"""Host -> device transfers: streamed row chunks, and segment columns.
 
 The streaming executor (`exec/streaming.py`) is the one path whose input
 never becomes resident: every chunk crosses the host link once, and the link
@@ -21,16 +21,37 @@ runs on:
   copy's event has completed.
 
 On the CPU the copy is a plain tensor copy with no stream or event.
+
+The engine's segment loop reads a column that is not resident through
+`TransferPipeline.put`, the counterpart of the reference's
+`exec/pipeline.py` for segments.  With the pipeline on
+(`SessionConfig.transfer_pipeline`) the column comes from a page-locked
+host copy of it, made at its first copy and kept (an LRU under
+PINNED_BUDGET_FRACTION of the host's memory, dropped by
+`Engine.clear_cache`), as a DMA on the compute stream that the host does
+not wait for; the kernels that read it are queued behind it on the same
+stream.  Off, the column comes from the segment's pageable array, a copy
+the host waits for.  A scope that returns after its columns left the
+card is then pure DMA at the link's rate; the first copy of a column pays
+its pinning.  The reference's prefetch of the next segments on a copy
+stream, its residency-first order and its speculative next-interval
+prefetch are not ported: the port's cold loop is host-bound, and on the
+H100 a prefetch of the next two segments on a copy stream ran 1.22x
+slower than these pinned copies, overlapping no kernel (PERF.md; ROADMAP
+queue A item 3).
 """
 
 from __future__ import annotations
 
+import os
 import queue
 import threading
 from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
+
+from ..utils.lru import ByteBudgetCache
 
 _BYTES_PER_ROW = 8  # the widest column a chunk ships (int64 time)
 _TORCH_DTYPES = {
@@ -110,3 +131,59 @@ def pipelined_put(
         event = torch.cuda.Event()
         event.record(copy_stream)
     return out, event, nbytes
+
+
+# -- segment columns ----------------------------------------------------------
+
+# page-locked host copies of segment columns kept, as a share of the host's
+# physical memory
+PINNED_BUDGET_FRACTION = 0.125
+
+
+def column_key(seg, name: Optional[str] = None) -> Tuple:
+    """Residency-cache key of one segment column, or of the segment's
+    validity mask when `name` is None.  The "col"/"valid" tags keep a user
+    column literally named "__valid" from aliasing the mask."""
+    return (seg.uid, "valid") if name is None else (seg.uid, "col", name)
+
+
+class TransferPipeline:
+    """An engine's copies of segment columns to the device: the setting and
+    the pinned host copies."""
+
+    def __init__(self, engine, enabled: bool = True):
+        self.engine = engine
+        self.enabled = bool(enabled)
+        # residency key -> page-locked host copy (cards only)
+        self._pinned = ByteBudgetCache(int(
+            os.sysconf("SC_PHYS_PAGES") * os.sysconf("SC_PAGE_SIZE") * PINNED_BUDGET_FRACTION))
+
+    def configure(self, config) -> None:
+        """Applies SessionConfig's `transfer_pipeline`."""
+        self.enabled = bool(config.transfer_pipeline)
+
+    def put(self, key, host: np.ndarray) -> torch.Tensor:
+        """Column `key` (its host array `host`) on the device: on a card with
+        the pipeline on, from its pinned copy, on the compute stream, the
+        host not waiting; else from `host` itself."""
+        dev = self.engine.device
+        if not self.enabled or dev.type != "cuda":
+            return torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+        pinned = self._pinned.get(key)
+        if pinned is None:
+            pinned = torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+            self._pinned[key] = pinned
+        # the host allocator keeps `pinned`'s memory until this copy is done,
+        # even if the LRU drops it first
+        return pinned.to(dev, non_blocking=True)
+
+    def clear(self) -> None:
+        """Drops the pinned host copies."""
+        self._pinned.clear()
+
+    def to_dict(self) -> dict:
+        return {
+            "enabled": self.enabled,
+            "pinned_columns": len(self._pinned),
+            "pinned_bytes": self._pinned.bytes_used,
+        }

@@ -83,6 +83,7 @@ class SparseExecMixin:
                 row_capacity=row_capacity,
             )
             state = st if state is None else sg.merge_sparse_states(state, st, G)
+            m.dispatch_count += 1
         return state
 
     @staticmethod

@@ -13,14 +13,21 @@ each launch (`cudaGetLastError`), which the wrapper raises on.
 `geometry` picks each launch's chunks, staged tiles, column blocks and
 accumulator regime from the shapes alone, so the same shapes always sum in
 the same order.  `cuda_partial_aggregate` launches the kernel for CUDA
-tensors and counts each launch in `LAUNCHES`; for CPU tensors it runs
-`plain_partial_aggregate`, the plain PyTorch version the tests and
-`chip_smoke.py` compare the kernel with.  There is no fallback: a CUDA
-tensor the kernel does not take raises.
+tensors and counts each launch in `LAUNCHES`, and by (G, Ms, Mn, Mx) in
+`LAUNCH_SHAPES`; for CPU tensors it runs `plain_partial_aggregate`, the
+plain PyTorch version the tests and `chip_smoke.py` compare the kernel
+with.  There is no fallback: a CUDA tensor the kernel does not take raises.
+
+Launches inside a CUDA graph: while a graph is being captured, a call
+records the kernel into the graph and launches nothing, so it is not
+counted; its shape goes to the list that `capture_launches` collects, which
+the graph keeps and hands to `count_replay` at every replay, where the
+captured launches really run.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import functools
 import hashlib
@@ -29,14 +36,19 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import NamedTuple, Tuple
+from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
 from .groupby import SCATTER_CUTOVER, dense_partial_aggregate
 
-# launches of the kernel since import (or since a caller reset it)
+# launches of the kernel since import (or since a caller reset it), in all
+# and by (G, Ms, Mn, Mx); graph replays add the launches they captured
 LAUNCHES = 0
+LAUNCH_SHAPES: Dict[Tuple[int, int, int, int], int] = {}
+
+# shapes recorded into the CUDA graph being captured (`capture_launches`)
+_captured: Optional[List[Tuple[int, int, int, int]]] = None
 
 # nvcc's output from the build of this process, for the record
 BUILD_LOG = ""
@@ -184,6 +196,31 @@ def plain_partial_aggregate(
     )
 
 
+def _count(shape: Tuple[int, int, int, int]) -> None:
+    global LAUNCHES
+    LAUNCHES += 1
+    LAUNCH_SHAPES[shape] = LAUNCH_SHAPES.get(shape, 0) + 1
+
+
+@contextlib.contextmanager
+def capture_launches():
+    """Collects the (G, Ms, Mn, Mx) of every launch recorded into a CUDA
+    graph captured inside the block; the list it yields is what
+    `count_replay` counts at each replay of that graph."""
+    global _captured
+    prev, _captured = _captured, []
+    try:
+        yield _captured
+    finally:
+        _captured = prev
+
+
+def count_replay(shapes) -> None:
+    """Counts the launches of one replay of a captured graph."""
+    for shape in shapes:
+        _count(shape)
+
+
 def _check(name, t, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
@@ -206,7 +243,6 @@ def cuda_partial_aggregate(
     """Returns (sums[G, Ms], mins[G, Mn], maxs[G, Mx]); empty groups are
     0 / +inf / -inf.  CPU tensors take the plain version; CUDA tensors
     launch the kernel or raise."""
-    global LAUNCHES
     if gid.device.type == "cpu":
         return plain_partial_aggregate(
             gid, mask, sum_values, minmax_values, minmax_masks,
@@ -255,5 +291,14 @@ def cuda_partial_aggregate(
         raise RuntimeError(
             f"group-by kernel launch failed: {lib.sdol_error_string(rc).decode()}"
         )
-    LAUNCHES += 1
+    shape = (num_groups, Ms, num_min, num_max)
+    if torch.cuda.is_current_stream_capturing():
+        if _captured is None:
+            raise RuntimeError(
+                "the kernel was captured into a CUDA graph outside "
+                "capture_launches(): its replays would go uncounted"
+            )
+        _captured.append(shape)
+    else:
+        _count(shape)
     return sums, mins, maxs

@@ -91,11 +91,7 @@ class DecodedView:
             nv = _numeric_values(d).on(c.device)
             # null codes (-1) decode to -1, matching the raw-value
             # convention; the values are int64 (times may exceed int32)
-            return torch.where(
-                c >= 0, nv[torch.clamp(c.long(), min=0)], torch.tensor(
-                    -1, dtype=torch.int64, device=c.device
-                )
-            )
+            return torch.where(c >= 0, nv[torch.clamp(c.long(), min=0)], -1)
         return c
 
     def __contains__(self, name):
@@ -293,9 +289,7 @@ def _leaf_true(f: F.Filter, ds: DataSource) -> MaskFn:
         if len(vals) == 0:
             return lambda cols: _false(cols[dim])
         const = DeviceConst(vals)
-        return lambda cols: torch.isin(
-            cols[dim].to(torch.float64), const.on(cols[dim].device)
-        )
+        return lambda cols: isin(cols[dim].to(torch.float64), const)
 
     if isinstance(f, F.Bound):
         dim = f.dimension

@@ -99,7 +99,6 @@ def dense_partial_aggregate(
     sums = torch.zeros((num_groups, Ms), dtype=torch.float32, device=dev)
     mins = torch.full((num_groups, num_min), _INF, dtype=torch.float32, device=dev)
     maxs = torch.full((num_groups, num_max), -_INF, dtype=torch.float32, device=dev)
-    pos = torch.tensor(_INF, dtype=torch.float32, device=dev)
     gid = gid.to(torch.int32)
     for lo in range(0, R, block_rows):
         hi = lo + block_rows
@@ -110,14 +109,14 @@ def dense_partial_aggregate(
             v = minmax_values[lo:hi, :num_min]
             mm = m[:, None] & minmax_masks[lo:hi, :num_min]
             w = torch.where(
-                match[:, :, None] & mm[:, None, :], v[:, None, :], pos
+                match[:, :, None] & mm[:, None, :], v[:, None, :], _INF
             )
             mins = torch.minimum(mins, w.amin(dim=0))
         if num_max:
             v = minmax_values[lo:hi, num_min:]
             mm = m[:, None] & minmax_masks[lo:hi, num_min:]
             w = torch.where(
-                match[:, :, None] & mm[:, None, :], v[:, None, :], -pos
+                match[:, :, None] & mm[:, None, :], v[:, None, :], -_INF
             )
             maxs = torch.maximum(maxs, w.amax(dim=0))
     return sums, mins, maxs
@@ -161,14 +160,13 @@ def scatter_partial_aggregate(
     # min/max do not depend on the accumulation order
     mins = torch.full((num_groups, num_min), _INF, dtype=torch.float32, device=dev)
     maxs = torch.full((num_groups, num_max), -_INF, dtype=torch.float32, device=dev)
-    pos = torch.tensor(_INF, dtype=torch.float32, device=dev)
     Mn = num_min
     mmv, mmm = minmax_values[keep], minmax_masks[keep]
     if Mn:
-        v = torch.where(mmm[:, :Mn], mmv[:, :Mn], pos)
+        v = torch.where(mmm[:, :Mn], mmv[:, :Mn], _INF)
         mins.scatter_reduce_(0, seg[:, None].expand(-1, Mn), v, "amin")
     if num_max:
-        v = torch.where(mmm[:, Mn:], mmv[:, Mn:], -pos)
+        v = torch.where(mmm[:, Mn:], mmv[:, Mn:], -_INF)
         maxs.scatter_reduce_(0, seg[:, None].expand(-1, num_max), v, "amax")
     return sums, mins, maxs
 

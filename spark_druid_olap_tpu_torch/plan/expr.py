@@ -399,11 +399,13 @@ class AggRef(Expr):
 class DeviceConst:
     """A host numpy constant (code set, remap table, bucket starts) that
     compiled functions read on whatever device the columns live on.  The
-    device copy is made once per device and kept."""
+    device copy is made once per device and kept: a CUDA graph's capture
+    makes it in its warm-up run, and the graph only reads it."""
 
     def __init__(self, host: np.ndarray):
         self.host = np.ascontiguousarray(host)
         self._on = {}
+        self._sorted = None
 
     def on(self, device: torch.device) -> torch.Tensor:
         t = self._on.get(device)
@@ -412,17 +414,37 @@ class DeviceConst:
             self._on[device] = t
         return t
 
+    def sorted(self) -> "DeviceConst":
+        """The distinct values in ascending order, as a constant of its own."""
+        if self._sorted is None:
+            self._sorted = DeviceConst(np.unique(self.host))
+        return self._sorted
+
 
 def as_tensor(x, like: Optional[torch.Tensor] = None) -> torch.Tensor:
     """A compiled sub-expression may yield a Python scalar (a literal);
-    lift it to a tensor on `like`'s device."""
+    lift it to a 0-d tensor on `like`'s device.  The tensor is filled on the
+    device (`torch.full`), not copied from the host: a copy would sync the
+    host and could not be captured in a CUDA graph."""
     if isinstance(x, torch.Tensor):
         return x
+    if isinstance(x, (bool, int, float)):
+        return torch.full((), x, device=None if like is None else like.device)
     return torch.as_tensor(x, device=None if like is None else like.device)
 
 
 def isin(x: torch.Tensor, values: DeviceConst) -> torch.Tensor:
-    return torch.isin(x, values.on(x.device))
+    """Membership of each element of `x` in a constant set, by a binary
+    search of the set's sorted values.  `torch.isin` sorts and deduplicates
+    on the device above a few dozen values, which syncs the host; the search
+    never does.  Integer and float operands compare in their common dtype."""
+    v = values.sorted().on(x.device)
+    if v.numel() == 0:
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    dt = torch.promote_types(x.dtype, v.dtype)
+    x, v = x.to(dt), v.to(dt)
+    hit = v[torch.searchsorted(v, x).clamp_(max=v.numel() - 1)]
+    return hit == x
 
 
 def _false_like(x) -> torch.Tensor:
@@ -788,10 +810,9 @@ def compile_expr(
 def _isin_value(x: torch.Tensor, values: DeviceConst) -> torch.Tensor:
     """Value-space membership: compare in float64 when either side is
     fractional, so an f32 column never rounds a literal into a match."""
-    v = values.on(x.device)
-    if x.dtype.is_floating_point or v.dtype.is_floating_point:
-        return torch.isin(x.to(torch.float64), v.to(torch.float64))
-    return torch.isin(x, v)
+    if x.dtype.is_floating_point or values.host.dtype.kind == "f":
+        x = x.to(torch.float64)
+    return isin(x, values)
 
 
 def _fold(op, fs, cols):

@@ -219,6 +219,7 @@ def run_command(ctx, cmd: Command):
     if cmd.kind == "set":
         val = _coerce_flag(ctx.config, cmd.key, cmd.value)
         setattr(ctx.config, cmd.key, val)
+        ctx.apply_config()
         return pd.DataFrame({"status": [f"set {cmd.key}={val}"]})
     if cmd.kind == "create_table":
         if cmd.fmt not in ("csv", "parquet", "tpu_olap"):

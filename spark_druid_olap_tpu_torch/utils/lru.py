@@ -5,7 +5,11 @@ datasources out of device memory.  Two policies:
 
 * `ByteBudgetCache` — LRU keyed on array byte size; evicts least-recently-
   used entries until under budget.  Used for device column residency.
-  Dropping the entry frees the device buffer (tensors are refcounted).
+  Dropping the entry frees the device buffer (tensors are refcounted) once
+  nothing else holds it: `on_evict(key, value)` runs for every entry the
+  cache drops (budget eviction, `pop`, `del`, an overwrite; `clear` drops
+  in bulk and calls nothing), so an owner of other references to the value
+  (a captured CUDA graph) can let go of them first.
 * `CountBudgetCache` — LRU on entry count, for the lowering cache (each
   entry pins staged device constants).
 
@@ -23,15 +27,20 @@ from __future__ import annotations
 
 import threading
 from collections import OrderedDict
-from typing import Any, Iterator
+from typing import Any, Callable, Iterator, Optional
 
 
 class ByteBudgetCache:
-    def __init__(self, budget_bytes: int):
+    def __init__(self, budget_bytes: int, on_evict: Optional[Callable] = None):
         self.budget_bytes = int(budget_bytes)
         self._od: "OrderedDict[Any, Any]" = OrderedDict()
         self._bytes = 0
         self._lock = threading.RLock()
+        self._on_evict = on_evict
+
+    def _dropped(self, key, value) -> None:
+        if self._on_evict is not None:
+            self._on_evict(key, value)
 
     @property
     def bytes_used(self) -> int:
@@ -50,16 +59,18 @@ class ByteBudgetCache:
     def __setitem__(self, key, arr):
         with self._lock:
             if key in self._od:
-                self._bytes -= int(self._od[key].nbytes)
-                del self._od[key]
+                old = self._od.pop(key)
+                self._bytes -= int(old.nbytes)
+                self._dropped(key, old)
             self._od[key] = arr
             self._bytes += int(arr.nbytes)
             self._evict()
 
     def __delitem__(self, key):
         with self._lock:
-            self._bytes -= int(self._od[key].nbytes)
-            del self._od[key]
+            old = self._od.pop(key)
+            self._bytes -= int(old.nbytes)
+            self._dropped(key, old)
 
     def get(self, key, default=None):
         """Atomic hit-or-default (check-then-[] from another thread can race
@@ -71,13 +82,22 @@ class ByteBudgetCache:
             self._od.move_to_end(key)
             return v
 
+    def touch(self, keys) -> None:
+        """Marks `keys` most recently used, as a read of each would (keys
+        not held are skipped): a reader that holds the values elsewhere (a
+        captured CUDA graph) keeps its entries as warm as a `get` would."""
+        with self._lock:
+            for key in keys:
+                if key in self._od:
+                    self._od.move_to_end(key)
+
     def pop(self, key, default=None):
         with self._lock:
             if key not in self._od:
                 return default
-            v = self._od[key]
+            v = self._od.pop(key)
             self._bytes -= int(v.nbytes)
-            del self._od[key]
+            self._dropped(key, v)
             return v
 
     def __iter__(self) -> Iterator:
@@ -103,8 +123,9 @@ class ByteBudgetCache:
         # holds it — implicit caller-holds-the-lock contracts rot
         with self._lock:
             while self._bytes > self.budget_bytes and len(self._od) > 1:
-                _key, old = self._od.popitem(last=False)
+                key, old = self._od.popitem(last=False)
                 self._bytes -= int(old.nbytes)
+                self._dropped(key, old)
 
 
 class CountBudgetCache:

@@ -108,7 +108,7 @@ def test_adaptive_matches_reference(data, monkeypatch, name):
         pd.testing.assert_frame_equal(te.execute(tq, tds), got)
         assert te.last_metrics.kept_source == "memo"
     if path == "sparse":
-        assert te._adaptive_declined and m.declines
+        assert te._adaptive_declined and m.tier_declines
 
 
 def test_filter_derived_kept_matches_reference(data):

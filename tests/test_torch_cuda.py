@@ -14,7 +14,12 @@ parity bound rtol 2e-5.  Sketch states (HLL registers, theta hash sets,
 quantile samples) and `_rho` on the card are bit-equal to the CPU's, and
 so are the sketch columns of the sketch queries' frames.  A stream on the
 card against the same stream on the CPU: keys and counts equal, sums within
-rtol 1e-6; bit-identical with double buffering on and off.
+rtol 1e-6; bit-identical with double buffering on and off.  A query
+scope's CUDA graph (the arena) gives the eager loop's bits, and each replay
+counts the launches it captured; a capture succeeds over a lowering the
+lowering cache rebuilt after the scope's first run; a column that leaves
+the residency cache drops the graphs that read it.  Cold columns come from
+pinned host copies kept per column, with the pageable copies' bits.
 """
 
 import numpy as np
@@ -23,6 +28,8 @@ import pytest
 import torch
 
 from spark_druid_olap_tpu_torch.api import TPUOlapContext
+from spark_druid_olap_tpu_torch.config import SessionConfig
+from spark_druid_olap_tpu_torch.exec.arena import arena_disabled
 from spark_druid_olap_tpu_torch.exec.engine import Engine
 from spark_druid_olap_tpu_torch.exec.lowering import sketch_ops
 from spark_druid_olap_tpu_torch.exec.streaming import StreamExecutor
@@ -314,7 +321,7 @@ def test_high_cardinality_tiers_on_card_match_cpu(card):
             pd.testing.assert_frame_equal(gpu.execute(q, ds), got, check_exact=True)
             want = cpu.execute(q, ds)
             if strategy == "auto":
-                assert m.strategy in ("adaptive", "sparse") or m.declines, m.describe()
+                assert m.strategy in ("adaptive", "sparse") or m.tier_declines, m.describe()
             if (m.strategy == "adaptive" and 0 < m.compact_groups <= 4096) or (
                     m.strategy == "sparse" and m.sparse_slots <= 4096):
                 assert m.inner_strategy == "cuda" and cg.LAUNCHES > before, m.describe()
@@ -430,3 +437,116 @@ def test_assisted_q18_class_on_card_equals_assist_off(card):
     assert len(got) == 20
     assert list(got.l_orderkey) == list(off.l_orderkey)
     np.testing.assert_allclose(got.total, off.total, rtol=2e-5)
+
+
+GRAPH_CASES = [("ssb", "q1_1"), ("ssb", "q3_2"), ("ssb", "q4_1"), ("tpch", "q1"),
+               ("ssb", "timeseries")]
+
+
+def _graph_datasources():
+    cols, dicts = ssb.flat_columns(ssb.gen_tables(0.01, seed=7))
+    return {
+        "ssb": ssb.datasource(cols, dicts, rows_per_segment=4096),
+        "tpch": tpch.datasource(*tpch.flat_columns(tpch.gen_tables(0.01)),
+                                rows_per_segment=4096),
+    }
+
+
+def _graph_query(workload, name):
+    if name == "timeseries":
+        return ssb.TIMESERIES_QUERY
+    return (ssb if workload == "ssb" else tpch).NATIVE_QUERIES[name]
+
+
+@pytest.mark.parametrize("workload,name", GRAPH_CASES)
+def test_captured_graph_equals_the_eager_loop(card, workload, name):
+    """First run eager, second captured (after one eager warm-up of the
+    body) and replayed, third replayed: every frame bit-identical to the
+    loop's with the arena off; a replay is one dispatch and adds one launch
+    per in-scope segment to the counters."""
+    ds = _graph_datasources()[workload]
+    q = _graph_query(workload, name)
+    eng = Engine(device=card)
+    with arena_disabled():
+        want = eng.execute(q, ds)
+    m = eng.last_metrics
+    # the eager loop: a pass per segment (q3_2's presence pass adds one more)
+    assert m.segments > 1 and m.dispatch_count >= m.segments and m.graph_replays == 0
+    pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+    assert eng.last_metrics.graph_captures == 0
+    for run in ("capture", "replay"):
+        before, shapes = cg.LAUNCHES, dict(cg.LAUNCH_SHAPES)
+        got = eng.execute(q, ds)
+        torch.cuda.synchronize()
+        m = eng.last_metrics
+        pd.testing.assert_frame_equal(got, want, check_exact=True)
+        assert (m.graph_captures, m.graph_replays, m.dispatch_count) == (
+            int(run == "capture"), 1, 1), m.describe()
+        assert m.arena_segments == m.segments
+        launched = m.segments * (2 if run == "capture" else 1)  # the warm-up's too
+        assert cg.LAUNCHES - before == launched
+        added = {k: v - shapes.get(k, 0) for k, v in cg.LAUNCH_SHAPES.items()
+                 if v != shapes.get(k, 0)}
+        assert sum(added.values()) == launched and len(added) == 1
+
+
+@pytest.mark.parametrize("workload,name", GRAPH_CASES)
+def test_capture_over_a_rebuilt_lowering(card, workload, name):
+    """The lowering cache drops the scope's lowering after its first run:
+    the second run captures over the rebuilt lowering, whose constants
+    have no device copy yet.  The capture's warm-up makes those copies, so
+    the capture succeeds and replays the loop's bits."""
+    ds = _graph_datasources()[workload]
+    q = _graph_query(workload, name)
+    eng = Engine(device=card)
+    want = eng.execute(q, ds)
+    eng._lowering_cache.clear()
+    for captures in (1, 0):
+        pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+        m = eng.last_metrics
+        assert (m.graph_captures, m.graph_replays, m.dispatch_count) == (captures, 1, 1), \
+            m.describe()
+
+
+def test_evicted_column_drops_its_graph(card):
+    ds = _graph_datasources()["ssb"]
+    q = ssb.NATIVE_QUERIES["q4_1"]
+    eng = Engine(device=card)
+    want = eng.execute(q, ds)
+    eng.execute(q, ds)
+    assert len(eng._arena.keys()) == 1 and eng.last_metrics.graph_captures == 1
+    seg = next(s for s in ds.segments)
+    eng._device_cache.pop((seg.uid, "valid"))
+    assert eng._arena.keys() == []
+    pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+    m = eng.last_metrics
+    assert m.graph_replays == 0 and m.dispatch_count == m.segments  # eager again
+    pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+    assert eng.last_metrics.graph_captures == 1
+    eng.clear_cache()
+    assert eng._arena.keys() == [] and eng.bytes_resident() == 0
+
+
+def test_cold_columns_come_from_kept_pinned_copies(card):
+    """With the transfer pipeline on, a cold column is copied from a pinned
+    host copy made at its first copy and kept: the scope's columns come
+    back after `drop_residency` from the same copies, and every frame
+    equals the pageable copies' bit for bit."""
+    ds = _graph_datasources()["ssb"]
+    q = ssb.NATIVE_QUERIES["q4_1"]
+    eng = Engine(device=card)
+    want = eng.execute(q, ds)
+    m = eng.last_metrics
+    stats = eng._pipeline.to_dict()
+    per_seg = len(eng._lowering_for(q, ds).columns) + 1
+    assert stats == {"enabled": True, "pinned_columns": m.segments * per_seg,
+                     "pinned_bytes": m.h2d_bytes}
+    assert all(t.is_pinned() for t in eng._pipeline._pinned.values())
+    eng.drop_residency()
+    pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+    assert eng.last_metrics.h2d_bytes == m.h2d_bytes and eng._pipeline.to_dict() == stats
+    eng.configure_pipeline(SessionConfig(transfer_pipeline=False))
+    eng.drop_residency()
+    pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+    eng.clear_cache()
+    assert eng._pipeline.to_dict()["pinned_columns"] == 0

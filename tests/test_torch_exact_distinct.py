@@ -179,5 +179,5 @@ def test_ssb_exact_distinct_matches_reference_and_oracle(ssb_keyed, name):
     tssb.check_sketch_answer(name, got, tssb.sketch_oracle(frame, name))
     m = port.last_metrics  # the inner grouping's
     if m.num_groups > 4096:  # the CPU takes adaptive, else scatter after a decline
-        assert m.strategy == "adaptive" or (m.strategy == "segment" and m.declines)
+        assert m.strategy == "adaptive" or (m.strategy == "segment" and m.tier_declines)
     pd.testing.assert_frame_equal(port.sql(sql), got)

@@ -232,7 +232,7 @@ def test_sql_strategy_equals_native_strategy(ctxs):
                 "auto", native.num_groups, "cpu"
             )
         elif via_sql.strategy == "segment":  # only after the tiers declined
-            assert via_sql.declines, sql
+            assert via_sql.tier_declines, sql
 
 
 def _card_spies(monkeypatch):
@@ -274,7 +274,7 @@ def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
             assert m.strategy == "cuda", sql
             assert calls["kernel"] - before == m.segments, sql
             continue
-        assert m.strategy in ("adaptive", "sparse") or m.declines, sql
+        assert m.strategy in ("adaptive", "sparse") or m.tier_declines, sql
         if m.strategy == "adaptive" and 0 < m.compact_groups <= tgroupby.SCATTER_CUTOVER:
             assert m.inner_strategy == "cuda", sql
             assert calls["kernel"] - before >= m.segments, sql

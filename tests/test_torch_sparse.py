@@ -215,7 +215,7 @@ def test_high_cardinality_queries_match_reference(ctxs, workload, name, strategy
     m = te.last_metrics
     assert m.num_groups > tsg.SPARSE_SLOTS
     want_path = {"adaptive": ("adaptive", "sparse"), "sparse": ("sparse",), "segment": ("segment",)}
-    assert m.strategy in want_path[strategy] or m.declines, m.describe()
+    assert m.strategy in want_path[strategy] or m.tier_declines, m.describe()
     pd.testing.assert_frame_equal(te.execute(trw.query, port.catalog.get(trw.datasource)), got)
 
 
@@ -299,7 +299,7 @@ def test_ladders_match_reference(monkeypatch, name):
         assert m.strategy == "sparse" and m.sparse_slots > tsg.SPARSE_SLOTS
         assert m.inner_strategy == "segmented_reduce" and not te._sparse_disabled
     if name == "slots_past_top_pins_to_scatter":
-        assert m.strategy == "segment" and te._sparse_disabled and m.declines
+        assert m.strategy == "segment" and te._sparse_disabled and m.tier_declines
     if name == "row_capacity_intermediate_rung":
         assert list(te._sparse_row_capacity.values()) == [4096] == [m.sparse_row_capacity]
     if name == "row_capacity_past_top":
