@@ -10,7 +10,7 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches in phases 4 to 11 (one 512K-row segment at each
+   the main path launches in phases 4 to 12 (one 512K-row segment at each
    query's and grouping set's G and column counts, at the tier's presence
    counts and compacted domains, at the fallback's assisted subtrees, plus a time-sorted Timeseries segment, the
    sparse tier's 4096 slots on rows sorted by slot, and the stream's 2^21-row
@@ -126,7 +126,31 @@ Phases, one JSON line each:
    run, launches, the p50 of 2 warm runs with the assist on and off, the
    decode ms of a cold and a warm run, and device busy ms and idle share
    from one profiled run.  No scale is cut.
-11. stream: BASELINE config #4, the hourly rollup over the event stream, as
+11. native: the Druid-native surface on the contexts of phases 4 to 10
+   (SSB SF10 and TPC-H SF1, resident).  The wire form of every main-path
+   query and of phase 7's topn_hll (`json.dumps(q.to_druid())` through
+   `models/wire.query_from_druid`, the engine and `druid_result_shape`):
+   the decoded spec prints the original's JSON and the frame is
+   bit-identical to phase 4's native frame.  Phase 9's cube_revenue CUBE as
+   a wire subtotalsSpec, equal to `execute_grouping_sets` on the same sets.
+   A GroupBy with having, limitSpec and an expression post-aggregator
+   against its float64 oracle.  Three scans over lineorder's own columns
+   under q1.1's fact predicate (an unordered LIMIT 1000 drill-through, an
+   ORDER BY lo_extendedprice DESC LIMIT 100 over every segment, a wire
+   compactedList Scan over one month): rows and their order equal to a
+   stable pandas sort of the host frame filtered in segment order.  Two
+   Searches for "united" over c_city and s_city (one under the fact
+   predicate): counts equal to a bincount of the frame's codes.  The three
+   metadata queries of both datasources, against the segments' metadata
+   and launching nothing.  GROUP BY LOOKUP(c_nation, 'n2r') over the joined
+   customer (the map from the customer table) against GROUP BY c_region:
+   keys and counts exact, sums within rtol 1e-6, bit-equality reported.
+   q1.1 and q2.1 as TableQuery chains, bit-identical to `ctx.sql`.  And
+   `execute_native_degraded` on TPC-H Q1's wire spec and an ordered Scan at
+   SF1, against the device frames (rows exact, sums within rtol 2e-5).
+   Reported per query: p50 of 3 warm runs, and for scans and searches the
+   segments, rows per second scanned and bytes copied to the host;
+12. stream: BASELINE config #4, the hourly rollup over the event stream, as
    `bench.py` sends it: a Timeseries at hour granularity (Count, DoubleSum
    of value, DoubleMax of latency) through `StreamExecutor.execute` over
    2^21-row chunks of `gen_event_chunk`, generated on 8 threads, staged in
@@ -146,7 +170,7 @@ Phases, one JSON line each:
    its copies or kernels is taken again, up to 3 windows; after that the
    events' numbers stand in (`timer`).
 
-Every kernel launch of phases 4 to 11, CUDA graph replays included
+Every kernel launch of phases 4 to 12, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -175,7 +199,11 @@ import time
 import numpy as np
 import torch
 
-from spark_druid_olap_tpu_torch.api import TPUOlapContext, grouping_set_queries
+from spark_druid_olap_tpu_torch.api import (
+    TPUOlapContext,
+    execute_grouping_sets,
+    grouping_set_queries,
+)
 from spark_druid_olap_tpu_torch.exec.arena import arena_disabled
 from spark_druid_olap_tpu_torch.exec.engine import (
     Engine,
@@ -191,8 +219,10 @@ from spark_druid_olap_tpu_torch.exec.lowering import (
 )
 from spark_druid_olap_tpu_torch.models import aggregations as A
 from spark_druid_olap_tpu_torch.models import query as Q
+from spark_druid_olap_tpu_torch.models import wire
 from spark_druid_olap_tpu_torch.exec.streaming import StreamExecutor
 from spark_druid_olap_tpu_torch.ops import cuda_groupby, hll
+from spark_druid_olap_tpu_torch.plan.expr import col
 from spark_druid_olap_tpu_torch.utils import datagen
 from spark_druid_olap_tpu_torch.workloads import ssb, tpch
 
@@ -236,7 +266,7 @@ MAIN_SHAPES += [(524288, G, 2, 0, 0) for G in (4, 7, 24, 100, 150, 273, 280, 600
 # s_nation and p_brand, and the sparse tier's first rung under Q4's EXISTS,
 # are shapes above)
 MAIN_SHAPES.append((524288, 36, 1, 1, 0))
-# phase 11: one 2^21-row chunk of the event stream, hourly buckets over the
+# phase 12: one 2^21-row chunk of the event stream, hourly buckets over the
 # week (169 with the bucket at the interval's end), rows and value summed,
 # latency maxed
 STREAM_SHAPE = (1 << 21, 169, 2, 0, 1)
@@ -689,6 +719,9 @@ def main_path_queries():
     )
 
 
+NATIVE_FRAMES = {}  # (workload, query) -> phase 4's first frame, for phase 11
+
+
 def run_main_path(engines, workloads, warm_runs: int = WARM_RUNS):
     """Drive every query of the main path through its workload's engine
     (`engines`: workload -> Engine); returns one summary per query."""
@@ -703,6 +736,7 @@ def run_main_path(engines, workloads, warm_runs: int = WARM_RUNS):
         m = engine.last_metrics
         second = engine.execute(q, ds)
         pd.testing.assert_frame_equal(first, second, check_exact=True)
+        NATIVE_FRAMES[(workload, name)] = first
         times = []
         for _ in range(warm_runs):
             t0 = time.perf_counter()
@@ -1766,7 +1800,374 @@ def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
     return out
 
 
-# -- phase 11: streaming ---------------------------------------------------------
+# -- phase 11: the Druid-native surface ----------------------------------------
+
+NATIVE_WARM = 3  # warm runs of each wire query
+# q1.1's fact predicate, the filter of every scan and of one search
+FACT_WHERE = "lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25"
+FACT_FILTER = {"type": "and", "fields": [
+    {"type": "bound", "dimension": "lo_discount", "lower": "1", "upper": "3",
+     "ordering": "numeric"},
+    {"type": "bound", "dimension": "lo_quantity", "upper": "25", "upperStrict": True,
+     "ordering": "numeric"}]}
+SCAN_MONTH = ["1994-03-01T00:00:00.000Z/1994-04-01T00:00:00.000Z"]
+
+
+def _spec_json(q) -> str:
+    return json.dumps(q.to_druid(), sort_keys=True, default=str)
+
+
+def _wire_run(ctx, body: dict):
+    """A Druid JSON body through the port as a server would run it: decode,
+    the engine (a subtotalsSpec through `execute_grouping_sets`, its
+    `__grouping_id` dropped), the response envelope.  Returns (spec, frame,
+    response)."""
+    q = wire.query_from_druid(json.loads(json.dumps(body)))
+    ds = ctx.catalog.get(q.datasource)
+    if isinstance(q, Q.GroupByQuery) and q.subtotals:
+        df = execute_grouping_sets(dataclasses.replace(q, subtotals=()), q.subtotals, ds,
+                                   ctx.engine).drop(columns=["__grouping_id"])
+    else:
+        df = ctx.engine.execute(q, ds)
+    return q, df, wire.druid_result_shape(q, df)
+
+
+def _wire_p50(ctx, body: dict, warm: int) -> float:
+    return _median_ms(lambda: _wire_run(ctx, body), warm)
+
+
+def _fact_mask(frame):
+    return ((frame.lo_discount >= 1) & (frame.lo_discount <= 3)
+            & (frame.lo_quantity < 25)).to_numpy()
+
+
+def _rows_equal(name, got, want) -> None:
+    """Rows and their order equal: values exact, dictionary columns as
+    strings."""
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        raise AssertionError(f"{name}: {list(got.columns)} x {len(got)} rows, "
+                             f"oracle {list(want.columns)} x {len(want)}")
+    for c in want.columns:
+        g, w = np.asarray(got[c]), want[c]
+        w = np.asarray(w.astype(object) if w.dtype.name == "category" else w)
+        if w.dtype.kind == "f":
+            ok = np.array_equal(g.astype(np.float64), w)
+        else:
+            ok = list(g) == list(w)
+        if not ok:
+            raise AssertionError(f"{name}: column {c} differs from the oracle")
+
+
+def wire_aggregates(ctxs, workloads, warm):
+    """The wire form of every main-path query and of phase 7's topn_hll:
+    the decoded spec prints the original's JSON, and its frame is
+    bit-identical to the native frame."""
+    import pandas as pd
+
+    cases = [(w, n, q) for w, n, q in main_path_queries()]
+    topn_hll = ctxs["ssb"].plan_sql(ssb.SKETCH_QUERIES["topn_hll"]).query
+    cases.append(("ssb", "topn_hll", topn_hll))
+    out = []
+    for workload, name, q in cases:
+        ctx = ctxs[workload]
+        want = NATIVE_FRAMES.get((workload, name))
+        if want is None:
+            want = ctx.engine.execute(q, workloads[workload][0])
+        body = json.loads(json.dumps(q.to_druid(), default=str))
+        dq, df, shaped = _wire_run(ctx, body)
+        if _spec_json(dq) != _spec_json(q):
+            raise AssertionError(f"{name}: the decoded spec differs from the original")
+        pd.testing.assert_frame_equal(df, want, check_exact=True)
+        out.append({"query": f"wire:{name}", "p50_ms": _wire_p50(ctx, body, warm),
+                    "result_rows": len(df), "response_bytes": len(json.dumps(shaped)),
+                    "bit_identical_to_native": True})
+        emit("native_query", **out[-1])
+    return out
+
+
+def wire_subtotals(ctx, warm):
+    """phase 9's cube_revenue CUBE as a wire subtotalsSpec: the frame of
+    `execute_grouping_sets` on the same sets."""
+    import pandas as pd
+
+    rw = ctx.plan_sql(CUBE_REVENUE)
+    q = dataclasses.replace(rw.query, subtotals=rw.grouping_sets)
+    body = q.to_druid()
+    if "subtotalsSpec" not in body:
+        raise AssertionError("cube_revenue: the wire form carries no subtotalsSpec")
+    _, df, _ = _wire_run(ctx, body)
+    want = execute_grouping_sets(rw.query, rw.grouping_sets, ctx.catalog.get(rw.datasource),
+                                 ctx.engine).drop(columns=["__grouping_id"])
+    pd.testing.assert_frame_equal(df, want, check_exact=True)
+    row = {"query": "wire:cube_revenue_subtotals", "p50_ms": _wire_p50(ctx, body, warm),
+           "sets": len(rw.grouping_sets), "result_rows": len(df),
+           "equals_grouping_sets": True}
+    emit("native_query", **row)
+    return row
+
+
+def wire_expression_post(ctx, frame, warm):
+    """A GroupBy with having, limitSpec and an expression post-aggregator
+    against its float64 oracle (keys and counts exact, sums and the ratio
+    within ORACLE_RTOL; the top 10 tie-aware)."""
+    f = frame[["c_region", "d_year", "lo_revenue"]]
+    g = f.groupby(["c_region", "d_year"], observed=True).agg(
+        revenue=("lo_revenue", "sum"), n=("lo_revenue", "size")).reset_index()
+    r = np.sort(g.revenue.to_numpy())
+    cut = (r[len(r) // 3 - 1] + r[len(r) // 3]) / 2  # between two groups
+    g = g[g.revenue > cut].assign(avg_revenue=lambda x: x.revenue / x.n)
+    g = g.sort_values("avg_revenue", ascending=False, kind="stable")
+    body = {
+        "queryType": "groupBy", "dataSource": "lineorder", "granularity": "all",
+        "dimensions": ["c_region", "d_year"],
+        "aggregations": [{"type": "doubleSum", "name": "revenue", "fieldName": "lo_revenue"},
+                         {"type": "count", "name": "n"}],
+        "postAggregations": [{"type": "expression", "name": "avg_revenue",
+                              "expression": "revenue / n"}],
+        "having": {"type": "greaterThan", "aggregation": "revenue", "value": float(cut)},
+        "limitSpec": {"type": "default", "limit": 10,
+                      "columns": [{"dimension": "avg_revenue", "direction": "descending"}]},
+    }
+    _, df, _ = _wire_run(ctx, body)
+    if len(df) != 10 or list(df.columns) != ["c_region", "d_year", "revenue", "n", "avg_revenue"]:
+        raise AssertionError(f"expression_post: {list(df.columns)} x {len(df)} rows")
+    avg = df.avg_revenue.to_numpy(np.float64)
+    if (np.diff(avg) > 0).any():
+        raise AssertionError("expression_post: not ordered by avg_revenue")
+    want = {(str(k), int(y)): (rev, n, a) for k, y, rev, n, a in g.itertuples(index=False)}
+    worst = 0.0
+    for k, y, rev, n, a in df.itertuples(index=False):
+        wrev, wn, wa = want[(str(k), int(y))]
+        errs = [abs(rev - wrev) / wrev, abs(a - wa) / wa]
+        if int(n) != wn or max(errs) > ORACLE_RTOL:
+            raise AssertionError(f"expression_post: {(k, y)} {(rev, n, a)} vs {(wrev, wn, wa)}")
+        worst = max(worst, *errs)
+    left_out = g.avg_revenue.to_numpy()[10:]
+    if len(left_out) and left_out.max() > avg[-1] * (1 + ORACLE_RTOL):
+        raise AssertionError("expression_post: a group above the cut was left out")
+    row = {"query": "wire:expression_post", "p50_ms": _wire_p50(ctx, body, warm),
+           "groups_after_having": len(g), "oracle_max_rel_err": worst}
+    emit("native_query", **row)
+    return row
+
+
+def native_scans(ctx, frame, warm):
+    """Scans over lineorder's own columns under q1.1's fact predicate: an
+    unordered drill-through, an ordered top-100 over every segment, and a
+    wire compactedList Scan over one month.  Rows and their order equal a
+    stable pandas sort of the host frame filtered in segment order."""
+    keep = _fact_mask(frame)
+    cols3 = ["lo_orderdate", "lo_extendedprice", "lo_discount"]
+    sel = frame.loc[keep, cols3]
+    lo, hi = (int(np.datetime64(s.rstrip("Z"), "ms").astype(np.int64))
+              for s in SCAN_MONTH[0].split("/"))
+    month_cols = ["lo_orderdate", "lo_extendedprice", "c_city"]
+    in_month = keep & (frame.lo_orderdate.to_numpy() >= lo) & (frame.lo_orderdate.to_numpy() < hi)
+    cases = {
+        "drill_through": (
+            lambda: ctx.sql(f"SELECT {', '.join(cols3)} FROM lineorder WHERE {FACT_WHERE} "
+                            "LIMIT 1000"),
+            sel.head(1000)),
+        "ordered_top100": (
+            lambda: ctx.sql(f"SELECT {', '.join(cols3)} FROM lineorder WHERE {FACT_WHERE} "
+                            "ORDER BY lo_extendedprice DESC LIMIT 100"),
+            sel.sort_values("lo_extendedprice", ascending=False, kind="stable").head(100)),
+        "month_compacted": (
+            lambda: _wire_run(ctx, {
+                "queryType": "scan", "dataSource": "lineorder", "columns": month_cols,
+                "intervals": SCAN_MONTH, "filter": FACT_FILTER,
+                "resultFormat": "compactedList"})[1],
+            frame.loc[in_month, month_cols]),
+    }
+    out = []
+    for name, (run, want) in cases.items():
+        got = run()
+        m = ctx.engine.last_metrics
+        if m.query_type != "scan":
+            raise AssertionError(f"{name}: ran {m.query_type}, not a scan")
+        _rows_equal(name, got, want.reset_index(drop=True))
+        p50 = _median_ms(run, warm)
+        out.append({"query": f"scan:{name}", "p50_ms": p50, "result_rows": len(got),
+                    "segments": m.segments, "rows_scanned": m.rows_scanned,
+                    "rows_per_s": m.rows_scanned / (p50 / 1e3), "d2h_bytes": m.d2h_bytes,
+                    "h2d_bytes": m.h2d_bytes, "rows_equal_oracle": True})
+        emit("native_query", **out[-1])
+    return out
+
+
+def native_searches(ctx, frame, warm):
+    """Searches over the flattened SSB datasource (c_city, s_city) for
+    "united", with no filter and under q1.1's fact predicate: the counts
+    equal a bincount of the host frame's codes."""
+    ds = ctx.catalog.get("lineorder")
+    keep = _fact_mask(frame)
+    out = []
+    for name, filt in (("united", None), ("united_fact_predicate", FACT_FILTER)):
+        body = {"queryType": "search", "dataSource": "lineorder",
+                "searchDimensions": ["c_city", "s_city"],
+                "query": {"type": "insensitive_contains", "value": "united"}}
+        if filt is not None:
+            body["filter"] = filt
+        _, got, _ = _wire_run(ctx, body)
+        want = []
+        for dim in ("c_city", "s_city"):
+            values = ds.dicts[dim].values
+            codes = frame[dim].cat.codes.to_numpy()
+            if filt is not None:
+                codes = codes[keep]
+            counts = np.bincount(codes[codes >= 0], minlength=len(values))
+            want += [(dim, v, int(counts[c])) for c, v in enumerate(values)
+                     if "united" in str(v).lower() and counts[c]]
+        if list(zip(got.dimension, got.value, got["count"])) != want or not want:
+            raise AssertionError(f"search {name}: counts differ from the bincount oracle")
+        m = ctx.engine.last_metrics
+        p50 = _wire_p50(ctx, body, warm)
+        out.append({"query": f"search:{name}", "p50_ms": p50, "result_rows": len(got),
+                    "segments": m.segments, "rows_per_s": m.rows_scanned / (p50 / 1e3),
+                    "counts_equal_bincount": True})
+        emit("native_query", **out[-1])
+    return out
+
+
+def native_metadata(ctxs, workloads):
+    """TimeBoundary, DataSourceMetadata and SegmentMetadata of both
+    datasources against the segments' own metadata."""
+    out = []
+    for workload in ("ssb", "tpch"):
+        ds = workloads[workload][0]
+        ctx = ctxs[workload]
+        lo, hi = ds.interval()
+        for body, check in (
+            ({"queryType": "timeBoundary"},
+             lambda r: r[0]["result"] == {"minTime": _iso(lo), "maxTime": _iso(hi)}),
+            ({"queryType": "dataSourceMetadata"},
+             lambda r: r[0]["result"] == {"maxIngestedEventTime": _iso(hi)}),
+            ({"queryType": "segmentMetadata"},
+             lambda r: len(r) == len(ds.segments)
+             and sum(x["numRows"] for x in r) == ds.num_rows),
+        ):
+            body = dict(body, dataSource=ds.name)
+            launches = cuda_groupby.LAUNCHES
+            _, _, shaped = _wire_run(ctx, body)
+            if not check(shaped) or cuda_groupby.LAUNCHES != launches:
+                raise AssertionError(f"{workload} {body['queryType']}: {shaped[:1]}")
+            out.append({"query": f"{body['queryType']} ({workload})",
+                        "p50_ms": _wire_p50(ctx, body, NATIVE_WARM)})
+            emit("native_query", **out[-1])
+    return out
+
+
+def _iso(ms) -> str:
+    return wire._jsonable(np.datetime64(int(ms), "ms"))
+
+
+def native_lookup(ctx, dims, warm):
+    """GROUP BY LOOKUP(c_nation, 'n2r') over the joined customer, the map
+    taken from the customer table, against GROUP BY c_region: keys and
+    counts exact, sums within rtol 1e-6."""
+    cust = dims["customer"]
+    ctx.register_lookup("n2r", dict(zip(cust["c_nation"], cust["c_region"])))
+    sql = ("SELECT LOOKUP(c_nation, 'n2r') AS region, count(*) AS n, "
+           "sum(lo_revenue) AS revenue FROM lineorder JOIN customer "
+           "ON lo_custkey = c_custkey GROUP BY LOOKUP(c_nation, 'n2r')")
+    ref_sql = ("SELECT c_region AS region, count(*) AS n, sum(lo_revenue) AS revenue "
+               "FROM lineorder GROUP BY c_region")
+    got = ctx.sql(sql).sort_values("region").reset_index(drop=True)
+    want = ctx.sql(ref_sql).sort_values("region").reset_index(drop=True)
+    if list(got.region) != list(want.region) or list(got.n) != list(want.n):
+        raise AssertionError("lookup: keys or counts differ from GROUP BY c_region")
+    g, w = got.revenue.to_numpy(np.float64), want.revenue.to_numpy(np.float64)
+    if not (np.abs(g - w) <= 1e-6 * np.abs(w)).all():
+        raise AssertionError("lookup: sums differ from GROUP BY c_region")
+    row = {"query": "sql:lookup_n2r", "p50_ms": _median_ms(lambda: ctx.sql(sql), warm),
+           "groups": len(got), "sums_bit_equal": bool(np.array_equal(g, w)),
+           "max_rel_err": float((np.abs(g - w) / np.abs(w)).max())}
+    emit("native_query", **row)
+    return row
+
+
+def native_table_queries(ctx, warm):
+    """q1.1 and q2.1 written as TableQuery chains: each frame bit-identical
+    to `ctx.sql` of the same query."""
+    import pandas as pd
+
+    t = ctx.table("lineorder")
+    chains = {
+        "q1_1": t.where(col("d_year").eq(1993) & (col("lo_discount") >= 1)
+                        & (col("lo_discount") <= 3) & (col("lo_quantity") < 25))
+                 .agg(revenue=("sum", col("lo_extendedprice") * col("lo_discount"))),
+        "q2_1": t.where(col("p_category").eq("MFGR#12") & col("s_region").eq("AMERICA"))
+                 .group_by("d_year", "p_brand1").agg(revenue=("sum", "lo_revenue"))
+                 .order_by("d_year").order_by("p_brand1"),
+    }
+    out = []
+    for name, chain in chains.items():
+        want = ctx.sql(ssb.QUERIES[name])
+        got = chain.collect()
+        pd.testing.assert_frame_equal(got[list(want.columns)], want, check_exact=True)
+        out.append({"query": f"table:{name}", "p50_ms": _median_ms(chain.collect, warm),
+                    "result_rows": len(got), "bit_identical_to_sql": True})
+        emit("native_query", **out[-1])
+    return out
+
+
+def native_degraded(ctx):
+    """`execute_native_degraded` on TPC-H Q1's wire spec and on one Scan,
+    with the device assist off, so the host interpreter answers: the host
+    frames against the device frames (keys exact, sums within ORACLE_RTOL;
+    the scan's rows exact)."""
+    ds = ctx.catalog.get("lineitem")
+    off_rows = max(ctx.catalog.get(t).num_rows for t in ctx.catalog.tables()) + 1
+    default_rows = ctx.config.device_assist_min_rows
+    scan = {"queryType": "scan", "dataSource": "lineitem",
+            "columns": ["l_returnflag", "l_linestatus", "l_quantity", "l_extendedprice"],
+            "filter": {"type": "bound", "dimension": "l_quantity", "lower": "49",
+                       "lowerStrict": True, "ordering": "numeric"},
+            "orderBy": [{"columnName": "l_extendedprice", "order": "descending"}],
+            "limit": 100}
+    out = []
+    for name, body in (("q1", tpch.NATIVE_QUERIES["q1"].to_druid()), ("scan", scan)):
+        q = wire.query_from_druid(json.loads(json.dumps(body, default=str)))
+        device = ctx.engine.execute(q, ds)
+        ctx.sql(f"SET device_assist_min_rows = {off_rows}")
+        try:
+            t0 = time.perf_counter()
+            host = ctx.execute_native_degraded(q)
+            ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            ctx.sql(f"SET device_assist_min_rows = {default_rows}")
+        if ctx.last_metrics.executor != "fallback":
+            raise AssertionError(f"degraded {name}: executor {ctx.last_metrics.executor}")
+        host = host[list(device.columns)]
+        if name == "scan":
+            _rows_equal("degraded scan", host, device)
+            err = 0.0
+        else:
+            keys = [c for c in device.columns if device[c].dtype.kind not in "f"]
+            err = _frame_check("degraded q1", host, device, keys)
+        out.append({"query": f"degraded:{name}", "ms": ms, "result_rows": len(host),
+                    "max_rel_err_to_device": err})
+        emit("native_query", **out[-1])
+    return out
+
+
+def run_native_surface(ctxs, workloads, warm=NATIVE_WARM):
+    """Phase 11: the Druid-native surface on the SSB and TPC-H contexts
+    (the resident data of phases 4 to 10).  Returns the rows emitted."""
+    frame = workloads["ssb"][1]
+    rows = wire_aggregates(ctxs, workloads, warm)
+    rows.append(wire_subtotals(ctxs["ssb"], warm))
+    rows.append(wire_expression_post(ctxs["ssb"], frame, warm))
+    rows += native_scans(ctxs["ssb"], frame, warm)
+    rows += native_searches(ctxs["ssb"], frame, warm)
+    rows += native_metadata(ctxs, workloads)
+    rows.append(native_lookup(ctxs["ssb"], workloads["dims"]["ssb"], warm))
+    rows += native_table_queries(ctxs["ssb"], warm)
+    rows += native_degraded(ctxs["tpch"])
+    return rows
+
+
+# -- phase 12: streaming ---------------------------------------------------------
 
 
 def stream_query():
@@ -2088,7 +2489,7 @@ def main(argv=None) -> int:
         return sum(e.bytes_resident() for e in engines.values())
 
     torch.cuda.reset_peak_memory_stats(device)
-    shapes = KernelShapes().start()  # every launch of phases 4 to 11
+    shapes = KernelShapes().start()  # every launch of phases 4 to 12
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
     queries = run_main_path(engines, workloads)
@@ -2178,7 +2579,18 @@ def main(argv=None) -> int:
          bytes_resident=resident(),
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
 
-    del ctxs, engines, exact, workloads, dims, tctx  # phase 11 needs host memory
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the native phase's launches
+    native = run_native_surface(ctxs, workloads)
+    native_launches = cuda_groupby.LAUNCHES
+    emit("native", queries=len(native), seconds=time.perf_counter() - t0,
+         p50_ms={r["query"]: r.get("p50_ms", r.get("ms")) for r in native},
+         kernel_launches=native_launches, bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if native_launches == 0:
+        raise AssertionError("the native phase never launched the kernel")
+
+    del ctxs, engines, exact, workloads, dims, tctx  # phase 12 needs host memory
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2210,13 +2622,15 @@ def main(argv=None) -> int:
         "source": "spark_druid_olap_tpu_torch/csrc/groupby_partial.cu",
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
         "launches": (launches + sql_launches + sketch_launches + tier_launches
-                     + arena_launches + fallback_launches + stream_launches),
+                     + arena_launches + fallback_launches + native_launches
+                     + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
         "launches_tier": tier_launches,
         "launches_arena": arena_launches,
         "launches_fallback": fallback_launches,
+        "launches_native_surface": native_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

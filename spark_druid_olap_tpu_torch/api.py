@@ -7,6 +7,8 @@
     df  = ctx.sql("SELECT l_returnflag, sum(l_quantity) FROM lineitem "
                   "GROUP BY l_returnflag")
     print(ctx.explain("SELECT ..."))      # EXPLAIN DRUID REWRITE analog
+    df  = (ctx.table("lineitem").where(col("l_quantity") > 40)
+              .group_by("l_returnflag").agg(n=("count", None)).collect())
 
 A SQL string goes through the lexer and parser (`sql/`) to a logical plan,
 through the planner (`plan/`: star-join elimination, interval extraction,
@@ -29,15 +31,23 @@ the host fallback (`exec/fallback.py`, `_run_fallback`) under
 decoded host frames, with every Aggregate subtree offered to the planner
 first (`device_subplan`), so a GROUP BY the planner can rewrite still runs
 on the engine.  `last_metrics.executor` says which ran: "device",
-"fallback" or "device+fallback".  A non-aggregate scan raises
-NotImplementedError naming the ROADMAP item that ports it.
+"fallback" or "device+fallback".  A non-aggregate SELECT plans to a Scan
+query, which the engine answers on the device.
+
+`TableQuery` (`ctx.table(name)`) builds the same logical plans through
+immutable chaining and runs them as the SQL path does; `register_lookup`
+registers the maps `LOOKUP(dim, 'name')` reads; `sql_arrow` returns a
+`pyarrow.Table`.  `execute_native_degraded` answers a Druid-native spec on
+the host fallback (`exec/wire_fallback.py`) when a caller asks for it by
+name.  The module-level `register_table`, `sql`, `table` and `explain` use
+one default context, on the card.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -57,6 +67,7 @@ from .exec.finalize import apply_limit_spec
 from .exec.metrics import QueryMetrics
 from .models import query as Q
 from .plan import expr as E
+from .plan import logical as L
 from .plan.planner import Planner, Rewrite, RewriteError
 from .plan.transforms import RewritePolicyError
 from .sql.parser import parse_sql
@@ -65,7 +76,7 @@ from .utils.lru import CountBudgetCache
 
 log = get_logger("api")
 
-__all__ = ["TPUOlapContext", "RewriteError"]
+__all__ = ["TPUOlapContext", "TableQuery", "RewriteError"]
 
 
 class TPUOlapContext:
@@ -173,6 +184,13 @@ class TPUOlapContext:
             star_schema = StarSchemaInfo.from_json(star_schema)
         return self.catalog.put(ds, star_schema)
 
+    def register_lookup(self, name: str, mapping: Mapping[str, str]):
+        """Register a query-time lookup table (Druid lookup extraction):
+        `LOOKUP(dim, 'name')` in GROUP BY maps dimension values through it on
+        the host, as a dictionary rewrite.  The catalog version moves, so
+        cached plans that baked in the old map are planned again."""
+        self.catalog.put_lookup(name, dict(mapping))
+
     def drop_table(self, name: str):
         ds = self.catalog.get(name)
         self.catalog.drop(name)
@@ -261,14 +279,40 @@ class TPUOlapContext:
             self._plan_cache[key] = rw
         return self.execute_rewrite(rw)
 
-    def _run_fallback(self, lp, err: RewriteError):
+    def sql_arrow(self, sql_text: str):
+        """`sql()` with the result as a `pyarrow.Table`: NULLs in dimension
+        columns become Arrow nulls; NaN metrics stay floating-point NaN."""
+        return _to_arrow(self.sql(sql_text))
+
+    def table(self, name: str) -> "TableQuery":
+        return TableQuery(self, name)
+
+    def execute_native_degraded(self, q: Q.QuerySpec):
+        """Answer a Druid-native spec on the host fallback: the spec decodes
+        to a logical plan (`exec/wire_fallback.native_to_logical`), runs
+        through `_run_fallback` as SQL does (the same flags gate it), and is
+        shaped as the device path shapes it.  Raises WireFallbackUnsupported
+        for specs outside the interpreter's coverage."""
+        from .exec.wire_fallback import native_to_logical, shape_native_result
+
+        ds = self.catalog.get(q.datasource)
+        if ds is None:
+            raise RewriteError(f"unknown table {q.datasource!r}")
+        lp = native_to_logical(q, ds)
+        return shape_native_result(q, ds, self._run_fallback(lp, None))
+
+    def _run_fallback(self, lp, err: Optional[RewriteError]):
         """Run a plan the planner could not rewrite on the host fallback.
         A policy rejection (RewritePolicyError) and a disabled fallback
-        re-raise `err`.  Above `fallback_max_rows` input rows the fallback
-        raises FallbackSizeError."""
-        if isinstance(err, RewritePolicyError) or not self.config.fallback_execution:
+        re-raise `err` (a RewriteError when `err` is None: a native spec
+        sent here by name).  Above `fallback_max_rows` input rows the
+        fallback raises FallbackSizeError."""
+        if isinstance(err, RewritePolicyError):
             raise err
-        log.warning("rewrite failed (%s); executing on the host fallback", err)
+        if not self.config.fallback_execution:
+            raise err if err is not None else RewriteError("fallback execution is disabled")
+        log.warning("%s; executing on the host fallback",
+                    f"rewrite failed ({err})" if err is not None else "a native query")
         t0 = time.perf_counter()
         assists = 0
         declines: List[str] = []
@@ -482,3 +526,171 @@ def _infer_schema(cols, time_column):
         else:
             mets.append(k)
     return dims, mets
+
+
+def _to_arrow(df):
+    import pyarrow as pa
+
+    return pa.Table.from_pandas(df, preserve_index=False)
+
+
+class TableQuery:
+    """DataFrame-style query builder over the same planner, the analog of
+    driving Spark DataFrames instead of SQL.  Every method returns a new
+    TableQuery (immutable chaining); `collect()` plans, runs on the engine,
+    and answers on the host fallback where the planner cannot rewrite the
+    plan, as the SQL path does."""
+
+    def __init__(self, ctx: TPUOlapContext, table: str):
+        self.ctx = ctx
+        self._table = table
+        self._filter: Optional[E.Expr] = None
+        self._select: List[Tuple[str, E.Expr]] = []
+        self._groups: List[Tuple[str, E.Expr]] = []
+        self._aggs: List[L.AggExpr] = []
+        self._having: Optional[E.Expr] = None
+        self._sort: List[L.SortKey] = []
+        self._limit: Optional[int] = None
+        self._offset: int = 0
+
+    def _copy(self) -> "TableQuery":
+        out = TableQuery(self.ctx, self._table)
+        out.__dict__.update(self.__dict__)
+        for k in ("_select", "_groups", "_aggs", "_sort"):
+            setattr(out, k, list(getattr(self, k)))
+        return out
+
+    @staticmethod
+    def _as_expr(x) -> E.Expr:
+        return E.Col(x) if isinstance(x, str) else x
+
+    def filter(self, e: E.Expr) -> "TableQuery":
+        out = self._copy()
+        out._filter = e if out._filter is None else E.BoolOp("and", (out._filter, e))
+        return out
+
+    where = filter  # the Spark and SQL spelling
+
+    def select(self, *exprs, **named) -> "TableQuery":
+        """Projection of a non-aggregate query: select("a", "b") or
+        select(rev=E.Col("price") * E.Col("qty"))."""
+        out = self._copy()
+        out._select += _named_exprs(exprs, named)
+        return out
+
+    def group_by(self, *exprs, **named) -> "TableQuery":
+        out = self._copy()
+        out._groups += _named_exprs(exprs, named)
+        return out
+
+    def agg(self, **named) -> "TableQuery":
+        """agg(total=("sum", "revenue"), n=("count", None), ...); the
+        argument may be a column name or an Expr (a sum over an
+        expression)."""
+        out = self._copy()
+        for name, spec in named.items():
+            fn, arg = spec if isinstance(spec, tuple) else (spec, None)
+            out._aggs.append(L.AggExpr(name, fn, self._as_expr(arg) if arg is not None else None))
+        return out
+
+    def having(self, e: E.Expr) -> "TableQuery":
+        """A filter over aggregate outputs, named by their `agg(...)` names
+        (E.AggRef, or E.Col of the output name)."""
+        out = self._copy()
+        out._having = e if out._having is None else E.BoolOp("and", (out._having, e))
+        return out
+
+    def order_by(self, key, ascending: bool = True) -> "TableQuery":
+        out = self._copy()
+        out._sort.append(L.SortKey(self._as_expr(key), ascending))
+        return out
+
+    def limit(self, n: int, offset: int = 0) -> "TableQuery":
+        out = self._copy()
+        out._limit, out._offset = n, offset
+        return out
+
+    def _logical(self) -> L.LogicalPlan:
+        base: L.LogicalPlan = L.Scan(self._table)
+        if self._filter is not None:
+            base = L.Filter(self._filter, base)
+        if self._groups or self._aggs:
+            if self._select:
+                raise ValueError(
+                    "select() is for non-aggregate queries; grouped "
+                    "outputs are named by group_by()/agg()")
+            post = tuple((n, E.Col(n)) for n, _ in self._groups) + tuple(
+                (a.name, E.AggRef(a.name)) for a in self._aggs)
+            plan: L.LogicalPlan = L.Aggregate(
+                tuple(self._groups), tuple(self._aggs), base, post_exprs=post)
+            if self._having is not None:
+                plan = L.Having(_col_to_aggref(self._having, self._aggs), plan)
+        else:
+            if self._having is not None:
+                raise ValueError("having() requires group_by()/agg()")
+            plan = L.Project(tuple(self._select), base) if self._select else base
+        if self._sort:
+            plan = L.Sort(tuple(
+                L.SortKey(_col_to_aggref(k.expr, self._aggs), k.ascending)
+                for k in self._sort), plan)
+        if self._limit is not None:
+            plan = L.Limit(self._limit, plan, self._offset)
+        return plan
+
+    def collect(self):
+        lp = self._logical()
+        try:
+            rw = self.ctx._planner().plan(lp)
+        except RewriteError as err:
+            return self.ctx._run_fallback(lp, err)
+        return self.ctx.execute_rewrite(rw)
+
+    def collect_arrow(self):
+        """`collect()` as a `pyarrow.Table`."""
+        return _to_arrow(self.collect())
+
+    def explain(self) -> str:
+        return self.ctx._planner().explain(self._logical(), self.ctx.engine)
+
+
+def _named_exprs(exprs, named) -> List[Tuple[str, E.Expr]]:
+    """(name, Expr) pairs of positional column names or Exprs (an Expr is
+    named by its text) and keyword-named ones."""
+    out = [(x if isinstance(x, str) else str(x), TableQuery._as_expr(x)) for x in exprs]
+    return out + [(name, TableQuery._as_expr(x)) for name, x in named.items()]
+
+
+def _col_to_aggref(e: E.Expr, aggs) -> E.Expr:
+    """In HAVING and ORDER BY over a grouped TableQuery, a Col naming an
+    aggregate output means the aggregate (SQL alias semantics)."""
+    names = {a.name for a in aggs}
+    return E.map_expr(
+        e, lambda x: E.AggRef(x.name) if isinstance(x, E.Col) and x.name in names else x)
+
+
+# the module-level default context (the implicit SQLContext analog); it
+# runs on the card
+_default_ctx: Optional[TPUOlapContext] = None
+
+
+def default_context() -> TPUOlapContext:
+    global _default_ctx
+    if _default_ctx is None:
+        _default_ctx = TPUOlapContext()
+    return _default_ctx
+
+
+def register_table(*a, **kw):
+    return default_context().register_table(*a, **kw)
+
+
+def sql(text: str):
+    return default_context().sql(text)
+
+
+def table(name: str) -> TableQuery:
+    return default_context().table(name)
+
+
+def explain(text: str) -> str:
+    return default_context().explain(text)

@@ -1,10 +1,11 @@
 """Metadata cache: the registry of datasources and their star schemas.
 
-Datasources are registered (ingested) into the cache; entries are immutable
-by construction (frozen dataclasses holding arrays nobody mutates), and
-`clear()` is the clear-metadata-cache command.  Every mutation bumps
-`version`, which the SQL plan cache keys on, so a re-registered table
-invalidates cached rewrites.
+Datasources are registered (ingested) into the cache, beside the query-time
+lookup tables (`LOOKUP(dim, 'name')`, Druid's lookup extraction); entries
+are immutable by construction (frozen dataclasses holding arrays nobody
+mutates), and `clear()` is the clear-metadata-cache command, which drops
+the lookups too.  Every mutation bumps `version`, which the SQL plan cache
+keys on, so a re-registered table or lookup invalidates cached rewrites.
 """
 
 from __future__ import annotations
@@ -21,7 +22,18 @@ class MetadataCache:
         self._lock = threading.Lock()
         self._tables: Dict[str, DataSource] = {}
         self._stars: Dict[str, StarSchemaInfo] = {}
+        # query-time lookup tables (Druid lookup extraction): name -> map
+        self._lookups: Dict[str, dict] = {}
         self.version = 0
+
+    def put_lookup(self, name: str, mapping: dict):
+        with self._lock:
+            self._lookups[name] = dict(mapping)
+            self.version += 1
+
+    def lookup(self, name: str):
+        with self._lock:
+            return self._lookups.get(name)
 
     def put(self, ds: DataSource, star: Optional[StarSchemaInfo] = None):
         """Publish a datasource (and its star schema, when given).  Returns
@@ -55,4 +67,5 @@ class MetadataCache:
         with self._lock:
             self._tables.clear()
             self._stars.clear()
+            self._lookups.clear()
             self.version += 1

@@ -1,7 +1,7 @@
 """Single-device query engine: QuerySpec x DataSource -> pandas DataFrame.
 
-`Engine.execute` runs a Druid-native query spec (GroupBy, Timeseries, TopN)
-over a datasource's segments:
+`Engine.execute` runs a Druid-native query spec over a datasource's
+segments.  A GroupBy, Timeseries or TopN runs as follows:
 
 1. `segments_in_scope` prunes segments by the query interval and by
    per-segment zone maps;
@@ -36,6 +36,16 @@ pipeline (`exec/pipeline.py`): from a pinned host copy kept per column.
 (grouping sets).  `configure_pipeline` applies the session's
 `transfer_pipeline` and `arena_execution`.
 
+A Scan builds each in-scope segment's row mask (intervals, filter) on the
+device over the resident columns, compacts the selected rows there and
+copies them to the host in one transfer per segment (`_fetch_rows`); an
+unordered LIMIT stops the loop early, and an ordered LIMIT keeps each
+segment's top limit+offset rows before the concat.  A Search takes its
+candidate values from the host dictionaries, then counts the matching rows
+per code with `torch.bincount` on the device.  TimeBoundary,
+DataSourceMetadata and SegmentMetadata read catalog metadata and dispatch
+no device work.
+
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 device given and no GPU present, `Engine()` raises.
 """
@@ -52,20 +62,30 @@ import torch
 from ..catalog.segment import DataSource, Segment
 from ..models import filters as F
 from ..models import query as Q
-from ..ops.filters import numeric_dict_code_bounds
+from ..models.filters import _ms_to_iso
+from ..ops.filters import compile_filter, numeric_dict_code_bounds
 from ..ops.groupby import partial_aggregate, resolve_strategy
+from ..plan.expr import as_tensor
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
 from . import arena
 from .adaptive_exec import AdaptiveDomainMixin
-from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
+from .finalize import (
+    apply_limit_spec,
+    finalize_groupby,
+    finalize_timeseries,
+    finalize_topn,
+)
 from .lowering import (
     GroupByLowering,
     LoweredAggs,
+    _decoded_expr_fn,
+    _filter_columns,
     _query_key,
     empty_partials,
     groupby_with_time_granularity,
     lower_groupby,
     memo_key,
+    row_mask,
     sketch_ops,
     timeseries_to_groupby,
     topn_to_groupby,
@@ -437,6 +457,16 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         if isinstance(q, Q.TopNQuery):
             df = self._execute_groupby(topn_to_groupby(q), ds)
             return finalize_topn(df, q)
+        if isinstance(q, Q.ScanQuery):
+            return self._execute_scan(q, ds)
+        if isinstance(q, Q.SearchQuery):
+            return self._execute_search(q, ds)
+        if isinstance(q, Q.TimeBoundaryQuery):
+            return self._execute_time_boundary(q, ds)
+        if isinstance(q, Q.DataSourceMetadataQuery):
+            return self._execute_datasource_metadata(q, ds)
+        if isinstance(q, Q.SegmentMetadataQuery):
+            return self._execute_segment_metadata(q, ds)
         raise NotImplementedError(type(q).__name__)
 
     # -- groupby -------------------------------------------------------------
@@ -611,3 +641,234 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             return df
 
         return resolve
+
+    # -- scan ----------------------------------------------------------------
+
+    def _execute_scan(self, q: Q.ScanQuery, ds: DataSource):
+        import pandas as pd
+
+        t_total = time.perf_counter()
+        filter_fn = compile_filter(q.filter, ds) if q.filter is not None else None
+        vcol_fns = {v.name: _decoded_expr_fn(v.expression, ds) for v in q.virtual_columns}
+        order_cols = [c.dimension for c in q.order_by]
+        if "__time" in order_cols and not ds.time_column:
+            # the legacy wire `order` implies time ordering, which a
+            # timeless table cannot honour
+            raise Q.QueryValidationError(
+                f"scan ordering by __time: datasource {ds.name!r} has no time column")
+        sortable = set(q.columns) | {c.name for c in ds.columns} | set(vcol_fns) | {"__time"}
+        for c in order_cols:
+            # wire queries arrive unplanned: a bad orderBy is the client's
+            if c not in sortable:
+                raise Q.QueryValidationError(f"scan orderBy unknown column {c!r}")
+        fetch_list = list(dict.fromkeys(list(q.columns) + order_cols))
+        need = [c for c in fetch_list if c not in vcol_fns and c != "__time"]
+        if q.filter is not None:
+            need += [c for c in _filter_columns(q.filter) if c != "__time"]
+        for v in q.virtual_columns:
+            need += [c for c in v.expression.columns() if c != "__time"]
+        if ds.time_column:
+            need.append(ds.time_column)
+        need = list(dict.fromkeys(need))
+        # an unordered scan stops once it holds limit + offset rows; an
+        # ordered one must see every segment
+        remaining = None if q.order_by else (
+            q.limit + q.offset if q.limit is not None else None)
+        top = q.limit + q.offset if q.order_by and q.limit is not None else None
+        presort = bool(top) and _presortable(q.order_by[0], ds, vcol_fns)
+        segs = segments_in_scope(q, ds)
+        m = QueryMetrics(query_type="scan", strategy="scan", datasource=ds.name,
+                         device=str(self.device))
+        frames = []
+        for seg in segs:  # canonical segment order: the row order
+            cols = self._cols_for_segment(seg, ds, need, m)
+            for name, fn in vcol_fns.items():
+                cols[name] = as_tensor(fn(cols), cols["__valid"])
+            mask = row_mask(cols, q.intervals, filter_fn)
+            idx = torch.nonzero(mask).squeeze(1)
+            if remaining is not None:
+                idx = idx[:remaining]
+            elif presort and idx.numel() > top:
+                idx = _top_candidates(cols, q.order_by[0], idx, top)
+            fetched, nbytes = _fetch_rows(cols, fetch_list, idx)
+            m.d2h_bytes += nbytes
+            data = {}
+            for c in fetch_list:
+                arr = fetched[c]
+                if c in ds.dicts:
+                    arr = ds.dicts[c].decode(arr)
+                data[c] = arr
+            f = pd.DataFrame(data)
+            if remaining is not None:
+                remaining -= len(f)
+            elif top is not None:
+                # ordered + limited: only each segment's top limit + offset
+                # rows can reach the result
+                f = apply_limit_spec(f, Q.LimitSpec(top, q.order_by, 0))
+            frames.append(f)
+            m.segments += 1
+            m.rows_scanned += seg.num_rows
+            m.dispatch_count += 1
+            if remaining is not None and remaining <= 0:
+                break
+        out = (pd.concat(frames, ignore_index=True) if frames
+               else pd.DataFrame(columns=fetch_list))
+        out = apply_limit_spec(out, Q.LimitSpec(q.limit, q.order_by, q.offset))
+        m.total_ms = (time.perf_counter() - t_total) * 1e3
+        m.bytes_resident = self.bytes_resident()
+        self.last_metrics = m
+        return out[list(q.columns)].reset_index(drop=True)
+
+    # -- search --------------------------------------------------------------
+
+    def _execute_search(self, q: Q.SearchQuery, ds: DataSource):
+        """Dimension-value search: the candidate values come from the host
+        dictionaries, and each carries its count of matching rows (Druid's
+        search response), counted per code on the device over the rows in
+        scope (intervals, zone maps, filter); values with no matching row
+        are left out."""
+        import pandas as pd
+
+        t_total = time.perf_counter()
+        # candidate codes from the host dictionaries first: a needle that
+        # matches nothing costs no scan
+        needle = q.query.lower()
+        matching = {
+            dim: [code for code, v in enumerate(ds.dicts[dim].values)
+                  if needle in str(v).lower()]
+            for dim in q.dimensions
+        }
+        live_dims = [d for d in q.dimensions if matching[d]]
+        m = QueryMetrics(query_type="search", strategy="search", datasource=ds.name,
+                         device=str(self.device))
+        if not live_dims:
+            self.last_metrics = m
+            return pd.DataFrame(columns=["dimension", "value", "count"])
+        segs = segments_in_scope(q, ds)
+        filter_fn = compile_filter(q.filter, ds) if q.filter is not None else None
+        names = live_dims + (_filter_columns(q.filter) if filter_fn is not None else [])
+        if ds.time_column and (q.intervals or "__time" in names):
+            names.append(ds.time_column)
+        names = list(dict.fromkeys(n for n in names if n != "__time"))
+        # one count per code and a last bin that takes masked and null rows
+        counts = {dim: torch.zeros(ds.dicts[dim].cardinality + 1, dtype=torch.int64,
+                                   device=self.device) for dim in live_dims}
+        for seg in segs:
+            cols = self._cols_for_segment(seg, ds, names, m)
+            # a timeless table has no time to scope
+            mask = row_mask(cols, q.intervals if ds.time_column else (), filter_fn)
+            for dim in live_dims:
+                c = counts[dim]
+                codes = cols[dim].to(torch.int64)
+                slot = torch.where(mask & (codes >= 0), codes, c.numel() - 1)
+                c += torch.bincount(slot, minlength=c.numel())
+            m.segments += 1
+            m.rows_scanned += seg.num_rows
+            m.dispatch_count += 1
+        host = {dim: c.cpu().numpy() for dim, c in counts.items()}
+        rows = []
+        for dim in live_dims:
+            if len(rows) >= q.limit:
+                break
+            d = ds.dicts[dim]
+            for code in matching[dim]:
+                if host[dim][code] > 0:
+                    rows.append({"dimension": dim, "value": d.values[code],
+                                 "count": int(host[dim][code])})
+                    if len(rows) >= q.limit:
+                        break
+        m.total_ms = (time.perf_counter() - t_total) * 1e3
+        m.bytes_resident = self.bytes_resident()
+        self.last_metrics = m
+        return pd.DataFrame(rows, columns=["dimension", "value", "count"])
+
+    # -- metadata queries: catalog reads, no device work ----------------------
+
+    def _execute_time_boundary(self, q: Q.TimeBoundaryQuery, ds: DataSource):
+        """Druid `timeBoundary`, from segment metadata."""
+        import pandas as pd
+
+        iv = ds.interval()
+        if iv is None:
+            return pd.DataFrame(columns=["minTime", "maxTime"])
+        lo, hi = iv
+        row = {}
+        if q.bound in (None, "minTime"):
+            row["minTime"] = np.datetime64(int(lo), "ms")
+        if q.bound in (None, "maxTime"):
+            row["maxTime"] = np.datetime64(int(hi), "ms")
+        return pd.DataFrame([row])
+
+    def _execute_datasource_metadata(self, q: Q.DataSourceMetadataQuery, ds: DataSource):
+        """Druid `dataSourceMetadata`: the newest ingested event time, from
+        segment metadata."""
+        import pandas as pd
+
+        iv = ds.interval()
+        if iv is None:
+            return pd.DataFrame(columns=["maxIngestedEventTime"])
+        return pd.DataFrame([{"maxIngestedEventTime": np.datetime64(int(iv[1]), "ms")}])
+
+    def _execute_segment_metadata(self, q: Q.SegmentMetadataQuery, ds: DataSource):
+        """Druid `segmentMetadata`: the catalog rendered per in-scope
+        segment."""
+        import pandas as pd
+
+        # the schema is the datasource's: one columns dict shared by all
+        cols = {c.name: {"type": c.kind, "dtype": c.dtype, "cardinality": c.cardinality}
+                for c in ds.columns}
+        rows = [
+            {
+                "id": seg.segment_id,
+                "intervals": (
+                    [f"{_ms_to_iso(int(seg.interval[0]))}/{_ms_to_iso(int(seg.interval[1]))}"]
+                    if seg.interval is not None else []),
+                "numRows": seg.num_rows,
+                "columns": cols,
+            }
+            for seg in segments_in_scope(q, ds)
+        ]
+        return pd.DataFrame(rows, columns=["id", "intervals", "numRows", "columns"])
+
+
+def _presortable(key: Q.OrderByColumnSpec, ds: DataSource, vcol_fns) -> bool:
+    """Whether an ordered scan's first sort key can preselect a segment's
+    candidate rows on the device: a numeric column whose values order as
+    the host sort orders them (the time column, a metric, a virtual
+    column), not dictionary codes."""
+    return key.dimension in vcol_fns or key.dimension == "__time" or (
+        key.dimension not in ds.dicts
+        and any(c.name == key.dimension and c.kind != "dimension" for c in ds.columns))
+
+
+def _top_candidates(cols, key: Q.OrderByColumnSpec, idx: torch.Tensor, k: int):
+    """The rows of `idx` that can be among the first `k` under a stable
+    sort by `key` (nulls last): every row whose key is at least as good as
+    the k-th best.  Ties at the cut all stay, so the host's sort of the
+    candidates picks the same rows, in the same order, as a sort of all of
+    `idx`.  NaN ranks after every number, as the host sort places nulls."""
+    v = cols[key.dimension].index_select(0, idx).to(torch.float64)
+    if key.direction == "descending":
+        v = -v
+    v = torch.nan_to_num(v, nan=float("inf"))
+    kth = torch.kthvalue(v, k).values
+    return idx[v <= kth]
+
+
+def _fetch_rows(cols, names, idx: torch.Tensor):
+    """The rows `idx` of each named column, gathered on the device into one
+    byte buffer and copied to the host in one transfer.  Columns pack
+    widest first, so each column's slice of the host buffer is aligned for
+    its dtype.  Returns (name -> host array, bytes copied)."""
+    picked = {n: cols[n].index_select(0, idx) for n in names}
+    order = sorted(picked, key=lambda n: -picked[n].element_size())
+    buf = torch.cat([picked[n].contiguous().view(torch.uint8).reshape(-1) for n in order])
+    host = buf.cpu().numpy()
+    out: Dict[str, np.ndarray] = {}
+    at = 0
+    for n in order:
+        t = picked[n]
+        nbytes = t.numel() * t.element_size()
+        out[n] = host[at:at + nbytes].view(torch.empty((), dtype=t.dtype).numpy().dtype)
+        at += nbytes
+    return out, int(host.nbytes)

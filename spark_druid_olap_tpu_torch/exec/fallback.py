@@ -66,6 +66,20 @@ WIRE_AGG_FALLBACK = {
 }
 
 
+def fallback_agg_fn(agg: A.Aggregation) -> str:
+    """The `_agg_one` function name that interprets `agg` on the host.
+    Raises for classes outside the registry: the host answer would lose a
+    feature the device path serves."""
+    if isinstance(agg, A.FilteredAgg):
+        return fallback_agg_fn(agg.aggregator)
+    for cls, fn in WIRE_AGG_FALLBACK.items():
+        if type(agg) is cls:
+            return fn
+    raise NotImplementedError(
+        f"no host fallback interpretation for {type(agg).__name__}"
+    )
+
+
 # -- decode ---------------------------------------------------------------
 
 # Per-(segment uid, column, dictionary content) decoded arrays, LRU under a

@@ -15,6 +15,7 @@ from ..catalog.segment import DataSource
 from ..models import aggregations as A
 from ..models import query as Q
 from ..ops import hll, quantiles, theta
+from ..plan.expr import compile_host_expr
 from ..utils.granularity import bucket_starts
 from .lowering import LoweredAggs, ResolvedDim, sketch_ops
 
@@ -151,6 +152,11 @@ def eval_post_agg(
                 "thetaSketch aggregations in the same query"
             )
         return theta.set_op_estimate(p.fn, [states[f] for f in p.field_names])
+    if isinstance(p, A.ExpressionPost):
+        # over the result row's columns: aggregate outputs and decoded
+        # dimension values
+        return np.asarray(compile_host_expr(p.expression)(
+            {k: np.asarray(v) for k, v in table.items()}))
     raise NotImplementedError(f"post-aggregation {type(p).__name__}")
 
 

@@ -350,6 +350,21 @@ def _add_null_skip(la: LoweredAggs, name: str, field: str, ds: DataSource):
 # ---------------------------------------------------------------------------
 
 
+def row_mask(cols, intervals, filter_fn) -> torch.Tensor:
+    """A segment's row mask on its device: valid rows inside the query
+    intervals (half-open) that pass the filter."""
+    mask = cols["__valid"]
+    if intervals:
+        t = cols["__time"]
+        im = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
+        for a, b in intervals:
+            im = im | ((t >= a) & (t < b))
+        mask = mask & im
+    if filter_fn is not None:
+        mask = mask & filter_fn(cols)
+    return mask
+
+
 @dataclasses.dataclass
 class GroupByLowering:
     """A GroupByQuery lowered to device-executable pieces:
@@ -398,17 +413,7 @@ class GroupByLowering:
         return cols
 
     def row_mask(self, cols) -> torch.Tensor:
-        mask = cols["__valid"]
-        q = self.query
-        if q.intervals:
-            t = cols["__time"]
-            im = torch.zeros(t.shape, dtype=torch.bool, device=t.device)
-            for a, b in q.intervals:
-                im = im | ((t >= a) & (t < b))
-            mask = mask & im
-        if self.filter_fn is not None:
-            mask = mask & self.filter_fn(cols)
-        return mask
+        return row_mask(cols, self.query.intervals, self.filter_fn)
 
     def row_arrays(
         self,

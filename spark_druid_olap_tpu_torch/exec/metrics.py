@@ -28,6 +28,10 @@ replayed, `capture_ms` the capture's host time.  Every reason the arena
 declined a scope goes to `declines` with the prefix "arena:"
 (`tier_declines` leaves those out).
 
+Scan and Search (`Engine._execute_scan`, `_execute_search`): `segments`
+and `rows_scanned` count the segments the loop visited (an unordered LIMIT
+stops early), `d2h_bytes` the scan's rows copied back to the host.
+
 Host fallback (`api._run_fallback`): `executor` says which executor
 answered: "device" (the engine), "fallback" (the host interpreter of
 `exec/fallback.py`) or "device+fallback" (the interpreter, with
@@ -56,6 +60,8 @@ class QueryMetrics:
     num_groups: int = 0
     h2d_bytes: int = 0
     h2d_ms: float = 0.0
+    # device->host bytes of a Scan's rows (one copy per segment)
+    d2h_bytes: int = 0
     device_ms: float = 0.0
     finalize_ms: float = 0.0
     total_ms: float = 0.0

@@ -388,3 +388,22 @@ class ThetaSketchSetOp(PostAggregation):
                 ],
             },
         }
+
+
+@dataclasses.dataclass(frozen=True)
+class ExpressionPost(PostAggregation):
+    """Druid `expression` post-aggregator: an arbitrary scalar expression
+    over the result row's columns (aggregate outputs and dimensions),
+    evaluated host-side at finalize.  The wire form carries the expression
+    as a string that re-parses under the SQL expression grammar — the same
+    convention virtualColumns use."""
+
+    name: str
+    expression: Any  # plan.expr.Expr
+
+    def to_druid(self):
+        return {
+            "type": "expression",
+            "name": self.name,
+            "expression": str(self.expression),
+        }

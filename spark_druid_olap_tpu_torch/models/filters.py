@@ -3,8 +3,8 @@
 The spec tree is plain data; `ops/filters.py` compiles it into a function
 from segment columns (torch tensors) to a boolean row mask, the way Druid
 evaluates a filter inside its historical engine.  `ExpressionFilter` carries a
-residual scalar predicate (`plan/expr.py`).  Decoding Druid JSON back into
-specs belongs to the wire front end, which this package does not carry yet.
+residual scalar predicate (`plan/expr.py`).  `filter_from_druid` decodes
+Druid's filter JSON back into the tree (the wire front end, `models/wire.py`).
 """
 
 from __future__ import annotations
@@ -182,3 +182,77 @@ def _ms_to_iso(ms: int) -> str:
         f"{dt.year:04d}-{dt.month:02d}-{dt.day:02d}"
         f"T{dt.hour:02d}:{dt.minute:02d}:{dt.second:02d}.{frac:03d}Z"
     )
+
+
+def filter_from_druid(d: Dict[str, Any]) -> Filter:
+    """Parse Druid filter JSON back into the spec tree (wire-compat round trip)."""
+    t = d["type"]
+    if t == "selector":
+        return Selector(d["dimension"], d.get("value"))
+    if t == "in":
+        vals = d["values"]
+        return InFilter(
+            d["dimension"],
+            tuple(v for v in vals if v is not None),
+            null_in_values=any(v is None for v in vals),
+        )
+    if t == "bound":
+        return Bound(
+            d["dimension"],
+            d.get("lower"),
+            d.get("upper"),
+            d.get("lowerStrict", False),
+            d.get("upperStrict", False),
+            d.get("ordering", "lexicographic"),
+        )
+    if t == "regex":
+        return Regex(d["dimension"], d["pattern"])
+    if t == "like":
+        return LikeFilter(d["dimension"], d["pattern"])
+    if t == "and":
+        return And(tuple(filter_from_druid(f) for f in d["fields"]))
+    if t == "or":
+        return Or(tuple(filter_from_druid(f) for f in d["fields"]))
+    if t == "not":
+        return Not(filter_from_druid(d["field"]))
+    if t == "search":
+        # contains / insensitive_contains map onto the Regex filter (same
+        # O(dictionary) evaluation; re.escape keeps %/_/metacharacters
+        # literal, which the LIKE translator cannot express)
+        import re as _re
+
+        q = d.get("query", {})
+        qt = q.get("type")
+        value = q.get("value", "")
+        cs = q.get("case_sensitive", q.get("caseSensitive", True))
+        insensitive = qt in (
+            "insensitiveContains", "insensitive_contains"
+        ) or (qt == "contains" and not cs)
+        if qt not in ("contains", "insensitiveContains",
+                      "insensitive_contains"):
+            raise ValueError(f"unsupported search query type {qt!r}")
+        pat = ("(?i)" if insensitive else "") + _re.escape(value)
+        return Regex(d["dimension"], pat)
+    if t == "interval":
+        from .wire import intervals_from_druid
+
+        return IntervalFilter(
+            d.get("dimension", "__time"),
+            intervals_from_druid(d.get("intervals", [])),
+        )
+    if t == "expression":
+        from .wire import _expr
+
+        return ExpressionFilter(_expr(d["expression"]))
+    if t == "columnComparison":
+        from ..plan import expr as E
+
+        dims = d.get("dimensions", [])
+        if len(dims) != 2 or not all(isinstance(x, str) for x in dims):
+            raise ValueError(
+                "columnComparison requires exactly two plain dimensions"
+            )
+        return ExpressionFilter(
+            E.Comparison("==", E.Col(dims[0]), E.Col(dims[1]))
+        )
+    raise ValueError(f"unsupported filter type {t!r}")

@@ -1,7 +1,8 @@
 """Query specs — the compact execution contract between planner and engine.
 
 GroupBy, TopN and Timeseries specs with their having, limit and ordering
-parts.  `exec/engine.py` executes them; `to_druid()` serializes them to
+parts, and the Scan, Search and metadata queries (TimeBoundary,
+DataSourceMetadata, SegmentMetadata).  `exec/engine.py` executes them; `to_druid()` serializes them to
 Druid's native JSON, the form the SQL planner's output is compared in.
 
 A Timeseries is a GroupBy whose only dimension is the time bucket; a TopN is
@@ -275,4 +276,125 @@ class TimeseriesQuery(QuerySpec):
             # program/result cache identity — two queries differing only in
             # the SQL alias must not collide
             d.setdefault("context", {})["outputName"] = self.output_name
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class ScanQuery(QuerySpec):
+    """Row scan: the non-aggregate query (Druid's Scan), under the session's
+    `non_aggregate_query_handling = 'scan'`."""
+
+    datasource: str
+    columns: Tuple[str, ...]
+    filter: Optional[Filter] = None
+    intervals: Tuple[Tuple[int, int], ...] = ()
+    limit: Optional[int] = None
+    virtual_columns: Tuple[VirtualColumn, ...] = ()
+    # Druid scan `orderBy` (column-value ordering) + result offset; an
+    # ordering the engine cannot honor must be a planner error, never a
+    # silent drop — unsorted rows under LIMIT are wrong rows
+    order_by: Tuple["OrderByColumnSpec", ...] = ()
+    offset: int = 0
+    # Druid scan resultFormat: "list" (events as dicts) or "compactedList"
+    # (events as positional value arrays) — a WIRE-shape concern only
+    result_format: str = "list"
+
+    def to_druid(self):
+        d: Dict[str, Any] = {
+            "queryType": "scan",
+            "dataSource": self.datasource,
+            "columns": list(self.columns),
+            "intervals": _ivs(self.intervals),
+        }
+        if self.result_format != "list":
+            d["resultFormat"] = self.result_format
+        if self.virtual_columns:
+            d["virtualColumns"] = [v.to_druid() for v in self.virtual_columns]
+        if self.filter is not None:
+            d["filter"] = self.filter.to_druid()
+        if self.limit is not None:
+            d["limit"] = self.limit
+        if self.order_by:
+            d["orderBy"] = [
+                {"columnName": c.dimension, "order": c.direction}
+                for c in self.order_by
+            ]
+        if self.offset:
+            d["offset"] = self.offset
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class SearchQuery(QuerySpec):
+    """Dimension-value search (Druid `search`): the dimension values that
+    contain a substring (case-insensitive), each with its count of matching
+    rows.  The candidates come from the host dictionaries; the counts are
+    taken on the device."""
+
+    datasource: str
+    dimensions: Tuple[str, ...]
+    query: str  # case-insensitive contains
+    filter: Optional[Filter] = None
+    intervals: Tuple[Tuple[int, int], ...] = ()
+    limit: int = 1000
+
+    def to_druid(self):
+        return {
+            "queryType": "search",
+            "dataSource": self.datasource,
+            "searchDimensions": list(self.dimensions),
+            "query": {"type": "insensitive_contains", "value": self.query},
+            "intervals": _ivs(self.intervals),
+            "limit": self.limit,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class DataSourceMetadataQuery(QuerySpec):
+    """Druid `dataSourceMetadata`: the newest ingested event time, answered
+    from segment metadata (no kernel dispatch)."""
+
+    datasource: str
+
+    def to_druid(self):
+        return {
+            "queryType": "dataSourceMetadata",
+            "dataSource": self.datasource,
+        }
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeBoundaryQuery(QuerySpec):
+    """Druid `timeBoundary`: min/max event time of a datasource, answered
+    from segment metadata (no kernel dispatch)."""
+
+    datasource: str
+    bound: Optional[str] = None  # None -> both | "minTime" | "maxTime"
+
+    def to_druid(self):
+        d: Dict[str, Any] = {
+            "queryType": "timeBoundary",
+            "dataSource": self.datasource,
+        }
+        if self.bound:
+            d["bound"] = self.bound
+        return d
+
+
+@dataclasses.dataclass(frozen=True)
+class SegmentMetadataQuery(QuerySpec):
+    """Druid `segmentMetadata`: per-segment column analysis (types,
+    cardinalities, row counts): the catalog rendered in Druid's wire
+    shape."""
+
+    datasource: str
+    intervals: Tuple[Tuple[int, int], ...] = ()
+
+    def to_druid(self):
+        d: Dict[str, Any] = {
+            "queryType": "segmentMetadata",
+            "dataSource": self.datasource,
+        }
+        if self.intervals:
+            d["intervals"] = _ivs(self.intervals)
         return d

@@ -8,10 +8,9 @@ REWRITE` analog).  Under `count_distinct_mode = 'exact'` a COUNT(DISTINCT x)
 plans in two phases: an inner grouping by the query's dimensions and x (a
 high-cardinality group-by, which the engine's tiers carry) and a host
 re-aggregation (`ExactDistinctOuter`, run by `api`).  A non-aggregate plan
-would become a Scan query, which this package does not execute yet:
-planning one raises NotImplementedError.  There is no cost model: the
-engine picks the group-by path from the group count, and `explain` prints
-the paths it tries.
+becomes a Scan query (`is_scan`).  There is no cost model: the engine
+picks the group-by path from the group count, and `explain` prints the
+paths it tries.
 """
 
 from __future__ import annotations
@@ -81,6 +80,7 @@ class Rewrite:
     residual_having: Optional[E.Expr]
     host_post_exprs: Tuple[Tuple[str, E.Expr], ...]
     grouping_sets: Tuple[Tuple[int, ...], ...]
+    is_scan: bool = False
     # FD grouping pruning: (output column, hidden dimCodeMax agg, source
     # dimension) triples the API decodes back after execution
     fd_restores: Tuple[Tuple[str, str, str], ...] = ()
@@ -198,9 +198,10 @@ class Planner:
         # AggregateTransform: grouping exprs
         dims = []
         dim_names = []
-        # the catalog carries no lookup tables yet: LOOKUP() is rejected
         for name, ge in agg.group_exprs:
-            spec, b = translate_group_expr(name, substitute(ge, env), ds, b)
+            spec, b = translate_group_expr(
+                name, substitute(ge, env), ds, b, lookups=self.catalog.lookup
+            )
             dims.append(spec)
             dim_names.append(spec.name)
         b = b.with_(dimensions=tuple(dims))
@@ -543,10 +544,11 @@ class Planner:
     def _plan_scan(
         self, node, limit, offset, sort_keys, top_projections
     ) -> Rewrite:
-        """What the reference's scan planning rejects raises RewriteError
-        (the host fallback answers it: windows, set operations, joins,
-        untranslatable filters, an ORDER BY over an expression); what it
-        would plan to a Scan query raises NotImplementedError."""
+        """A non-aggregate plan -> a ScanQuery: projections that are not
+        bare columns become virtual columns, and ORDER BY, LIMIT and OFFSET
+        carry over.  What the scan cannot honour raises RewriteError (the
+        host fallback answers it: windows, set operations, joins,
+        untranslatable filters, an ORDER BY over an expression)."""
         env: Dict[str, E.Expr] = {}
         filters: List[E.Expr] = []
         proj = top_projections
@@ -566,20 +568,59 @@ class Planner:
         b = QueryBuilder(datasource=node.table)
         for cond in filters:
             b = translate_filter(cond, ds, b)
-        columns = [n for n, _ in proj] if proj else [c.name for c in ds.columns]
+        columns: List[str] = []
+        vcols: List[Q.VirtualColumn] = []
+        if proj:
+            for name, e in proj:
+                e = substitute(e, env)
+                if isinstance(e, E.Col):
+                    columns.append(e.name)
+                else:
+                    vcols.append(Q.VirtualColumn(name, e))
+                    columns.append(name)
+        else:
+            columns = [c.name for c in ds.columns]
+        # ORDER BY on a row scan must be honored or rejected: unsorted rows
+        # under LIMIT are wrong rows
+        order_by = []
         known = set(columns) | {c.name for c in ds.columns}
         for sk in sort_keys or ():
+            # a SELECT alias of a computed projection is sortable as-is (the
+            # engine evaluates virtual columns before sorting): check the
+            # raw name before substitution expands the alias
             if isinstance(sk.expr, E.Col) and sk.expr.name in set(columns):
-                continue
-            e = substitute(sk.expr, env)
-            if not isinstance(e, E.Col) or e.name not in known:
-                raise RewriteError(
-                    f"cannot ORDER BY {sk.expr} on a non-aggregate "
-                    "scan (only projected or physical columns)"
-                )
-        raise NotImplementedError(
-            "non-aggregate queries plan to a Scan query, which this package "
-            "does not execute yet: ROADMAP queue A item 3"
+                name = sk.expr.name
+            else:
+                e = substitute(sk.expr, env)
+                if not isinstance(e, E.Col) or e.name not in known:
+                    raise RewriteError(
+                        f"cannot ORDER BY {sk.expr} on a non-aggregate "
+                        "scan (only projected or physical columns)"
+                    )
+                name = e.name
+            order_by.append(Q.OrderByColumnSpec(
+                name, "ascending" if sk.ascending else "descending"))
+        q = Q.ScanQuery(
+            datasource=node.table,
+            columns=tuple(columns),
+            filter=b.filter,
+            intervals=b.intervals,
+            limit=limit,
+            virtual_columns=tuple(vcols),
+            order_by=tuple(order_by),
+            offset=offset or 0,
+        )
+        return Rewrite(
+            datasource=node.table,
+            builder=b,
+            query=q,
+            num_groups=0,
+            output_columns=tuple(columns),
+            dim_names=(),
+            residual_having=None,
+            host_post_exprs=(),
+            grouping_sets=(),
+            is_scan=True,
         )
 
     # -- explain (EXPLAIN DRUID REWRITE analog) ------------------------------
@@ -591,7 +632,8 @@ class Planner:
         lines = ["== Logical Plan ==", lp.pretty(), ""]
         try:
             rw = self.plan(lp)
-            tiers = engine.tiers(rw.query, self._ds(rw.datasource))
+            tiers = (["scan"] if rw.is_scan
+                     else engine.tiers(rw.query, self._ds(rw.datasource)))
             lines += [
                 "== Rewrite: %s ==" % type(rw.query).__name__,
                 rw.to_json(),

@@ -390,8 +390,13 @@ def translate_group_expr(
     e: E.Expr,
     ds: DataSource,
     b: QueryBuilder,
+    lookups=None,
 ) -> Tuple[DimensionSpec, QueryBuilder]:
-    """Grouping expression -> DimensionSpec (+ builder extension)."""
+    """Grouping expression -> DimensionSpec (+ builder extension).
+    `lookups` is a callable name -> mapping-dict-or-None (the Druid lookup
+    extraction, LOOKUP(dim, 'name')); a callable rather than a dict so
+    planning a query with no LOOKUP never pays for copying registered
+    tables."""
     if isinstance(e, E.Col):
         if e.name in ds.dicts:
             return DimensionSpec(e.name, name), b
@@ -450,11 +455,25 @@ def translate_group_expr(
             raise RewriteError(f"{e.fn} over non-dimension in GROUP BY")
         dim = e.operand.name
         if e.fn == "lookup":
-            # the reference resolves the name through its catalog's
-            # registered lookup tables, which this package does not carry
-            raise NotImplementedError(
-                f"LOOKUP({dim}, {e.args[0]!r}) needs registered lookup "
-                "tables, not ported yet: ROADMAP queue A item 1"
+            from ..models.dimensions import LookupExtraction
+
+            lname = str(e.args[0])
+            table = lookups(lname) if lookups is not None else None
+            if table is None:
+                raise RewritePolicyError(f"unknown lookup table {lname!r}")
+            # Druid SQL: LOOKUP(expr, name[, replaceMissingValueWith]) — an
+            # unmapped key becomes NULL (the null group) unless the optional
+            # third argument replaces it
+            replace = str(e.args[1]) if len(e.args) > 1 else None
+            return (
+                DimensionSpec(
+                    dim,
+                    name,
+                    extraction=LookupExtraction.from_mapping(
+                        lname, table, replace_missing=replace
+                    ),
+                ),
+                b,
             )
         raise RewriteError(f"string function {e.fn!r} in GROUP BY")
     raise RewriteError(f"cannot group by expression {e}")

@@ -246,7 +246,7 @@ def run_command(ctx, cmd: Command):
             raise NotImplementedError(
                 "loading a saved datasource directory needs the storage "
                 "tier (catalog/persist.py), not ported yet: ROADMAP queue A "
-                "item 9"
+                "item 7"
             )
         kwargs = {}
         if "timeColumn" in opts:

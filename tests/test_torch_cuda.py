@@ -550,3 +550,78 @@ def test_cold_columns_come_from_kept_pinned_copies(card):
     pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
     eng.clear_cache()
     assert eng._pipeline.to_dict()["pinned_columns"] == 0
+
+
+def _scan_datasource():
+    cols, dicts = ssb.flat_columns(ssb.gen_tables(0.01, seed=7))
+    return ssb.datasource(cols, dicts, rows_per_segment=16384)
+
+
+_FACT_FILTER = {"type": "and", "fields": [
+    {"type": "bound", "dimension": "lo_discount", "lower": "1", "upper": "3",
+     "ordering": "numeric"},
+    {"type": "bound", "dimension": "lo_quantity", "upper": "25", "upperStrict": True,
+     "ordering": "numeric"}]}
+_SCANS = {
+    "unordered_limit": {"columns": ["lo_orderdate", "lo_extendedprice", "c_city"],
+                        "filter": _FACT_FILTER, "limit": 1000},
+    "ordered_top": {"columns": ["lo_orderdate", "lo_extendedprice", "lo_discount"],
+                    "filter": _FACT_FILTER, "limit": 100, "offset": 3,
+                    "orderBy": [{"columnName": "lo_extendedprice", "order": "descending"}]},
+    "ordered_ties": {"columns": ["lo_quantity", "s_city", "lo_revenue"], "limit": 50,
+                     "orderBy": [{"columnName": "lo_quantity", "order": "descending"},
+                                 {"columnName": "s_city"}]},
+    "virtual_month": {"columns": ["__time", "rev"], "resultFormat": "compactedList",
+                      "virtualColumns": [{"type": "expression", "name": "rev",
+                                          "expression": "lo_extendedprice * lo_discount"}],
+                      "intervals": ["1994-03-01T00:00:00.000Z/1994-04-01T00:00:00.000Z"],
+                      "filter": _FACT_FILTER},
+}
+
+
+@pytest.mark.parametrize("name", sorted(_SCANS))
+def test_scan_on_card_matches_cpu(card, name):
+    """The Scan's mask and compaction on the card give the CPU's rows, in
+    its order, and copy the same bytes to the host."""
+    from spark_druid_olap_tpu_torch.models.wire import query_from_druid
+
+    ds = _scan_datasource()
+    q = query_from_druid({"queryType": "scan", "dataSource": "lineorder", **_SCANS[name]})
+    cpu, gpu = Engine(device="cpu"), Engine(device=card)
+    want = cpu.execute(q, ds)
+    got = gpu.execute(q, ds)
+    assert len(want) > 0
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+    assert gpu.last_metrics.d2h_bytes == cpu.last_metrics.d2h_bytes
+    assert gpu.last_metrics.segments == cpu.last_metrics.segments
+
+
+def test_search_counts_on_card_equal_bincount(card):
+    """The Search's counts on the card equal `np.bincount` over the same
+    codes under the same mask."""
+    from spark_druid_olap_tpu_torch.models.wire import query_from_druid
+
+    ds = _scan_datasource()
+    gpu = Engine(device=card)
+    for filt in (None, _FACT_FILTER):
+        body = {"queryType": "search", "dataSource": "lineorder",
+                "searchDimensions": ["c_city", "s_city"],
+                "query": {"type": "insensitive_contains", "value": "united"}}
+        if filt is not None:
+            body["filter"] = filt
+        got = gpu.execute(query_from_druid(body), ds)
+        want = {}
+        for dim in ("c_city", "s_city"):
+            values = ds.dicts[dim].values
+            counts = np.zeros(len(values), np.int64)
+            for seg in ds.segments:
+                keep = np.asarray(seg.valid).copy()
+                if filt is not None:
+                    d, qn = seg.column("lo_discount"), seg.column("lo_quantity")
+                    keep &= (d >= 1) & (d <= 3) & (qn < 25)
+                codes = np.asarray(seg.dims[dim])[keep]
+                counts += np.bincount(codes[codes >= 0], minlength=len(values))
+            want.update({(dim, v): int(c) for v, c in zip(values, counts)
+                         if c and "united" in str(v).lower()})
+        assert len(want) > 0
+        assert dict(zip(zip(got["dimension"], got["value"]), got["count"])) == want

@@ -450,13 +450,16 @@ def test_drop_table_and_clear_cache_evict_decoded_segments():
 
 
 def test_scans_still_raise_not_implemented(host_ctxs):
-    """A plain non-aggregate SELECT plans to a Scan query in the reference
-    (it answers it on the device); the port does not execute scans yet."""
+    """A plain non-aggregate SELECT plans to a Scan query, in both packages
+    answered on the device, not on the host fallback (the port raised
+    NotImplementedError before it executed scans)."""
     ref, port = host_ctxs
     sql = "SELECT k, v FROM fact WHERE v > 99 LIMIT 5"
-    assert len(ref.sql(sql)) == 5
-    with pytest.raises(NotImplementedError, match="Scan"):
-        port.sql(sql)
+    want = ref.sql(sql)
+    assert len(want) == 5
+    assert port.plan_sql(sql).is_scan
+    pd.testing.assert_frame_equal(port.sql(sql), want, check_exact=True)
+    assert port.last_metrics.executor == "device"
 
 
 def test_wire_aggregator_registry_matches_reference():

@@ -13,10 +13,11 @@
 * Commands (CREATE TABLE ... OPTIONS, CREATE VIEW, SET, SHOW TABLES,
   DESCRIBE) give the reference's frames.
 * What the port does not execute yet raises where the reference answers:
-  a non-aggregate scan (NotImplementedError) and SET on a flag of a tier
-  the port does not have (KeyError).  A subquery and a SELECT over a view,
-  once such gaps, plan to a RewriteError and run on the host fallback, with
-  the reference's frame (the fallback is held to the reference in
+  SET on a flag of a tier the port does not have (KeyError).  A subquery
+  and a SELECT over a view, once such gaps, plan to a RewriteError and run
+  on the host fallback, with the reference's frame; a non-aggregate scan,
+  once a gap too, plans to a Scan query and gives the reference's frame
+  (the Scan is held to the reference in `test_torch_scan.py`) (the fallback is held to the reference in
   `test_torch_fallback.py`; exact COUNT(DISTINCT) in
   `test_torch_exact_distinct.py`).  `TPUOlapContext()` with no GPU and no
   device raises.
@@ -258,10 +259,12 @@ GAPS = {
         "GROUP BY l_returnflag",
         None,
     ),
+    # no longer a gap either: a Scan query on the engine (exception
+    # "device": the frames must be equal)
     "scan": (
         "SELECT l_returnflag, l_quantity FROM lineitem WHERE l_quantity > 49 "
         "LIMIT 5",
-        NotImplementedError,
+        "device",
     ),
     # a flag of a tier the port does not have yet (the result cache)
     "unported_flag": ("SET result_cache_entries = 64", KeyError),
@@ -278,6 +281,11 @@ def test_unported_shapes_raise_where_the_reference_answers(ctxs, name):
         with pytest.raises(RewriteError, match="subqueries"):
             port.plan_sql(sql)
         pd.testing.assert_frame_equal(port.sql(sql), want, check_exact=True)
+        return
+    if exc == "device":
+        assert port.plan_sql(sql).to_json() == ref.plan_sql(sql).to_json()
+        pd.testing.assert_frame_equal(port.sql(sql), want, check_exact=True)
+        assert port.last_metrics.executor == "device"
         return
     with pytest.raises(exc):
         port.sql(sql)
