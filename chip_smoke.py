@@ -10,7 +10,7 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches in phases 4 to 12 (one 512K-row segment at each
+   the main path launches in phases 4 to 13 (one 512K-row segment at each
    query's and grouping set's G and column counts, at the tier's presence
    counts and compacted domains, at the fallback's assisted subtrees, plus a time-sorted Timeseries segment, the
    sparse tier's 4096 slots on rows sorted by slot, and the stream's 2^21-row
@@ -150,7 +150,42 @@ Phases, one JSON line each:
    SF1, against the device frames (rows exact, sums within rtol 2e-5).
    Reported per query: p50 of 3 warm runs, and for scans and searches the
    segments, rows per second scanned and bytes copied to the host;
-12. stream: BASELINE config #4, the hourly rollup over the event stream, as
+12. resilience: deadlines, partial answers, retries and the breaker on the
+   resident contexts of phases 4 to 11 (SSB SF10, TPC-H SF1).  (a) A
+   clock-free deadline sweep: SSB q4.1 (the kernel) and q3.1 (the adaptive
+   tier) through `ctx.sql` with `InjectedDeadline` at the K-th checkpoint
+   of `engine.segment_loop` (K = 0, 1, half the scope, scope - 1), the
+   arena on (chunked replays, one graph per segment) and off (the loop):
+   rows seen and coverage exactly the first K in-scope segments' rows over
+   the scope's, frames bit-identical on and off and equal to the float64
+   oracle over those segments' rows (rtol 2e-5), partial.  (b) Wall-clock
+   deadlines at about half each query's warm p50 (the ordered top-100
+   Scan, cube_theta, TPC-H q18 on the fallback; the stream in phase 13):
+   wall, overshoot past the timeout and coverage reported, the run failing
+   only where the overshoot passes the p50 (no checkpoint reached).  (c)
+   Every query of phase 9 with no deadline and one armed that never
+   expires (60 s), 3 pairs interleaved after a first armed run: frames
+   bit-identical, p50 each way and their ratio.  (d) Retries: q4.1 with its
+   graph warm and `device_dispatch` armed once, an injected fault and a CUDA
+   out-of-memory error: one retry, not degraded, the clean frame's bits,
+   the graph and columns evicted (the retry runs the loop over fresh
+   copies); the retry's wall.  (e) The breaker: TPC-H Q1 with
+   `device_dispatch` armed on every call degrades to the host fallback
+   (frame against the oracle), the breaker opens on the second query, the
+   third routes straight to the host (a 60 s cooldown meanwhile: one
+   degraded Q1 outlasts the default 2 s); disarmed, the cooldown cut to
+   500 ms and waited out, a half-open probe on the card closes it with the
+   clean frame's bits; at SSB SF10 the degraded route raises FallbackSizeError; degraded
+   p50 against the card's.  (f) A failed capture (the `compile` site armed
+   with the port's KernelError) raises: no retry, not degraded, the breaker
+   untouched.  (g) `sql_progressive` on q4.1: one refinement per in-scope
+   segment, the last bit-identical to `ctx.sql`; the time to the first.
+   Every query of phases 4 to 11 is held clean (`MetricsWatch`: no
+   retry, not degraded, not partial, no expired deadline; the two answers
+   phase 11 asks `execute_native_degraded` for are degraded and nothing
+   else), and every stream of phase 13 outside its cut runs folds every
+   chunk, not truncated (`check_stream_whole`);
+13. stream: BASELINE config #4, the hourly rollup over the event stream, as
    `bench.py` sends it: a Timeseries at hour granularity (Count, DoubleSum
    of value, DoubleMax of latency) through `StreamExecutor.execute` over
    2^21-row chunks of `gen_event_chunk`, generated on 8 threads, staged in
@@ -168,9 +203,13 @@ Phases, one JSON line each:
    memcpy ms, kernel ms, the share of copy time that overlaps a kernel,
    and the device's busy and idle share.  A profiler window that dropped
    its copies or kernels is taken again, up to 3 windows; after that the
-   events' numbers stand in (`timer`).
+   events' numbers stand in (`timer`).  Then phase 12's stream checks: an
+   injected deadline at the middle chunk (`streaming.chunk_loop`,
+   skip = chunks / 2): half the rows folded, the frame against the oracle
+   over the first half, the producer joined and the staging ring's pinned
+   bytes freed; and a wall-clock deadline of half the stream's wall.
 
-Every kernel launch of phases 4 to 12, CUDA graph replays included
+Every kernel launch of phases 4 to 13, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -188,6 +227,7 @@ from __future__ import annotations
 
 import argparse
 import concurrent.futures
+import contextlib
 import dataclasses
 import gc
 import json
@@ -199,6 +239,7 @@ import time
 import numpy as np
 import torch
 
+from spark_druid_olap_tpu_torch import resilience
 from spark_druid_olap_tpu_torch.api import (
     TPUOlapContext,
     execute_grouping_sets,
@@ -266,7 +307,7 @@ MAIN_SHAPES += [(524288, G, 2, 0, 0) for G in (4, 7, 24, 100, 150, 273, 280, 600
 # s_nation and p_brand, and the sparse tier's first rung under Q4's EXISTS,
 # are shapes above)
 MAIN_SHAPES.append((524288, 36, 1, 1, 0))
-# phase 12: one 2^21-row chunk of the event stream, hourly buckets over the
+# phase 13: one 2^21-row chunk of the event stream, hourly buckets over the
 # week (169 with the bucket at the interval's end), rows and value summed,
 # latency maxed
 STREAM_SHAPE = (1 << 21, 169, 2, 0, 1)
@@ -2132,7 +2173,8 @@ def native_degraded(ctx):
         ctx.sql(f"SET device_assist_min_rows = {off_rows}")
         try:
             t0 = time.perf_counter()
-            host = ctx.execute_native_degraded(q)
+            with WATCH.requested():  # degraded because it was asked for
+                host = ctx.execute_native_degraded(q)
             ms = (time.perf_counter() - t0) * 1e3
         finally:
             ctx.sql(f"SET device_assist_min_rows = {default_rows}")
@@ -2167,7 +2209,423 @@ def run_native_surface(ctxs, workloads, warm=NATIVE_WARM):
     return rows
 
 
-# -- phase 12: streaming ---------------------------------------------------------
+# -- phase 12: resilience ----------------------------------------------------------
+
+RESILIENCE_PAIRS = 3  # interleaved pairs, deadline off and armed, per arena query
+ARMED_TIMEOUT_MS = 60_000  # armed, never expiring
+SWEEP_QUERIES = {  # the columns each query's oracle reads (every oracle reads the last two)
+    "q4_1": ("c_region", "s_region", "p_mfgr", "d_year", "c_nation", "lo_revenue",
+             "lo_supplycost", "lo_quantity", "lo_discount"),
+    "q3_1": ("c_region", "s_region", "d_year", "c_nation", "s_nation", "lo_revenue",
+             "lo_quantity", "lo_discount"),
+}
+
+
+def clean_errors(m: QueryMetrics) -> list:
+    """What a query's metrics say went wrong on the way to its answer:
+    retries, a degraded answer, a partial one, an expired deadline."""
+    return [f for f, bad in (("retries", m.retries), ("degraded", m.degraded),
+                             ("partial", m.partial),
+                             ("deadline_exceeded", m.deadline_exceeded)) if bad]
+
+
+def check_clean(name: str, m: QueryMetrics) -> None:
+    """A query answered on its own path: no retry, not degraded to the
+    host, not partial, no expired deadline."""
+    bad = clean_errors(m)
+    if bad:
+        raise AssertionError(f"{name}: {bad}: {m.describe()}")
+
+
+class MetricsWatch:
+    """Nothing degraded unseen: every QueryMetrics that an engine publishes
+    (`Engine._finish_metrics`) or the host fallback builds
+    (`TPUOlapContext._run_fallback`) between two `check`s is held by
+    `check_clean` at the second, after the retry policy and the API have
+    stamped it.  Inside `requested()` the caller asked for a degraded
+    answer (`execute_native_degraded`): degraded must be set and nothing
+    else."""
+
+    def __init__(self):
+        self.seen, self.requested_seen = [], []
+        self._requested = False
+        self._orig = None
+
+    def install(self):
+        watch = self
+        finish, run_fallback = Engine._finish_metrics, TPUOlapContext._run_fallback
+
+        def finish_metrics(engine, m):
+            finish(engine, m)
+            (watch.requested_seen if watch._requested else watch.seen).append(m)
+
+        def fallback(ctx, *a, **k):
+            df = run_fallback(ctx, *a, **k)
+            (watch.requested_seen if watch._requested else watch.seen).append(ctx.last_metrics)
+            return df
+
+        Engine._finish_metrics, TPUOlapContext._run_fallback = finish_metrics, fallback
+        self._orig = (finish, run_fallback)
+        return self
+
+    def uninstall(self):
+        Engine._finish_metrics, TPUOlapContext._run_fallback = self._orig
+
+    @contextlib.contextmanager
+    def requested(self):
+        self._requested = True
+        try:
+            yield
+        finally:
+            self._requested = False
+
+    def check(self, phase: str) -> int:
+        seen, requested = self.seen, self.requested_seen
+        self.seen, self.requested_seen = [], []
+        for i, m in enumerate(seen):
+            check_clean(f"{phase} query {i}", m)
+        for m in requested:
+            if clean_errors(m) != ["degraded"]:
+                raise AssertionError(f"{phase}: a requested degraded answer: {m.describe()}")
+        emit("clean_check", of=phase, queries=len(seen), requested_degraded=len(requested))
+        return len(seen)
+
+
+WATCH = MetricsWatch()
+
+
+def _arm(site, **kw):
+    resilience.injector().arm(site, **kw)
+
+
+def _disarm():
+    resilience.injector().disarm()
+
+
+def segments_frame(ds, segs, names):
+    """The real rows of `segs` (in segment order) as an oracle frame over
+    `names`: dimensions as their values (categoricals over the dictionary),
+    metrics as float64."""
+    import pandas as pd
+
+    data = {}
+    for n in names:
+        parts = [np.asarray(s.column(n))[np.asarray(s.valid)] for s in segs]
+        codes = np.concatenate(parts) if parts else np.asarray(ds.segments[0].column(n))[:0]
+        d = ds.dicts.get(n)
+        if d is None:
+            data[n] = codes.astype(np.float64)
+        elif d.numeric_values is not None:
+            data[n] = np.asarray(d.numeric_values)[codes]
+        else:
+            data[n] = pd.Categorical.from_codes(codes, categories=list(d.values))
+    return pd.DataFrame(data)
+
+
+def _partial_oracle_check(name, got, sub):
+    """`got` against the float64 oracle of SSB query `name` over `sub`."""
+    want = ssb.oracle(sub, name)
+    keys = [c for c in want.columns if c not in ("revenue", "profit")]
+    want = want.assign(**{c: want[c].astype(object) for c in keys})
+    return _frame_check(name, got[list(want.columns)], want, keys)
+
+
+def deadline_sweep(ctx, name):
+    """SSB `name` through `ctx.sql` with an injected deadline at the K-th
+    checkpoint of the segment loop (`engine.segment_loop`, skip=K) for K in
+    {0, 1, half the scope, scope - 1}, the arena on (chunked replays) and
+    off (the loop): the coverage is the covered rows over the in-scope rows
+    exactly, the frames are bit-identical on and off and equal the float64
+    oracle over the first K in-scope segments, and partial below the scope."""
+    import pandas as pd
+
+    sql = ssb.QUERIES[name]
+    rw = ctx.plan_sql(sql)
+    ds = ctx.catalog.get(rw.datasource)
+    segs = segments_in_scope(groupby_with_time_granularity(rw.query), ds)
+    n = len(segs)
+    rows_total = sum(s.num_rows for s in segs)
+    out = []
+    for k in sorted({0, 1, n // 2, n - 1}):
+        frames, ms = {}, {}
+        for on in (True, False):
+            _set(ctx, "arena_execution", on)
+            _arm("engine.segment_loop", error_type=resilience.InjectedDeadline, skip=k, times=1)
+            try:
+                frames[on], ms[on] = _timed(lambda: ctx.sql(sql))
+            finally:
+                _disarm()
+            m = ctx.last_metrics
+            seen = sum(s.num_rows for s in segs[:k])
+            attrs = frames[on].attrs
+            if (attrs.get("rows_seen"), attrs.get("rows_total")) != (seen, rows_total):
+                raise AssertionError(f"sweep {name} K={k}: rows {attrs.get('rows_seen')}/"
+                                     f"{attrs.get('rows_total')}, want {seen}/{rows_total}")
+            if attrs["coverage"] != round(seen / rows_total, 6) or m.coverage != attrs["coverage"]:
+                raise AssertionError(f"sweep {name} K={k}: coverage {attrs['coverage']}")
+            if not (m.partial and attrs["partial"]) or m.degraded or m.retries:
+                raise AssertionError(f"sweep {name} K={k}: {m.describe()}")
+            if on and m.arena_segments != k:
+                raise AssertionError(f"sweep {name} K={k}: {m.arena_segments} chunked replays")
+        _set(ctx, "arena_execution", True)
+        pd.testing.assert_frame_equal(frames[True], frames[False], check_exact=True)
+        err = _partial_oracle_check(name, frames[True],
+                                    segments_frame(ds, segs[:k], SWEEP_QUERIES[name]))
+        out.append({"query": name, "k": k, "segments": n, "coverage": frames[True].attrs["coverage"],
+                    "result_rows": len(frames[True]), "chunked_ms": ms[True], "loop_ms": ms[False],
+                    "strategy": m.strategy, "oracle_max_rel_err": err,
+                    "bit_identical_on_off": True})
+        emit("resilience_sweep", **out[-1])
+    return out
+
+
+def _p50(fn, n):
+    return statistics.median(_timed(fn)[1] for _ in range(n))
+
+
+def wall_deadline(ctx, label, run, warm=3):
+    """`run()` (a `ctx.sql`) warm p50 unarmed, then once with
+    `query_timeout_ms` about half of it: the wall, the overshoot past the
+    timeout (queued device work and the finalize) and the coverage.  Fails
+    if the overshoot exceeds the p50: no checkpoint was reached."""
+    p50 = _p50(run, warm)
+    timeout = max(1, int(p50 / 2))
+    ctx.sql(f"SET query_timeout_ms = {timeout}")
+    try:
+        df, wall = _timed(run)
+    finally:
+        ctx.sql("SET query_timeout_ms = 0")
+    m = ctx.last_metrics
+    row = {"query": label, "p50_ms": p50, "timeout_ms": timeout, "wall_ms": wall,
+           "overshoot_ms": wall - timeout, "partial": bool(df.attrs.get("partial")),
+           "coverage": df.attrs.get("coverage", 1.0), "rows_seen": df.attrs.get("rows_seen"),
+           "site": df.attrs.get("site"), "executor": m.executor, "result_rows": len(df)}
+    emit("resilience_wall_deadline", **row)
+    if wall - timeout > p50:
+        raise AssertionError(f"{label}: overshoot {wall - timeout} ms past a p50 of {p50} ms")
+    return row
+
+
+def armed_deadline_cost(ctxs, workloads, pairs=RESILIENCE_PAIRS):
+    """Phase 9's arena-on queries with no deadline and with one armed that
+    never expires (60 s; `query_timeout_ms` for SQL, the same
+    `deadline_scope` around a native spec): a first armed run (it captures
+    the chunk graphs), then `pairs` interleaved pairs.  Frames bit-identical
+    both ways; p50 each way and their ratio."""
+    import pandas as pd
+
+    out = []
+    for label, workload, kind, run, _check in arena_queries(ctxs, workloads):
+        ctx = ctxs[workload]
+
+        def armed(run=run, ctx=ctx):
+            ctx.sql(f"SET query_timeout_ms = {ARMED_TIMEOUT_MS}")
+            try:
+                with resilience.deadline_scope(ARMED_TIMEOUT_MS):
+                    return run()
+            finally:
+                ctx.sql("SET query_timeout_ms = 0")
+
+        base = run()
+        first, first_ms = _timed(armed)
+        m_first = ctx.last_metrics
+        pd.testing.assert_frame_equal(first, base, check_exact=True)
+        times = {"off": [], "armed": []}
+        for i in range(pairs):
+            for side in (("off", "armed") if i % 2 == 0 else ("armed", "off")):
+                f, ms = _timed(run if side == "off" else armed)
+                times[side].append(ms)
+                pd.testing.assert_frame_equal(f, base, check_exact=True)
+                check_clean(label, ctx.last_metrics)
+        m = ctx.last_metrics
+        p50 = {k: statistics.median(v) for k, v in times.items()}
+        out.append({"query": label, "kind": kind, "p50_off_ms": p50["off"],
+                    "p50_armed_ms": p50["armed"], "armed_over_off": p50["armed"] / p50["off"],
+                    "first_armed_ms": first_ms, "chunk_captures": m_first.graph_captures,
+                    "dispatches_armed": m.dispatch_count, "arena_segments_armed": m.arena_segments,
+                    "segments": m.segments, "bit_identical": True})
+        emit("resilience_armed_cost", **out[-1])
+    return out
+
+
+def retries_on_warm_graph(ctx):
+    """SSB q4.1 with its graph warm; `device_dispatch` armed once with an
+    injected fault, then with a CUDA out-of-memory error: one retry, not
+    degraded, the clean frame's bits; the eviction dropped the graph and
+    the columns, so the retry ran the loop over fresh copies."""
+    import pandas as pd
+
+    sql = ssb.QUERIES["q4_1"]
+    _set(ctx, "arena_execution", True)
+    out = []
+    for err in (resilience.InjectedFault, torch.cuda.OutOfMemoryError):
+        for _ in range(2):  # warm: the scope's graph captured and replayed
+            ctx.sql(sql)
+        clean = ctx.sql(sql)
+        m = ctx.last_metrics
+        on_card = ctx.engine.device.type == "cuda"
+        if (m.dispatch_count, m.graph_replays) != (1, int(on_card)):
+            raise AssertionError(f"retry: no warm graph: {m.describe()}")
+        clean_ms = _p50(lambda: ctx.sql(sql), 3)
+        _arm("device_dispatch", times=1, error_type=err)
+        try:
+            got, wall = _timed(lambda: ctx.sql(sql))
+        finally:
+            _disarm()
+        m = ctx.last_metrics
+        pd.testing.assert_frame_equal(got, clean, check_exact=True)
+        if (m.retries, m.degraded, m.graph_replays, m.arena_segments) != (1, False, 0, 0) or (
+                m.h2d_bytes == 0):
+            raise AssertionError(f"retry {err.__name__}: {m.describe()}")
+        out.append({"error": err.__name__, "retry_wall_ms": wall, "clean_p50_ms": clean_ms,
+                    "retries": m.retries, "h2d_bytes_reloaded": m.h2d_bytes,
+                    "bit_identical": True})
+        emit("resilience_retry", **out[-1])
+    return out
+
+
+def breaker_cycle(tctx, sctx, frame):
+    """TPC-H SF1 Q1 with `device_dispatch` armed on every call: the first
+    query degrades to the host fallback (its frame against the oracle),
+    the breaker opens on the second, the third routes straight to the host
+    (the cooldown is 60 s meanwhile: a degraded query outlasts the default
+    2 s); disarmed, the cooldown set to 500 ms and waited out, a half-open
+    probe on the card closes it with the clean frame's bits.  At SSB SF10
+    the degraded route raises
+    FallbackSizeError (60M rows > fallback_max_rows)."""
+    import pandas as pd
+
+    from spark_druid_olap_tpu_torch.exec.fallback import FallbackSizeError
+
+    sql = tpch.QUERIES["q1"]
+    clean = tctx.sql(sql)
+    card_p50 = _p50(lambda: tctx.sql(sql), 3)
+    br = tctx.resilience.breaker
+    tctx.sql("SET breaker_cooldown_ms = 60000")
+    degraded, states = [], []
+    _arm("device_dispatch")
+    try:
+        for i in range(3):
+            df, ms = _timed(lambda: tctx.sql(sql))
+            m = tctx.last_metrics
+            degraded.append(ms)
+            states.append(m.circuit_state)
+            want_class = "InjectedFault" if i < 2 else None
+            if not m.degraded or m.executor != "fallback" or m.error_class != want_class:
+                raise AssertionError(f"breaker run {i}: {m.describe()}")
+            check_against_oracle("q1", df, frame, "tpch")
+        if states != ["closed", "open", "open"] or br.state != "open":
+            raise AssertionError(f"breaker states {states}, now {br.state}")
+    finally:
+        _disarm()
+    tctx.sql("SET breaker_cooldown_ms = 500")
+    time.sleep(0.6)  # the cooldown
+    if br.state != "half_open":
+        raise AssertionError(f"after the cooldown the breaker is {br.state}")
+    probe = tctx.sql(sql)
+    m = tctx.last_metrics
+    tctx.sql("SET breaker_cooldown_ms = 2000")
+    pd.testing.assert_frame_equal(probe, clean, check_exact=True)
+    if br.state != "closed" or m.degraded or m.executor != "device":
+        raise AssertionError(f"half-open probe: {br.state}: {m.describe()}")
+    _arm("device_dispatch")
+    try:
+        tctx_ssb = sctx.sql  # the degraded route at SF10 refuses its 60M rows
+        try:
+            tctx_ssb(ssb.QUERIES["q4_1"])
+        except FallbackSizeError as e:
+            size_error = str(e).split(".")[0]
+        else:
+            raise AssertionError("SF10 degraded route answered")
+    finally:
+        _disarm()
+    sctx.sql(ssb.QUERIES["q4_1"])  # a success closes the SSB breaker's count
+    row = {"query": "tpch q1", "card_p50_ms": card_p50, "degraded_ms": degraded,
+           "degraded_p50_ms": statistics.median(degraded),
+           "degraded_over_card": statistics.median(degraded) / card_p50,
+           "circuit_states": states, "probe_closed": True, "probe_bit_identical": True,
+           "ssb_sf10_degraded": size_error, "degraded_total": tctx.resilience.degraded_total}
+    emit("resilience_breaker", **row)
+    return row
+
+
+def static_kernel_error(ctx):
+    """A failed capture (the `compile` site armed with the port's
+    KernelError) on a fresh scope's second run: it raises, no retry, not
+    degraded, the breaker untouched."""
+    sql = ssb.QUERIES["q1_1"]
+    ctx.engine._arena.clear()
+    first = ctx.sql(sql)  # the warm-up: the next run captures
+    br = ctx.resilience.breaker
+    failures = br.to_dict()["failures_total"]
+    _arm("compile", error_type=resilience.KernelError, times=1)
+    try:
+        ctx.sql(sql)
+    except resilience.KernelError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("an armed capture did not raise")
+    finally:
+        _disarm()
+    m = ctx.last_metrics
+    if (m.retries, m.degraded) != (0, False) or br.state != "closed" or (
+            br.to_dict()["failures_total"] != failures):
+        raise AssertionError(f"static error was retried or counted: {m.describe()}")
+    import pandas as pd
+
+    pd.testing.assert_frame_equal(ctx.sql(sql), first, check_exact=True)
+    row = {"query": "q1_1", "error": msg, "retries": m.retries, "degraded": m.degraded,
+           "breaker": br.state}
+    emit("resilience_static", **row)
+    return row
+
+
+def progressive(ctx):
+    """`sql_progressive` on SSB q4.1: one refinement per in-scope segment,
+    the last bit-identical to `ctx.sql`; the time to the first."""
+    import pandas as pd
+
+    sql = ssb.QUERIES["q4_1"]
+    final = ctx.sql(sql)
+    segs = ctx.last_metrics.segments
+    t0 = time.perf_counter()
+    gen = ctx.sql_progressive(sql)
+    steps = [next(gen)]
+    first_ms = (time.perf_counter() - t0) * 1e3
+    steps += list(gen)
+    total_ms = (time.perf_counter() - t0) * 1e3
+    if len(steps) != segs or [i["sequence"] for _, i in steps] != list(range(segs)):
+        raise AssertionError(f"progressive: {len(steps)} refinements for {segs} segments")
+    pd.testing.assert_frame_equal(steps[-1][0], final, check_exact=True)
+    row = {"query": "q4_1", "refinements": len(steps), "first_refinement_ms": first_ms,
+           "total_ms": total_ms, "sql_p50_ms": _p50(lambda: ctx.sql(sql), 3),
+           "last_bit_identical_to_sql": True}
+    emit("resilience_progressive", **row)
+    return row
+
+
+def run_resilience(ctxs, workloads):
+    """Phase 12 on the resident SSB SF10 and TPC-H SF1 contexts."""
+    sctx, tctx = ctxs["ssb"], ctxs["tpch"]
+    sweeps = [r for name in SWEEP_QUERIES for r in deadline_sweep(sctx, name)]
+    walls = [
+        wall_deadline(sctx, "scan:ordered_top100", lambda: sctx.sql(
+            "SELECT lo_orderdate, lo_extendedprice, lo_discount FROM lineorder "
+            f"WHERE {FACT_WHERE} ORDER BY lo_extendedprice DESC LIMIT 100")),
+        wall_deadline(sctx, "cube_theta", lambda: sctx.sql(ssb.SKETCH_QUERIES["cube_theta"])),
+        wall_deadline(tctx, "fallback:q18", lambda: tctx.sql(tpch.EXTENDED_QUERIES["q18"]),
+                      warm=2),
+    ]
+    armed = armed_deadline_cost(ctxs, workloads)
+    retries = retries_on_warm_graph(sctx)
+    breaker = breaker_cycle(tctx, sctx, workloads["tpch"][1])
+    static = static_kernel_error(sctx)
+    prog = progressive(sctx)
+    return {"sweeps": sweeps, "wall_deadlines": walls, "armed": armed, "retries": retries,
+            "breaker": breaker, "static": static, "progressive": prog}
+
+
+# -- phase 13: streaming ---------------------------------------------------------
 
 
 def stream_query():
@@ -2202,11 +2660,8 @@ def stage_stream(n_chunks: int, rows: int, workers: int = STREAM_WORKERS):
     with concurrent.futures.ThreadPoolExecutor(workers) as pool:
         parts = list(pool.map(_stage_chunk, range(n_chunks), [rows] * n_chunks))
     staged = [c for c, _ in parts]
-    oracle = {
-        "n": np.sum([p[0] for _, p in parts], axis=0),
-        "v": np.sum([p[1] for _, p in parts], axis=0),
-        "mx": np.max([p[2] for _, p in parts], axis=0),
-    }
+    oracle = prefix_oracle([p for _, p in parts], len(parts))
+    oracle["parts"] = [p for _, p in parts]  # per chunk, for a prefix's oracle
     del parts
     gen_s = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -2219,6 +2674,85 @@ def stage_stream(n_chunks: int, rows: int, workers: int = STREAM_WORKERS):
             "generate_s": gen_s, "warm_s": time.perf_counter() - t0, "workers": workers,
             "checksum": sink}
     return staged, oracle, info
+
+
+def prefix_oracle(parts, n: int) -> dict:
+    """The stream oracle over its first `n` chunks, from per-chunk partials."""
+    return {
+        "n": np.sum([p[0] for p in parts[:n]], axis=0),
+        "v": np.sum([p[1] for p in parts[:n]], axis=0),
+        "mx": np.max([p[2] for p in parts[:n]], axis=0),
+    }
+
+
+def stream_resilience(device, staged, oracle, chunk_rows: int, stream_wall_s: float):
+    """Phase 13's share of the resilience phase (the staged stream exists
+    only here).  First `streaming.chunk_loop` with an injected deadline at
+    the middle chunk (skip = chunks / 2): coverage (rows folded over the
+    stream's rows) 0.5, the frame against the oracle over the first half,
+    the producer thread joined and the staging ring freed: the caching host
+    allocator's pinned bytes unchanged after a second cut stream (a ring
+    left alive would make the next one allocate anew).
+    Then a wall-clock deadline of about half the stream's wall: wall,
+    overshoot and coverage, reported; failing only past a whole stream's
+    wall."""
+    q, ds = stream_query(), datagen.event_stream_schema()
+    ex = StreamExecutor(engine=Engine(device=device))
+    total = len(staged) * chunk_rows
+    half = len(staged) // 2
+
+    def cut(skip):
+        _arm("streaming.chunk_loop", error_type=resilience.InjectedDeadline, skip=skip, times=1)
+        try:
+            with resilience.partial_scope(True) as pc:
+                df, ms = _timed(lambda: ex.execute(q, ds, iter(staged), chunk_rows))
+        finally:
+            _disarm()
+        st = ex.stats
+        if not (st.truncated and st.producer_joined and st.chunks == skip and pc.is_partial):
+            raise AssertionError(f"stream truncation: {dataclasses.asdict(st)}")
+        return df, ms, pc
+
+    pinned_before = _host_pinned_bytes()
+    df, ms, pc = cut(half)
+    if pc.rows_seen != half * chunk_rows:
+        raise AssertionError(f"stream truncation: rows {pc.rows_seen}")
+    err = _stream_frame_check(df, prefix_oracle(oracle["parts"], half))
+    cut(min(8, half))
+    pinned_after = _host_pinned_bytes()
+    if pinned_after != pinned_before:
+        raise AssertionError(f"pinned host bytes {pinned_after} after two cut streams, "
+                             f"{pinned_before} before")
+    trunc = {"chunks": len(staged), "skip": half, "coverage": pc.rows_seen / total,
+             "chunks_folded": half, "wall_ms": ms, "producer_joined": True,
+             "host_pinned_bytes_before": pinned_before, "host_pinned_bytes_after": pinned_after,
+             "oracle_max_rel_err": err}
+    emit("resilience_stream_truncation", **trunc)
+    timeout = max(1, int(stream_wall_s * 1e3 / 2))
+    with resilience.deadline_scope(timeout), resilience.partial_scope(True) as pc:
+        df, wall = _timed(lambda: ex.execute(q, ds, iter(staged), chunk_rows))
+    row = {"query": "stream", "p50_ms": stream_wall_s * 1e3, "timeout_ms": timeout,
+           "wall_ms": wall, "overshoot_ms": wall - timeout, "partial": pc.is_partial,
+           "coverage": pc.rows_seen / total, "chunks_folded": ex.stats.chunks,
+           "producer_joined": ex.stats.producer_joined}
+    emit("resilience_wall_deadline", **row)
+    if wall - timeout > stream_wall_s * 1e3 or not ex.stats.producer_joined:
+        raise AssertionError(f"stream deadline: {row}")
+    return {"truncation": trunc, "wall_deadline": row}
+
+
+def _host_pinned_bytes():
+    """The pinned bytes the CUDA caching host allocator holds
+    (`allocated_bytes.current`: a freed block stays cached and is handed to
+    the next request, so the count grows only when a request finds no free
+    block), after the device and the collector are settled; None on the
+    CPU."""
+    if not torch.cuda.is_available():
+        return None
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.empty(1, pin_memory=True)  # the allocator processes its freed blocks' events
+    return torch.cuda.host_memory_stats()["allocated_bytes.current"]
 
 
 def _stream_frame_check(frame, oracle) -> float:
@@ -2241,6 +2775,13 @@ def _stream_frame_check(frame, oracle) -> float:
     return float(err.max())
 
 
+def check_stream_whole(name: str, ex, chunks: int) -> None:
+    """A stream answered clean: no deadline cut it and it folded every
+    chunk (a stream publishes no QueryMetrics for `MetricsWatch`)."""
+    if ex.stats.truncated or ex.stats.chunks != chunks:
+        raise AssertionError(f"{name}: {dataclasses.asdict(ex.stats)} for {chunks} chunks")
+
+
 def run_stream(device, staged, oracle, chunk_rows: int, ab_chunks: int):
     """The timed stream with double buffering on, checked against the
     oracle and for one kernel launch per chunk (on a card); a second run
@@ -2255,7 +2796,9 @@ def run_stream(device, staged, oracle, chunk_rows: int, ab_chunks: int):
     def timed(mode, chunks):
         t0 = time.perf_counter()
         df = ex[mode].execute(q, ds, iter(chunks), chunk_rows)
-        return df, time.perf_counter() - t0
+        wall = time.perf_counter() - t0
+        check_stream_whole(f"stream ({mode})", ex[mode], len(chunks))
+        return df, wall
 
     for mode in ex:  # warm-up: the lowering, the staging ring, first launches
         timed(mode, staged[:1])
@@ -2418,6 +2961,7 @@ def profile_stream(device, chunks, chunk_rows: int, double_buffer: bool):
     t0 = time.perf_counter()
     ex.execute(q, ds, iter(chunks), chunk_rows)
     wall_ms = (time.perf_counter() - t0) * 1e3
+    check_stream_whole("stream profile", ex, len(chunks))
     copies, computes = _event_intervals(ex, q, ds, chunks, chunk_rows)
     if len(copies) != len(chunks) or len(computes) != len(chunks):
         raise AssertionError(f"stream events: {len(copies)} copies and {len(computes)} "
@@ -2489,7 +3033,8 @@ def main(argv=None) -> int:
         return sum(e.bytes_resident() for e in engines.values())
 
     torch.cuda.reset_peak_memory_stats(device)
-    shapes = KernelShapes().start()  # every launch of phases 4 to 12
+    shapes = KernelShapes().start()  # every launch of phases 4 to 13
+    WATCH.install()  # nothing degraded unseen in phases 4 to 11
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
     queries = run_main_path(engines, workloads)
@@ -2501,6 +3046,7 @@ def main(argv=None) -> int:
     if launches == 0:
         raise AssertionError("the main path never launched the kernel")
     profile_queries(engines, workloads, queries)
+    WATCH.check("main_path")
 
     reg_s = register_sql(ctxs, workloads)
     cuda_groupby.LAUNCHES = 0  # count only the SQL path's launches
@@ -2513,6 +3059,7 @@ def main(argv=None) -> int:
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     if sql_launches == 0:
         raise AssertionError("the SQL path never launched the kernel")
+    WATCH.check("sql")
 
     t0 = time.perf_counter()
     ops = sketch_op_checks(ctxs["ssb"])
@@ -2528,6 +3075,7 @@ def main(argv=None) -> int:
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     if sketch_launches == 0:
         raise AssertionError("the sketch path never launched the kernel")
+    WATCH.check("sketches")
 
     t0 = time.perf_counter()
     dims = workloads["dims"]["ssb"]
@@ -2552,6 +3100,7 @@ def main(argv=None) -> int:
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     if tier_launches == 0:
         raise AssertionError("the tier phase never launched the kernel")
+    WATCH.check("tiers")
 
     t0 = time.perf_counter()
     cuda_groupby.LAUNCHES = 0  # count only the arena phase's launches
@@ -2564,6 +3113,7 @@ def main(argv=None) -> int:
          declined=sum(1 for r in arena_rows if r["declines"]),
          kernel_launches=arena_launches, bytes_resident=resident(),
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    WATCH.check("arena")
 
     t0 = time.perf_counter()
     tctx = ctxs["tpch"]
@@ -2578,6 +3128,7 @@ def main(argv=None) -> int:
          assisted_queries=sum(1 for q in fallback if q["assist_subplans"]),
          bytes_resident=resident(),
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    WATCH.check("fallback")
 
     t0 = time.perf_counter()
     cuda_groupby.LAUNCHES = 0  # count only the native phase's launches
@@ -2589,8 +3140,26 @@ def main(argv=None) -> int:
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     if native_launches == 0:
         raise AssertionError("the native phase never launched the kernel")
+    WATCH.check("native")
+    WATCH.uninstall()  # phase 12 checks its own queries
 
-    del ctxs, engines, exact, workloads, dims, tctx  # phase 12 needs host memory
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the resilience phase's launches
+    res = run_resilience(ctxs, workloads)
+    resilience_launches = cuda_groupby.LAUNCHES
+    emit("resilience", seconds=time.perf_counter() - t0, kernel_launches=resilience_launches,
+         sweeps=len(res["sweeps"]), armed_queries=len(res["armed"]),
+         armed_over_off=[r["armed_over_off"] for r in res["armed"]],
+         overshoot_ms={r["query"]: r["overshoot_ms"] for r in res["wall_deadlines"]},
+         retry_wall_ms={r["error"]: r["retry_wall_ms"] for r in res["retries"]},
+         degraded_p50_ms=res["breaker"]["degraded_p50_ms"],
+         card_p50_ms=res["breaker"]["card_p50_ms"],
+         first_refinement_ms=res["progressive"]["first_refinement_ms"],
+         bytes_resident=resident(), peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if resilience_launches == 0:
+        raise AssertionError("the resilience phase never launched the kernel")
+
+    del ctxs, engines, exact, workloads, dims, tctx  # phase 13 needs host memory
     gc.collect()
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -2605,12 +3174,17 @@ def main(argv=None) -> int:
                 for db in (True, False)]
     for p in profiles:
         emit("stream_profile", **p)
+    cuda_groupby.LAUNCHES = 0
+    stream_res = stream_resilience(device, staged, oracle, chunk_rows, stream["wall_s"])
+    resilience_launches += cuda_groupby.LAUNCHES
     shapes.stop()
     emit("stream", seconds=time.perf_counter() - t0, rows=stream["rows"],
          rows_per_s=stream["rows_per_s"], h2d_gb_per_s=stream["h2d_gb_per_s"],
          timer=profiles[0]["timer"], copy_overlap_share=profiles[0]["copy_overlap_share"],
          device_idle_share=profiles[0]["device_idle_share"],
          kernel_launches=stream_launches,
+         stream_truncation_coverage=stream_res["truncation"]["coverage"],
+         stream_deadline_overshoot_ms=stream_res["wall_deadline"]["overshoot_ms"],
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     del staged
     shapes.check()
@@ -2623,7 +3197,7 @@ def main(argv=None) -> int:
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
         "launches": (launches + sql_launches + sketch_launches + tier_launches
                      + arena_launches + fallback_launches + native_launches
-                     + stream_launches),
+                     + resilience_launches + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
@@ -2631,6 +3205,7 @@ def main(argv=None) -> int:
         "launches_arena": arena_launches,
         "launches_fallback": fallback_launches,
         "launches_native_surface": native_launches,
+        "launches_resilience": resilience_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

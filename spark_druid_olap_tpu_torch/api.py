@@ -41,10 +41,26 @@ registers the maps `LOOKUP(dim, 'name')` reads; `sql_arrow` returns a
 the host fallback (`exec/wire_fallback.py`) when a caller asks for it by
 name.  The module-level `register_table`, `sql`, `table` and `explain` use
 one default context, on the card.
+
+Resilience (`resilience.py`): `sql` and `TableQuery.collect` run under the
+session's deadline (`query_timeout_ms`) and partial-result collector
+(`partial_results`).  A deadline that expires mid-scan answers with the
+partials merged so far, the frame's `attrs` carrying {"partial": True,
+"coverage": ...}; one that expires outside a partial-capable loop triggers
+the collector and runs the rewrite again, every loop now stopping at once
+(the drain).  Device execution runs under the device breaker
+(`_execute_with_resilience`): an open breaker, or a transient failure that
+outlived the engine's retries, answers on the host fallback, stamped
+`degraded` and counted, with the device assist declined so a degraded
+query never goes back to the sick card.  Static errors (a kernel that does
+not build, launch or capture, a sticky CUDA error) surface unchanged.  The
+fallback has a breaker of its own.  `sql_progressive` yields refinements of
+an aggregate query, one per segment.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
@@ -70,6 +86,15 @@ from .plan import expr as E
 from .plan import logical as L
 from .plan.planner import Planner, Rewrite, RewriteError
 from .plan.transforms import RewritePolicyError
+from .resilience import (
+    CircuitOpenError,
+    DeadlineExceeded,
+    ResilienceState,
+    classify_error,
+    current_partial,
+    deadline_scope,
+    partial_scope,
+)
 from .sql.parser import parse_sql
 from .utils.log import get_logger
 from .utils.lru import CountBudgetCache
@@ -90,10 +115,13 @@ class TPUOlapContext:
         self.config = config or SessionConfig()
         self.catalog = MetadataCache()
         self.engine = Engine(device=device)
+        # the breakers (device, fallback) and the failure counters
+        self.resilience = ResilienceState(self.config)
         self.apply_config()
-        # SQL text -> Rewrite: a repeated dashboard query pays
-        # parse + plan once.  Keyed on the catalog version, views and config,
-        # so any re-registration or session-flag change invalidates.
+        # SQL text -> (Rewrite, logical plan): a repeated dashboard query
+        # pays parse + plan once, and keeps the plan it degrades to.  Keyed
+        # on the catalog version, views and config, so any re-registration
+        # or session-flag change invalidates.
         self._plan_cache = CountBudgetCache(256)
         # CREATE VIEW registry: view name -> defining SELECT text; the parser
         # expands references as derived tables
@@ -105,8 +133,13 @@ class TPUOlapContext:
 
     def apply_config(self) -> None:
         """Hands the session's execution flags to the engine (transfer
-        pipeline, arena); `SET` calls it after every change."""
+        pipeline, arena, retry budget) and the breaker flags to the breakers;
+        `SET` calls it after every change."""
         self.engine.configure_pipeline(self.config)
+        for br in self.resilience.breakers.values():
+            br.failure_threshold = max(1, int(self.config.breaker_failure_threshold))
+            br.cooldown_ms = float(self.config.breaker_cooldown_ms)
+        self._sync_engine_resilience(self.engine)
 
     # -- registration (CREATE TABLE ... USING ... OPTIONS analog) -----------
 
@@ -249,10 +282,20 @@ class TPUOlapContext:
         key = self._plan_cache_key(sql_text)
         cached = self._plan_cache.get(key)
         if cached is not None:
-            return cached
-        rw = self.plan_sql(sql_text)
-        self._plan_cache[key] = rw
+            return cached[0]
+        lp, _, _ = parse_sql(sql_text, views=self.views)
+        rw = self._planner().plan(lp)
+        self._plan_cache[key] = (rw, lp)
         return rw
+
+    @contextlib.contextmanager
+    def _query_scope(self):
+        """The session's deadline and partial-result collector around one
+        query (an outer scope already armed wins)."""
+        with deadline_scope(self.config.query_timeout_ms), partial_scope(
+            self.config.partial_results
+        ):
+            yield
 
     def sql(self, sql_text: str):
         """Run one SQL statement and return a pandas DataFrame.  Commands
@@ -262,22 +305,172 @@ class TPUOlapContext:
         cmd = parse_command(sql_text)
         if cmd is not None:
             return run_command(self, cmd)
-        key = self._plan_cache_key(sql_text)
-        rw = self._plan_cache.get(key)
-        if rw is None:
-            lp, explain, _ = parse_sql(sql_text, views=self.views)
-            planner = self._planner()
-            if explain:
-                import pandas as pd
+        with self._query_scope():
+            key = self._plan_cache_key(sql_text)
+            cached = self._plan_cache.get(key)
+            plan_err = None
+            if cached is not None:
+                rw, lp = cached
+            else:
+                lp, explain, _ = parse_sql(sql_text, views=self.views)
+                planner = self._planner()
+                if explain:
+                    import pandas as pd
 
-                text = planner.explain(lp, self.engine)
-                return pd.DataFrame({"plan": text.split("\n")})
+                    text = planner.explain(lp, self.engine)
+                    return pd.DataFrame({"plan": text.split("\n")})
+                try:
+                    rw = planner.plan(lp)
+                except RewriteError as err:
+                    rw, plan_err = None, err
+                else:
+                    self._plan_cache[key] = (rw, lp)
+            return self._answer(rw, lp, plan_err)
+
+    def _answer(self, rw: Optional[Rewrite], lp, plan_err=None):
+        """A planned statement's answer: on the host fallback when the
+        planner could not rewrite it, else under the device breaker; stamped
+        partial when a deadline cut it short."""
+        if rw is None:
+            return self._stamp_partial(self._run_fallback(lp, plan_err))
+        return self._stamp_partial(self._execute_with_resilience(rw, lp))
+
+    def sql_progressive(self, sql_text: str):
+        """Progressive execution of one SQL statement: a generator of
+        `(df, info)` refinements, one per in-scope segment, converging to
+        the exact answer (`Engine.execute_progressive`); each passes through
+        the host post-processing `sql` applies, so the last frame is
+        `sql`'s answer.  None when the statement cannot stream (a command,
+        EXPLAIN, a fallback shape, grouping sets, an exact COUNT(DISTINCT),
+        a query type other than GroupBy, Timeseries and TopN, or an open
+        device breaker: the buffered path then degrades properly); the
+        caller then answers with `sql`."""
+        from .sql.commands import parse_command
+
+        if parse_command(sql_text) is not None:
+            return None
+        key = self._plan_cache_key(sql_text)
+        cached = self._plan_cache.get(key)
+        if cached is not None:
+            rw = cached[0]
+        else:
+            lp, explain, _ = parse_sql(sql_text, views=self.views)
+            if explain:
+                return None
             try:
-                rw = planner.plan(lp)
-            except RewriteError as err:
-                return self._run_fallback(lp, err)
-            self._plan_cache[key] = rw
-        return self.execute_rewrite(rw)
+                rw = self._planner().plan(lp)
+            except RewriteError:
+                return None
+            self._plan_cache[key] = (rw, lp)
+        if rw.exact_distinct is not None or rw.grouping_sets:
+            return None
+        q = rw.query
+        if not isinstance(q, (Q.GroupByQuery, Q.TimeseriesQuery, Q.TopNQuery)):
+            return None
+        if isinstance(q, Q.GroupByQuery) and q.subtotals:
+            return None
+        if not self.resilience.breaker_for(self._backend_for(rw)).allow():
+            return None
+        ds = self.catalog.get(rw.datasource)
+        if ds is None:
+            return None
+
+        def refinements():
+            with self._query_scope():
+                for df, info in self.engine.execute_progressive(q, ds):
+                    yield self._post_process(rw, ds, df), info
+
+        return refinements()
+
+    # -- resilience ------------------------------------------------------------
+
+    def _sync_engine_resilience(self, engine, backend: str = "device") -> None:
+        """Points an engine at this context's breaker for `backend` and the
+        session's retry budget."""
+        engine.breaker = self.resilience.breaker_for(backend)
+        engine._retry_attempts = self.config.retry_max_attempts
+        engine._retry_backoff_ms = self.config.retry_backoff_ms
+
+    def _backend_for(self, rw: Rewrite) -> str:
+        """The backend a rewrite runs on: "device", the one engine (a mesh
+        backend comes with the distributed engine)."""
+        return "device"
+
+    def _execute_with_resilience(self, rw: Rewrite, lp):
+        """Device execution under the backend's breaker.  An open breaker,
+        or a transient failure that outlived the engine's retries, answers
+        on the host fallback (stamped degraded, the assist declined).  A
+        deadline expiry outside a partial-capable loop triggers the
+        collector and drains with a second run; without a collector it
+        raises, counted.  Static errors surface unchanged.  (Result-cache
+        hits on the degraded and partial routes come with the result cache,
+        ROADMAP queue A item 6.)"""
+        res = self.resilience
+        backend = self._backend_for(rw)
+        br = res.breaker_for(backend)
+        can_degrade = lp is not None and self.config.fallback_execution
+        if can_degrade and not br.allow():
+            log.warning("%s circuit open; answering on the host fallback", backend)
+            df = self._run_fallback(lp, None, reason=f"{backend} circuit open",
+                                    assist_declined=f"assist: {backend} breaker open")
+            self._stamp_degraded(None, backend=backend)
+            return df
+        try:
+            df = self.execute_rewrite(rw)
+        except Exception as err:
+            kind = classify_error(err)
+            if kind == "deadline":
+                pc = current_partial()
+                if pc is not None:
+                    pc.trigger(getattr(err, "site", "") or "deadline")
+                    log.warning("deadline expired outside a partial-capable loop (%s); "
+                                "draining a best-effort answer", err)
+                    return self.execute_rewrite(rw)
+                res.note_deadline_exceeded()
+                m = self.last_metrics
+                if m is not None:
+                    m.deadline_exceeded = True
+                raise
+            if kind != "transient" or not can_degrade:
+                raise
+            log.warning("%s execution failed (%s: %s) after retries; degrading to the "
+                        "host fallback", backend, type(err).__name__, err)
+            df = self._run_fallback(lp, err, reason=f"{backend} execution failed",
+                                    assist_declined=f"assist: {backend} failed")
+            self._stamp_degraded(err, backend=backend)
+            return df
+        br.record_success()
+        m = self.last_metrics
+        if m is not None and not m.circuit_state:
+            m.circuit_state = br.state
+        return df
+
+    def _stamp_degraded(self, err, backend: str = "device") -> None:
+        """Marks the (fallback) metrics of a degraded answer and counts it."""
+        self.resilience.note_degraded()
+        m = self.last_metrics
+        if m is not None:
+            m.degraded = True
+            m.circuit_state = self.resilience.breaker_for(backend).state
+            if err is not None:
+                m.error_class = type(err).__name__
+
+    def _stamp_partial(self, df):
+        """Stamps a deadline-bounded partial answer: the frame's `attrs`
+        gain the collector's {"partial": True, "coverage": ..., ...} and the
+        metrics `partial`, `coverage` and `rows_seen`.  A no-op for a
+        complete answer."""
+        pc = current_partial()
+        if pc is None or not pc.is_partial:
+            return df
+        info = pc.to_dict()
+        m = self.last_metrics
+        if m is not None:
+            m.partial = True
+            m.coverage = info["coverage"]
+            m.rows_seen = info["rows_seen"]
+        df.attrs.update(info)
+        return df
 
     def sql_arrow(self, sql_text: str):
         """`sql()` with the result as a `pyarrow.Table`: NULLs in dimension
@@ -287,32 +480,53 @@ class TPUOlapContext:
     def table(self, name: str) -> "TableQuery":
         return TableQuery(self, name)
 
-    def execute_native_degraded(self, q: Q.QuerySpec):
-        """Answer a Druid-native spec on the host fallback: the spec decodes
-        to a logical plan (`exec/wire_fallback.native_to_logical`), runs
-        through `_run_fallback` as SQL does (the same flags gate it), and is
-        shaped as the device path shapes it.  Raises WireFallbackUnsupported
-        for specs outside the interpreter's coverage."""
+    def execute_native_degraded(self, q: Q.QuerySpec, err=None,
+                                reason: str = "native degradation", backend: str = "device"):
+        """Answer a Druid-native spec on the host fallback, degraded: the
+        spec decodes to a logical plan (`exec/wire_fallback.native_to_logical`),
+        runs through `_run_fallback` as SQL does (the same flags and the
+        fallback breaker gate it, the device assist declined), is stamped
+        degraded (and partial, under a deadline) and is shaped as the device
+        path shapes it.  Raises WireFallbackUnsupported for specs outside
+        the interpreter's coverage."""
         from .exec.wire_fallback import native_to_logical, shape_native_result
 
         ds = self.catalog.get(q.datasource)
         if ds is None:
             raise RewriteError(f"unknown table {q.datasource!r}")
         lp = native_to_logical(q, ds)
-        return shape_native_result(q, ds, self._run_fallback(lp, None))
+        df = self._run_fallback(lp, err, reason=reason,
+                                assist_declined=f"assist: {reason}")
+        self._stamp_degraded(err, backend=backend)
+        return shape_native_result(q, ds, self._stamp_partial(df))
 
-    def _run_fallback(self, lp, err: Optional[RewriteError]):
-        """Run a plan the planner could not rewrite on the host fallback.
-        A policy rejection (RewritePolicyError) and a disabled fallback
-        re-raise `err` (a RewriteError when `err` is None: a native spec
-        sent here by name).  Above `fallback_max_rows` input rows the
-        fallback raises FallbackSizeError."""
+    def _run_fallback(self, lp, err, reason: str = "rewrite failed",
+                      assist_declined: Optional[str] = None):
+        """Run a plan on the host fallback: one the planner could not
+        rewrite, or a degraded query (`reason` says which).  A policy
+        rejection (RewritePolicyError) and a disabled fallback re-raise
+        `err` (a RewriteError when `err` is None).  Above
+        `fallback_max_rows` input rows the fallback raises
+        FallbackSizeError.  The fallback breaker: transient failures count
+        on it, and while it is open the fallback fails fast.
+        `assist_declined`, set on a degraded route, declines every device
+        assist with that reason, as does an open device breaker.  A
+        deadline that expires at an interpreter checkpoint under a collector
+        triggers it and runs the plan again (the drain), over the decode
+        cache."""
         if isinstance(err, RewritePolicyError):
             raise err
         if not self.config.fallback_execution:
             raise err if err is not None else RewriteError("fallback execution is disabled")
-        log.warning("%s; executing on the host fallback",
-                    f"rewrite failed ({err})" if err is not None else "a native query")
+        fb = self.resilience.breaker_for("fallback")
+        if not fb.allow():
+            log.warning("host-fallback circuit open; failing fast (%s)", reason)
+            if err is not None:
+                raise err
+            raise CircuitOpenError(
+                "host-fallback circuit open and no healthier backend remains; "
+                "retry after the breaker's cooldown")
+        log.warning("%s (%s); executing on the host fallback", reason, err)
         t0 = time.perf_counter()
         assists = 0
         declines: List[str] = []
@@ -329,6 +543,12 @@ class TPUOlapContext:
             node declares.  Any other error, of the planner, the engine or
             the kernel, propagates."""
             nonlocal assists
+            if assist_declined is None and self.resilience.breaker.state == "open":
+                declines.append("assist: device breaker open")
+                return None
+            if assist_declined is not None:
+                declines.append(assist_declined)
+                return None
             rows = plan_input_rows(sub_lp, self.catalog)
             if rows < cfg.device_assist_min_rows:
                 declines.append(
@@ -359,8 +579,38 @@ class TPUOlapContext:
             assists += 1
             return out
 
-        df = execute_fallback(lp, self.catalog, max_rows=cfg.fallback_max_rows,
-                              device_exec=device_subplan)
+        def run():
+            return execute_fallback(lp, self.catalog, max_rows=cfg.fallback_max_rows,
+                                    device_exec=device_subplan)
+
+        pc = current_partial()
+        if pc is not None:
+            # the interpreter owns one pass across every table it decodes;
+            # its assists must not reset it
+            pc.begin_pass()
+            pc.in_fallback = True
+        try:
+            df = run()
+        except DeadlineExceeded as dl_err:
+            # expiry at an interpreter checkpoint (the decode's is absorbed
+            # in place): drain with a second run, every checkpoint now a
+            # no-op, its own accounting the truth about what it saw
+            if pc is None:
+                raise
+            pc.trigger(dl_err.site or "fallback.interp")
+            pc.reset_for_drain()
+            df = run()
+            fb.record_success()
+        except Exception as fb_err:
+            # a static plan or shape gap is the query's, not the backend's
+            if classify_error(fb_err) == "transient":
+                fb.record_failure()
+            raise
+        else:
+            fb.record_success()
+        finally:
+            if pc is not None:
+                pc.in_fallback = False
         tables = sorted(plan_tables(lp))
         m = QueryMetrics(
             query_type="fallback",
@@ -372,6 +622,10 @@ class TPUOlapContext:
             assist_subplans=assists,
             declines=declines,
         )
+        if pc is not None and pc.is_partial:
+            m.partial = True
+            m.coverage = pc.coverage()
+            m.rows_seen = pc.rows_seen
         self._fallback_metrics = (m, self.engine.last_metrics)
         return df
 
@@ -485,13 +739,24 @@ def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
     dimensions emitted as nulls, plus a __grouping_id bitmask (SQL
     GROUPING_ID semantics: bit i set => dim i aggregated away).  The
     limit/order spec applies to the combined result, not per set: a per-set
-    sort would fail on sets that drop the orderBy dimension."""
+    sort would fail on sets that drop the orderBy dimension.  Under a
+    partial collector each set's pass is accounted under its own label, so
+    the coverage describes every set (the collector's `sets` name the ones
+    a deadline truncated)."""
     import pandas as pd
 
     all_dims = q.dimensions
     k = len(all_dims)
     frames = []
-    results = engine.execute_groupby_batch(grouping_set_queries(q, grouping_sets), ds)
+    pc = current_partial()
+    set_labels = None
+    if pc is not None:
+        pc.arm_set_collection()
+        set_labels = [",".join(all_dims[i].name for i in s) or "()" for s in grouping_sets]
+    results = engine.execute_groupby_batch(grouping_set_queries(q, grouping_sets), ds,
+                                           set_labels=set_labels)
+    if pc is not None:
+        pc.finish_sets()
     for s, f in zip(grouping_sets, results):
         gid = 0
         present = set(s)
@@ -639,11 +904,12 @@ class TableQuery:
 
     def collect(self):
         lp = self._logical()
-        try:
-            rw = self.ctx._planner().plan(lp)
-        except RewriteError as err:
-            return self.ctx._run_fallback(lp, err)
-        return self.ctx.execute_rewrite(rw)
+        with self.ctx._query_scope():
+            try:
+                rw, plan_err = self.ctx._planner().plan(lp), None
+            except RewriteError as err:
+                rw, plan_err = None, err
+            return self.ctx._answer(rw, lp, plan_err)
 
     def collect_arrow(self):
         """`collect()` as a `pyarrow.Table`."""

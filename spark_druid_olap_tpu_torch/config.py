@@ -62,3 +62,20 @@ class SessionConfig:
     # is captured as a CUDA graph on its second execution and replayed
     # after; the same bits as the loop.  False keeps every scope on the loop
     arena_execution: bool = True
+
+    # query-lifecycle resilience (resilience.py).  A wall-clock budget per
+    # query in ms (0: none), checked between segments, chunks and
+    # interpreter stages; under a budget an arena scope replays in chunks
+    query_timeout_ms: int = 0
+    # a deadline that expires mid-scan answers with the partials merged so
+    # far, stamped partial=True with a coverage fraction; False raises
+    # DeadlineExceeded instead
+    partial_results: bool = True
+    # attempts of one group-by execution after a transient failure (in all,
+    # so 2 = one retry) and the backoff before the first retry (doubling)
+    retry_max_attempts: int = 2
+    retry_backoff_ms: float = 25.0
+    # consecutive transient failures that open a backend's breaker, and the
+    # cooldown before a half-open probe
+    breaker_failure_threshold: int = 3
+    breaker_cooldown_ms: int = 2000

@@ -28,6 +28,11 @@ applies, so every kept row's codes are in kept_d; only masked rows can read
 -1 from the remap, and `combine_group_ids` clamps them into slot 0, which
 their mask keeps out of every aggregate.
 
+Deadlines: the presence pass checkpoints between segments
+(`adaptive.presence_loop`); an expiry there under a partial collector
+triggers it and declines this execution only.  The compacted pass is the
+engine's segment loop, with its checkpoints.
+
 The remap is one gather through a device table, or nothing when a
 dimension keeps every code.  The reference also has an unrolled
 compare-and-select chain for small kept sets, picked by backend because a
@@ -49,6 +54,7 @@ from ..models import filters as F
 from ..ops.filters import numeric_dict_code_bounds
 from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate
 from ..plan.expr import DeviceConst
+from ..resilience import DeadlineExceeded, checkpoint, current_partial, fire
 from .lowering import (
     GroupByLowering,
     ResolvedDim,
@@ -227,7 +233,12 @@ class AdaptiveDomainMixin:
         need = presence_columns(q, lowering, ds)
         counts = None
         for seg in segs:
+            # the presence pass scans the whole scope too: a deadline
+            # cancels between its segments (presence counts are no answer,
+            # so expiry raises here; `_groupby_adaptive` declines on it)
+            checkpoint("adaptive.presence_loop")
             cols = lowering.add_virtual(dict(self._cols_for_segment(seg, ds, need, m)))
+            fire("device_dispatch")
             mask = lowering.row_mask(cols)
             R = mask.shape[0]
             ones = mask.to(torch.float32)[:, None]
@@ -306,12 +317,32 @@ class AdaptiveDomainMixin:
         or None when it declines.  The kept sets identify the compacted
         lowering, in the lowering cache and for the arena (`key_extra`),
         so no program replays the constants of another kept set."""
-        kept = self._adaptive_kept_codes(q, ds, lowering, segs, m)
+        try:
+            kept = self._adaptive_kept_codes(q, ds, lowering, segs, m)
+        except DeadlineExceeded as err:
+            # the deadline expired in the presence pass, before any
+            # aggregate partial exists.  With a collector armed, trigger it
+            # and decline for this execution only (a deadline is a property
+            # of the request, not of the query): the next path drains at
+            # once to the zero-coverage answer.  Without one, expiry raises
+            pc = current_partial()
+            if pc is None:
+                raise
+            pc.trigger(err.site or "adaptive.presence_loop")
+            m.declines.append("adaptive: the deadline expired in the presence pass")
+            return None
         if kept is None:
             return None
         if any(len(kd) == 0 for kd in kept):
             # a grouped dimension has no code under the filter: the exact
-            # answer is the empty grouped frame
+            # answer is the empty grouped frame, and the presence pass saw
+            # the whole scope to prove it
+            pc = current_partial()
+            if pc is not None:
+                rows = sum(s.num_rows for s in segs)
+                pc.begin_pass()
+                pc.add_scope(len(segs), rows)
+                pc.add_seen(len(segs), rows)
             m.inner_strategy = "none"
             return lowering, empty_partials(lowering.la, 0, self.device)
         extra = ("adaptive",) + tuple(kd.tobytes() for kd in kept)

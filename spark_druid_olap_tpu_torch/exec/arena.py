@@ -43,6 +43,18 @@ replayed with one host call.
 * **Launches.**  A kernel launch recorded during capture is not counted;
   the program keeps the captured shapes and `cuda_groupby.count_replay`
   counts them at every replay.
+* **Deadlines.**  A checkpoint can neither sit inside a graph (it would run
+  once, at capture) nor stop one.  So under an armed deadline, or with
+  fault injection armed at the loop's checkpoint site
+  (`engine.segment_loop`), a scope replays in chunks of one segment: one
+  graph per segment (`ChunkedProgram`, keyed apart from the whole-scope
+  graph, each captured when first reached), with the checkpoint and the
+  `device_dispatch` fault site on the host before each replay and the fold
+  on the host between them.  The fold runs the loop's ops in the loop's
+  order, so every truncation point gives the loop's bits, and a complete
+  chunked run the whole-scope graph's.  A scope that has run once (its
+  warm mark) or has a whole-scope program captures its chunks at once.
+  Otherwise, and with no deadline, a scope stays one replay.
 """
 
 from __future__ import annotations
@@ -57,8 +69,19 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 import torch
 
 from ..ops import cuda_groupby
-from .lowering import _query_key
+from ..resilience import (
+    KernelError,
+    checkpoint_partial,
+    current_deadline,
+    current_partial,
+    fire,
+    site_armed,
+)
+from .lowering import _query_key, empty_partials
 from .pipeline import column_key
+
+# the checkpoint site of the segment loop, which the chunked replays share
+SEGMENT_LOOP_SITE = "engine.segment_loop"
 
 # a program pins every column of its scope resident; a scope above this
 # share of the residency budget stays on the loop, so one query cannot
@@ -101,19 +124,35 @@ def is_arena_key(key) -> bool:
     return isinstance(key, tuple) and len(key) == 5 and key[0] == "arena"
 
 
+def chunked_replays() -> bool:
+    """Does a scope replay in chunks now: a deadline is armed, or fault
+    injection is armed at the segment loop's checkpoint site?"""
+    return current_deadline() is not None or site_armed(SEGMENT_LOOP_SITE)
+
+
 class ArenaPlan:
-    """One scope the arena covers: its key, lowering, strategy, segments
-    and the residency keys of the columns it reads."""
+    """One scope the arena covers: its program's key, the whole-scope key
+    its warm mark lives under (the same key unless `chunked`), lowering,
+    strategy, segments and the residency keys of the columns it reads."""
 
-    __slots__ = ("key", "lowering", "strategy", "segs", "col_keys", "nbytes")
+    __slots__ = ("key", "scope_key", "chunked", "lowering", "strategy", "segs", "col_keys",
+                 "nbytes")
 
-    def __init__(self, key, lowering, strategy, segs, col_keys, nbytes):
-        self.key = key
+    def __init__(self, scope_key, lowering, strategy, segs, col_keys, nbytes, chunked=False):
+        self.scope_key = scope_key
+        self.chunked = bool(chunked)
+        self.key = chunked_key(scope_key) if chunked else scope_key
         self.lowering = lowering
         self.strategy = strategy
         self.segs = list(segs)
         self.col_keys = tuple(col_keys)
         self.nbytes = int(nbytes)
+
+
+def chunked_key(scope_key: Tuple) -> Tuple:
+    """The key of a scope's chunked program: `key_extra` gains a marker."""
+    tag, query_key, strategy, key_extra, uids = scope_key
+    return (tag, query_key, strategy, ("chunked",) + tuple(key_extra), uids)
 
 
 def plan_for(engine, lowering, segs, strategy: str, key_extra, ds, m) -> Optional[ArenaPlan]:
@@ -143,7 +182,7 @@ def plan_for(engine, lowering, segs, strategy: str, key_extra, ds, m) -> Optiona
     key = arena_key(_query_key(lowering.query, ds), strategy, key_extra,
                     [s.uid for s in segs])
     col_keys = [column_key(s, n) for s in segs for n in names]
-    return ArenaPlan(key, lowering, strategy, segs, col_keys, nbytes)
+    return ArenaPlan(key, lowering, strategy, segs, col_keys, nbytes, chunked=chunked_replays())
 
 
 class ArenaProgram:
@@ -174,6 +213,38 @@ class ArenaProgram:
         return (*(t.clone() for t in self.outputs), {})
 
 
+class ChunkedProgram:
+    """A scope's program for chunked replays: one graph per segment (on the
+    CPU the segment's body), each built when the replays first reach it,
+    and the launches each captured.  The graphs share one memory pool:
+    they are captured and replayed in segment order, one at a time, and
+    each replay's outputs are copied out before the next, so a scope of
+    115 segments holds one segment's intermediates, not 115."""
+
+    __slots__ = ("plan", "chunks", "pool")
+
+    def __init__(self, plan):
+        self.plan = plan
+        self.chunks: List[Optional[ArenaProgram]] = [None] * len(plan.segs)
+        self.pool = None
+
+    def run_chunk(self, engine, ds, i: int, m):
+        """Segment i's partial state (sums, mins, maxs, {}), its graph built
+        first when this is the first replay to reach it."""
+        prog = self.chunks[i]
+        if prog is None:
+            seg = self.plan.segs[i]
+            cols = engine._cols_for_segment(seg, ds, self.plan.lowering.columns, m)
+            if self.pool is None and engine.device.type == "cuda":
+                self.pool = torch.cuda.graph_pool_handle()
+            prog = self.chunks[i] = build_arena_program(engine, self.plan, [cols], self.pool)
+            if prog.graph is not None:
+                m.graph_captures += 1
+                m.capture_ms += prog.capture_ms
+        m.graph_replays += prog.graph is not None
+        return prog.run()
+
+
 def _body(plan: ArenaPlan, cols_list):
     from .engine import fold_partials, shard_partials
 
@@ -188,16 +259,30 @@ def _body(plan: ArenaPlan, cols_list):
     return body
 
 
-def build_arena_program(engine, plan: ArenaPlan, cols_list) -> ArenaProgram:
-    """The scope's program over its resident columns (`cols_list`, one
-    dict per segment in canonical order): on a card the body captured into
-    a CUDA graph on the engine's capture stream, after the compute stream's
-    pending work and one warm-up run of the body on that stream; on the CPU
-    the body alone.  A failed capture raises."""
+def build_arena_program(engine, plan: ArenaPlan, cols_list, pool=None) -> ArenaProgram:
+    """The program over resident columns (`cols_list`, one dict per segment
+    in canonical order): on a card the body captured into a CUDA graph on
+    the engine's capture stream (into the memory pool `pool`, a private one
+    when None), after the compute stream's pending work and one warm-up run
+    of the body on that stream; on the CPU the body alone.  A capture that
+    fails raises KernelError (the `compile` fault site fires first)."""
+    fire("compile")
     body = _body(plan, cols_list)
     dev = engine.device
     if dev.type != "cuda":
         return ArenaProgram(plan, cols_list, body)
+    try:
+        return _capture(engine, plan, cols_list, body, pool)
+    except KernelError:
+        raise
+    except RuntimeError as err:
+        if isinstance(err, torch.cuda.OutOfMemoryError):
+            raise  # transient: the retry evicts and captures again
+        raise KernelError(f"CUDA graph capture failed: {err}") from err
+
+
+def _capture(engine, plan: ArenaPlan, cols_list, body, pool) -> ArenaProgram:
+    dev = engine.device
     t0 = time.perf_counter()
     stream = engine._capture_stream()
     stream.wait_stream(torch.cuda.current_stream(dev))
@@ -211,7 +296,7 @@ def build_arena_program(engine, plan: ArenaPlan, cols_list) -> ArenaProgram:
         body()
     graph = torch.cuda.CUDAGraph()
     with cuda_groupby.capture_launches() as launches, torch.cuda.stream(stream):
-        graph.capture_begin()
+        graph.capture_begin(pool=pool)
         try:
             out = body()
         except BaseException:
@@ -254,6 +339,13 @@ class ArenaCache:
         with self._lock:
             return key in self._warm
 
+    def scope_ran(self, plan: ArenaPlan) -> bool:
+        """Has the plan's scope run before: a warm mark, or (for a chunked
+        plan) the scope's whole-scope program?"""
+        with self._lock:
+            return plan.scope_key in self._warm or (
+                plan.chunked and plan.scope_key in self._programs)
+
     def _unindex(self, key, col_keys) -> None:
         for ck in col_keys:
             keys = self._by_col.get(ck)
@@ -264,17 +356,20 @@ class ArenaCache:
 
     def note_warm(self, plan: ArenaPlan) -> None:
         """The scope ran eagerly: its next execution captures."""
+        key = plan.scope_key
         with self._lock:
-            if plan.key in self._warm or plan.key in self._programs:
+            if key in self._warm or key in self._programs:
                 return
-            self._warm[plan.key] = plan.col_keys
+            self._warm[key] = plan.col_keys
             for ck in plan.col_keys:
-                self._by_col.setdefault(ck, set()).add(plan.key)
+                self._by_col.setdefault(ck, set()).add(key)
             while len(self._warm) > self.entries:
                 self._unindex(*self._warm.popitem(last=False))
 
-    def put(self, prog: ArenaProgram) -> None:
-        """Keeps a scope's program in place of its warm mark."""
+    def put(self, prog) -> None:
+        """Keeps a scope's program (an ArenaProgram or a ChunkedProgram)
+        in place of its warm mark; a chunked program leaves the scope's warm
+        mark where it is."""
         with self._lock:
             key = prog.plan.key
             self._warm.pop(key, None)
@@ -298,6 +393,20 @@ class ArenaCache:
                 self._unindex(key, col_keys)
             return dropped
 
+    def invalidate_query(self, query_key) -> int:
+        """Drops every program and warm mark of one query's scopes (its
+        compacted lowerings' too: they keep the query's key); returns how
+        many programs went."""
+        with self._lock:
+            dropped = 0
+            for key in [k for k in self._programs if k[1] == query_key]:
+                prog = self._programs.pop(key)
+                self._unindex(key, prog.plan.col_keys)
+                dropped += 1
+            for key in [k for k in self._warm if k[1] == query_key]:
+                self._unindex(key, self._warm.pop(key))
+            return dropped
+
     def clear(self) -> None:
         with self._lock:
             self._programs.clear()
@@ -308,12 +417,50 @@ class ArenaCache:
 def run_plan(engine, ds, plan: ArenaPlan, m):
     """The scope's folded state from its program (`Engine._arena_program`),
     or None on the scope's first execution (the caller runs the eager loop,
-    then `ArenaCache.note_warm`)."""
+    then `ArenaCache.note_warm`).  A whole-scope program is one replay,
+    after one checkpoint (which stops it only while a partial collector
+    drains) and the `device_dispatch` fault site; a chunked one replays
+    segment by segment (`_run_chunks`)."""
     prog = engine._arena_program(plan, ds, m)
     if prog is None:
         return None
+    if plan.chunked:
+        return _run_chunks(engine, ds, plan, prog, m)
+    if checkpoint_partial(SEGMENT_LOOP_SITE):
+        return _empty(engine, plan)
+    fire("device_dispatch")
     state = prog.run()
     m.dispatch_count += 1
     m.arena_segments += len(plan.segs)
     m.graph_replays += prog.graph is not None
+    pc = current_partial()
+    if pc is not None:
+        pc.add_seen(len(plan.segs), sum(s.num_rows for s in plan.segs))
     return state
+
+
+def _empty(engine, plan: ArenaPlan):
+    return empty_partials(plan.lowering.la, plan.lowering.num_groups, engine.device)
+
+
+def _run_chunks(engine, ds, plan: ArenaPlan, prog: ChunkedProgram, m):
+    """The chunked replays: per segment, the loop's checkpoint, the
+    `device_dispatch` fault site, the segment's replay and the host-side
+    fold in canonical order.  A checkpoint that stops the scope leaves the
+    partials folded so far (the empty state before the first)."""
+    from .engine import fold_partials
+
+    pc = current_partial()
+    la = plan.lowering.la
+    state = None
+    for i, seg in enumerate(plan.segs):
+        if checkpoint_partial(SEGMENT_LOOP_SITE):
+            break
+        fire("device_dispatch")
+        part = prog.run_chunk(engine, ds, i, m)
+        state = fold_partials(la, state, part)
+        m.dispatch_count += 1
+        m.arena_segments += 1
+        if pc is not None:
+            pc.add_seen(1, seg.num_rows)
+    return _empty(engine, plan) if state is None else state

@@ -36,6 +36,18 @@ pipeline (`exec/pipeline.py`): from a pinned host copy kept per column.
 (grouping sets).  `configure_pipeline` applies the session's
 `transfer_pipeline` and `arena_execution`.
 
+Resilience (`resilience.py`): a group-by execution runs under
+`run_device_attempts`, so a transient failure evicts the query's lowering,
+its arena programs and the datasource's resident columns and runs again,
+each outcome reported to `Engine.breaker`.  Every loop checkpoints between
+segments (`engine.segment_loop`, `engine.scan_loop`, `engine.search_loop`,
+and `engine.resolve` before the fetch); under an armed partial collector a
+deadline that expires there stops the loop and the partials merged so far
+are the answer, their coverage accounted on the collector.  The fault
+sites `device_dispatch` (before each dispatch) and `h2d` (before each cold
+column's copy) fire on the host.  `execute_progressive` yields one
+refinement per segment.
+
 A Scan builds each in-scope segment's row mask (intervals, filter) on the
 device over the resident columns, compacts the selected rows there and
 copies them to the host in one transfer per segment (`_fetch_rows`); an
@@ -60,12 +72,23 @@ import numpy as np
 import torch
 
 from ..catalog.segment import DataSource, Segment
+from ..config import SessionConfig
 from ..models import filters as F
 from ..models import query as Q
 from ..models.filters import _ms_to_iso
 from ..ops.filters import compile_filter, numeric_dict_code_bounds
 from ..ops.groupby import partial_aggregate, resolve_strategy
 from ..plan.expr import as_tensor
+from ..resilience import (
+    CircuitBreaker,
+    DeadlineExceeded,
+    checkpoint_partial,
+    classify_error,
+    current_partial,
+    fire,
+    run_device_attempts,
+)
+from ..utils.log import get_logger
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
 from . import arena
 from .adaptive_exec import AdaptiveDomainMixin
@@ -93,6 +116,17 @@ from .lowering import (
 from .metrics import QueryMetrics
 from .pipeline import TransferPipeline, column_key
 from .sparse_exec import SparseExecMixin
+
+log = get_logger("exec.engine")
+
+
+def _retryable(err: BaseException) -> bool:
+    return classify_error(err) == "transient"
+
+
+def _row_count(segs) -> int:
+    """Real rows of a segment list: the unit of partial-result coverage."""
+    return sum(s.num_rows for s in segs)
 
 
 def _bytes_scanned(segs, columns) -> int:
@@ -367,6 +401,15 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         self._sparse_row_capacity: Dict = {}
         self._sparse_slots: Dict = {}
         self._sparse_disabled: Dict = {}
+        # resilience: transient failures and recoveries are reported to the
+        # breaker, and a group-by runs up to `_retry_attempts` times, both
+        # from the session defaults; `api.TPUOlapContext` puts its own
+        # breaker and the session's budget in their place
+        cfg = SessionConfig()
+        self.breaker = CircuitBreaker(failure_threshold=cfg.breaker_failure_threshold,
+                                      cooldown_ms=cfg.breaker_cooldown_ms)
+        self._retry_attempts = cfg.retry_max_attempts
+        self._retry_backoff_ms = cfg.retry_backoff_ms
 
     def _kernel_class(self) -> str:
         """The one-hot kernel class on this engine's device: "cuda" (the
@@ -409,6 +452,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         if t is not None:
             return t
         host = host_fn()
+        fire("h2d")
         t0 = time.perf_counter()
         t = self._pipeline.put(key, host)
         m.h2d_ms += (time.perf_counter() - t0) * 1e3
@@ -504,31 +548,45 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         segment order on the device: from the arena's program where it has
         one (`key_extra` tells a compacted lowering's program from
         another's), else from the eager loop.  Returns (sums, mins, maxs,
-        sketch states), or None when no segment is in scope."""
-        if not segs:
-            return None
-        plan = arena.plan_for(self, lowering, segs, strategy, key_extra, ds, m)
-        if plan is not None:
-            state = arena.run_plan(self, ds, plan, m)
-            if state is not None:
-                return state
-        state = self._segment_loop(lowering, segs, ds, strategy, m)
-        if plan is not None:
-            self._arena.note_warm(plan)
+        sketch states); the empty state when no segment is in scope or a
+        deadline stopped the pass before its first segment.  The pass's
+        scope is declared to the partial collector."""
+        pc = current_partial()
+        if pc is not None:
+            pc.begin_pass()
+            pc.add_scope(len(segs), _row_count(segs))
+        state = None
+        if segs:
+            plan = arena.plan_for(self, lowering, segs, strategy, key_extra, ds, m)
+            if plan is not None:
+                state = arena.run_plan(self, ds, plan, m)
+            if state is None:
+                state = self._segment_loop(lowering, segs, ds, strategy, m)
+                if plan is not None:
+                    self._arena.note_warm(plan)
+        if state is None:
+            # every segment pruned (a complete zero-row answer), or a
+            # deadline before the first segment
+            state = empty_partials(lowering.la, lowering.num_groups, self.device)
         return state
 
     def _arena_program(self, plan: "arena.ArenaPlan", ds: DataSource, m: QueryMetrics):
         """The scope's arena program from the program cache; built (on a card,
         captured) on the scope's second execution over its resident columns;
-        None on its first, which runs the eager loop."""
+        None on its first, which runs the eager loop.  A chunked program
+        builds each chunk when its replays first reach it."""
         prog = self._arena.get(plan.key)
         if prog is not None:
             # a replay reads the columns: they stay as recent as the loop's
             # reads would keep them
             self._device_cache.touch(plan.col_keys)
             return prog
-        if not self._arena.is_warm(plan.key):
+        if not self._arena.scope_ran(plan):
             return None
+        if plan.chunked:
+            prog = arena.ChunkedProgram(plan)
+            self._arena.put(prog)
+            return prog
         cols_list = [self._cols_for_segment(s, ds, plan.lowering.columns, m) for s in plan.segs]
         prog = arena.build_arena_program(self, plan, cols_list)
         self._arena.put(prog)
@@ -539,12 +597,19 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
 
     def _segment_loop(self, lowering: GroupByLowering, segs, ds: DataSource,
                       strategy: str, m: QueryMetrics):
-        """The eager segment loop: a pass per segment."""
+        """The eager segment loop: a pass per segment, a checkpoint before
+        each.  None when a deadline stopped it before the first."""
+        pc = current_partial()
         state = None
         for seg in segs:  # canonical segment order: the fold order
+            if checkpoint_partial(arena.SEGMENT_LOOP_SITE):
+                break
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
+            fire("device_dispatch")
             state = fold_partials(lowering.la, state, shard_partials(lowering, cols, strategy))
             m.dispatch_count += 1
+            if pc is not None:
+                pc.add_seen(1, seg.num_rows)
         return state
 
     def _host_state(self, la: LoweredAggs, state):
@@ -561,18 +626,73 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         return (*out, sketch_states_to_reference(la, sketches), None)
 
     def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource):
-        return self._dispatch_groupby_once(q, ds)()
+        """One group-by under the retry policy (`run_device_attempts`):
+        queries are read-only, so a re-dispatch after a transient failure is
+        always safe.  Static errors and DeadlineExceeded propagate at once
+        and never touch the breaker."""
+        q = groupby_with_time_granularity(q)  # the key the eviction drops
+        return run_device_attempts(
+            self,
+            lambda: self._dispatch_groupby_once(q, ds)(),
+            lambda: self.evict_query_state(q, ds),
+        )
 
-    def execute_groupby_batch(self, queries, ds: DataSource) -> List:
+    def evict_query_state(self, q: Q.GroupByQuery, ds: DataSource) -> None:
+        """Drops what a failed dispatch may have poisoned: the query's
+        lowerings (the adaptive tier's compacted ones too), its arena
+        programs and warm marks, and the datasource's resident columns.
+        The columns leave through the residency cache, whose `on_evict`
+        drops every program that reads them, so a retry never replays a
+        graph over freed memory."""
+        base = _query_key(q, ds)
+        for k in [k for k in self._lowering_cache if k[:len(base)] == base]:
+            self._lowering_cache.pop(k)
+        self._arena.invalidate_query(base)
+        uids = {seg.uid for seg in ds.segments}
+        for k in [k for k in self._device_cache if k[0] in uids]:
+            self._device_cache.pop(k)
+
+    def execute_groupby_batch(self, queries, ds: DataSource, set_labels=None) -> List:
         """Runs several group-bys (the sets of a CUBE or ROLLUP): every
         query's device work is dispatched first, then each is fetched and
         finalized in order, so the card runs query i + 1 while the host
-        waits on query i.  A failure raises; nothing reruns serially."""
-        resolves = [self._dispatch_groupby_once(q, ds) for q in queries]
+        waits on query i.  A transient failure of one query's dispatch or
+        fetch evicts its state and runs it again alone, under the retry
+        policy.  `set_labels` names each query's pass for the partial
+        collector's per-set accounting."""
+        pc = current_partial()
+
+        def label(i):
+            if pc is not None and set_labels is not None:
+                pc.set_label = set_labels[i]
+
+        resolves = []
+        for i, q in enumerate(queries):
+            label(i)
+            try:
+                resolves.append(self._dispatch_groupby_once(q, ds))
+            except RuntimeError as err:
+                if not _retryable(err):
+                    raise
+                log.warning("batch dispatch failed (%s: %s); the query runs alone",
+                            type(err).__name__, err)
+                self.evict_query_state(groupby_with_time_granularity(q), ds)
+                resolves.append(None)
         out = []
-        for i in range(len(resolves)):
+        for i, q in enumerate(queries):
+            label(i)  # a tier's second pass counts under its set
             resolve, resolves[i] = resolves[i], None  # free its device state
-            out.append(resolve())
+            if resolve is not None:
+                try:
+                    out.append(resolve())
+                    continue
+                except RuntimeError as err:
+                    if not _retryable(err):
+                        raise
+                    log.warning("batch fetch failed (%s: %s); the query runs again alone",
+                                type(err).__name__, err)
+                    self.evict_query_state(groupby_with_time_granularity(q), ds)
+            out.append(self._execute_groupby(q, ds))
         return out
 
     def _dispatch_groupby_once(self, q: Q.GroupByQuery, ds: DataSource):
@@ -584,7 +704,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         q = groupby_with_time_granularity(q)
         lowering = self._lowering_for(q, ds)
         segs = segments_in_scope(q, ds)
-        la, G = lowering.la, lowering.num_groups
+        G = lowering.num_groups
         m = QueryMetrics(
             query_type="groupBy",
             strategy=self._resolve_strategy(G),
@@ -596,6 +716,60 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             num_groups=G,
         )
         t_dev = time.perf_counter()
+        try:
+            low, state, host = self._dispatch_tiers(q, ds, lowering, segs, m)
+        except BaseException as err:
+            # the failed attempt's metrics stand: the retry policy and the
+            # API stamp them
+            m.deadline_exceeded = isinstance(err, DeadlineExceeded)
+            m.total_ms = (time.perf_counter() - t_total) * 1e3
+            self._finish_metrics(m)
+            raise
+        dispatch_ms = (time.perf_counter() - t_total) * 1e3
+        dispatch_dev_ms = (time.perf_counter() - t_dev) * 1e3
+
+        def resolve():
+            t_resolve = time.perf_counter()
+            try:
+                # a deadline blown during dispatch cancels before the fetch;
+                # under a collector every segment is already dispatched, so
+                # the fetch drains a complete answer
+                checkpoint_partial("engine.resolve")
+                sums, mins, maxs, sketches, slot_gids = (
+                    host if host is not None else self._host_state(low.la, state))
+                m.device_ms = dispatch_dev_ms + (time.perf_counter() - t_resolve) * 1e3 - m.h2d_ms
+                t0 = time.perf_counter()
+                df = finalize_groupby(
+                    q, low.dims, low.la, sums, mins, maxs, sketches, slot_gids=slot_gids
+                )
+                m.finalize_ms = (time.perf_counter() - t0) * 1e3
+            except BaseException as err:
+                m.deadline_exceeded = isinstance(err, DeadlineExceeded)
+                raise
+            finally:
+                m.total_ms = dispatch_ms + (time.perf_counter() - t_resolve) * 1e3
+                self._finish_metrics(m)
+            return df
+
+        return resolve
+
+    def _finish_metrics(self, m: QueryMetrics) -> None:
+        """Publishes a group-by's metrics as `last_metrics`, stamped partial
+        with its coverage when the collector says the answer is."""
+        m.bytes_resident = self.bytes_resident()
+        pc = current_partial()
+        if pc is not None and pc.is_partial:
+            m.partial = True
+            m.coverage = pc.coverage()
+            m.rows_seen = pc.rows_seen
+        self.last_metrics = m
+
+    def _dispatch_tiers(self, q, ds: DataSource, lowering: GroupByLowering, segs,
+                        m: QueryMetrics):
+        """The tiers in order, then the kernel strategy: (the lowering that
+        answered, its merged device state or None, the sparse tier's host
+        state or None)."""
+        G = lowering.num_groups
         qkey = memo_key(q, ds)
         low, state, host = lowering, None, None
         if segs and self._adaptive_eligible(lowering):
@@ -619,28 +793,114 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         if state is None and host is None:
             m.strategy = self._resolve_strategy(G)
             state = self._partials_for_query(lowering, segs, ds, m.strategy, m)
-            if state is None:
-                # every segment pruned: a valid, complete zero-row answer
-                state = empty_partials(la, G, self.device)
-        dispatch_ms = (time.perf_counter() - t_total) * 1e3
-        dispatch_dev_ms = (time.perf_counter() - t_dev) * 1e3
+        return low, state, host
 
-        def resolve():
-            t_resolve = time.perf_counter()
-            sums, mins, maxs, sketches, slot_gids = (
-                host if host is not None else self._host_state(low.la, state))
-            m.device_ms = dispatch_dev_ms + (time.perf_counter() - t_resolve) * 1e3 - m.h2d_ms
-            t0 = time.perf_counter()
-            df = finalize_groupby(
-                q, low.dims, low.la, sums, mins, maxs, sketches, slot_gids=slot_gids
-            )
-            m.finalize_ms = (time.perf_counter() - t0) * 1e3
-            m.total_ms = dispatch_ms + (time.perf_counter() - t_resolve) * 1e3
-            m.bytes_resident = self.bytes_resident()
-            self.last_metrics = m
-            return df
+    # -- progressive execution -----------------------------------------------
 
-        return resolve
+    def execute_progressive(self, q: Q.QuerySpec, ds: DataSource):
+        """Refinements of one aggregate query: after each in-scope segment
+        the running state is fetched and finalized, yielding `(df, info)`
+        with `info` = {"sequence", "coverage", "rows_seen", "rows_total",
+        "segments_seen", "segments_total", "final", "partial"}.  The last
+        refinement is the exact answer, bit-identical to `execute`'s frame
+        (the same kernel strategy, the same fold order), unless a deadline
+        stops the loop: the last one is then the partial answer, flagged
+        `partial`.  It runs the eager loop (each refinement fetches, so
+        there is nothing to capture) and none of the high-cardinality
+        tiers.  Other query types execute once and yield once."""
+        if isinstance(q, Q.TimeseriesQuery):
+            inner = timeseries_to_groupby(q)
+
+            def shape(df):
+                return finalize_timeseries(df, q, ds)
+        elif isinstance(q, Q.TopNQuery):
+            inner = topn_to_groupby(q)
+
+            def shape(df):
+                return finalize_topn(df, q)
+        elif isinstance(q, Q.GroupByQuery):
+            inner = q
+
+            def shape(df):
+                return df
+        else:
+            df = self.execute(q, ds)
+            info = {"sequence": 0, "coverage": 1.0, "final": True, "partial": False}
+            pc = current_partial()
+            if pc is not None and pc.is_partial:
+                d = pc.to_dict()
+                info.update(partial=True, coverage=d["coverage"], rows_seen=d["rows_seen"],
+                            rows_total=d["rows_total"])
+            yield df, info
+            return
+        t0 = time.perf_counter()
+        inner = groupby_with_time_granularity(inner)
+        lowering = self._lowering_for(inner, ds)
+        segs = segments_in_scope(inner, ds)
+        la, G = lowering.la, lowering.num_groups
+        strategy = self._resolve_strategy(G)
+        rows_total = _row_count(segs)
+        m = QueryMetrics(
+            query_type="progressive", strategy=strategy, datasource=ds.name,
+            device=str(self.device), rows_scanned=rows_total,
+            bytes_scanned=_bytes_scanned(segs, lowering.columns), segments=len(segs),
+            num_groups=G,
+            declines=["arena: progressive (each refinement fetches; nothing to capture)"],
+        )
+        pc = current_partial()
+        if pc is not None:
+            pc.begin_pass()
+            pc.add_scope(len(segs), rows_total)
+
+        def refinement(state):
+            sums, mins, maxs, sketches, _ = self._host_state(la, state)
+            return shape(finalize_groupby(inner, lowering.dims, la, sums, mins, maxs, sketches))
+
+        state = None
+        rows_seen = seq = 0
+        truncated = False
+        try:
+            for i, seg in enumerate(segs):
+                if checkpoint_partial("engine.progressive_loop"):
+                    truncated = True
+                    break
+                cols = self._cols_for_segment(seg, ds, lowering.columns, m)
+                fire("device_dispatch")
+                state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
+                m.dispatch_count += 1
+                rows_seen += seg.num_rows
+                if pc is not None:
+                    pc.add_seen(1, seg.num_rows)
+                yield refinement(state), {
+                    "sequence": seq,
+                    "coverage": rows_seen / rows_total if rows_total else 1.0,
+                    "rows_seen": rows_seen,
+                    "rows_total": rows_total,
+                    "segments_seen": i + 1,
+                    "segments_total": len(segs),
+                    "final": i + 1 == len(segs),
+                    "partial": False,
+                }
+                seq += 1
+            if state is None or truncated:
+                # an empty scope, or a deadline cut the scan short: the
+                # merged state so far is the final answer, with its coverage
+                if state is None:
+                    state = empty_partials(la, G, self.device)
+                yield refinement(state), {
+                    "sequence": seq,
+                    "coverage": rows_seen / rows_total if rows_total else (
+                        None if truncated else 1.0),
+                    "rows_seen": rows_seen,
+                    "rows_total": rows_total,
+                    "segments_seen": m.dispatch_count,
+                    "segments_total": len(segs),
+                    "final": True,
+                    "partial": truncated,
+                }
+        finally:
+            m.total_ms = (time.perf_counter() - t0) * 1e3
+            self._finish_metrics(m)
 
     # -- scan ----------------------------------------------------------------
 
@@ -679,8 +939,15 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         segs = segments_in_scope(q, ds)
         m = QueryMetrics(query_type="scan", strategy="scan", datasource=ds.name,
                          device=str(self.device))
+        pc = current_partial()
+        if pc is not None:
+            pc.begin_pass()
+            pc.add_scope(len(segs), _row_count(segs))
         frames = []
         for seg in segs:  # canonical segment order: the row order
+            # past its deadline a scan answers with the rows fetched so far
+            if checkpoint_partial("engine.scan_loop"):
+                break
             cols = self._cols_for_segment(seg, ds, need, m)
             for name, fn in vcol_fns.items():
                 cols[name] = as_tensor(fn(cols), cols["__valid"])
@@ -709,14 +976,15 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             m.segments += 1
             m.rows_scanned += seg.num_rows
             m.dispatch_count += 1
+            if pc is not None:
+                pc.add_seen(1, seg.num_rows)
             if remaining is not None and remaining <= 0:
                 break
         out = (pd.concat(frames, ignore_index=True) if frames
                else pd.DataFrame(columns=fetch_list))
         out = apply_limit_spec(out, Q.LimitSpec(q.limit, q.order_by, q.offset))
         m.total_ms = (time.perf_counter() - t_total) * 1e3
-        m.bytes_resident = self.bytes_resident()
-        self.last_metrics = m
+        self._finish_metrics(m)
         return out[list(q.columns)].reset_index(drop=True)
 
     # -- search --------------------------------------------------------------
@@ -753,7 +1021,14 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         # one count per code and a last bin that takes masked and null rows
         counts = {dim: torch.zeros(ds.dicts[dim].cardinality + 1, dtype=torch.int64,
                                    device=self.device) for dim in live_dims}
+        pc = current_partial()
+        if pc is not None:
+            pc.begin_pass()
+            pc.add_scope(len(segs), _row_count(segs))
         for seg in segs:
+            # the counts over the segments seen so far are a sound answer
+            if checkpoint_partial("engine.search_loop"):
+                break
             cols = self._cols_for_segment(seg, ds, names, m)
             # a timeless table has no time to scope
             mask = row_mask(cols, q.intervals if ds.time_column else (), filter_fn)
@@ -765,6 +1040,8 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             m.segments += 1
             m.rows_scanned += seg.num_rows
             m.dispatch_count += 1
+            if pc is not None:
+                pc.add_seen(1, seg.num_rows)
         host = {dim: c.cpu().numpy() for dim, c in counts.items()}
         rows = []
         for dim in live_dims:
@@ -778,8 +1055,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                     if len(rows) >= q.limit:
                         break
         m.total_ms = (time.perf_counter() - t_total) * 1e3
-        m.bytes_resident = self.bytes_resident()
-        self.last_metrics = m
+        self._finish_metrics(m)
         return pd.DataFrame(rows, columns=["dimension", "value", "count"])
 
     # -- metadata queries: catalog reads, no device work ----------------------

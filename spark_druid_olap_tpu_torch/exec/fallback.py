@@ -21,7 +21,14 @@ Semantics (the JAX package's, kept the same):
 Expressions evaluate through `plan/expr.compile_host_expr`.  Columns are
 decoded from the segments' host arrays (`Segment.column`), never copied
 back from the card.
+
+Deadlines (`resilience.py`): the decode checkpoints per segment
+(`fallback.decode`, partial-capable: a truncated frame is a sound partial
+input), the per-group loop every 256 groups (`fallback.group_loop`) and the
+interpreter before each plan node (`fallback.interp`).  The collector's
+scope spans every table a plan decodes; `_run_fallback` owns the pass.
 """
+
 
 from __future__ import annotations
 
@@ -39,6 +46,7 @@ from ..models import aggregations as A
 from ..plan import expr as E
 from ..plan import logical as L
 from ..plan.expr import Expr, compile_host_expr, map_expr
+from ..resilience import checkpoint, checkpoint_partial, current_partial, fire, injector, site_armed
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
 
 # Every aggregation class maps to the host function `_agg_one` interprets
@@ -110,23 +118,52 @@ def evict_decoded_segments(uids) -> None:
 def decoded_frame(ds: DataSource, columns=None) -> pd.DataFrame:
     """The real rows of a datasource as a pandas frame: dimensions decoded
     to values (None for null), float metrics as float64, time as int64 ms.
-    `columns` restricts the decode to the names a plan references."""
-    cache = _decoded_segment_cache()
+    `columns` restricts the decode to the names a plan references.
+
+    The decode runs segment by segment, a checkpoint before each
+    (`fallback.decode`): a deadline that expires there under a partial
+    collector truncates the frame to whole segments (every column the same
+    row prefix), so the interpreter answers over the rows seen.  While the
+    collector drains, a segment whose columns are all in the decode cache is
+    still served, and the first that would need a decode ends the frame.
+    The `fallback_decode` fault site fires first; armed in `partial` mode it
+    truncates every segment's decode to a fraction, bypassing the cache."""
+    fire("fallback_decode")
+    frac = injector().partial_fraction("fallback_decode")
+    cache = _decoded_segment_cache() if frac is None else None
     names = [c.name for c in ds.columns if columns is None or c.name in columns]
     dict_keys = {n: (ds.dicts[n].content_key if n in ds.dicts else None) for n in names}
+    segs = list(ds.segments)
+    pc = current_partial()
+    if pc is not None:
+        # the scope accumulates across the plan's tables: `_run_fallback`
+        # owns the pass
+        pc.add_scope(len(segs), sum(s.num_rows for s in segs))
     parts: Dict[str, list] = {n: [] for n in names}
-    for seg in ds.segments:
+    draining = False
+    for seg in segs:
+        if draining or checkpoint_partial("fallback.decode"):
+            draining = True
+            if cache is None or any(
+                cache.get((seg.uid, "decoded", n, dict_keys[n])) is None for n in names
+            ):
+                break
         for n in names:
             key = (seg.uid, "decoded", n, dict_keys[n])
-            arr = cache.get(key)
+            arr = cache.get(key) if cache is not None else None
             if arr is None:
                 arr = np.asarray(seg.column(n))[seg.valid]
                 if n in ds.dicts:
                     arr = ds.dicts[n].decode(arr)
                 elif arr.dtype.kind == "f":
                     arr = arr.astype(np.float64)
-                cache[key] = arr
+                if frac is not None:
+                    arr = arr[: int(len(arr) * frac)]
+                if cache is not None:
+                    cache[key] = arr
             parts[n].append(arr)
+        if pc is not None:
+            pc.add_seen(1, seg.num_rows)
     return pd.DataFrame({
         n: (np.concatenate(p) if p else np.array([], dtype=object)) for n, p in parts.items()
     })
@@ -404,7 +441,10 @@ def _aggregate(node: L.Aggregate, df: pd.DataFrame) -> pd.DataFrame:
             return fast
         kf = pd.DataFrame({name: _eval(e, df) for name, e in keys}, index=df.index)
         rows = []
-        for gv, gdf in df.groupby([kf[n] for n, _ in keys], dropna=False, sort=False):
+        grouped = df.groupby([kf[n] for n, _ in keys], dropna=False, sort=False)
+        for i, (gv, gdf) in enumerate(grouped):
+            if i % 256 == 0:  # the per-group Python loop of q18-class plans
+                checkpoint("fallback.group_loop")
             gv = gv if isinstance(gv, tuple) else (gv,)
             row = dict(zip((n for n, _ in keys), gv))
             for ae in node.agg_exprs:
@@ -1272,20 +1312,34 @@ def _cached_scan_frame(catalog, table: str, needed) -> pd.DataFrame:
     ds = catalog.get(table)
     if ds is None:
         raise KeyError(f"unknown table {table!r}")
+    if site_armed("fallback_decode"):
+        # an injected decode fault is neither masked by a cached frame nor
+        # left in the cache for later healthy queries
+        return decoded_frame(ds, columns=needed)
     cache = getattr(catalog, "_fallback_frames", None)
     if cache is None:
         cache = catalog._fallback_frames = CountBudgetCache(4)
     key = (table, catalog.version, frozenset(needed) if needed is not None else None)
+    pc = current_partial()
     df = cache.get(key)
     if df is None:
         df = decoded_frame(ds, columns=needed)
-        if len(df) <= _FRAME_CACHE_MAX_ROWS:
+        # a frame a deadline truncated never enters the cache
+        if len(df) <= _FRAME_CACHE_MAX_ROWS and (pc is None or not pc.triggered):
             cache[key] = df
+    elif pc is not None:
+        # a hit saw the whole table without a decode
+        segs = list(ds.segments)
+        rows = sum(s.num_rows for s in segs)
+        pc.add_scope(len(segs), rows)
+        pc.add_seen(len(segs), rows)
     return df.copy(deep=False)
 
 
 def _exec(lp: L.LogicalPlan, catalog, _needed=None) -> pd.DataFrame:
-    """Interpret a logical plan over decoded host frames."""
+    """Interpret a logical plan over decoded host frames, a checkpoint
+    before each plan node (`fallback.interp`)."""
+    checkpoint("fallback.interp")
     if isinstance(lp, L.Scan):
         return _cached_scan_frame(catalog, lp.table, _needed)
     if isinstance(lp, L.Filter):

@@ -37,6 +37,15 @@ answered: "device" (the engine), "fallback" (the host interpreter of
 `exec/fallback.py`) or "device+fallback" (the interpreter, with
 `assist_subplans` Aggregate subtrees run on the engine); `declines` then
 holds one reason for every subtree the assist did not run.
+
+Resilience (`resilience.py`): `retries` counts the transient-failure
+re-dispatches the query paid; `degraded` says it was answered on the host
+fallback (the device failed after its retries, or its breaker was open);
+`deadline_exceeded` that it died on its deadline; `circuit_state` is the
+device breaker's state when the query was routed and `error_class` the
+class of the exception it failed on.  `partial` marks a deadline-bounded
+best-effort answer, `coverage` the share of in-scope rows it saw (None when
+the denominator is unknown, as for a stream) and `rows_seen` their count.
 """
 
 from __future__ import annotations
@@ -79,6 +88,14 @@ class QueryMetrics:
     graph_captures: int = 0
     graph_replays: int = 0
     capture_ms: float = 0.0
+    retries: int = 0
+    degraded: bool = False
+    deadline_exceeded: bool = False
+    circuit_state: str = ""
+    error_class: Optional[str] = None
+    partial: bool = False
+    coverage: Optional[float] = None
+    rows_seen: int = 0
 
     @property
     def tier_declines(self) -> List[str]:
@@ -109,5 +126,20 @@ class QueryMetrics:
             f"total={self.total_ms:.2f}ms (h2d={self.h2d_ms:.2f}ms/"
             f"{self.h2d_bytes}B device={self.device_ms:.2f}ms "
             f"finalize={self.finalize_ms:.2f}ms) "
-            f"rows/s={self.rows_per_sec:,.0f} resident={self.bytes_resident}B]"
+            f"rows/s={self.rows_per_sec:,.0f} resident={self.bytes_resident}B"
+            + (f" retries={self.retries}" if self.retries else "")
+            + (" DEGRADED" if self.degraded else "")
+            + (" DEADLINE-EXCEEDED" if self.deadline_exceeded else "")
+            + (
+                f" PARTIAL(coverage="
+                f"{'?' if self.coverage is None else round(self.coverage, 4)})"
+                if self.partial
+                else ""
+            )
+            + (
+                f" circuit={self.circuit_state}"
+                if self.circuit_state and self.circuit_state != "closed"
+                else ""
+            )
+            + "]"
         )

@@ -18,7 +18,8 @@ runs on:
   tensor is marked used by the compute stream (`record_stream`), so the
   caching allocator does not hand its memory to a later chunk while a
   kernel still reads it.  A slot goes back to the ring only once its
-  copy's event has completed.
+  copy's event has completed.  A ring's buffers are freed by `close()`,
+  which the stream calls once its producer has stopped.
 
 On the CPU the copy is a plain tensor copy with no stream or event.
 
@@ -80,6 +81,11 @@ class StagingRing:
         self._free: "queue.Queue[int]" = queue.Queue()
         for i in range(slots):
             self._free.put(i)
+
+    def close(self) -> None:
+        """Frees the buffers.  Every copy from them must have completed and
+        no thread may write them any more."""
+        self.buffers = []
 
     def acquire(self, cancelled: threading.Event) -> Optional[int]:
         """A free slot's index, waiting for one; None once `cancelled` is

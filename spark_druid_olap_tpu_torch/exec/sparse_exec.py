@@ -19,6 +19,13 @@ ladders ride the merged state: one small fetch per pass decides it.  The
 rungs a query needed are remembered (`lowering.memo_key`), so a repeat
 starts on them.  Only these deterministic declines route a query to
 another tier; an error raises.
+
+Deadlines: a pass checkpoints between segments (`sparse.segment_loop`) and
+every rung of the slots ladder before it runs (`sparse.slots_ladder`).  A
+pass a deadline stopped under a partial collector answers with the state
+merged so far, unless that state asks for a rung: a draining query climbs
+no ladder, so the tier declines for this execution (nothing is pinned) and
+the next path drains.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 from ..ops import sparse_groupby as sg
 from ..ops.groupby import SCATTER_CUTOVER
 from ..plan.cost import estimate_selectivity
+from ..resilience import checkpoint, checkpoint_partial, current_partial, fire
 from .lowering import GroupByLowering, memo_key
 
 
@@ -68,13 +76,21 @@ class SparseExecMixin:
 
     def _sparse_pass(self, ds, lowering: GroupByLowering, segs, row_capacity, slots, m):
         """One pass over the segments at the given rungs: the merged state,
-        on the device."""
+        on the device; None when a deadline stopped it before the first
+        segment."""
         la = lowering.la
         G = lowering.num_groups
+        pc = current_partial()
+        if pc is not None:
+            pc.begin_pass()
+            pc.add_scope(len(segs), sum(s.num_rows for s in segs))
         state = None
         m.sparse_passes += 1
         for seg in segs:  # canonical segment order: the merge order
+            if checkpoint_partial("sparse.segment_loop"):
+                break
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
+            fire("device_dispatch")
             gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
             st = sg.sparse_partial_aggregate(
                 gid, mask, sv, mmv, mmm,
@@ -84,6 +100,8 @@ class SparseExecMixin:
             )
             state = st if state is None else sg.merge_sparse_states(state, st, G)
             m.dispatch_count += 1
+            if pc is not None:
+                pc.add_seen(1, seg.num_rows)
         return state
 
     @staticmethod
@@ -109,7 +127,15 @@ class SparseExecMixin:
         )
         while True:
             state = self._sparse_pass(ds, lowering, segs, cap, slots, m)
+            pc = current_partial()
+            draining = pc is not None and pc.triggered
+            if state is None:
+                m.declines.append("sparse: the deadline stopped the pass before its first segment")
+                return None
             overflow, row_overflow, n_rows, n_real = self._flags(state)
+            if draining and ((cap is not None and row_overflow) or overflow):
+                m.declines.append("sparse: a draining query climbs no ladder")
+                return None
             if cap is not None and row_overflow:
                 # the smallest rung that holds the largest segment's
                 # survivors, or a full-segment sort past the top
@@ -119,6 +145,9 @@ class SparseExecMixin:
                 continue
             if not overflow:
                 break
+            # every rung runs the whole scope again: a deadline cancels
+            # between rungs
+            checkpoint("sparse.slots_ladder")
             # more present groups than slots: the smallest rung that holds
             # the count; an overflowed merge reports a lower bound, so past
             # the top of the ladder climb one rung and let the rerun decide

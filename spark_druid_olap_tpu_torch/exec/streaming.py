@@ -20,6 +20,15 @@ device at any moment:
     chunks, folded in chunk order (`engine.fold_partials`), so a stream's
     frame is bit-identical with double buffering on and off.
 
+Deadlines: the consumer checkpoints before each chunk
+(`streaming.chunk_loop`, with the `device_dispatch` fault site after it).
+Under a partial collector an expiry stops the stream: the chunk generator
+is closed at once, which cancels the producer, joins it (and raises if it
+did not stop), waits for the last copy and frees the staging ring before
+the partial state is fetched; the answer's coverage is unknown (a stream
+declares no scope), its `rows_seen` the rows folded.  The producer thread
+never checks a deadline: it stops through its `cancelled` event.
+
 The kernel strategy is the engine's (`Engine._resolve_strategy`): the
 group-by kernel at G <= 4096 on a card, its plain version on the CPU, the
 scatter path above 4096.  Only dense states apply; the adaptive and sparse
@@ -28,6 +37,7 @@ tiers are not offered to a stream.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import queue
 import threading
@@ -39,6 +49,7 @@ import torch
 
 from ..catalog.segment import NULL_ID, ROW_PAD, DataSource
 from ..models import query as Q
+from ..resilience import checkpoint_partial, current_partial, fire
 from .engine import Engine, fold_partials, shard_partials
 from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
 from .lowering import (
@@ -65,6 +76,10 @@ class StreamStats:
     # bytes shipped host -> device (post-normalization dtypes)
     h2d_bytes: int = 0
     strategy: str = ""  # the kernel strategy every chunk ran
+    # a deadline stopped the stream before its last chunk
+    truncated: bool = False
+    # the producer thread was joined and the staging ring freed
+    producer_joined: bool = False
 
 
 class StreamExecutor:
@@ -162,16 +177,31 @@ class StreamExecutor:
         la, G = lowering.la, lowering.num_groups
         strategy = eng._resolve_strategy(G)
         self.stats = StreamStats(strategy=strategy)
+        pc = current_partial()
+        if pc is not None:
+            # a stream has no knowable denominator: the collector counts
+            # the rows seen, and a partial answer's coverage is None
+            pc.begin_pass()
         state = None
-        for dev, base, nrows in self._prefetched_device_chunks(
+        device_chunks = self._prefetched_device_chunks(
             chunks, lowering.columns, ds, chunk_rows
-        ):
-            t0 = time.perf_counter()
-            cols = self._prep(dev, base, nrows, ds.time_column, chunk_rows)
-            # the fold is in chunk order, whatever the copy order
-            state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
-            self.stats.chunks += 1
-            self.stats.dispatch_s += time.perf_counter() - t0
+        )
+        # a stream cut short closes its generator here, so the producer is
+        # stopped and joined before the partial state is fetched
+        with contextlib.closing(device_chunks):
+            for dev, base, nrows in device_chunks:
+                if checkpoint_partial("streaming.chunk_loop"):
+                    self.stats.truncated = True
+                    break
+                fire("device_dispatch")
+                t0 = time.perf_counter()
+                cols = self._prep(dev, base, nrows, ds.time_column, chunk_rows)
+                # the fold is in chunk order, whatever the copy order
+                state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
+                self.stats.chunks += 1
+                self.stats.dispatch_s += time.perf_counter() - t0
+                if pc is not None:
+                    pc.add_seen(1, nrows)
         if state is None:  # empty stream
             state = empty_partials(la, G, eng.device)
         sums, mins, maxs, sketches, _ = eng._host_state(la, state)
@@ -330,3 +360,10 @@ class StreamExecutor:
                 except queue.Empty:
                     break
             t.join(timeout=5.0)
+            if t.is_alive():
+                # it could still write into a slot the ring is about to free
+                raise RuntimeError("the stream's producer thread did not stop within 5 s")
+            if in_flight is not None:
+                release(*in_flight)  # the last copy has read its slot
+            ring.close()
+            self.stats.producer_joined = True

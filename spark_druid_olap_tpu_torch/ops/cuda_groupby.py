@@ -8,7 +8,10 @@ library with a plain C interface (under `build/torch_ext/` at the repository
 root, at first use) and bound with ctypes: a few seconds of `nvcc`, where a
 `torch.utils.cpp_extension` build that includes PyTorch's headers takes
 minutes on every fresh machine.  The C entry point returns the CUDA error of
-each launch (`cudaGetLastError`), which the wrapper raises on.
+each launch (`cudaGetLastError`), which the wrapper raises on.  A failed
+build and a refused launch raise `resilience.KernelError`, which the retry
+policy classifies static: a broken kernel is never retried or answered on
+the host.
 
 `geometry` picks each launch's chunks, staged tiles, column blocks and
 accumulator regime from the shapes alone, so the same shapes always sum in
@@ -40,6 +43,7 @@ from typing import Dict, List, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..resilience import KernelError, fire
 from .groupby import SCATTER_CUTOVER, dense_partial_aggregate
 
 # launches of the kernel since import (or since a caller reset it), in all
@@ -85,7 +89,7 @@ def _nvcc() -> str:
 
     if CUDA_HOME and os.path.exists(os.path.join(CUDA_HOME, "bin", "nvcc")):
         return os.path.join(CUDA_HOME, "bin", "nvcc")
-    raise RuntimeError("nvcc not found: the CUDA toolkit is needed to build the kernel")
+    raise KernelError("nvcc not found: the CUDA toolkit is needed to build the kernel")
 
 
 def build() -> Path:
@@ -98,6 +102,7 @@ def build() -> Path:
     out = _BUILD_DIR / f"groupby_partial_{tag}.so"
     if out.exists():
         return out
+    fire("compile")
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".so.tmp.{os.getpid()}")
     cmd = [
@@ -107,7 +112,7 @@ def build() -> Path:
     proc = subprocess.run(cmd, capture_output=True, text=True)
     BUILD_LOG = proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
+        raise KernelError(f"nvcc failed ({proc.returncode}):\n{BUILD_LOG}")
     os.replace(tmp, out)
     return out
 
@@ -288,13 +293,13 @@ def cuda_partial_aggregate(
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if rc != 0:
-        raise RuntimeError(
+        raise KernelError(
             f"group-by kernel launch failed: {lib.sdol_error_string(rc).decode()}"
         )
     shape = (num_groups, Ms, num_min, num_max)
     if torch.cuda.is_current_stream_capturing():
         if _captured is None:
-            raise RuntimeError(
+            raise KernelError(
                 "the kernel was captured into a CUDA graph outside "
                 "capture_launches(): its replays would go uncounted"
             )

@@ -20,6 +20,11 @@ counts the launches it captured; a capture succeeds over a lowering the
 lowering cache rebuilt after the scope's first run; a column that leaves
 the residency cache drops the graphs that read it.  Cold columns come from
 pinned host copies kept per column, with the pageable copies' bits.
+Resilience: under an injected deadline the chunked replays (one graph per
+segment) give the loop's bits at every truncation point and the whole
+graph's past the last; a retry after a transient failure evicts the graphs
+and columns and replays none of them; a refused launch or a failed capture
+raises KernelError without a retry.
 """
 
 import numpy as np
@@ -625,3 +630,121 @@ def test_search_counts_on_card_equal_bincount(card):
                          if c and "united" in str(v).lower()})
         assert len(want) > 0
         assert dict(zip(zip(got["dimension"], got["value"]), got["count"])) == want
+
+
+# -- resilience on the card ------------------------------------------------------
+
+
+def _injected_deadline_run(eng, q, ds, skip):
+    """One execution under a partial collector with an injected deadline at
+    the segment loop's `skip`-th checkpoint: (frame, collector)."""
+    from spark_druid_olap_tpu_torch import resilience as R
+
+    R.injector().arm("engine.segment_loop", error_type=R.InjectedDeadline, skip=skip, times=1)
+    try:
+        with R.partial_scope(True) as pc:
+            df = eng.execute(q, ds)
+    finally:
+        R.injector().disarm()
+    return df, pc
+
+
+@pytest.mark.parametrize("workload,name", GRAPH_CASES)
+def test_chunked_replays_equal_the_graph_and_the_loop_at_every_k(card, workload, name):
+    """Under an armed checkpoint site a scope replays one graph per segment,
+    the checkpoint on the host between replays.  At every truncation point
+    K the frame is the loop's bit for bit with the same coverage; past the
+    last segment it is the whole-scope graph's; the chunk graphs are
+    captured once, when first reached."""
+    ds = _graph_datasources()[workload]
+    q = _graph_query(workload, name)
+    eng = Engine(device=card)
+    eng.execute(q, ds)
+    whole = eng.execute(q, ds)  # captured: the whole-scope graph's bits
+    segs = eng.last_metrics.segments
+    assert eng.last_metrics.graph_replays == 1
+    captured = 0
+    for k in range(segs + 1):
+        got, pc = _injected_deadline_run(eng, q, ds, k)
+        m = eng.last_metrics
+        assert m.arena_segments == m.graph_replays == min(k, segs), m.describe()
+        captured += m.graph_captures
+        with arena_disabled():
+            loop, lpc = _injected_deadline_run(eng, q, ds, k)
+        pd.testing.assert_frame_equal(got, loop, check_exact=True)
+        assert pc.coverage() == lpc.coverage()
+        assert pc.is_partial == (k < segs) == lpc.is_partial
+        if k >= segs:
+            pd.testing.assert_frame_equal(got, whole, check_exact=True)
+    assert captured == segs  # each chunk captured once, then replayed
+
+
+@pytest.mark.parametrize("site", ["device_dispatch", "engine.resolve"])
+def test_retry_after_an_evict_never_replays_a_dropped_graph(card, monkeypatch, site):
+    """A transient failure before or after the scope's replay evicts the
+    query's graphs and columns; the retry runs the loop over fresh copies
+    and replays none of the dropped graphs; the next runs capture anew."""
+    from spark_druid_olap_tpu_torch import resilience as R
+
+    ds = _graph_datasources()["ssb"]
+    q = ssb.NATIVE_QUERIES["q4_1"]
+    eng = Engine(device=card)
+    want = eng.execute(q, ds)
+    eng.execute(q, ds)
+    kept = [p.graph for p in eng._arena._programs.values()]  # ids stay unique
+    old = {id(g) for g in kept}
+    assert old
+    replayed = []
+    orig = torch.cuda.CUDAGraph.replay
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "replay",
+                        lambda self: (replayed.append(id(self)), orig(self))[1])
+    R.injector().arm(site, times=1)
+    try:
+        got = eng.execute(q, ds)
+    finally:
+        R.injector().disarm()
+    m = eng.last_metrics
+    assert m.retries == 1 and m.graph_replays == 0 and m.h2d_bytes > 0, m.describe()
+    pd.testing.assert_frame_equal(got, want, check_exact=True)
+    # the old graph ran only in the failed attempt, where the failure came
+    # after its replay
+    assert sum(r in old for r in replayed) == int(site == "engine.resolve")
+    assert eng._arena.keys() == []
+    n = len(replayed)
+    for captures in (1, 0):  # captured again from the fresh columns
+        pd.testing.assert_frame_equal(eng.execute(q, ds), want, check_exact=True)
+        assert eng.last_metrics.graph_captures == captures
+    assert len(replayed) == n + 2 and not set(replayed[n:]) & old
+
+
+def test_kernel_errors_are_never_retried(card, monkeypatch):
+    """A refused launch and a failed capture raise KernelError at once: no
+    retry, nothing counted on the breaker, no degraded answer."""
+    from spark_druid_olap_tpu_torch import resilience as R
+
+    ds = _graph_datasources()["ssb"]
+    q = ssb.NATIVE_QUERIES["q1_1"]
+    eng = Engine(device=card)
+    eng.execute(q, ds)  # the scope's warm-up: its next run captures
+
+    def refuse(*a, **k):
+        raise RuntimeError("operation not permitted when stream is capturing")
+
+    monkeypatch.setattr(torch.cuda.CUDAGraph, "capture_begin", refuse)
+    with pytest.raises(R.KernelError, match="capture failed"):
+        eng.execute(q, ds)
+    assert eng.last_metrics.retries == 0 and eng.breaker.to_dict()["failures_total"] == 0
+    monkeypatch.undo()
+
+    class Refused:
+        def sdol_groupby_partial(self, *a):
+            return 9  # cudaErrorInvalidConfiguration
+
+        def sdol_error_string(self, rc):
+            return b"invalid configuration argument"
+
+    monkeypatch.setattr(cg, "_library", lambda: Refused())
+    with arena_disabled(), pytest.raises(R.KernelError, match="launch failed"):
+        eng.execute(q, ds)
+    assert eng.last_metrics.retries == 0 and eng.breaker.state == "closed"
+    assert eng.breaker.to_dict()["failures_total"] == 0

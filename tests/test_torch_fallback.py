@@ -34,6 +34,7 @@ import spark_druid_olap_tpu as sd
 from spark_druid_olap_tpu.config import SessionConfig as JaxSessionConfig
 from spark_druid_olap_tpu.workloads import tpch as jtpch
 from spark_druid_olap_tpu_torch.api import TPUOlapContext
+from spark_druid_olap_tpu_torch.catalog.segment import datasource_from_numpy, datasource_to_numpy
 from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.exec import engine as tengine
 from spark_druid_olap_tpu_torch.exec import fallback as tfallback
@@ -335,11 +336,13 @@ def test_extended_tpch_assists_on_the_engine(assist_ctxs):
 @pytest.fixture(scope="module")
 def port_fuzz(fallback_world):
     """The fuzz world's data in a port context whose planner is disabled,
-    as the reference's `fallback_world` is."""
+    as the reference's `fallback_world` is.  The port gets its own copies
+    of the reference's segments: segment uids key the port's caches, and
+    the reference's uids come from another counter."""
     ref, df = fallback_world
     port = TPUOlapContext(config=SessionConfig(enable_rewrites=False), device="cpu")
     for t in ("f", "aux"):
-        port.register_datasource(ref.catalog.get(t))
+        port.register_datasource(datasource_from_numpy(datasource_to_numpy(ref.catalog.get(t))))
     return ref, port, df
 
 
