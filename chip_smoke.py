@@ -56,7 +56,7 @@ Phases, one JSON line each:
    values (the exact floor(log2) with the committed exception table).
    Then `ssb.SKETCH_QUERIES` through `ctx.sql` (TopN + HLL, the same
    TopN over a filter that masks half of each segment's rows, CUBE + HLL,
-   CUBE + theta, APPROX_QUANTILE), 2 cold and 5 warm runs each: frames
+   CUBE + theta, APPROX_QUANTILE), 1 cold and 3 warm runs each: frames
    bit-identical from run to run and held against the exact oracle
    (`ssb.check_sketch_answer`: sums within rtol 2e-5, distinct counts
    within 4 standard errors, quantiles within 4 standard errors in rank
@@ -82,7 +82,7 @@ Phases, one JSON line each:
    decline), the kernel launches for every pass at most 4096 wide, frames
    hold against the oracle, are bit-identical over two runs and agree
    across tiers (keys exact, sums within 2e-5); per query and tier the
-   tier taken, G', the rungs, launches, the p50 of 5 warm runs, and device
+   tier taken, G', the rungs, launches, the p50 of 3 warm runs, and device
    busy ms and idle share from one profiled run.  Last, exact
    COUNT(DISTINCT lo_custkey) (BASELINE config #3's TopN with the sketch
    replaced, and a global count) under count_distinct_mode = 'exact' over
@@ -94,7 +94,7 @@ Phases, one JSON line each:
    7, and a CUBE of revenue alone, whose sets are all captured) run with
    the arena on (SET arena_execution = true): a first run (eager), a
    second (the capture) and a third (a replay), bit-identical and held
-   against the oracle; then 5 warm runs each way, on and off interleaved,
+   against the oracle; then 3 warm runs each way, on and off interleaved,
    every frame bit-identical to the replay's; then one profiled run each
    way.  The run fails where a pass neither replayed (one dispatch over
    every in-scope segment) nor recorded an "arena:" decline, or where the
@@ -107,7 +107,7 @@ Phases, one JSON line each:
    each way.  Last, one cold SSB scope (q4.1, `Engine.drop_residency`
    before each run) with the transfer pipeline on (copies from pinned
    host copies) and off (pageable copies): the first pipelined run (which
-   pins the columns), then 4 runs each way interleaved: wall, h2d ms and
+   pins the columns), then 2 runs each way interleaved: wall, h2d ms and
    bytes, and from one profiled run each way the HtoD copy ms, kernel ms,
    the share of copy time that overlaps a kernel and the idle share;
 10. fallback: the twelve extended TPC-H classes (`tpch.EXTENDED_QUERIES`:
@@ -123,7 +123,7 @@ Phases, one JSON line each:
    executor "device" for q9, "fallback" or "device+fallback" for the
    rest; the kernel launched in at least one assisted query.  Reported per
    query: executor, assists and declines, the G and tier of each engine
-   run, launches, the p50 of 2 warm runs with the assist on and off, the
+   run, launches, the warm run's ms with the assist on and off, the
    decode ms of a cold and a warm run, and device busy ms and idle share
    from one profiled run.  No scale is cut.
 11. native: the Druid-native surface on the contexts of phases 4 to 10
@@ -164,7 +164,7 @@ Phases, one JSON line each:
    wall, overshoot past the timeout and coverage reported, the run failing
    only where the overshoot passes the p50 (no checkpoint reached).  (c)
    Every query of phase 9 with no deadline and one armed that never
-   expires (60 s), 3 pairs interleaved after a first armed run: frames
+   expires (60 s), 2 pairs interleaved after a first armed run: frames
    bit-identical, p50 each way and their ratio.  (d) Retries: q4.1 with its
    graph warm and `device_dispatch` armed once, an injected fault and a CUDA
    out-of-memory error: one retry, not degraded, the clean frame's bits,
@@ -209,7 +209,39 @@ Phases, one JSON line each:
    over the first half, the producer joined and the staging ring's pinned
    bytes freed; and a wall-clock deadline of half the stream's wall.
 
-Every kernel launch of phases 4 to 13, CUDA graph replays included
+14. serving (run after phase 12, on its resident SSB SF10 and TPC-H SF1
+   contexts, before phase 13 frees them): an `OlapServer(ctx, port=0)` per
+   context on the card.  (a) Single requests: phase 11's wire bodies (the
+   16 main-path specs, topn_hll, cube_revenue's subtotalsSpec, the ordered
+   top-100 Scan) and their SQL, each response's bytes equal to the
+   in-process answer's envelope, `X-Druid-Query-Id` echoing
+   `context.queryId`, every trace served, `/status/metrics` parsing and
+   counting the requests.  (b) A dashboard mix: 8 client threads, 40
+   requests each, a seeded shuffle of the 13 SSB queries (native JSON or
+   SQL by a coin), the Timeseries and the TopN, beside a thread sending
+   the heavy-lane top-100 Scan, with fusion off and then on
+   (`fusion_window_ms` 2, `fusion_max_batch` 16), the result cache off:
+   every answer's bytes equal the serial answer's; queries per second, p50
+   and p99 per lane, the fused batches.  Then a repeat pass with the cache
+   on: every repeat a hit, no launch.  (c) A fused batch of q1.1-q1.3,
+   q4.1, the Timeseries and the TopN: warm, one replay, one host sync, its
+   launches the sum of its members' segments, bit-identical to serial.
+   (c2), run before (c): a dashboard of 8 panels (those six as native
+   JSON, q1.1 and q4.1 as SQL) refreshed 12 times, its 8 client threads
+   released together, fusion off and then on (a 50 ms window): every
+   answer's bytes equal the serial answer's, and with fusion on the
+   panels' recurring set fuses (its first batch on the fused eager loop,
+   its second capturing) and replays its fused graph through the fusion
+   scheduler, or the run fails; the refresh wall's p50 and p99 each way.
+   (d) Admission, clock-free: a held slot under `max_concurrent_queries`
+   1 gives 503 with Retry-After; a saturated heavy lane admits an
+   interactive TopN and refuses the Scan.  (e) Observability: receipts at
+   `prof_sample_rate` 1 carry CUDA-event `device_ms`, beside the
+   profiler's device time of the same query; unsampled serving adds no
+   sync (`obs.prof.SYNCS`, and a traced query's sync sites equal an
+   untraced one's); the p50 with a trace open and without.
+
+Every kernel launch of phases 4 to 14, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -240,6 +272,7 @@ import numpy as np
 import torch
 
 from spark_druid_olap_tpu_torch import resilience
+from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.api import (
     TPUOlapContext,
     execute_grouping_sets,
@@ -322,9 +355,9 @@ SKEWED = (524288, 84, 2, 0, 0)
 SORTED_SHAPES = [(524288, 4096, 2, 0, 0), (524288, 4096, 1, 0, 0), (524288, 4096, 2, 0, 2),
                  (524288, 4096, 2, 0, 1)]
 ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
-WARM_RUNS = 5
-SQL_PAIRS = 6  # interleaved SQL/native pairs per query in phase 6 (even)
-SKETCH_COLD, SKETCH_WARM = 2, 5  # runs of each sketch query in phase 7
+WARM_RUNS = 3  # warm runs of a query: few enough to keep the run in its time limit
+SQL_PAIRS = 4  # interleaved SQL/native pairs per query in phase 6 (even)
+SKETCH_COLD, SKETCH_WARM = 1, 3  # runs of each sketch query in phase 7
 OP_CHECK_SEGMENTS = 4
 STREAM_CHUNKS = 512  # 1B rows of 2^21: BASELINE config #4
 STREAM_AB_CHUNKS = 64  # double buffering on against off
@@ -1425,12 +1458,12 @@ def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
 
 # -- phase 9: one dispatch per query, batch dispatch, the transfer pipeline -----
 
-ARENA_WARM = 5  # warm runs each way, arena on and off interleaved
+ARENA_WARM = 3  # warm runs each way, arena on and off interleaved
 # a CUBE without sketches: every set's pass is captured (G 1 to 288, Ms 2)
 CUBE_REVENUE = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
                 "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")
 COLD_QUERY = "q4_1"  # the cold SSB scope: every segment, six columns
-COLD_RUNS = 4  # cold runs each way, pipeline on and off interleaved
+COLD_RUNS = 2  # cold runs each way, pipeline on and off interleaved
 
 
 def _set(ctx, flag: str, on: bool) -> None:
@@ -1443,15 +1476,20 @@ def _with_set_metrics(engine, fn):
     got = []
     orig = engine._dispatch_groupby_once
 
-    def dispatch(q, ds):
-        resolve = orig(q, ds)
+    def dispatch(q, ds, scope):
+        fetch = orig(q, ds, scope)
 
-        def recorded():
-            df = resolve()
-            got.append(engine.last_metrics)
-            return df
+        def fetched():
+            finish = fetch()
 
-        return recorded
+            def recorded():
+                df = finish()
+                got.append(engine.last_metrics)
+                return df
+
+            return recorded
+
+        return fetched
 
     engine._dispatch_groupby_once = dispatch
     try:
@@ -1703,8 +1741,8 @@ def run_cold_pipeline(ctx, workloads, runs=COLD_RUNS):
 # -- phase 10: the host fallback -----------------------------------------------
 
 # warm runs of each extended query, assist on and off: the host-only ones
-# take seconds each, and two keep the whole run near half its time limit
-FALLBACK_WARM = 2
+# take seconds each, and one keeps the run in its time limit
+FALLBACK_WARM = 1
 
 
 class AssistLog:
@@ -1718,8 +1756,8 @@ class AssistLog:
         self.subtrees, self.decode_ms = [], 0.0
         orig_rewrite, orig_decode = ctx.execute_rewrite, fallback.decoded_frame
 
-        def rewrite(rw):
-            out = orig_rewrite(rw)
+        def rewrite(rw, *a, **k):
+            out = orig_rewrite(rw, *a, **k)
             self.subtrees.append(ctx.engine.last_metrics)
             return out
 
@@ -2211,7 +2249,7 @@ def run_native_surface(ctxs, workloads, warm=NATIVE_WARM):
 
 # -- phase 12: resilience ----------------------------------------------------------
 
-RESILIENCE_PAIRS = 3  # interleaved pairs, deadline off and armed, per arena query
+RESILIENCE_PAIRS = 2  # interleaved pairs, deadline off and armed, per arena query
 ARMED_TIMEOUT_MS = 60_000  # armed, never expiring
 SWEEP_QUERIES = {  # the columns each query's oracle reads (every oracle reads the last two)
     "q4_1": ("c_region", "s_region", "p_mfgr", "d_year", "c_nation", "lo_revenue",
@@ -2255,8 +2293,8 @@ class MetricsWatch:
         watch = self
         finish, run_fallback = Engine._finish_metrics, TPUOlapContext._run_fallback
 
-        def finish_metrics(engine, m):
-            finish(engine, m)
+        def finish_metrics(engine, m, *outcome):
+            finish(engine, m, *outcome)
             (watch.requested_seen if watch._requested else watch.seen).append(m)
 
         def fallback(ctx, *a, **k):
@@ -2623,6 +2661,543 @@ def run_resilience(ctxs, workloads):
     prog = progressive(sctx)
     return {"sweeps": sweeps, "wall_deadlines": walls, "armed": armed, "retries": retries,
             "breaker": breaker, "static": static, "progressive": prog}
+
+
+# -- phase 14: serving -------------------------------------------------------------
+
+SERVE_CLIENTS = 8  # dashboard client threads in the concurrent mix
+SERVE_REQUESTS = 40  # requests per client per run
+SERVE_TIMEOUT_S = 30  # every HTTP request's client timeout
+SERVE_FUSION = {"fusion_window_ms": 2, "fusion_max_batch": 16}
+TRACE_PAIRS = 6  # interleaved pairs, trace on and off, per query
+FUSED_MEMBERS = ("q1_1", "q1_2", "q1_3", "q4_1")  # fusable: G <= 4096, no tier
+DASHBOARD_REFRESHES = 12  # refreshes of the 8-panel dashboard, each way
+DASHBOARD_WINDOW_MS = 50  # the fusion window a refresh's panels arrive within
+
+
+def _http(base, path, body=None):
+    """(status, headers, body bytes) of one request to a phase-14 server."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(base + path, data=data,
+                                 headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S) as r:
+            return r.status, dict(r.headers), r.read()
+    except urllib.error.HTTPError as e:
+        return e.code, dict(e.headers), e.read()
+
+
+def _envelope_bytes(payload) -> bytes:
+    """A payload encoded as the server encodes a response body."""
+    return json.dumps(payload, default=wire._jsonable).encode()
+
+
+def _sql_text(ctx, workload, name):
+    return ssb.QUERIES[name] if workload == "ssb" else tpch.QUERIES[name]
+
+
+def _metric_sum(base, name, **labels) -> float:
+    """The sum of a family's samples carrying `labels`, from the server's
+    /status/metrics (every sample of which must parse)."""
+    status, _, text = _http(base, "/status/metrics")
+    if status != 200:
+        raise AssertionError(f"/status/metrics answered {status}")
+    want = [f'{k}="{v}"' for k, v in labels.items()]
+    total = 0.0
+    for ln in text.decode().splitlines():
+        if ln.startswith("#") or not ln.strip():
+            continue
+        sample, value = ln.rsplit(" ", 1)
+        value = float(value)
+        if sample.startswith(name + "{") and all(w in sample for w in want):
+            total += value
+    return total
+
+
+def _requests_ok(base) -> float:
+    """sdol_http_requests_total over the query routes with code 200."""
+    return sum(_metric_sum(base, "sdol_http_requests_total", code="200", route=r)
+               for r in ("/druid/v2", "/druid/v2/sql"))
+
+
+def _serving_cases(ctxs):
+    """(workload, name, native body, SQL text or None) of phase 11's wire
+    bodies: the 16 main-path specs, topn_hll, cube_revenue's subtotalsSpec
+    and the ordered top-100 Scan."""
+    cases = []
+    for w, n, q in main_path_queries():
+        sql = _sql_text(ctxs[w], w, n) if (n in ssb.QUERIES or (w == "tpch" and n == "q1")) else None
+        cases.append((w, n, json.loads(json.dumps(q.to_druid(), default=str)), sql))
+    sctx = ctxs["ssb"]
+    cases.append(("ssb", "topn_hll",
+                  json.loads(json.dumps(sctx.plan_sql(ssb.SKETCH_QUERIES["topn_hll"]).query.to_druid(),
+                                        default=str)), ssb.SKETCH_QUERIES["topn_hll"]))
+    rw = sctx.plan_sql(CUBE_REVENUE)
+    cases.append(("ssb", "cube_revenue_subtotals",
+                  json.loads(json.dumps(dataclasses.replace(rw.query, subtotals=rw.grouping_sets)
+                                        .to_druid(), default=str)), None))
+    top100 = (f"SELECT lo_orderdate, lo_extendedprice, lo_discount FROM lineorder "
+              f"WHERE {FACT_WHERE} ORDER BY lo_extendedprice DESC LIMIT 100")
+    cases.append(("ssb", "scan_top100",
+                  json.loads(json.dumps(sctx.plan_sql(top100).query.to_druid(), default=str)),
+                  top100))
+    return cases
+
+
+def serve_single_requests(ctxs, bases):
+    """Each case once through the server, native and SQL: the response bytes
+    equal the in-process answer's envelope, bit for bit; X-Druid-Query-Id
+    echoes context.queryId; every trace is served; /status/metrics counts
+    the requests."""
+    from spark_druid_olap_tpu_torch.models.wire import _rows
+
+    # the metrics registry is process-wide: both servers count into it
+    before = _requests_ok(bases["ssb"])
+    sent = {w: 0 for w in bases}
+    out = []
+    for w, name, body, sql in _serving_cases(ctxs):
+        ctx, base = ctxs[w], bases[w]
+        _, _, shaped = _wire_run(ctx, body)
+        want = _envelope_bytes(shaped)
+        for route, payload, expect in (
+                ("/druid/v2", body, want),
+                ("/druid/v2/sql", {"query": sql} if sql else None, None)):
+            if payload is None:
+                continue
+            if expect is None:
+                expect = _envelope_bytes(_rows(ctx.sql(sql)))
+            qid = f"p14-{w}-{name}-{route.rsplit('/', 1)[-1]}"
+            payload = dict(payload, context={**payload.get("context", {}), "queryId": qid})
+            t0 = time.perf_counter()
+            status, headers, got = _http(base, route, payload)
+            ms = (time.perf_counter() - t0) * 1e3
+            sent[w] += 1
+            if status != 200 or got != expect:
+                raise AssertionError(f"serving {name} {route}: {status}, bytes equal "
+                                     f"{got == expect}: {got[:200]!r}")
+            if headers.get("X-Druid-Query-Id") != qid:
+                raise AssertionError(f"serving {name}: X-Druid-Query-Id {headers.get('X-Druid-Query-Id')}")
+            tstatus, _, doc = _http(base, f"/druid/v2/trace/{qid}")
+            doc = json.loads(doc)
+            if tstatus != 200 or doc["query_id"] != qid or "receipt" not in doc:
+                raise AssertionError(f"serving {name}: trace {tstatus}")
+            out.append({"query": name, "route": route, "ms": ms, "response_bytes": len(got),
+                        "bytes_equal_in_process": True,
+                        "dispatch_count": doc["receipt"]["dispatch_count"]})
+            emit("serving_request", **out[-1])
+    counted = _requests_ok(bases["ssb"]) - before
+    if counted != sum(sent.values()):
+        raise AssertionError(f"/status/metrics counted {counted} requests, {sum(sent.values())} sent")
+    return out
+
+
+def _mix_plan(seed):
+    """One client's requests: a seeded shuffle over the 13 SSB queries, the
+    Timeseries and the TopN, each SSB query as native JSON or SQL by a coin."""
+    rng = np.random.default_rng(seed)
+    pool = [(n, json.loads(json.dumps(q.to_druid(), default=str))) for n, q in ssb.NATIVE_QUERIES.items()]
+    pool += [("timeseries", json.loads(json.dumps(ssb.TIMESERIES_QUERY.to_druid(), default=str))),
+             ("topn", json.loads(json.dumps(ssb.TOPN_QUERY.to_druid(), default=str)))]
+    plan = []
+    for i in rng.integers(0, len(pool), SERVE_REQUESTS):
+        name, body = pool[i]
+        if name in ssb.QUERIES and rng.random() < 0.5:
+            plan.append((name, "/druid/v2/sql", {"query": ssb.QUERIES[name]}))
+        else:
+            plan.append((name, "/druid/v2", body))
+    return plan
+
+
+def _lane_of(ctx, route, body):
+    from spark_druid_olap_tpu_torch.serve.lanes import classify_native
+
+    if route == "/druid/v2/sql":
+        return ctx.serve.lane_for_sql(body["query"])
+    q = wire.query_from_druid(body)
+    return classify_native(q, ctx.catalog.get(q.datasource), ctx.config)
+
+
+def serve_mix(ctx, base, want, scan_body, scan_want, label):
+    """SERVE_CLIENTS threads, each SERVE_REQUESTS requests of `_mix_plan`,
+    beside one thread sending the heavy-lane top-100 Scan until they end.
+    Every answer must be 200 and equal the serial bytes.  Returns queries
+    per second, per-lane p50/p99 and the fused batch sizes."""
+    import threading
+
+    lanes = {}
+    lat = {}
+    errors = []
+    done = threading.Event()
+    fusion = ctx.serve.fusion
+    f0 = (fusion.batches_fused, fusion.members_fused)
+
+    def client(k):
+        for name, route, body in _mix_plan(k):
+            t0 = time.perf_counter()
+            status, _, got = _http(base, route, body)
+            ms = (time.perf_counter() - t0) * 1e3
+            if status != 200 or got != want[(route, name)]:
+                errors.append((name, route, status, got[:120]))
+            lat.setdefault(lanes[(route, name)], []).append(ms)
+
+    def scanner():
+        while not done.is_set():
+            t0 = time.perf_counter()
+            status, _, got = _http(base, "/druid/v2", scan_body)
+            lat.setdefault(lanes[("scan", "scan")], []).append((time.perf_counter() - t0) * 1e3)
+            if status != 200 or got != scan_want:
+                errors.append(("scan_top100", "/druid/v2", status, got[:120]))
+
+    for k in range(SERVE_CLIENTS):
+        for name, route, body in _mix_plan(k):
+            lanes.setdefault((route, name), _lane_of(ctx, route, body))
+    lanes[("scan", "scan")] = _lane_of(ctx, "/druid/v2", scan_body)
+    sc = threading.Thread(target=scanner)
+    threads = [threading.Thread(target=client, args=(k,)) for k in range(SERVE_CLIENTS)]
+    before = cuda_groupby.LAUNCHES
+    t0 = time.perf_counter()
+    sc.start()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    done.set()
+    sc.join(timeout=120)
+    if any(t.is_alive() for t in threads) or sc.is_alive():
+        raise AssertionError(f"{label}: a client thread did not finish")
+    if errors:
+        raise AssertionError(f"{label}: {len(errors)} answers differ from the serial ones: {errors[:3]}")
+    n = SERVE_CLIENTS * SERVE_REQUESTS
+    batches = fusion.batches_fused - f0[0]
+    members = fusion.members_fused - f0[1]
+    row = {"run": label, "requests": n, "scan_requests": len(lat.get(lanes[("scan", "scan")], [])),
+           "wall_s": wall, "queries_per_s": n / wall,
+           "launches": cuda_groupby.LAUNCHES - before,
+           "fused_batches": batches, "fused_members": members,
+           "mean_fused_batch": (members / batches) if batches else None,
+           "lanes": {ln: {"requests": len(v), "p50_ms": float(np.percentile(v, 50)),
+                          "p99_ms": float(np.percentile(v, 99))} for ln, v in lat.items()},
+           "bit_identical_to_serial": True}
+    emit("serving_mix", **row)
+    return row
+
+
+def serve_concurrent(ctx, base):
+    """The dashboard mix, fusion off then on, the result cache off (its
+    fused batches are counted, not required: at its rate two fusable
+    queries seldom share a 2 ms window; `serve_dashboard` is the run that
+    must fuse).  Then a repeat pass with the cache on, every repeat a hit
+    with no launch."""
+    plans = [p for k in range(SERVE_CLIENTS) for p in _mix_plan(k)]
+    want = {}
+    for name, route, body in plans:  # the serial answers, one at a time
+        if (route, name) not in want:
+            status, _, got = _http(base, route, body)
+            if status != 200:
+                raise AssertionError(f"serial {name} {route}: {status}")
+            want[(route, name)] = got
+    top100 = (f"SELECT lo_orderdate, lo_extendedprice, lo_discount FROM lineorder "
+              f"WHERE {FACT_WHERE} ORDER BY lo_extendedprice DESC LIMIT 100")
+    scan_body = json.loads(json.dumps(ctx.plan_sql(top100).query.to_druid(), default=str))
+    scan_want = _http(base, "/druid/v2", scan_body)[2]
+    ctx.sql("SET admission_queue_timeout_ms = 120000")  # queueing is measured, not refused
+    rows = []
+    try:
+        rows.append(serve_mix(ctx, base, want, scan_body, scan_want, "fusion_off"))
+        for k, v in SERVE_FUSION.items():
+            ctx.sql(f"SET {k} = {v}")
+        rows.append(serve_mix(ctx, base, want, scan_body, scan_want, "fusion_on"))
+    finally:
+        ctx.sql("SET fusion_window_ms = 0")
+        ctx.sql("SET admission_queue_timeout_ms = 2000")
+    ctx.sql("SET result_cache_entries = 64")
+    try:
+        for (route, name), body in {(r, n): b for n, r, b in plans}.items():
+            _http(base, route, body)  # fill
+        hits0 = ctx.serve.result_cache.hits
+        before = cuda_groupby.LAUNCHES
+        for (route, name), body in {(r, n): b for n, r, b in plans}.items():
+            status, _, got = _http(base, route, body)
+            if status != 200 or got != want[(route, name)]:
+                raise AssertionError(f"cached {name} {route}: {status}")
+        repeats = len({(r, n) for n, r, _ in plans})
+        hits = ctx.serve.result_cache.hits - hits0
+        launched = cuda_groupby.LAUNCHES - before
+        if hits != repeats or launched:
+            raise AssertionError(f"cache pass: {hits} hits of {repeats} repeats, {launched} launches")
+    finally:
+        ctx.sql("SET result_cache_entries = 0")
+    rows.append({"run": "cache_repeat", "repeats": repeats, "hits": hits, "launches": launched})
+    emit("serving_cache", **rows[-1])
+    return rows
+
+
+def serve_fused_graph(ctx):
+    """A fixed fused batch of fusable members: the first batch runs the
+    fused loop, the second captures the graph, the third is one replay and
+    one host fetch, its launches the sum of its members' in-scope segments
+    and every member bit-identical to its serial run."""
+    import pandas as pd
+
+    ds = ctx.catalog.get("lineorder")
+    # the dashboard's panels in another order: a member set of its own
+    # (the dashboard's batches hold them in canonical order), so this
+    # batch starts at its first sight
+    qs = [ssb.TOPN_QUERY, ssb.TIMESERIES_QUERY] + [ssb.NATIVE_QUERIES[n]
+                                                   for n in reversed(FUSED_MEMBERS)]
+    serial = [ctx.engine.execute(q, ds) for q in qs]
+    serial_ms = _median_ms(lambda: [ctx.engine.execute(q, ds) for q in qs], 3)
+    first = _timed(lambda: ctx.engine.execute_fused(qs, ds))[1]
+    capture = _timed(lambda: ctx.engine.execute_fused(qs, ds))[1]
+    segs = 0
+    for q in qs:
+        inner, _ = ctx.engine._groupby_family(q, ds)
+        segs += len(segments_in_scope(groupby_with_time_granularity(inner), ds))
+    before = cuda_groupby.LAUNCHES
+    out = ctx.engine.execute_fused(qs, ds)
+    launches = cuda_groupby.LAUNCHES - before
+    m = out[0][2]
+    syncs = _syncs(lambda: ctx.engine.execute_fused(qs, ds))
+    on_card = ctx.engine.device.type == "cuda"
+    if m.dispatch_count != 1 or (on_card and (m.graph_replays != 1 or launches != segs)):
+        raise AssertionError(f"fused batch: {m.describe()}, {launches} launches, {segs} segments")
+    if syncs is not None and sum(syncs.values()) != 1:
+        raise AssertionError(f"fused batch: host syncs {syncs}, one fetch expected")
+    for (df, _, _), want in zip(out, serial):
+        pd.testing.assert_frame_equal(df, want, check_exact=True)
+    warm_ms = _median_ms(lambda: ctx.engine.execute_fused(qs, ds), 5)
+    row = {"members": len(qs), "segments": segs, "launches": launches, "graph_replays": 1,
+           "host_syncs": syncs, "first_ms": first, "capture_run_ms": capture,
+           "warm_p50_ms": warm_ms, "serial_sum_p50_ms": serial_ms,
+           "device_ms": sum(profiled_device_ms(lambda: ctx.engine.execute_fused(qs, ds)).values()),
+           "bit_identical_to_serial": True}
+    emit("serving_fused_graph", **row)
+    return row
+
+
+def _dashboard_panels():
+    """The 8 panels of a dashboard that refreshes them together, as a BI
+    dashboard (Apache Superset, Grafana) on its auto-refresh interval sends
+    every chart's query at once: q1.1-q1.3, q4.1, the Timeseries and the
+    TopN as native JSON, q1.1 and q4.1 as SQL; every one fusable.  (A panel
+    on the adaptive tier would run beside the batch and hold the host
+    while the others arrive: on a slow host their batches split.)"""
+    def body(q):
+        return json.loads(json.dumps(q.to_druid(), default=str))
+
+    panels = [(n, "/druid/v2", body(ssb.NATIVE_QUERIES[n])) for n in FUSED_MEMBERS]
+    panels += [("timeseries", "/druid/v2", body(ssb.TIMESERIES_QUERY)),
+               ("topn", "/druid/v2", body(ssb.TOPN_QUERY))]
+    return panels + [(f"{n}_sql", "/druid/v2/sql", {"query": ssb.QUERIES[n]})
+                     for n in ("q1_1", "q4_1")]
+
+
+def serve_dashboard(ctx, base):
+    """DASHBOARD_REFRESHES refreshes of `_dashboard_panels`, one client
+    thread a panel, the threads released together for each refresh; with
+    fusion off, then on (a DASHBOARD_WINDOW_MS window), the result cache
+    off and admission and each lane given two slots a panel (a panel that
+    queued for a slot its last request has not yet released would miss its
+    refresh's batch; over SF10 every panel but the Timeseries and the TopN
+    scans more than `lane_heavy_rows`, and the heavy lane has 2 slots by
+    default).  Every
+    answer's bytes equal the serial answer's.  With fusion on the fusable
+    panels' set recurs: its first batch runs the fused eager loop, its
+    second captures the fused graph and later ones replay it through the
+    fusion scheduler; the run fails unless a batch fused and a fused graph
+    was replayed (`sdol_program_cache_total{family="arena-fused",
+    outcome="hit"}` on the server).  A refresh's wall is its slowest
+    panel's."""
+    import threading
+
+    panels = _dashboard_panels()
+    want = {}
+    for name, route, body in panels:  # the serial answers, one at a time
+        status, _, got = _http(base, route, body)
+        if status != 200:
+            raise AssertionError(f"dashboard serial {name}: {status}")
+        want[name] = got
+    fusion = ctx.serve.fusion
+
+    def refreshes(label):
+        barrier = threading.Barrier(len(panels))
+        lat = [[] for _ in panels]
+        errors = []
+
+        def panel(i):
+            name, route, body = panels[i]
+            for _ in range(DASHBOARD_REFRESHES):
+                barrier.wait(timeout=120)
+                t0 = time.perf_counter()
+                status, _, got = _http(base, route, body)
+                lat[i].append((time.perf_counter() - t0) * 1e3)
+                if status != 200 or got != want[name]:
+                    errors.append((name, status, got[:120]))
+
+        threads = [threading.Thread(target=panel, args=(i,)) for i in range(len(panels))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=600)
+        if any(t.is_alive() for t in threads):
+            raise AssertionError(f"dashboard {label}: a panel thread did not finish")
+        if errors:
+            raise AssertionError(f"dashboard {label}: {len(errors)} answers differ from the "
+                                 f"serial ones: {errors[:3]}")
+        walls = [max(p[r] for p in lat) for r in range(DASHBOARD_REFRESHES)]
+        return {"refreshes": DASHBOARD_REFRESHES, "first_refresh_ms": walls[0],
+                "refresh_p50_ms": float(np.percentile(walls, 50)),
+                "refresh_p99_ms": float(np.percentile(walls, 99)),
+                "panel_p50_ms": {p[0]: float(np.percentile(v, 50)) for p, v in zip(panels, lat)}}
+
+    ctx.sql("SET admission_queue_timeout_ms = 120000")
+    for flag in ("max_concurrent_queries", "lane_interactive_slots", "lane_heavy_slots"):
+        ctx.sql(f"SET {flag} = {2 * len(panels)}")
+    try:
+        off = refreshes("fusion_off")
+        ctx.sql(f"SET fusion_window_ms = {DASHBOARD_WINDOW_MS}")
+        ctx.sql("SET fusion_max_batch = 16")
+        hits0 = _metric_sum(base, "sdol_program_cache_total", family="arena-fused", outcome="hit")
+        caps0 = _metric_sum(base, "sdol_compiles_total", family="arena-fused")
+        f0 = (fusion.batches_fused, fusion.members_fused)
+        try:
+            on = refreshes("fusion_on")
+        finally:
+            ctx.sql("SET fusion_window_ms = 0")
+        replays = _metric_sum(base, "sdol_program_cache_total", family="arena-fused",
+                              outcome="hit") - hits0
+        captures = _metric_sum(base, "sdol_compiles_total", family="arena-fused") - caps0
+    finally:
+        ctx.sql("SET max_concurrent_queries = 8")
+        ctx.sql("SET lane_interactive_slots = 6")
+        ctx.sql("SET lane_heavy_slots = 2")
+        ctx.sql("SET admission_queue_timeout_ms = 2000")
+    batches = fusion.batches_fused - f0[0]
+    members = fusion.members_fused - f0[1]
+    if not batches or not replays:
+        raise AssertionError(f"dashboard: {batches} fused batches of {members} members, "
+                             f"{replays} fused-graph replays through the scheduler")
+    row = {"panels": len(panels), "window_ms": DASHBOARD_WINDOW_MS,
+           "fused_batches": batches, "fused_members": members,
+           "mean_fused_batch": members / batches, "fused_graph_captures": captures,
+           "fused_graph_replays": replays, "fusion_off": off, "fusion_on": on,
+           "bit_identical_to_serial": True}
+    emit("serving_dashboard", **row)
+    return row
+
+
+def serve_admission(ctx, base):
+    """Clock-free: one held slot under max_concurrent_queries = 1 gives 503
+    with Retry-After; a saturated heavy lane leaves an interactive query
+    admitted and refuses a heavy one."""
+    topn = json.loads(json.dumps(ssb.TOPN_QUERY.to_druid(), default=str))
+    top100 = (f"SELECT lo_orderdate, lo_extendedprice, lo_discount FROM lineorder "
+              f"WHERE {FACT_WHERE} ORDER BY lo_extendedprice DESC LIMIT 100")
+    scan = json.loads(json.dumps(ctx.plan_sql(top100).query.to_druid(), default=str))
+    ctx.sql("SET admission_queue_timeout_ms = 50")
+    ctx.sql("SET max_concurrent_queries = 1")
+    res = ctx.resilience
+    try:
+        res.admission.acquire()
+        try:
+            status, headers, body = _http(base, "/druid/v2", topn)
+        finally:
+            res.admission.release()
+        if status != 503 or int(headers.get("Retry-After", 0)) < 1:
+            raise AssertionError(f"a held slot: {status} {headers.get('Retry-After')} {body[:120]!r}")
+        ctx.sql("SET max_concurrent_queries = 8")
+        ctx.sql("SET lane_heavy_rows = 1000")  # the Scan is heavy at any scale
+        heavy = res.lane("heavy")
+        held = [heavy.acquire() for _ in range(heavy.max_concurrent)]
+        try:
+            interactive = _http(base, "/druid/v2", topn)[0]
+            refused, rh, rbody = _http(base, "/druid/v2", scan)
+        finally:
+            for _ in held:
+                heavy.release()
+        if interactive != 200 or refused != 503 or b"heavy lane" not in rbody:
+            raise AssertionError(f"lanes: interactive {interactive}, heavy {refused} {rbody[:120]!r}")
+    finally:
+        ctx.sql("SET max_concurrent_queries = 8")
+        ctx.sql("SET admission_queue_timeout_ms = 2000")
+        ctx.sql(f"SET lane_heavy_rows = {4 << 20}")
+    row = {"held_slot_status": 503, "retry_after_s": int(headers["Retry-After"]),
+           "interactive_beside_full_heavy_lane": interactive, "heavy_status": refused}
+    emit("serving_admission", **row)
+    return row
+
+
+def serve_observability(ctx):
+    """Sampled receipts (prof_sample_rate = 1) carry device_ms from CUDA
+    events, beside the profiler's device time of the same query; at the
+    default rate the phase adds no sync (obs.prof.SYNCS, and the sync sites
+    of a traced query equal an untraced one's); the p50 of the engine call
+    with a trace open and without."""
+    from spark_druid_olap_tpu_torch.obs import prof
+
+    ds = ctx.catalog.get("lineorder")
+    rows = []
+    for name in ("q1_1", "q2_1", "q4_1"):
+        q = ssb.NATIVE_QUERIES[name]
+        ctx.sql("SET prof_sample_rate = 1")
+        try:
+            rc = ctx.sql(ssb.QUERIES[name]).attrs["receipt"]
+        finally:
+            ctx.sql("SET prof_sample_rate = 0")
+        if rc["device_timing"] != "cuda_events" or rc["device_ms"] <= 0:
+            raise AssertionError(f"sampled {name}: {rc}")
+        profiled = sum(profiled_device_ms(lambda: ctx.engine.execute(q, ds)).values())
+        s0 = prof.SYNCS
+
+        def traced(q=q):
+            with ctx.tracer.query_trace(query_type="native"):
+                return ctx.engine.execute(q, ds)
+
+        on_sites = _syncs(traced)
+        off_sites = _syncs(lambda: ctx.engine.execute(q, ds))
+        if prof.SYNCS != s0 or on_sites != off_sites:
+            raise AssertionError(f"{name}: tracing added syncs {on_sites} vs {off_sites}")
+        on, off = [], []
+        for i in range(TRACE_PAIRS):
+            for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+                t0 = time.perf_counter()
+                traced() if side == "on" else ctx.engine.execute(q, ds)
+                (on if side == "on" else off).append((time.perf_counter() - t0) * 1e3)
+        rows.append({"query": name, "receipt_device_ms": rc["device_ms"],
+                     "receipt_syncs": rc["syncs"], "profiler_device_ms": profiled,
+                     "added_syncs_unsampled": 0, "p50_trace_on_ms": statistics.median(on),
+                     "p50_trace_off_ms": statistics.median(off)})
+        emit("serving_observability", **rows[-1])
+    return rows
+
+
+def run_serving(ctxs, workloads):
+    """Phase 14 on the resident SSB SF10 and TPC-H SF1 contexts: one server
+    per context on the card, bound to a free port, shut down at the end."""
+    from spark_druid_olap_tpu_torch.obs import prof
+    from spark_druid_olap_tpu_torch.server import OlapServer
+
+    servers = {w: OlapServer(c, port=0).start() for w, c in ctxs.items()}
+    try:
+        bases = {w: f"http://127.0.0.1:{s.port}" for w, s in servers.items()}
+        syncs0 = prof.SYNCS
+        single = serve_single_requests(ctxs, bases)
+        mix = serve_concurrent(ctxs["ssb"], bases["ssb"])
+        if prof.SYNCS != syncs0:
+            raise AssertionError(f"unsampled serving added {prof.SYNCS - syncs0} syncs")
+        dashboard = serve_dashboard(ctxs["ssb"], bases["ssb"])
+        fused = serve_fused_graph(ctxs["ssb"])
+        admission = serve_admission(ctxs["ssb"], bases["ssb"])
+        obs = serve_observability(ctxs["ssb"])
+    finally:
+        for s in servers.values():
+            s.shutdown()
+    return {"single": single, "mix": mix, "fused": fused, "dashboard": dashboard,
+            "admission": admission, "obs": obs}
 
 
 # -- phase 13: streaming ---------------------------------------------------------
@@ -3026,7 +3601,10 @@ def main(argv=None) -> int:
     workloads = build_workloads(args.ssb_scale, args.tpch_scale)
     # one context per workload: its engine drives that workload through
     # phases 4 to 6, which share its residency
-    ctxs = {w: TPUOlapContext(device=device) for w in ("ssb", "tpch")}
+    # the result cache off: phases 6 to 12 time and count every execution
+    # (phase 14 turns it on for its repeat pass)
+    ctxs = {w: TPUOlapContext(SessionConfig(result_cache_entries=0), device=device)
+            for w in ("ssb", "tpch")}
     engines = {w: c.engine for w, c in ctxs.items()}
 
     def resident():
@@ -3079,7 +3657,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     dims = workloads["dims"]["ssb"]
-    exact = TPUOlapContext(device=device)
+    exact = TPUOlapContext(SessionConfig(result_cache_entries=0), device=device)
     exact.engine = ctxs["ssb"].engine  # the same segments, already resident
     exact.register_datasource(
         ssb.key_dimension_datasource(workloads["ssb"][0], len(dims["customer"]["c_custkey"])),
@@ -3159,6 +3737,26 @@ def main(argv=None) -> int:
     if resilience_launches == 0:
         raise AssertionError("the resilience phase never launched the kernel")
 
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the serving phase's launches
+    serving = run_serving(ctxs, workloads)
+    serving_launches = cuda_groupby.LAUNCHES
+    mix = {r["run"]: r for r in serving["mix"]}
+    emit("serving", seconds=time.perf_counter() - t0, kernel_launches=serving_launches,
+         requests=len(serving["single"]),
+         queries_per_s={k: mix[k]["queries_per_s"] for k in ("fusion_off", "fusion_on")},
+         lanes={k: mix[k]["lanes"] for k in ("fusion_off", "fusion_on")},
+         mean_fused_batch=mix["fusion_on"]["mean_fused_batch"],
+         fused_graph_warm_ms=serving["fused"]["warm_p50_ms"],
+         fused_graph_serial_ms=serving["fused"]["serial_sum_p50_ms"],
+         dashboard_fused_batches=serving["dashboard"]["fused_batches"],
+         dashboard_fused_graph_replays=serving["dashboard"]["fused_graph_replays"],
+         dashboard_refresh_p50_ms={k: serving["dashboard"][k]["refresh_p50_ms"]
+                                   for k in ("fusion_off", "fusion_on")},
+         bytes_resident=resident(), peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if serving_launches == 0:
+        raise AssertionError("the serving phase never launched the kernel")
+
     del ctxs, engines, exact, workloads, dims, tctx  # phase 13 needs host memory
     gc.collect()
     torch.cuda.empty_cache()
@@ -3197,7 +3795,7 @@ def main(argv=None) -> int:
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
         "launches": (launches + sql_launches + sketch_launches + tier_launches
                      + arena_launches + fallback_launches + native_launches
-                     + resilience_launches + stream_launches),
+                     + resilience_launches + serving_launches + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
@@ -3206,6 +3804,7 @@ def main(argv=None) -> int:
         "launches_fallback": fallback_launches,
         "launches_native_surface": native_launches,
         "launches_resilience": resilience_launches,
+        "launches_serving": serving_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

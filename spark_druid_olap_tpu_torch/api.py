@@ -56,6 +56,17 @@ query never goes back to the sick card.  Static errors (a kernel that does
 not build, launch or capture, a sticky CUDA error) surface unchanged.  The
 fallback has a breaker of its own.  `sql_progressive` yields refinements of
 an aggregate query, one per segment.
+
+Serving and observability (`serve/`, `obs/`, `server.py`): every `sql`,
+`TableQuery.collect` and `explain_analyze` runs inside a query trace (the
+server's, when it opened one), whose cost receipt is stamped on the
+answer (`df.attrs["receipt"]`, `last_metrics.receipt`).  `execute_rewrite`
+asks the result cache first (`SessionConfig.result_cache_entries`; a hit
+does no device work and is stamped `strategy="result-cache"`), then the
+micro-batch fusion scheduler (`fusion_window_ms`), then runs the query
+alone, and stores the answer unless a deadline cut it.  An open breaker or
+a deadline drain serves a cached complete answer before it degrades or
+drains.  `OlapServer(ctx)` serves the context over HTTP.
 """
 
 from __future__ import annotations
@@ -74,6 +85,7 @@ from .config import SessionConfig
 from .exec.engine import Engine
 from .exec.fallback import (
     assist_columns,
+    drain_memo,
     evict_decoded_segments,
     execute_fallback,
     plan_input_rows,
@@ -82,6 +94,21 @@ from .exec.fallback import (
 from .exec.finalize import apply_limit_spec
 from .exec.metrics import QueryMetrics
 from .models import query as Q
+from .obs import (
+    SPAN_DEGRADED,
+    SPAN_EXECUTE,
+    SPAN_FALLBACK,
+    SPAN_PARTIAL,
+    SPAN_PLAN,
+    Tracer,
+    current_query_id,
+    current_trace,
+    prof,
+    record_partial,
+    record_query_metrics,
+    span,
+    span_event,
+)
 from .plan import expr as E
 from .plan import logical as L
 from .plan.planner import Planner, Rewrite, RewriteError
@@ -104,6 +131,18 @@ log = get_logger("api")
 __all__ = ["TPUOlapContext", "TableQuery", "RewriteError"]
 
 
+def _breaker_observation(br) -> dict:
+    """The breaker as the routing layer saw it, for the span events of a
+    degraded route: which backend's breaker said no, and its state."""
+    d = br.to_dict()
+    return {
+        "backend": d["backend"],
+        "state": d["state"],
+        "consecutive_failures": d["consecutive_failures"],
+        "trips": d["trips"],
+    }
+
+
 class TPUOlapContext:
     """A session: catalog, views, session flags, plan cache and one engine.
 
@@ -115,8 +154,20 @@ class TPUOlapContext:
         self.config = config or SessionConfig()
         self.catalog = MetadataCache()
         self.engine = Engine(device=device)
-        # the breakers (device, fallback) and the failure counters
+        # the breakers (device, fallback), the admission and lane pools and
+        # the failure counters
         self.resilience = ResilienceState(self.config)
+        # per-query span tracing: the ring behind GET
+        # /druid/v2/trace/{query_id} (the metrics registry is process-wide)
+        self.tracer = Tracer(
+            capacity=self.config.trace_ring_capacity,
+            otlp_path=self.config.otlp_export_path,
+            prof_sample_rate=self.config.prof_sample_rate,
+        )
+        # the serving core: result cache, micro-batch fusion, lanes
+        from .serve import ServingCore
+
+        self.serve = ServingCore(self)
         self.apply_config()
         # SQL text -> (Rewrite, logical plan): a repeated dashboard query
         # pays parse + plan once, and keeps the plan it degrades to.  Keyed
@@ -126,20 +177,35 @@ class TPUOlapContext:
         # CREATE VIEW registry: view name -> defining SELECT text; the parser
         # expands references as derived tables
         self.views: Dict[str, str] = {}
-        # (metrics of the last host-fallback query, the engine's metrics
-        # object when it ended): `last_metrics` serves the first while the
-        # engine has run nothing since
-        self._fallback_metrics = None
+        # (metrics of the last answer that did not come from the engine's
+        # own execution, i.e. a host-fallback query, a result-cache hit or
+        # a fused batch's member, and the engine's metrics object then):
+        # `last_metrics` serves the first while the engine has run nothing
+        # since
+        self._stamped_metrics = None
 
     def apply_config(self) -> None:
         """Hands the session's execution flags to the engine (transfer
-        pipeline, arena, retry budget) and the breaker flags to the breakers;
+        pipeline, arena, retry budget), the breaker flags to the breakers,
+        the serving flags to the result cache, the fusion scheduler and the
+        admission and lane pools, and the tracing flags to the tracer;
         `SET` calls it after every change."""
-        self.engine.configure_pipeline(self.config)
+        cfg = self.config
+        self.engine.configure_pipeline(cfg)
         for br in self.resilience.breakers.values():
-            br.failure_threshold = max(1, int(self.config.breaker_failure_threshold))
-            br.cooldown_ms = float(self.config.breaker_cooldown_ms)
+            br.failure_threshold = max(1, int(cfg.breaker_failure_threshold))
+            br.cooldown_ms = float(cfg.breaker_cooldown_ms)
         self._sync_engine_resilience(self.engine)
+        self.resilience.configure(cfg)
+        self.serve.configure(cfg)
+        self.tracer.sampler.rate = float(cfg.prof_sample_rate)
+        self.tracer.ring.capacity = max(1, int(cfg.trace_ring_capacity))
+        self.tracer.otlp_path = cfg.otlp_export_path
+
+    def _stamp_metrics(self, m) -> None:
+        """Makes `m` the context's last metrics (a fallback run, a cache
+        hit, a fused member)."""
+        self._stamped_metrics = (m, self.engine.last_metrics)
 
     # -- registration (CREATE TABLE ... USING ... OPTIONS analog) -----------
 
@@ -232,20 +298,22 @@ class TPUOlapContext:
 
     def clear_cache(self):
         """Clear-metadata-cache command: drops the catalog, the device
-        residency, the host fallback's decoded segments and the plan
-        cache."""
+        residency, the host fallback's decoded segments, the plan cache and
+        the result cache."""
         uids = [s.uid for t in self.catalog.tables() for s in self.catalog.get(t).segments]
         self.catalog.clear()
         evict_decoded_segments(uids)
         self.engine.clear_cache()
         self._plan_cache.clear()
+        self.serve.result_cache.clear()
 
     @property
     def last_metrics(self):
         """QueryMetrics of the most recent execution: the host fallback's
         (executor "fallback" or "device+fallback") after a fallback query,
-        else the engine's."""
-        fb = self._fallback_metrics
+        a result-cache hit's (strategy "result-cache") or a fused member's
+        after those, else the engine's."""
+        fb = self._stamped_metrics
         if fb is not None and fb[1] is self.engine.last_metrics:
             return fb[0]
         return self.engine.last_metrics
@@ -264,6 +332,37 @@ class TPUOlapContext:
         JSON -> the paths this context's engine tries for it."""
         lp, _, _ = parse_sql(sql_text, views=self.views)
         return self._planner().explain(lp, self.engine)
+
+    def explain_analyze(self, sql_text: str):
+        """EXPLAIN ANALYZE analog: runs the query and returns (DataFrame,
+        the explain text + the measured QueryMetrics + the span tree).  It
+        bypasses the result cache: the metrics describe this execution.  A
+        statement the planner cannot rewrite runs on the host fallback and
+        its text says so ("== Host Fallback ==")."""
+        lp, _, _ = parse_sql(sql_text, views=self.views)
+        planner = self._planner()
+        # finishing pins the root's duration for the render, but only when
+        # this call opened the trace (a joined outer trace runs on)
+        owned = current_trace() is None
+        with self.tracer.query_trace(
+            query_type="explain_analyze", slow_ms=self.config.slow_query_ms
+        ) as tr:
+            try:
+                with span(SPAN_PLAN):
+                    rw = planner.plan(lp)
+            except RewriteError as err:
+                df = self._run_fallback(lp, err)
+                text = f"== Host Fallback ==\nrewrite failed: {err}"
+            else:
+                with span(SPAN_EXECUTE):
+                    df = self.execute_rewrite(rw, use_result_cache=False)
+                text = planner.explain(lp, self.engine)
+            m = self.last_metrics
+            if m is not None:
+                text += "\n\n== Execution Metrics ==\n" + m.describe()
+            if owned:
+                tr.finish()
+            return df, text + "\n\n== Span Tree ==\n" + tr.render()
 
     # -- execution -----------------------------------------------------------
 
@@ -305,35 +404,43 @@ class TPUOlapContext:
         cmd = parse_command(sql_text)
         if cmd is not None:
             return run_command(self, cmd)
-        with self._query_scope():
-            key = self._plan_cache_key(sql_text)
-            cached = self._plan_cache.get(key)
+        # the trace joins the server's when one is active (the outermost
+        # scope wins, as for the deadline); a direct call gets its own id
+        with self.tracer.query_trace(
+            query_type="sql", slow_ms=self.config.slow_query_ms
+        ), self._query_scope():
             plan_err = None
-            if cached is not None:
-                rw, lp = cached
-            else:
-                lp, explain, _ = parse_sql(sql_text, views=self.views)
-                planner = self._planner()
-                if explain:
-                    import pandas as pd
-
-                    text = planner.explain(lp, self.engine)
-                    return pd.DataFrame({"plan": text.split("\n")})
-                try:
-                    rw = planner.plan(lp)
-                except RewriteError as err:
-                    rw, plan_err = None, err
+            with span(SPAN_PLAN):
+                key = self._plan_cache_key(sql_text)
+                cached = self._plan_cache.get(key)
+                if cached is not None:
+                    rw, lp = cached
                 else:
-                    self._plan_cache[key] = (rw, lp)
+                    lp, explain, _ = parse_sql(sql_text, views=self.views)
+                    planner = self._planner()
+                    if explain:
+                        import pandas as pd
+
+                        text = planner.explain(lp, self.engine)
+                        return pd.DataFrame({"plan": text.split("\n")})
+                    try:
+                        rw = planner.plan(lp)
+                    except RewriteError as err:
+                        rw, plan_err = None, err
+                    else:
+                        self._plan_cache[key] = (rw, lp)
             return self._answer(rw, lp, plan_err)
 
     def _answer(self, rw: Optional[Rewrite], lp, plan_err=None):
         """A planned statement's answer: on the host fallback when the
         planner could not rewrite it, else under the device breaker; stamped
-        partial when a deadline cut it short."""
+        partial when a deadline cut it short, and with its cost receipt
+        (outside the execute span, so the receipt sees it closed)."""
         if rw is None:
-            return self._stamp_partial(self._run_fallback(lp, plan_err))
-        return self._stamp_partial(self._execute_with_resilience(rw, lp))
+            return self._stamp_receipt(self._stamp_partial(self._run_fallback(lp, plan_err)))
+        with span(SPAN_EXECUTE):
+            df = self._stamp_partial(self._execute_with_resilience(rw, lp))
+        return self._stamp_receipt(df)
 
     def sql_progressive(self, sql_text: str):
         """Progressive execution of one SQL statement: a generator of
@@ -399,20 +506,28 @@ class TPUOlapContext:
     def _execute_with_resilience(self, rw: Rewrite, lp):
         """Device execution under the backend's breaker.  An open breaker,
         or a transient failure that outlived the engine's retries, answers
-        on the host fallback (stamped degraded, the assist declined).  A
-        deadline expiry outside a partial-capable loop triggers the
-        collector and drains with a second run; without a collector it
-        raises, counted.  Static errors surface unchanged.  (Result-cache
-        hits on the degraded and partial routes come with the result cache,
-        ROADMAP queue A item 6.)"""
+        on the host fallback (stamped degraded, the assist declined), unless
+        the result cache holds the complete answer.  A deadline expiry
+        outside a partial-capable loop serves a cached complete answer, or
+        triggers the collector and drains with a second run; without a
+        collector it raises, counted.  Static errors surface unchanged."""
         res = self.resilience
         backend = self._backend_for(rw)
         br = res.breaker_for(backend)
         can_degrade = lp is not None and self.config.fallback_execution
         if can_degrade and not br.allow():
+            # an open circuit must not cost a cached answer: the cache holds
+            # complete frames that need no device work
+            hit = self._cached_result(rw, count_miss=False)
+            if hit is not None:
+                return hit
             log.warning("%s circuit open; answering on the host fallback", backend)
-            df = self._run_fallback(lp, None, reason=f"{backend} circuit open",
-                                    assist_declined=f"assist: {backend} breaker open")
+            with span(SPAN_DEGRADED, reason="circuit_open"):
+                # the breaker state seen at routing time: the trace shows
+                # why the fallback answered
+                span_event("breaker_state", **_breaker_observation(br))
+                df = self._run_fallback(lp, None, reason=f"{backend} circuit open",
+                                        assist_declined=f"assist: {backend} breaker open")
             self._stamp_degraded(None, backend=backend)
             return df
         try:
@@ -422,6 +537,11 @@ class TPUOlapContext:
             if kind == "deadline":
                 pc = current_partial()
                 if pc is not None:
+                    # a complete cached answer (an identical query finished
+                    # meanwhile) beats any partial one
+                    hit = self._cached_result(rw, count_miss=False)
+                    if hit is not None:
+                        return hit
                     pc.trigger(getattr(err, "site", "") or "deadline")
                     log.warning("deadline expired outside a partial-capable loop (%s); "
                                 "draining a best-effort answer", err)
@@ -435,12 +555,20 @@ class TPUOlapContext:
                 raise
             log.warning("%s execution failed (%s: %s) after retries; degrading to the "
                         "host fallback", backend, type(err).__name__, err)
-            df = self._run_fallback(lp, err, reason=f"{backend} execution failed",
-                                    assist_declined=f"assist: {backend} failed")
+            with span(SPAN_DEGRADED, reason="device_failed"):
+                span_event("breaker_state", error_class=type(err).__name__,
+                           **_breaker_observation(br))
+                df = self._run_fallback(lp, err, reason=f"{backend} execution failed",
+                                        assist_declined=f"assist: {backend} failed")
             self._stamp_degraded(err, backend=backend)
             return df
-        br.record_success()
         m = self.last_metrics
+        # a cache hit never touched the device: it hands back a half-open
+        # probe's lease without a verdict
+        if m is not None and m.strategy == "result-cache":
+            br.release_probe()
+        else:
+            br.record_success()
         if m is not None and not m.circuit_state:
             m.circuit_state = br.state
         return df
@@ -457,19 +585,42 @@ class TPUOlapContext:
 
     def _stamp_partial(self, df):
         """Stamps a deadline-bounded partial answer: the frame's `attrs`
-        gain the collector's {"partial": True, "coverage": ..., ...} and the
-        metrics `partial`, `coverage` and `rows_seen`.  A no-op for a
-        complete answer."""
+        gain the collector's {"partial": True, "coverage": ..., ...}, the
+        metrics `partial`, `coverage` and `rows_seen`, and the trace a
+        `partial` span (with `sdol_partial_results_total` and the coverage
+        histogram).  A no-op for a complete answer, and for a cached one:
+        the collector then describes an aborted execution, not the frame."""
         pc = current_partial()
         if pc is None or not pc.is_partial:
             return df
-        info = pc.to_dict()
         m = self.last_metrics
+        if m is not None and m.strategy == "result-cache":
+            return df
+        info = pc.to_dict()
+        with span(SPAN_PARTIAL, coverage=info["coverage"], site=info["site"],
+                  rows_seen=info["rows_seen"], rows_total=info["rows_total"]):
+            record_partial(info["coverage"], site=info["site"] or "",
+                           query_id=current_query_id())
         if m is not None:
             m.partial = True
             m.coverage = info["coverage"]
             m.rows_seen = info["rows_seen"]
         df.attrs.update(info)
+        return df
+
+    def _stamp_receipt(self, df):
+        """Stamps the query's cost receipt (`obs/prof.py`) on the answer:
+        `df.attrs["receipt"]` and `QueryMetrics.receipt` (with its `lane`),
+        the live snapshot; the trace document gets the final one at trace
+        close.  A no-op outside a trace."""
+        rc = prof.live_receipt()
+        if rc is None:
+            return df
+        m = self.last_metrics
+        if m is not None:
+            m.receipt = rc
+            m.lane = rc.get("lane", "") or m.lane
+        df.attrs["receipt"] = rc
         return df
 
     def sql_arrow(self, sql_text: str):
@@ -495,10 +646,13 @@ class TPUOlapContext:
         if ds is None:
             raise RewriteError(f"unknown table {q.datasource!r}")
         lp = native_to_logical(q, ds)
-        df = self._run_fallback(lp, err, reason=reason,
-                                assist_declined=f"assist: {reason}")
+        with span(SPAN_DEGRADED, reason="native_" + reason):
+            span_event("breaker_state",
+                       **_breaker_observation(self.resilience.breaker_for(backend)))
+            df = self._run_fallback(lp, err, reason=reason,
+                                    assist_declined=f"assist: {reason}")
         self._stamp_degraded(err, backend=backend)
-        return shape_native_result(q, ds, self._stamp_partial(df))
+        return shape_native_result(q, ds, self._stamp_receipt(self._stamp_partial(df)))
 
     def _run_fallback(self, lp, err, reason: str = "rewrite failed",
                       assist_declined: Optional[str] = None):
@@ -513,7 +667,7 @@ class TPUOlapContext:
         assist with that reason, as does an open device breaker.  A
         deadline that expires at an interpreter checkpoint under a collector
         triggers it and runs the plan again (the drain), over the decode
-        cache."""
+        cache and the subqueries the first run answered (`drain_memo`)."""
         if isinstance(err, RewritePolicyError):
             raise err
         if not self.config.fallback_execution:
@@ -579,9 +733,10 @@ class TPUOlapContext:
             assists += 1
             return out
 
-        def run():
-            return execute_fallback(lp, self.catalog, max_rows=cfg.fallback_max_rows,
-                                    device_exec=device_subplan)
+        def run(why):
+            with span(SPAN_FALLBACK, reason=why):
+                return execute_fallback(lp, self.catalog, max_rows=cfg.fallback_max_rows,
+                                        device_exec=device_subplan)
 
         pc = current_partial()
         if pc is not None:
@@ -589,34 +744,38 @@ class TPUOlapContext:
             # its assists must not reset it
             pc.begin_pass()
             pc.in_fallback = True
-        try:
-            df = run()
-        except DeadlineExceeded as dl_err:
-            # expiry at an interpreter checkpoint (the decode's is absorbed
-            # in place): drain with a second run, every checkpoint now a
-            # no-op, its own accounting the truth about what it saw
-            if pc is None:
+        # under a collector a drain takes the subqueries its first run answered
+        with drain_memo() if pc is not None else contextlib.nullcontext():
+            try:
+                df = run(reason)
+            except DeadlineExceeded as dl_err:
+                # expiry at an interpreter checkpoint (the decode's is
+                # absorbed in place): drain with a second run, every
+                # checkpoint now a no-op, its own accounting the truth about
+                # what it saw
+                if pc is None:
+                    raise
+                pc.trigger(dl_err.site or "fallback.interp")
+                pc.reset_for_drain()
+                df = run("deadline_drain")
+                fb.record_success()
+            except Exception as fb_err:
+                # a static plan or shape gap is the query's, not the backend's
+                if classify_error(fb_err) == "transient":
+                    fb.record_failure()
                 raise
-            pc.trigger(dl_err.site or "fallback.interp")
-            pc.reset_for_drain()
-            df = run()
-            fb.record_success()
-        except Exception as fb_err:
-            # a static plan or shape gap is the query's, not the backend's
-            if classify_error(fb_err) == "transient":
-                fb.record_failure()
-            raise
-        else:
-            fb.record_success()
-        finally:
-            if pc is not None:
-                pc.in_fallback = False
+            else:
+                fb.record_success()
+            finally:
+                if pc is not None:
+                    pc.in_fallback = False
         tables = sorted(plan_tables(lp))
         m = QueryMetrics(
             query_type="fallback",
             strategy="host-pandas",
             executor="device+fallback" if assists else "fallback",
             datasource=tables[0] if len(tables) == 1 else "",
+            query_id=current_query_id(),
             rows_scanned=plan_input_rows(lp, self.catalog),
             total_ms=(time.perf_counter() - t0) * 1e3,
             assist_subplans=assists,
@@ -626,31 +785,106 @@ class TPUOlapContext:
             m.partial = True
             m.coverage = pc.coverage()
             m.rows_seen = pc.rows_seen
-        self._fallback_metrics = (m, self.engine.last_metrics)
+        self._stamp_metrics(m)
+        # the host interpreter publishes into the process registry as the
+        # engine does
+        record_query_metrics(m, "partial" if m.partial else "ok")
         return df
 
-    def execute_rewrite(self, rw: Rewrite):
+    def _result_key(self, rw: Rewrite, ds=None):
+        """Result-cache key of a rewrite, or None when it is not cacheable
+        (an unknown table, an exact COUNT(DISTINCT)'s outer shape).  It
+        leaves out the segment uids and the datasource version (entries
+        carry the version they were computed at) and keeps the dictionary
+        signature."""
         if rw.exact_distinct is not None:
-            return self._execute_exact_distinct(rw.exact_distinct)
+            return None
+        ds = ds or self.catalog.get(rw.datasource)
+        if ds is None:
+            return None
+        from .exec.lowering import _dict_signature
+
+        return (
+            rw.to_json(),
+            ds.name,
+            _dict_signature(ds),
+            repr(rw.output_columns),
+            repr(rw.grouping_sets),
+            repr(rw.host_post_exprs),
+            repr(rw.residual_having),
+            repr(self.config),
+        )
+
+    def _cached_result(self, rw: Rewrite, rkey=None, count_miss: bool = True):
+        """A result-cache hit for `rw` at its datasource's version, or
+        None.  The serving core stamps the hit's metrics as the context's
+        last."""
+        if self.config.result_cache_entries <= 0:
+            return None
+        ds = self.catalog.get(rw.datasource)
+        if ds is None:
+            return None
+        rkey = rkey or self._result_key(rw, ds)
+        if rkey is None:
+            return None
+        return self.serve.cached_result(rw, ds, rkey, count_miss=count_miss)
+
+    def _fusable(self, rw: Rewrite, ds) -> bool:
+        """May this rewrite ride micro-batch fusion?  GroupBy-family, no
+        grouping sets (they batch already) and the engine's own gate."""
+        if rw.grouping_sets or rw.exact_distinct is not None:
+            return False
+        if not isinstance(rw.query, (Q.GroupByQuery, Q.TimeseriesQuery, Q.TopNQuery)):
+            return False
+        return self.engine.fusable(rw.query, ds)
+
+    def execute_rewrite(self, rw: Rewrite, use_result_cache: bool = True):
+        """A rewrite's answer: from the result cache, else a fused
+        micro-batch, else the engine alone (grouping sets batched), then
+        the host post-processing; a complete answer is stored in the
+        cache."""
+        if rw.exact_distinct is not None:
+            return self._execute_exact_distinct(rw.exact_distinct, use_result_cache)
         ds = self.catalog.get(rw.datasource)
         if ds is None:
             raise RewriteError(f"unknown table {rw.datasource!r}")
-        # the engine resolves its own group-by strategy from G: the CUDA
-        # kernel at G <= SCATTER_CUTOVER on a card, scatter above
-        if rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
+        rkey = None
+        if use_result_cache and self.config.result_cache_entries > 0:
+            rkey = self._result_key(rw, ds)
+            hit = self._cached_result(rw, rkey)
+            if hit is not None:
+                return hit
+        fused = (self.serve.fused_execute(rw.query, ds)
+                 if self.serve.fusion.enabled and self._fusable(rw, ds) else None)
+        if fused is not None:
+            df, _state, m = fused
+            self._stamp_metrics(m)
+        elif rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
+            # the engine resolves its own group-by strategy from G: the CUDA
+            # kernel at G <= SCATTER_CUTOVER on a card, scatter above
             df = execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine)
         else:
             df = self.engine.execute(rw.query, ds)
-        return self._post_process(rw, ds, df)
+        m = self.last_metrics
+        if rkey is not None and m is not None:
+            m.result_cache = "miss"
+        df = self._post_process(rw, ds, df)
+        if rkey is not None:
+            pc = current_partial()
+            # a deadline-truncated answer never enters the cache: it would
+            # be served back as the exact answer
+            if pc is None or not pc.triggered:
+                self.serve.store_result(rw, ds, rkey, df)
+        return df
 
-    def _execute_exact_distinct(self, spec):
+    def _execute_exact_distinct(self, spec, use_result_cache: bool = True):
         """Two-phase exact COUNT(DISTINCT): the inner rewrite (grouped by the
         dimensions and the distinct columns) on the device, then the
         re-aggregation on the host, where a distinct output counts the
         unique non-null values of its column."""
         import pandas as pd
 
-        inner = self.execute_rewrite(spec.inner)
+        inner = self.execute_rewrite(spec.inner, use_result_cache)
         agg_kwargs = {
             name: pd.NamedAgg(column=name, aggfunc=op) for name, op in spec.outer_ops
         }
@@ -904,11 +1138,14 @@ class TableQuery:
 
     def collect(self):
         lp = self._logical()
-        with self.ctx._query_scope():
-            try:
-                rw, plan_err = self.ctx._planner().plan(lp), None
-            except RewriteError as err:
-                rw, plan_err = None, err
+        with self.ctx.tracer.query_trace(
+            query_type="dataframe", slow_ms=self.ctx.config.slow_query_ms
+        ), self.ctx._query_scope():
+            with span(SPAN_PLAN):
+                try:
+                    rw, plan_err = self.ctx._planner().plan(lp), None
+                except RewriteError as err:
+                    rw, plan_err = None, err
             return self.ctx._answer(rw, lp, plan_err)
 
     def collect_arrow(self):

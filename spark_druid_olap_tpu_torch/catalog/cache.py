@@ -6,10 +6,13 @@ are immutable by construction (frozen dataclasses holding arrays nobody
 mutates), and `clear()` is the clear-metadata-cache command, which drops
 the lookups too.  Every mutation bumps `version`, which the SQL plan cache
 keys on, so a re-registered table or lookup invalidates cached rewrites.
+Every publish of a datasource also bumps its own version, stamped on the
+DataSource it publishes, which the result cache keys on.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import threading
 from typing import Dict, Optional
 
@@ -25,6 +28,8 @@ class MetadataCache:
         # query-time lookup tables (Druid lookup extraction): name -> map
         self._lookups: Dict[str, dict] = {}
         self.version = 0
+        # per-datasource publish count, monotonic across drops
+        self._ds_versions: Dict[str, int] = {}
 
     def put_lookup(self, name: str, mapping: dict):
         with self._lock:
@@ -36,14 +41,22 @@ class MetadataCache:
             return self._lookups.get(name)
 
     def put(self, ds: DataSource, star: Optional[StarSchemaInfo] = None):
-        """Publish a datasource (and its star schema, when given).  Returns
-        the published DataSource."""
+        """Publish a datasource (and its star schema, when given), stamped
+        with its next version.  Returns the published DataSource."""
         with self._lock:
+            v = self._ds_versions.get(ds.name, 0) + 1
+            self._ds_versions[ds.name] = v
+            ds = dataclasses.replace(ds, version=v)
             self._tables[ds.name] = ds
             if star is not None:
                 self._stars[ds.name] = star
             self.version += 1
         return ds
+
+    def datasource_version(self, name: str) -> int:
+        """The datasource's publish count (0: never published)."""
+        with self._lock:
+            return self._ds_versions.get(name, 0)
 
     def get(self, name: str) -> Optional[DataSource]:
         with self._lock:

@@ -249,7 +249,9 @@ class DataSource:
     """A named datasource: schema + dictionaries + a list of segments.
 
     The analog of a Druid datasource's metadata and segment list.
-
+    `version` is its publish count in the catalog (stamped by
+    `MetadataCache.put`; 0 before it is published), which the result cache
+    keys its entries on.
     """
 
     name: str
@@ -257,6 +259,7 @@ class DataSource:
     dicts: Mapping[str, DimensionDict]
     segments: Tuple[Segment, ...]
     time_column: Optional[str] = None
+    version: int = 0
 
     @property
     def num_rows(self) -> int:

@@ -1,15 +1,19 @@
 """Session flags (the SQLConf analog).
 
 Only the flags this package reads, with the JAX package's defaults.  A flag
-of a tier the port does not have yet (cost model, serving, ingest, storage,
-cluster, tracing) is absent, so `SET` on it raises
-KeyError instead of reporting a change that nothing reads; each comes back
-with the slice that reads it.
+of a tier the port does not have yet (the cost model, ingest and storage,
+multi-device, the cluster, the result cache's delta reuse, the `__sys`
+telemetry sampler) is absent, so `SET` on it raises KeyError instead of
+reporting a change that nothing reads; each comes back with the slice that
+reads it.  `SET` applies a flag at once (`TPUOlapContext.apply_config`):
+the serving and tracing flags reach the result cache, the fusion
+scheduler, the admission and lane pools and the tracer.
 """
 
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 
 @dataclasses.dataclass
@@ -79,3 +83,54 @@ class SessionConfig:
     # cooldown before a half-open probe
     breaker_failure_threshold: int = 3
     breaker_cooldown_ms: int = 2000
+
+    # -- serving (serve/, server.py) -----------------------------------------
+    # result cache (the Druid broker's result cache): a repeated query over
+    # the same datasource version answers with no device work.  Entries key
+    # on the query's JSON, the dictionary signature and the session flags,
+    # and carry the datasource version they were computed at.  0 disables
+    result_cache_entries: int = 64
+    # micro-batch fusion: compatible concurrent GroupBy-family queries over
+    # one datasource wait this many ms for each other and run as one fused
+    # execution (one captured CUDA graph over resident segments).  0
+    # disables: every query runs alone
+    fusion_window_ms: float = 0.0
+    # the most queries fused into one execution
+    fusion_max_batch: int = 16
+    # arm the window from the observed arrival rate: no wait on an idle
+    # queue, up to fusion_window_max_ms under a burst
+    fusion_adaptive_window: bool = False
+    # burst ceiling of the adaptive window; 0 = 4x fusion_window_ms
+    fusion_window_max_ms: float = 0.0
+    # priority lanes (serve/lanes.py): separate admission slot pools, so
+    # cheap dashboard queries never queue behind large scans.  A Scan,
+    # Search or GroupBy goes heavy above lane_heavy_rows in-scope rows;
+    # TopN, Timeseries and metadata queries stay interactive
+    lane_interactive_slots: int = 6
+    lane_heavy_slots: int = 2
+    lane_heavy_rows: int = 4 << 20
+    # admission control: a bounded slot pool with a queue-wait timeout; a
+    # full pool answers 503 with Retry-After
+    max_concurrent_queries: int = 8
+    admission_queue_timeout_ms: int = 2000
+
+    # -- observability (obs/) --------------------------------------------------
+    # slow-query log: a finished query whose span-tree total reaches this
+    # logs its rendered tree at WARNING; 0 disables
+    slow_query_ms: float = 0.0
+    # finished span trees kept for GET /druid/v2/trace/{query_id}
+    trace_ring_capacity: int = 64
+    # emit-only OTLP export: every finished trace appends one OTLP/JSON
+    # line to this file; None disables
+    otlp_export_path: Optional[str] = None
+    # share of queries sampled for device timing: a sampled query records
+    # CUDA events around its dispatches and waits on them (one sync each);
+    # 0 adds no sync
+    prof_sample_rate: float = 0.0
+    # GET /status/profile's rolling window and top-K
+    profile_window_s: float = 300.0
+    profile_top_k: int = 10
+    # per-lane latency targets the profiler burns its SLO against; 0
+    # disables a lane's burn rate
+    lane_interactive_slo_ms: float = 250.0
+    lane_heavy_slo_ms: float = 30_000.0

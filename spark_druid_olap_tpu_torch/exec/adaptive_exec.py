@@ -53,6 +53,7 @@ from ..catalog.segment import DataSource
 from ..models import filters as F
 from ..ops.filters import numeric_dict_code_bounds
 from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate
+from ..obs import SPAN_ADAPTIVE_PROBE, prof, span
 from ..plan.expr import DeviceConst
 from ..resilience import DeadlineExceeded, checkpoint, current_partial, fire
 from .lowering import (
@@ -239,27 +240,8 @@ class AdaptiveDomainMixin:
             checkpoint("adaptive.presence_loop")
             cols = lowering.add_virtual(dict(self._cols_for_segment(seg, ds, need, m)))
             fire("device_dispatch")
-            mask = lowering.row_mask(cols)
-            R = mask.shape[0]
-            ones = mask.to(torch.float32)[:, None]
-            none_f = torch.zeros((R, 0), dtype=torch.float32, device=mask.device)
-            none_b = torch.zeros((R, 0), dtype=torch.bool, device=mask.device)
-            per = []
-            for d in lowering.dims:
-                card = d.cardinality
-                codes = d.codes_fn(cols).clamp(0, card - 1)
-                if card <= SCATTER_CUTOVER:
-                    s, _, _ = partial_aggregate(
-                        codes, mask, ones, none_f, none_b, num_groups=card,
-                        num_min=0, num_max=0, strategy=self._kernel_class(),
-                    )
-                    per.append(s[:, 0])
-                else:
-                    per.append(
-                        torch.zeros(card, dtype=torch.float32, device=mask.device)
-                        .index_add_(0, codes.long(), ones[:, 0])
-                    )
-            counts = per if counts is None else [a + b for a, b in zip(counts, per)]
+            with span(SPAN_ADAPTIVE_PROBE, segment=seg.uid), prof.device_timer(self.device):
+                counts = self._presence_one(lowering, cols, counts)
             m.dispatch_count += 1
         host = torch.cat(counts).cpu().numpy()  # the pass's one fetch
         out, at = [], 0
@@ -267,6 +249,31 @@ class AdaptiveDomainMixin:
             out.append(host[at:at + d.cardinality])
             at += d.cardinality
         return out
+
+    def _presence_one(self, lowering, cols, counts):
+        """One segment's rows per code of each grouped dimension, added to
+        `counts` (None before the first segment)."""
+        mask = lowering.row_mask(cols)
+        R = mask.shape[0]
+        ones = mask.to(torch.float32)[:, None]
+        none_f = torch.zeros((R, 0), dtype=torch.float32, device=mask.device)
+        none_b = torch.zeros((R, 0), dtype=torch.bool, device=mask.device)
+        per = []
+        for d in lowering.dims:
+            card = d.cardinality
+            codes = d.codes_fn(cols).clamp(0, card - 1)
+            if card <= SCATTER_CUTOVER:
+                s, _, _ = partial_aggregate(
+                    codes, mask, ones, none_f, none_b, num_groups=card,
+                    num_min=0, num_max=0, strategy=self._kernel_class(),
+                )
+                per.append(s[:, 0])
+            else:
+                per.append(
+                    torch.zeros(card, dtype=torch.float32, device=mask.device)
+                    .index_add_(0, codes.long(), ones[:, 0])
+                )
+        return per if counts is None else [a + b for a, b in zip(counts, per)]
 
     def _adaptive_kept_codes(self, q, ds, lowering: GroupByLowering, segs, m):
         """The kept code sets of each grouped dimension, or None when the

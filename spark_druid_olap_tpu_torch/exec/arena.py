@@ -55,12 +55,33 @@ replayed with one host call.
   chunked run the whole-scope graph's.  A scope that has run once (its
   warm mark) or has a whole-scope program captures its chunks at once.
   Otherwise, and with no deadline, a scope stays one replay.
+* **Fused micro-batches** (`serve/fusion.py`, `Engine.execute_fused`).  A
+  batch of concurrent queries over resident segments is one graph: every
+  member's loop over its own in-scope segments, the segments in canonical
+  order outside and the members inside, so a segment's columns are read
+  once and members sharing a filter mask or group ids compute them once
+  (`serve.fusion.shared_row_plan`).  The graph's output is every member's
+  (sums, mins, maxs) packed into one buffer, fetched in one copy.  Keyed
+  ("arena-fused", the members' query keys, their strategies, their
+  segment uids) in the same `ArenaCache` (and its bound), with the warm
+  rule of a scope: a member set's first batch runs the fused eager loop,
+  its second captures.  It is dropped with any column it reads, and with
+  any member's query on a retry's eviction.  Sketch members, the scatter
+  strategy and scopes over the budget decline to the fused eager loop,
+  recorded.
+* **Threads.**  Capture, replay and the copy out of a replay's outputs run
+  under the engine's execution lock (`Engine._exec_lock`), as do the
+  device half of every other execution and every eviction: the graphs
+  share memory pools and the capture runs in the global capture mode, so
+  no other thread may touch the card meanwhile.  Lowering and finalizing
+  are host work and run outside it.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import math
 import threading
 import time
 from collections import OrderedDict
@@ -68,6 +89,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from ..obs import SPAN_ARENA_BUILD, SPAN_SEGMENT_DISPATCH, prof, span
 from ..ops import cuda_groupby
 from ..resilience import (
     KernelError,
@@ -121,13 +143,22 @@ def arena_key(query_key: Tuple, strategy: str, key_extra: Tuple, uids: Sequence)
 
 
 def is_arena_key(key) -> bool:
-    return isinstance(key, tuple) and len(key) == 5 and key[0] == "arena"
+    return isinstance(key, tuple) and len(key) == 5 and key[0] in ("arena", "arena-fused")
+
+
+def fused_key(query_keys: Sequence, strategies: Sequence, uids: Sequence) -> Tuple:
+    """Key of a fused batch's program: the members' lowering-cache keys in
+    batch order, their kernel strategies and each member's segment uids."""
+    return ("arena-fused", tuple(query_keys), tuple(strategies), (),
+            tuple(tuple(u) for u in uids))
 
 
 def chunked_replays() -> bool:
-    """Does a scope replay in chunks now: a deadline is armed, or fault
-    injection is armed at the segment loop's checkpoint site?"""
-    return current_deadline() is not None or site_armed(SEGMENT_LOOP_SITE)
+    """Does a scope replay in chunks now: a finite deadline is armed (the
+    server arms an infinite one for Druid's `context.timeout: 0`), or
+    fault injection is armed at the segment loop's checkpoint site?"""
+    d = current_deadline()
+    return (d is not None and math.isfinite(d.timeout_ms)) or site_armed(SEGMENT_LOOP_SITE)
 
 
 class ArenaPlan:
@@ -266,22 +297,33 @@ def build_arena_program(engine, plan: ArenaPlan, cols_list, pool=None) -> ArenaP
     when None), after the compute stream's pending work and one warm-up run
     of the body on that stream; on the CPU the body alone.  A capture that
     fails raises KernelError (the `compile` fault site fires first)."""
-    fire("compile")
     body = _body(plan, cols_list)
-    dev = engine.device
-    if dev.type != "cuda":
+    graph, out, launches, ms = _build(engine, body, pool, "arena")
+    if graph is None:
         return ArenaProgram(plan, cols_list, body)
+    return ArenaProgram(plan, cols_list, body, graph, out[:3], launches, ms)
+
+
+def _build(engine, body, pool, family: str):
+    """(graph, outputs, launches, capture ms) of `body`: captured on a card
+    (`_capture`), (None, None, (), 0.0) on the CPU."""
+    fire("compile")
+    if engine.device.type != "cuda":
+        return None, None, (), 0.0
     try:
-        return _capture(engine, plan, cols_list, body, pool)
+        with span(SPAN_ARENA_BUILD, family=family):
+            graph, out, launches, ms = _capture(engine, body, pool)
     except KernelError:
         raise
     except RuntimeError as err:
         if isinstance(err, torch.cuda.OutOfMemoryError):
             raise  # transient: the retry evicts and captures again
         raise KernelError(f"CUDA graph capture failed: {err}") from err
+    prof.note_compile(ms, family)
+    return graph, out, launches, ms
 
 
-def _capture(engine, plan: ArenaPlan, cols_list, body, pool) -> ArenaProgram:
+def _capture(engine, body, pool):
     dev = engine.device
     t0 = time.perf_counter()
     stream = engine._capture_stream()
@@ -291,7 +333,7 @@ def _capture(engine, plan: ArenaPlan, cols_list, body, pool) -> ArenaProgram:
         # once (a DeviceConst's host copy, the kernel's attribute call, a
         # new allocator block) happens here, outside the capture.  The
         # scope's first, eager run cannot stand in for it: the lowering
-        # cache may have rebuilt `plan.lowering` since, with no device copy
+        # cache may have rebuilt the lowering since, with no device copy
         # of its constants yet
         body()
     graph = torch.cuda.CUDAGraph()
@@ -307,8 +349,141 @@ def _capture(engine, plan: ArenaPlan, cols_list, body, pool) -> ArenaProgram:
             raise
         graph.capture_end()
     torch.cuda.current_stream(dev).wait_stream(stream)
-    return ArenaProgram(plan, cols_list, body, graph, out[:3], launches,
-                        (time.perf_counter() - t0) * 1e3)
+    return graph, out, launches, (time.perf_counter() - t0) * 1e3
+
+
+# -- fused micro-batches --------------------------------------------------------
+
+
+class FusedPlan:
+    """A fused batch the arena covers: its key (also the key its warm mark
+    lives under), the members' lowerings, strategies, inner GroupBys and
+    in-scope segments, the union of their segments in canonical order and
+    the columns read."""
+
+    __slots__ = ("key", "scope_key", "chunked", "lowerings", "strategies", "member_segs",
+                 "inners", "segs", "names", "col_keys", "nbytes")
+
+    def __init__(self, key, lowerings, strategies, member_segs, inners, segs, names,
+                 col_keys, nbytes):
+        self.key = self.scope_key = key
+        self.chunked = False
+        self.lowerings = list(lowerings)
+        self.strategies = tuple(strategies)
+        self.member_segs = [list(m) for m in member_segs]
+        self.inners = list(inners)
+        self.segs = list(segs)
+        self.names = list(names)
+        self.col_keys = tuple(col_keys)
+        self.nbytes = int(nbytes)
+
+
+def fused_plan_for(engine, lowerings, strategies, member_segs, inners, segs, names, ds,
+                   m) -> Optional[FusedPlan]:
+    """The arena's plan for a fused batch over `segs` (the union of the
+    members' non-empty scopes), or None after recording why it declines in
+    `m.declines` (the batch then runs the fused eager loop)."""
+    reason = None
+    if not engine.arena_execution:
+        reason = "arena: arena_execution is off"
+    elif query_disabled():
+        reason = "arena: disabled for this query"
+    elif any(lw.la.sketch_aggs for lw in lowerings):
+        reason = "arena: sketch aggregations are not captured"
+    elif "segment" in strategies:
+        reason = "arena: the scatter strategy's nonzero has a data-dependent size"
+    elif not segs:
+        reason = "arena: no segment in the batch's scopes"
+    keys = (*names, None)
+    nbytes = 0
+    if reason is None:
+        nbytes = sum(int((s.valid if n is None else s.column(n)).nbytes)
+                     for s in segs for n in keys)
+        budget = int(engine._device_cache.budget_bytes * ARENA_BUDGET_FRACTION)
+        if nbytes > budget:
+            reason = (f"arena: the batch's {nbytes} bytes exceed {ARENA_BUDGET_FRACTION} "
+                      f"of the residency budget ({budget})")
+    if reason is not None:
+        m.declines.append(reason)
+        return None
+    key = fused_key([_query_key(lw.query, ds) for lw in lowerings], strategies,
+                    [[s.uid for s in ms] for ms in member_segs])
+    col_keys = [column_key(s, n) for s in segs for n in keys]
+    return FusedPlan(key, lowerings, strategies, member_segs, inners, segs, names, col_keys,
+                     nbytes)
+
+
+def fused_body(plan, cols_by_uid, device):
+    """The fused batch's body: the union segments in canonical order, each
+    member that scopes a segment folding its partials there (members
+    sharing a mask or group ids reuse the first's, per segment), then every
+    member's (sums, mins, maxs) packed into one flat float32 buffer, in
+    member order.  Each member's fold runs the serial loop's ops in the
+    serial loop's order, so its bits are its serial answer's."""
+    from ..serve.fusion import shared_row_plan
+    from .engine import fold_partials, shard_partials
+
+    in_scope = [frozenset(s.uid for s in ms) for ms in plan.member_segs]
+    share = shared_row_plan(plan.inners)
+
+    def body():
+        acc = [None] * len(plan.lowerings)
+        for seg in plan.segs:  # canonical segment order: every member's fold order
+            cols = cols_by_uid[seg.uid]
+            memo: Dict = {}
+            for i, lw in enumerate(plan.lowerings):
+                if seg.uid not in in_scope[i]:
+                    continue
+                part = shard_partials(lw, cols, plan.strategies[i], memo=memo,
+                                      share=share[i])
+                acc[i] = fold_partials(lw.la, acc[i], part)
+        parts = []
+        for i, lw in enumerate(plan.lowerings):
+            st = acc[i] if acc[i] is not None else empty_partials(lw.la, lw.num_groups, device)
+            parts.extend(t.reshape(-1) for t in st[:3])
+        return torch.cat(parts)
+
+    return body
+
+
+class FusedProgram:
+    """A fused batch's captured program: the graph and its packed output on
+    a card, the body alone on the CPU; the columns it reads and the kernel
+    launches it captured."""
+
+    __slots__ = ("plan", "cols", "body", "graph", "output", "launches", "capture_ms")
+
+    def __init__(self, plan, cols, body, graph=None, output=None, launches=(),
+                 capture_ms=0.0):
+        self.plan = plan
+        self.cols = cols  # keeps the captured columns alive
+        self.body = body
+        self.graph = graph
+        self.output = output
+        self.launches = tuple(launches)
+        self.capture_ms = capture_ms
+
+    def run(self) -> torch.Tensor:
+        """The packed states: a replay, its launches counted; on the CPU,
+        the body.  A replay's output is the graph's own buffer, which the
+        next replay overwrites: the caller copies it to the host before it
+        releases the engine's execution lock."""
+        if self.graph is None:
+            return self.body()
+        self.graph.replay()
+        cuda_groupby.count_replay(self.launches)
+        return self.output
+
+
+def build_fused_program(engine, plan: FusedPlan, cols_by_uid) -> FusedProgram:
+    """The fused batch's program over resident columns: captured on a card
+    as `build_arena_program` captures a scope; a failed capture raises
+    KernelError."""
+    body = fused_body(plan, cols_by_uid, engine.device)
+    graph, out, launches, ms = _build(engine, body, None, "arena-fused")
+    if graph is None:
+        return FusedProgram(plan, cols_by_uid, body)
+    return FusedProgram(plan, cols_by_uid, body, graph, out, launches, ms)
 
 
 class ArenaCache:
@@ -395,15 +570,19 @@ class ArenaCache:
 
     def invalidate_query(self, query_key) -> int:
         """Drops every program and warm mark of one query's scopes (its
-        compacted lowerings' too: they keep the query's key); returns how
-        many programs went."""
+        compacted lowerings' too: they keep the query's key) and of every
+        fused batch it is a member of; returns how many programs went."""
+
+        def hit(k):
+            return k[1] == query_key or (k[0] == "arena-fused" and query_key in k[1])
+
         with self._lock:
             dropped = 0
-            for key in [k for k in self._programs if k[1] == query_key]:
+            for key in [k for k in self._programs if hit(k)]:
                 prog = self._programs.pop(key)
                 self._unindex(key, prog.plan.col_keys)
                 dropped += 1
-            for key in [k for k in self._warm if k[1] == query_key]:
+            for key in [k for k in self._warm if hit(k)]:
                 self._unindex(key, self._warm.pop(key))
             return dropped
 
@@ -429,7 +608,8 @@ def run_plan(engine, ds, plan: ArenaPlan, m):
     if checkpoint_partial(SEGMENT_LOOP_SITE):
         return _empty(engine, plan)
     fire("device_dispatch")
-    state = prog.run()
+    with span(SPAN_SEGMENT_DISPATCH, arena=len(plan.segs)), prof.device_timer(engine.device):
+        state = prog.run()
     m.dispatch_count += 1
     m.arena_segments += len(plan.segs)
     m.graph_replays += prog.graph is not None
@@ -457,7 +637,8 @@ def _run_chunks(engine, ds, plan: ArenaPlan, prog: ChunkedProgram, m):
         if checkpoint_partial(SEGMENT_LOOP_SITE):
             break
         fire("device_dispatch")
-        part = prog.run_chunk(engine, ds, i, m)
+        with span(SPAN_SEGMENT_DISPATCH, arena=1, segment=i), prof.device_timer(engine.device):
+            part = prog.run_chunk(engine, ds, i, m)
         state = fold_partials(la, state, part)
         m.dispatch_count += 1
         m.arena_segments += 1

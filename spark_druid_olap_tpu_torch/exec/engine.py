@@ -48,6 +48,23 @@ sites `device_dispatch` (before each dispatch) and `h2d` (before each cold
 column's copy) fire on the host.  `execute_progressive` yields one
 refinement per segment.
 
+Serving (`serve/`): `execute_fused` runs a micro-batch of concurrent
+GroupBy-family queries as one execution (over resident segments one
+captured CUDA graph and one fetch, `exec/arena.py`), and `fusable` says
+which queries may join one.  The device half of every execution (the
+tiers, capture, replay, the eager loops) and its fetch, and every
+eviction, run under the engine's execution lock (`_exec_lock`; a Scan or
+Search takes it one segment at a time), so one engine serves the server's
+handler threads: their host work (decoding, planning, lowering, the
+finalizing, a retry's backoff, the response) runs beside another query's
+device work, their device work one at a time.
+
+Tracing (`obs/`): under an active query trace the engine opens the `lower`,
+`h2d`, `segment_dispatch`, `arena_build`, `device_fetch` and `finalize`
+spans, stamps the trace's query_id on its QueryMetrics and publishes each
+finished execution into the metrics registry.  On a sampled query
+(`SessionConfig.prof_sample_rate`) each dispatch is timed by CUDA events.
+
 A Scan builds each in-scope segment's row mask (intervals, filter) on the
 device over the resident columns, compacts the selected rows there and
 copies them to the host in one transfer per segment (`_fetch_rows`); an
@@ -64,7 +81,9 @@ device given and no GPU present, `Engine()` raises.
 
 from __future__ import annotations
 
+import contextlib
 import os
+import threading
 import time
 from typing import Dict, List, Optional
 
@@ -78,10 +97,23 @@ from ..models import query as Q
 from ..models.filters import _ms_to_iso
 from ..ops.filters import compile_filter, numeric_dict_code_bounds
 from ..ops.groupby import partial_aggregate, resolve_strategy
+from ..obs import (
+    SPAN_DEVICE_FETCH,
+    SPAN_FINALIZE,
+    SPAN_H2D,
+    SPAN_LOWER,
+    SPAN_SEGMENT_DISPATCH,
+    current_query_id,
+    current_trace,
+    prof,
+    record_query_metrics,
+    span,
+)
 from ..plan.expr import as_tensor
 from ..resilience import (
     CircuitBreaker,
     DeadlineExceeded,
+    checkpoint,
     checkpoint_partial,
     classify_error,
     current_partial,
@@ -118,6 +150,16 @@ from .pipeline import TransferPipeline, column_key
 from .sparse_exec import SparseExecMixin
 
 log = get_logger("exec.engine")
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def _wire_type(q) -> str:
+    """A query's Druid queryType, its metrics label."""
+    try:
+        return q.to_druid().get("queryType", type(q).__name__)
+    except Exception:  # metrics labelling only
+        return type(q).__name__
 
 
 def _retryable(err: BaseException) -> bool:
@@ -293,16 +335,26 @@ def sketch_states_to_reference(
     }
 
 
-def shard_partials(lowering: GroupByLowering, cols, strategy: str):
+def shard_partials(lowering: GroupByLowering, cols, strategy: str, memo=None, share=None):
     """One shard's partial state (sums, mins, maxs, sketch states) from its
     device columns: `row_arrays`, then `partial_aggregate`, then the sketch
     partials.  The segment loop and the streaming chunk loop both call it,
     so a chunk and a segment of the same rows run the same ops in the same
-    order."""
+    order.  In a fused batch `memo` is the segment's dict of computed
+    masks and group ids and `share` the member's (mask group, gid group)
+    of `serve.fusion.shared_row_plan`: a member reuses an earlier member's
+    identical mask or group ids."""
     la = lowering.la
     if la.sketch_aggs:
         cols = lowering.add_virtual(dict(cols))  # sketches read virtuals
-    gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
+    mask0 = gid0 = None
+    if memo is not None and share is not None:
+        mask0 = memo.get(("mask", share[0]))
+        gid0 = memo.get(("gid", share[1]))
+    gid, mask, sv, mmv, mmm = lowering.row_arrays(cols, mask=mask0, gid=gid0)
+    if memo is not None and share is not None:
+        memo.setdefault(("mask", share[0]), mask)
+        memo.setdefault(("gid", share[1]), gid)
     s, mn, mx = partial_aggregate(
         gid, mask, sv, mmv, mmm,
         num_groups=lowering.num_groups,
@@ -389,6 +441,15 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         self._arena = arena.ArenaCache()
         self.arena_execution = True
         self._graph_stream = None
+        # one execution on the card at a time: capture, replay and copy-out,
+        # the eager loops and eviction.  Reentrant (a batch runs its
+        # queries' executions inside its own)
+        self._exec_lock = threading.RLock()
+        # residency per datasource for the `sdol_resident_bytes` gauge and
+        # the eviction counter: key -> (datasource, bytes); the cache's keys
+        # carry only segment uids
+        self._resident_meta: Dict = {}
+        self._resident_by_ds: Dict[str, int] = {}
         # (query json, datasource schema) -> GroupByLowering: lowering is
         # host work that also stages device constants
         self._lowering_cache = CountBudgetCache(LOWERING_CACHE_ENTRIES)
@@ -443,31 +504,52 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
 
     def _on_evict(self, key, _value) -> None:
         """A column left the residency cache: drop the arena programs that
-        hold it."""
+        hold it, and count it off its datasource's resident bytes."""
         self._arena.invalidate_column(key)
+        meta = self._resident_meta.pop(key, None)
+        if meta is not None:
+            ds_name, nbytes = meta
+            self._resident_by_ds[ds_name] -= nbytes
+            prof.record_resident(ds_name, self._resident_by_ds[ds_name])
+            prof.record_eviction(ds_name)
 
-    def _device_col(self, key, host_fn, m: QueryMetrics) -> torch.Tensor:
-        """A resident column, else one copied now (`TransferPipeline.put`)."""
+    def _device_col(self, key, host_fn, m: QueryMetrics, ds_name: str = "") -> torch.Tensor:
+        """A resident column, else one copied now (`TransferPipeline.put`;
+        on a sampled query the copy is waited for, so its time is the
+        link's)."""
         t = self._device_cache.get(key)
         if t is not None:
+            prof.note_residency(hit=True)
             return t
+        prof.note_residency(hit=False)
         host = host_fn()
         fire("h2d")
         t0 = time.perf_counter()
         t = self._pipeline.put(key, host)
-        m.h2d_ms += (time.perf_counter() - t0) * 1e3
+        prof.transfer_sync(self.device)
+        dt = time.perf_counter() - t0
+        m.h2d_ms += dt * 1e3
         m.h2d_bytes += int(host.nbytes)
+        prof.record_h2d(int(host.nbytes), dt)
         self._device_cache[key] = t
+        self._resident_meta[key] = (ds_name, int(host.nbytes))
+        now = self._resident_by_ds.get(ds_name, 0) + int(host.nbytes)
+        self._resident_by_ds[ds_name] = now
+        prof.record_resident(ds_name, now)
         return t
 
     def _cols_for_segment(
         self, seg: Segment, ds: DataSource, names, m: QueryMetrics
     ) -> Dict[str, torch.Tensor]:
-        cols = {
-            n: self._device_col(column_key(seg, n), lambda n=n: seg.column(n), m)
-            for n in names
-        }
-        cols["__valid"] = self._device_col(column_key(seg), lambda: seg.valid, m)
+        keys = [column_key(seg, n) for n in names] + [column_key(seg)]
+        # under a trace, a segment with a cold column copies inside an h2d span
+        cold = current_trace() is not None and not all(k in self._device_cache for k in keys)
+        with span(SPAN_H2D, segment=seg.uid) if cold else _NO_SPAN:
+            cols = {
+                n: self._device_col(k, lambda n=n: seg.column(n), m, ds.name)
+                for n, k in zip(names, keys)
+            }
+            cols["__valid"] = self._device_col(keys[-1], lambda: seg.valid, m, ds.name)
         if ds.time_column and ds.time_column in cols:
             cols["__time"] = cols[ds.time_column]
         return cols
@@ -480,19 +562,29 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         """Drop the arena programs (which hold resident columns) and the
         resident columns: the next query of any scope starts cold.
         Lowerings and pinned host copies stay."""
-        self._arena.clear()
-        self._device_cache.clear()
+        with self._exec_lock:
+            self._arena.clear()
+            self._device_cache.clear()
+            self._resident_meta.clear()
+            for ds_name in self._resident_by_ds:
+                self._resident_by_ds[ds_name] = 0
+                prof.record_resident(ds_name, 0)
 
     def clear_cache(self):
         """`drop_residency`, and drop the pinned host copies and the cached
         lowerings (which close over staged device constants)."""
-        self.drop_residency()
-        self._pipeline.clear()
-        self._lowering_cache.clear()
+        with self._exec_lock:
+            self.drop_residency()
+            self._pipeline.clear()
+            self._lowering_cache.clear()
 
     # -- entry points --------------------------------------------------------
 
     def execute(self, q: Q.QuerySpec, ds: DataSource):
+        """One query's frame.  A group-by holds the execution lock across
+        its device half and fetch only; a Scan or Search one segment at a
+        time, so a long one does not hold the card from other queries; the
+        metadata queries do no device work."""
         if isinstance(q, Q.GroupByQuery):
             return self._execute_groupby(q, ds)
         if isinstance(q, Q.TimeseriesQuery):
@@ -576,6 +668,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         None on its first, which runs the eager loop.  A chunked program
         builds each chunk when its replays first reach it."""
         prog = self._arena.get(plan.key)
+        prof.note_program_cache("arena", hit=prog is not None)
         if prog is not None:
             # a replay reads the columns: they stay as recent as the loop's
             # reads would keep them
@@ -601,12 +694,13 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         each.  None when a deadline stopped it before the first."""
         pc = current_partial()
         state = None
-        for seg in segs:  # canonical segment order: the fold order
+        for i, seg in enumerate(segs):  # canonical segment order: the fold order
             if checkpoint_partial(arena.SEGMENT_LOOP_SITE):
                 break
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
             fire("device_dispatch")
-            state = fold_partials(lowering.la, state, shard_partials(lowering, cols, strategy))
+            with span(SPAN_SEGMENT_DISPATCH, segment=i), prof.device_timer(self.device):
+                state = fold_partials(lowering.la, state, shard_partials(lowering, cols, strategy))
             m.dispatch_count += 1
             if pc is not None:
                 pc.add_seen(1, seg.num_rows)
@@ -618,6 +712,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         and maxs come back in one copy, so one sync."""
         sums, mins, maxs, sketches = state
         parts = (sums, mins, maxs)
+        prof.fetch_sync(self.device)
         flat = torch.cat([t.reshape(-1) for t in parts]).cpu().numpy()
         out, at = [], 0
         for t in parts:
@@ -628,14 +723,20 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
     def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource):
         """One group-by under the retry policy (`run_device_attempts`):
         queries are read-only, so a re-dispatch after a transient failure is
-        always safe.  Static errors and DeadlineExceeded propagate at once
-        and never touch the breaker."""
+        always safe.  An attempt lowers on the host, holds the execution
+        lock across the device half and the fetch (a replay's outputs live
+        in a pool the next replay reuses) and finalizes after releasing it;
+        the backoff between attempts holds no lock.  Static errors and
+        DeadlineExceeded propagate at once and never touch the breaker."""
         q = groupby_with_time_granularity(q)  # the key the eviction drops
-        return run_device_attempts(
-            self,
-            lambda: self._dispatch_groupby_once(q, ds)(),
-            lambda: self.evict_query_state(q, ds),
-        )
+
+        def attempt():
+            scope = self._lower_scope(q, ds)
+            with self._exec_lock:
+                finish = self._dispatch_groupby_once(q, ds, scope)()
+            return finish()
+
+        return run_device_attempts(self, attempt, lambda: self.evict_query_state(q, ds))
 
     def evict_query_state(self, q: Q.GroupByQuery, ds: DataSource) -> None:
         """Drops what a failed dispatch may have poisoned: the query's
@@ -644,72 +745,283 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         The columns leave through the residency cache, whose `on_evict`
         drops every program that reads them, so a retry never replays a
         graph over freed memory."""
-        base = _query_key(q, ds)
-        for k in [k for k in self._lowering_cache if k[:len(base)] == base]:
-            self._lowering_cache.pop(k)
-        self._arena.invalidate_query(base)
-        uids = {seg.uid for seg in ds.segments}
-        for k in [k for k in self._device_cache if k[0] in uids]:
-            self._device_cache.pop(k)
+        with self._exec_lock:
+            base = _query_key(q, ds)
+            for k in [k for k in self._lowering_cache if k[:len(base)] == base]:
+                self._lowering_cache.pop(k)
+            self._arena.invalidate_query(base)
+            uids = {seg.uid for seg in ds.segments}
+            for k in [k for k in self._device_cache if k[0] in uids]:
+                self._device_cache.pop(k)
 
     def execute_groupby_batch(self, queries, ds: DataSource, set_labels=None) -> List:
         """Runs several group-bys (the sets of a CUBE or ROLLUP): every
-        query's device work is dispatched first, then each is fetched and
-        finalized in order, so the card runs query i + 1 while the host
-        waits on query i.  A transient failure of one query's dispatch or
-        fetch evicts its state and runs it again alone, under the retry
-        policy.  `set_labels` names each query's pass for the partial
-        collector's per-set accounting."""
+        query is lowered, then every one's device work is dispatched, then
+        each is fetched in order, so the card runs query i + 1 while the
+        host waits on query i; dispatch and fetch under the execution lock,
+        the lowering before it and the finalizing after it.  A
+        transient failure of one query's dispatch or fetch evicts its state
+        and runs it again alone, under the retry policy.  `set_labels`
+        names each query's pass for the partial collector's per-set
+        accounting."""
         pc = current_partial()
 
         def label(i):
             if pc is not None and set_labels is not None:
                 pc.set_label = set_labels[i]
 
-        resolves = []
-        for i, q in enumerate(queries):
-            label(i)
-            try:
-                resolves.append(self._dispatch_groupby_once(q, ds))
-            except RuntimeError as err:
-                if not _retryable(err):
-                    raise
-                log.warning("batch dispatch failed (%s: %s); the query runs alone",
-                            type(err).__name__, err)
-                self.evict_query_state(groupby_with_time_granularity(q), ds)
-                resolves.append(None)
+        def failed(q, err, what):
+            if not _retryable(err):
+                raise err
+            log.warning("batch %s failed (%s: %s); the query runs alone",
+                        what, type(err).__name__, err)
+            self.evict_query_state(groupby_with_time_granularity(q), ds)
+
+        scopes = [self._lower_scope(q, ds) for q in queries]
+        finishes = [None] * len(queries)
+        with self._exec_lock:
+            fetches = []
+            for i, q in enumerate(queries):
+                label(i)
+                try:
+                    fetches.append(self._dispatch_groupby_once(q, ds, scopes[i]))
+                except RuntimeError as err:
+                    failed(q, err, "dispatch")
+                    fetches.append(None)
+            for i, q in enumerate(queries):
+                label(i)  # a tier's second pass counts under its set
+                fetch, fetches[i] = fetches[i], None  # free its device state
+                if fetch is not None:
+                    try:
+                        finishes[i] = fetch()
+                    except RuntimeError as err:
+                        failed(q, err, "fetch")
         out = []
         for i, q in enumerate(queries):
-            label(i)  # a tier's second pass counts under its set
-            resolve, resolves[i] = resolves[i], None  # free its device state
-            if resolve is not None:
-                try:
-                    out.append(resolve())
-                    continue
-                except RuntimeError as err:
-                    if not _retryable(err):
-                        raise
-                    log.warning("batch fetch failed (%s: %s); the query runs again alone",
-                                type(err).__name__, err)
-                    self.evict_query_state(groupby_with_time_granularity(q), ds)
-            out.append(self._execute_groupby(q, ds))
+            label(i)
+            out.append(finishes[i]() if finishes[i] is not None else self._execute_groupby(q, ds))
         return out
 
-    def _dispatch_groupby_once(self, q: Q.GroupByQuery, ds: DataSource):
-        """The device half of one group-by: lowering, pruning, the tiers and
-        the segment work, up to the merged state on the device (the sparse
-        tier fetches as it climbs its ladders).  Returns `resolve() -> df`,
-        the host half: the fetch, finalization and the metrics."""
+    # -- micro-batch fusion (serve/) -----------------------------------------
+
+    def _groupby_family(self, q: Q.QuerySpec, ds: DataSource):
+        """A GroupBy-family query as its inner GroupBy and the shaper of its
+        result type: (inner, shape), or (None, None) for other types."""
+        if isinstance(q, Q.TimeseriesQuery):
+            return timeseries_to_groupby(q), lambda df: finalize_timeseries(df, q, ds)
+        if isinstance(q, Q.TopNQuery):
+            return topn_to_groupby(q), lambda df: finalize_topn(df, q)
+        if isinstance(q, Q.GroupByQuery):
+            return q, lambda df: df
+        return None, None
+
+    def fusable(self, q: Q.QuerySpec, ds: DataSource) -> bool:
+        """May this query join a fused micro-batch?  GroupBy-family only
+        (mergeable partial state), no wire subtotals, and neither the
+        adaptive nor the sparse tier would engage (their passes read counts
+        on the host between dispatches)."""
+        inner, _ = self._groupby_family(q, ds)
+        if inner is None or inner.subtotals:
+            return False
+        try:
+            lowering = self._lowering_for(groupby_with_time_granularity(inner), ds)
+        except Exception:  # an unlowerable query declines fusion
+            return False
+        return not (self._adaptive_eligible(lowering) or self._sparse_eligible(lowering))
+
+    def execute_fused(self, queries, ds: DataSource, query_ids=None):
+        """Runs N fusable queries over one datasource snapshot as one
+        execution, with the warm rule of a scope (`exec/arena.py`): a
+        member set's first batch runs the fused eager loop (each segment's
+        columns read once, every member that scopes it folding there), its
+        second captures one CUDA graph over the resident segments, later
+        ones replay it; the graph's output packs every member's (sums,
+        mins, maxs) and comes back in one copy.  Sketch members and scopes
+        the arena declines always run the fused eager loop.  Either way
+        each member's fold is its serial fold, so its frame is
+        bit-identical to `execute`'s.  A deadline that expires first
+        (`engine.fused_loop`) raises: the fusion scheduler then sends every
+        member to its serial path.  Returns a list of (df, state, metrics)
+        per member, in order; `state` is None (the result cache keeps
+        frames only).  The device half and the fetch run under the
+        execution lock, the finalizing after it."""
+        t0 = time.perf_counter()
+        queries = list(queries)
+        n = len(queries)
+        prof.note_fusion(n)  # the leader's receipt records the batch size
+        query_ids = list(query_ids or [""] * n)
+        members = []
+        with span(SPAN_LOWER, fused=n):
+            for q in queries:
+                inner, shape = self._groupby_family(q, ds)
+                if inner is None:
+                    raise ValueError(
+                        f"{type(q).__name__} is not fusable (GroupBy-family queries only)")
+                inner = groupby_with_time_granularity(inner)
+                lowering = self._lowering_for(inner, ds)
+                members.append((q, inner, shape, lowering, segments_in_scope(inner, ds)))
+        strategies = tuple(self._resolve_strategy(mb[3].num_groups) for mb in members)
+        bm = QueryMetrics(query_type="fused", device=str(self.device))
+        # the card's share under the execution lock; finalizing runs after
+        with self._exec_lock:
+            host, sketches = self._fused_device(members, strategies, ds, bm)
+        out = []
+        at = 0
+        elapsed_ms = (time.perf_counter() - t0) * 1e3
+        for i, (q, inner, shape, lowering, msegs) in enumerate(members):
+            la, G = lowering.la, lowering.num_groups
+            states = []
+            for w in (len(la.sum_names), len(la.min_names), len(la.max_names)):
+                states.append(host[at:at + G * w].reshape(G, w))
+                at += G * w
+            with span(SPAN_FINALIZE, member=i):
+                df = shape(finalize_groupby(inner, lowering.dims, la, *states, sketches[i]))
+            m = QueryMetrics(
+                query_type=_wire_type(q),
+                strategy=strategies[i],
+                datasource=ds.name,
+                device=str(self.device),
+                query_id=query_ids[i],
+                rows_scanned=_row_count(msegs),
+                bytes_scanned=_bytes_scanned(msegs, lowering.columns),
+                segments=len(msegs),
+                num_groups=G,
+                # the batch's h2d and capture, split evenly: one column set
+                # moved for every member
+                h2d_bytes=bm.h2d_bytes // n,
+                h2d_ms=bm.h2d_ms / n,
+                capture_ms=bm.capture_ms,
+                graph_captures=bm.graph_captures,
+                graph_replays=bm.graph_replays,
+                dispatch_count=bm.dispatch_count,
+                arena_segments=bm.arena_segments,
+                declines=list(bm.declines),
+                total_ms=elapsed_ms,
+                fused_batch=n,
+                bytes_resident=self.bytes_resident(),
+            )
+            record_query_metrics(m, "ok")
+            out.append((df, None, m))
+        self.last_metrics = out[-1][2] if out else None
+        return out
+
+    def _fused_device(self, members, strategies, ds, bm):
+        """The device half of a fused batch (under the execution lock): the
+        packed (sums, mins, maxs) of every member on the host and each
+        member's sketch states in the reference's layout, from the fused
+        graph or the fused eager loop (at a member set's first batch, which
+        marks the set warm, or where the arena declines)."""
+        n = len(members)
+        lowerings = [mb[3] for mb in members]
+        in_scope = {s.uid for mb in members for s in mb[4]}
+        segs = [s for s in ds.segments if s.uid in in_scope]
+        names = list(dict.fromkeys(c for lw in lowerings for c in lw.columns))
+        checkpoint("engine.fused_loop")
+        plan = arena.fused_plan_for(self, lowerings, strategies, [mb[4] for mb in members],
+                                    [mb[1] for mb in members], segs, names, ds, bm)
+        prog = self._fused_program(plan, ds, bm) if plan is not None else None
+        if prog is not None:
+            fire("device_dispatch")
+            with span(SPAN_SEGMENT_DISPATCH, arena=len(segs), fused=n), \
+                    prof.device_timer(self.device):
+                flat = prog.run()
+            bm.dispatch_count += 1
+            bm.arena_segments += len(segs)
+            bm.graph_replays += prog.graph is not None
+            with span(SPAN_DEVICE_FETCH, fused=n):
+                prof.fetch_sync(self.device)
+                host = flat.cpu().numpy()
+            return host, [{} for _ in members]
+        host, sketches = self._fused_loop(members, strategies, segs, names, ds, bm)
+        if plan is not None:
+            self._arena.note_warm(plan)
+        return host, [sketch_states_to_reference(mb[3].la, sk)
+                      for mb, sk in zip(members, sketches)]
+
+    def _fused_program(self, plan: "arena.FusedPlan", ds: DataSource, m: QueryMetrics):
+        """The fused batch's program from the arena cache; captured (on a
+        card) at the member set's second batch; None at its first, which
+        runs the fused eager loop."""
+        prog = self._arena.get(plan.key)
+        prof.note_program_cache("arena-fused", hit=prog is not None)
+        if prog is not None:
+            self._device_cache.touch(plan.col_keys)
+            return prog
+        if not self._arena.scope_ran(plan):
+            return None
+        cols = {s.uid: self._cols_for_segment(s, ds, plan.names, m) for s in plan.segs}
+        prog = arena.build_fused_program(self, plan, cols)
+        self._arena.put(prog)
+        if prog.graph is not None:
+            m.graph_captures += 1
+            m.capture_ms += prog.capture_ms
+        return prog
+
+    def _fused_loop(self, members, strategies, segs, names, ds, m):
+        """The fused eager loop: the union segments in canonical order, a
+        checkpoint (`engine.fused_loop`) before each, its columns read
+        once, every member that scopes it folding its partials there.
+        Returns (the packed (sums, mins, maxs) of every member on the
+        host, fetched in one copy, and each member's sketch states on the
+        host)."""
+        from ..serve.fusion import shared_row_plan
+
+        prof.note_program_cache("fused-batch", hit=False)
+        share = shared_row_plan([mb[1] for mb in members])
+        in_scope = [frozenset(s.uid for s in mb[4]) for mb in members]
+        acc = [None] * len(members)
+        for seg in segs:
+            checkpoint("engine.fused_loop")
+            cols = self._cols_for_segment(seg, ds, names, m)
+            fire("device_dispatch")
+            with span(SPAN_SEGMENT_DISPATCH, segment=seg.uid, fused=len(members)), \
+                    prof.device_timer(self.device):
+                memo: Dict = {}
+                for i, mb in enumerate(members):
+                    if seg.uid in in_scope[i]:
+                        part = shard_partials(mb[3], cols, strategies[i], memo=memo,
+                                              share=share[i])
+                        acc[i] = fold_partials(mb[3].la, acc[i], part)
+            m.dispatch_count += 1
+        parts, sketches = [], []
+        for i, mb in enumerate(members):
+            lw = mb[3]
+            st = acc[i] if acc[i] is not None else empty_partials(
+                lw.la, lw.num_groups, self.device)
+            parts.extend(t.reshape(-1) for t in st[:3])
+            sketches.append(st[3])
+        with span(SPAN_DEVICE_FETCH, fused=len(members)):
+            prof.fetch_sync(self.device)
+            host = torch.cat(parts).cpu().numpy()
+        return host, sketches
+
+    def _lower_scope(self, q: Q.GroupByQuery, ds: DataSource):
+        """The host work before a group-by's device half, in the `lower`
+        span: (its ms, the query at its time granularity, its lowering,
+        its segments in scope)."""
+        t0 = time.perf_counter()
+        with span(SPAN_LOWER):
+            q = groupby_with_time_granularity(q)
+            lowering, segs = self._lowering_for(q, ds), segments_in_scope(q, ds)
+        return (time.perf_counter() - t0) * 1e3, q, lowering, segs
+
+    def _dispatch_groupby_once(self, q: Q.GroupByQuery, ds: DataSource, scope):
+        """The device half of one group-by, under the caller's hold of the
+        execution lock: the tiers and the segment work, up to the merged
+        state on the device (the sparse tier fetches as it climbs its
+        ladders).  `scope` is `_lower_scope(q, ds)`, made before the lock
+        was taken.  Returns `fetch() -> finish`: the fetch, under the same
+        hold, and `finish() -> df`, the finalization and the metrics, on
+        the host after the lock is released."""
+        lower_ms, q, lowering, segs = scope
         t_total = time.perf_counter()
-        q = groupby_with_time_granularity(q)
-        lowering = self._lowering_for(q, ds)
-        segs = segments_in_scope(q, ds)
         G = lowering.num_groups
         m = QueryMetrics(
             query_type="groupBy",
             strategy=self._resolve_strategy(G),
             datasource=ds.name,
             device=str(self.device),
+            query_id=current_query_id(),
             rows_scanned=sum(s.num_rows for s in segs),
             bytes_scanned=_bytes_scanned(segs, lowering.columns),
             segments=len(segs),
@@ -722,47 +1034,69 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             # the failed attempt's metrics stand: the retry policy and the
             # API stamp them
             m.deadline_exceeded = isinstance(err, DeadlineExceeded)
-            m.total_ms = (time.perf_counter() - t_total) * 1e3
-            self._finish_metrics(m)
+            m.total_ms = lower_ms + (time.perf_counter() - t_total) * 1e3
+            self._finish_metrics(m, "deadline" if m.deadline_exceeded else "error")
             raise
-        dispatch_ms = (time.perf_counter() - t_total) * 1e3
-        dispatch_dev_ms = (time.perf_counter() - t_dev) * 1e3
+        t_end = time.perf_counter()
+        dispatch_dev_ms = (t_end - t_dev) * 1e3
+        # the query's own time: lowering, the device half, its fetch and
+        # its finalizing (not the wait for the lock; a batch runs its other
+        # queries in between)
+        spent = [lower_ms + (t_end - t_total) * 1e3]
 
-        def resolve():
-            t_resolve = time.perf_counter()
+        def done(outcome: str, since: float) -> None:
+            m.total_ms = spent[0] + (time.perf_counter() - since) * 1e3
+            self._finish_metrics(m, outcome)
+
+        def fetch():
+            t_fetch = time.perf_counter()
             try:
                 # a deadline blown during dispatch cancels before the fetch;
                 # under a collector every segment is already dispatched, so
                 # the fetch drains a complete answer
                 checkpoint_partial("engine.resolve")
-                sums, mins, maxs, sketches, slot_gids = (
-                    host if host is not None else self._host_state(low.la, state))
-                m.device_ms = dispatch_dev_ms + (time.perf_counter() - t_resolve) * 1e3 - m.h2d_ms
-                t0 = time.perf_counter()
-                df = finalize_groupby(
-                    q, low.dims, low.la, sums, mins, maxs, sketches, slot_gids=slot_gids
-                )
-                m.finalize_ms = (time.perf_counter() - t0) * 1e3
+                with span(SPAN_DEVICE_FETCH):
+                    sums, mins, maxs, sketches, slot_gids = (
+                        host if host is not None else self._host_state(low.la, state))
             except BaseException as err:
                 m.deadline_exceeded = isinstance(err, DeadlineExceeded)
+                done("deadline" if m.deadline_exceeded else "error", t_fetch)
                 raise
-            finally:
-                m.total_ms = dispatch_ms + (time.perf_counter() - t_resolve) * 1e3
-                self._finish_metrics(m)
-            return df
+            fetch_ms = (time.perf_counter() - t_fetch) * 1e3
+            spent[0] += fetch_ms
+            m.device_ms = dispatch_dev_ms + fetch_ms - m.h2d_ms
 
-        return resolve
+            def finish():
+                t0 = time.perf_counter()
+                outcome = "error"
+                try:
+                    with span(SPAN_FINALIZE):
+                        df = finalize_groupby(
+                            q, low.dims, low.la, sums, mins, maxs, sketches, slot_gids=slot_gids
+                        )
+                    m.finalize_ms = (time.perf_counter() - t0) * 1e3
+                    outcome = "ok"
+                finally:
+                    done(outcome, t0)
+                return df
 
-    def _finish_metrics(self, m: QueryMetrics) -> None:
-        """Publishes a group-by's metrics as `last_metrics`, stamped partial
-        with its coverage when the collector says the answer is."""
+            return finish
+
+        return fetch
+
+    def _finish_metrics(self, m: QueryMetrics, outcome: str = "ok") -> None:
+        """Publishes an execution's metrics as `last_metrics`, stamped
+        partial with its coverage when the collector says the answer is,
+        and into the process metrics registry."""
         m.bytes_resident = self.bytes_resident()
+        m.query_id = m.query_id or current_query_id()
         pc = current_partial()
         if pc is not None and pc.is_partial:
             m.partial = True
             m.coverage = pc.coverage()
             m.rows_seen = pc.rows_seen
         self.last_metrics = m
+        record_query_metrics(m, "partial" if outcome == "ok" and m.partial else outcome)
 
     def _dispatch_tiers(self, q, ds: DataSource, lowering: GroupByLowering, segs,
                         m: QueryMetrics):
@@ -861,17 +1195,22 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         truncated = False
         try:
             for i, seg in enumerate(segs):
-                if checkpoint_partial("engine.progressive_loop"):
-                    truncated = True
-                    break
-                cols = self._cols_for_segment(seg, ds, lowering.columns, m)
-                fire("device_dispatch")
-                state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
-                m.dispatch_count += 1
-                rows_seen += seg.num_rows
-                if pc is not None:
-                    pc.add_seen(1, seg.num_rows)
-                yield refinement(state), {
+                # the lock is held for a segment's work and its refinement,
+                # never across a yield (the consumer may be a slow client)
+                with self._exec_lock:
+                    if checkpoint_partial("engine.progressive_loop"):
+                        truncated = True
+                        break
+                    cols = self._cols_for_segment(seg, ds, lowering.columns, m)
+                    fire("device_dispatch")
+                    with span(SPAN_SEGMENT_DISPATCH, segment=i), prof.device_timer(self.device):
+                        state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
+                    m.dispatch_count += 1
+                    rows_seen += seg.num_rows
+                    if pc is not None:
+                        pc.add_seen(1, seg.num_rows)
+                    df = refinement(state)
+                yield df, {
                     "sequence": seq,
                     "coverage": rows_seen / rows_total if rows_total else 1.0,
                     "rows_seen": rows_seen,
@@ -885,9 +1224,11 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             if state is None or truncated:
                 # an empty scope, or a deadline cut the scan short: the
                 # merged state so far is the final answer, with its coverage
-                if state is None:
-                    state = empty_partials(la, G, self.device)
-                yield refinement(state), {
+                with self._exec_lock:
+                    if state is None:
+                        state = empty_partials(la, G, self.device)
+                    df = refinement(state)
+                yield df, {
                     "sequence": seq,
                     "coverage": rows_seen / rows_total if rows_total else (
                         None if truncated else 1.0),
@@ -948,16 +1289,18 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             # past its deadline a scan answers with the rows fetched so far
             if checkpoint_partial("engine.scan_loop"):
                 break
-            cols = self._cols_for_segment(seg, ds, need, m)
-            for name, fn in vcol_fns.items():
-                cols[name] = as_tensor(fn(cols), cols["__valid"])
-            mask = row_mask(cols, q.intervals, filter_fn)
-            idx = torch.nonzero(mask).squeeze(1)
-            if remaining is not None:
-                idx = idx[:remaining]
-            elif presort and idx.numel() > top:
-                idx = _top_candidates(cols, q.order_by[0], idx, top)
-            fetched, nbytes = _fetch_rows(cols, fetch_list, idx)
+            with self._exec_lock:  # a segment's device work and its copy back
+                cols = self._cols_for_segment(seg, ds, need, m)
+                for name, fn in vcol_fns.items():
+                    cols[name] = as_tensor(fn(cols), cols["__valid"])
+                mask = row_mask(cols, q.intervals, filter_fn)
+                idx = torch.nonzero(mask).squeeze(1)
+                if remaining is not None:
+                    idx = idx[:remaining]
+                elif presort and idx.numel() > top:
+                    idx = _top_candidates(cols, q.order_by[0], idx, top)
+                fetched, nbytes = _fetch_rows(cols, fetch_list, idx)
+                del cols, mask, idx
             m.d2h_bytes += nbytes
             data = {}
             for c in fetch_list:
@@ -1018,9 +1361,11 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         if ds.time_column and (q.intervals or "__time" in names):
             names.append(ds.time_column)
         names = list(dict.fromkeys(n for n in names if n != "__time"))
-        # one count per code and a last bin that takes masked and null rows
-        counts = {dim: torch.zeros(ds.dicts[dim].cardinality + 1, dtype=torch.int64,
-                                   device=self.device) for dim in live_dims}
+        # one count per code and a last bin that takes masked and null rows;
+        # the device work takes the execution lock a segment at a time
+        with self._exec_lock:
+            counts = {dim: torch.zeros(ds.dicts[dim].cardinality + 1, dtype=torch.int64,
+                                       device=self.device) for dim in live_dims}
         pc = current_partial()
         if pc is not None:
             pc.begin_pass()
@@ -1029,20 +1374,24 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             # the counts over the segments seen so far are a sound answer
             if checkpoint_partial("engine.search_loop"):
                 break
-            cols = self._cols_for_segment(seg, ds, names, m)
-            # a timeless table has no time to scope
-            mask = row_mask(cols, q.intervals if ds.time_column else (), filter_fn)
-            for dim in live_dims:
-                c = counts[dim]
-                codes = cols[dim].to(torch.int64)
-                slot = torch.where(mask & (codes >= 0), codes, c.numel() - 1)
-                c += torch.bincount(slot, minlength=c.numel())
+            with self._exec_lock:
+                cols = self._cols_for_segment(seg, ds, names, m)
+                # a timeless table has no time to scope
+                mask = row_mask(cols, q.intervals if ds.time_column else (), filter_fn)
+                for dim in live_dims:
+                    c = counts[dim]
+                    codes = cols[dim].to(torch.int64)
+                    slot = torch.where(mask & (codes >= 0), codes, c.numel() - 1)
+                    c += torch.bincount(slot, minlength=c.numel())
+                del cols, mask
             m.segments += 1
             m.rows_scanned += seg.num_rows
             m.dispatch_count += 1
             if pc is not None:
                 pc.add_seen(1, seg.num_rows)
-        host = {dim: c.cpu().numpy() for dim, c in counts.items()}
+        with self._exec_lock:
+            host = {dim: c.cpu().numpy() for dim, c in counts.items()}
+            del counts
         rows = []
         for dim in live_dims:
             if len(rows) >= q.limit:

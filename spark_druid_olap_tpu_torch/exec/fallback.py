@@ -27,11 +27,15 @@ Deadlines (`resilience.py`): the decode checkpoints per segment
 input), the per-group loop every 256 groups (`fallback.group_loop`) and the
 interpreter before each plan node (`fallback.interp`).  The collector's
 scope spans every table a plan decodes; `_run_fallback` owns the pass.
+Inside `drain_memo` the uncorrelated subqueries' answers are kept, so a
+drain rerun takes the ones its first run finished instead of computing
+them again.
 """
 
 
 from __future__ import annotations
 
+import contextlib
 import contextvars
 import dataclasses
 import itertools
@@ -46,6 +50,7 @@ from ..models import aggregations as A
 from ..plan import expr as E
 from ..plan import logical as L
 from ..plan.expr import Expr, compile_host_expr, map_expr
+from ..obs import SPAN_FALLBACK_DECODE, span
 from ..resilience import checkpoint, checkpoint_partial, current_partial, fire, injector, site_armed
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
 
@@ -116,6 +121,13 @@ def evict_decoded_segments(uids) -> None:
 
 
 def decoded_frame(ds: DataSource, columns=None) -> pd.DataFrame:
+    """The real rows of a datasource as a pandas frame, under a
+    `fallback_decode` span (`_decoded_frame`)."""
+    with span(SPAN_FALLBACK_DECODE, datasource=ds.name):
+        return _decoded_frame(ds, columns)
+
+
+def _decoded_frame(ds: DataSource, columns=None) -> pd.DataFrame:
     """The real rows of a datasource as a pandas frame: dimensions decoded
     to values (None for null), float metrics as float64, time as int64 ms.
     `columns` restricts the decode to the names a plan references.
@@ -560,6 +572,53 @@ def _scalar_value(v):
     return v
 
 
+# id(subquery node) -> (the node, its answer, the collector's scope and
+# seen counts its computation added), while `drain_memo` is open
+_subquery_memo = contextvars.ContextVar("fallback_subquery_memo", default=None)
+
+
+@contextlib.contextmanager
+def drain_memo():
+    """A scope whose fallback runs keep their uncorrelated subqueries'
+    answers: `api._run_fallback` holds one around a query's first run and
+    its drain, so the drain takes every subquery the first run finished
+    (the same rows from the decode cache, so the same answer) instead of
+    computing it again."""
+    token = _subquery_memo.set({})
+    try:
+        yield
+    finally:
+        _subquery_memo.reset(token)
+
+
+def _collector_counts(pc):
+    if pc is None:
+        return (0, 0, 0, 0)
+    return (pc.segments_total, pc.rows_total, pc.segments_seen, pc.rows_seen)
+
+
+def _subquery_frame(e, catalog) -> pd.DataFrame:
+    """An uncorrelated subquery's answer; inside `drain_memo` a finished
+    one is kept and served again, its collector counts added again, so a
+    drain's accounting is a full rerun's.  One computed after the collector
+    triggered (over a truncated decode) is not kept."""
+    memo = _subquery_memo.get()
+    pc = current_partial()
+    hit = memo.get(id(e)) if memo is not None else None
+    if hit is not None and hit[0] is e:
+        segments, rows, segments_seen, rows_seen = hit[2]
+        if pc is not None:
+            pc.add_scope(segments, rows)
+            pc.add_seen(segments_seen, rows_seen)
+        return hit[1]
+    before = _collector_counts(pc)
+    inner = execute_fallback(_inner_plan(e), catalog)
+    if memo is not None and (pc is None or not pc.triggered):
+        counts = tuple(a - b for a, b in zip(_collector_counts(pc), before))
+        memo[id(e)] = (e, inner, counts)
+    return inner
+
+
 def _resolve_subqueries(e, catalog, bool_ctx: bool = False):
     """Replace uncorrelated subquery nodes with values.
 
@@ -573,7 +632,7 @@ def _resolve_subqueries(e, catalog, bool_ctx: bool = False):
     ):
         return e  # correlated: `_materialize_correlated` evaluates it per row
     if isinstance(e, E.InSubquery):
-        inner = execute_fallback(_inner_plan(e), catalog)
+        inner = _subquery_frame(e, catalog)
         _one_column(inner, "IN")
         col = inner.iloc[:, 0]
         base = E.InExpr(_resolve_subqueries(e.operand, catalog), tuple(pd.unique(col.dropna())))
@@ -581,9 +640,9 @@ def _resolve_subqueries(e, catalog, bool_ctx: bool = False):
             return E.BoolOp("or", (base, _SubqNull(None)))
         return base
     if isinstance(e, E.ExistsSubquery):
-        return E.Literal(bool(len(execute_fallback(_inner_plan(e), catalog))))
+        return E.Literal(bool(len(_subquery_frame(e, catalog))))
     if isinstance(e, E.ScalarSubquery):
-        inner = execute_fallback(_inner_plan(e), catalog)
+        inner = _subquery_frame(e, catalog)
         _one_column(inner, "scalar")
         if len(inner) > 1:
             raise ValueError(f"scalar subquery produced {len(inner)} rows")

@@ -418,20 +418,30 @@ class GroupByLowering:
     def row_arrays(
         self,
         cols: Dict[str, torch.Tensor],
+        mask: Optional[torch.Tensor] = None,
+        gid: Optional[torch.Tensor] = None,
     ):
         """cols: name -> row-aligned device tensor (must include "__valid",
         and "__time" when the query touches time).  Returns the kernel ABI
-        tuple for ops/groupby.py."""
+        tuple for ops/groupby.py.
+
+        `mask` and `gid` take a row pipeline computed already: in a fused
+        batch (`serve.fusion.shared_row_plan`) members whose virtual
+        columns, filter and intervals (for the mask) or virtual columns,
+        dimensions, granularity and intervals (for the group ids) are
+        identical compute them once a segment."""
         cols = dict(cols)
         self.add_virtual(cols)
-        mask = self.row_mask(cols)
+        if mask is None:
+            mask = self.row_mask(cols)
         la = self.la
-        gid, _ = combine_group_ids(
-            [d.codes_fn(cols) for d in self.dims],
-            [d.cardinality for d in self.dims],
-        )
         if gid is None:
-            gid = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
+            gid, _ = combine_group_ids(
+                [d.codes_fn(cols) for d in self.dims],
+                [d.cardinality for d in self.dims],
+            )
+            if gid is None:
+                gid = torch.zeros(mask.shape, dtype=torch.int32, device=mask.device)
         R = mask.shape[0]
         dev = mask.device
         maskf = mask.to(torch.float32)

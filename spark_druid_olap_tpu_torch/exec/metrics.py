@@ -46,6 +46,16 @@ device breaker's state when the query was routed and `error_class` the
 class of the exception it failed on.  `partial` marks a deadline-bounded
 best-effort answer, `coverage` the share of in-scope rows it saw (None when
 the denominator is unknown, as for a stream) and `rows_seen` their count.
+
+Serving and observability (`serve/`, `obs/`): `query_id` is the id of the
+query's trace (Druid's `context.queryId` on the server, generated
+otherwise); `receipt` the query's cost receipt (`obs/prof.build_receipt`:
+device, host and transfer ms from its span tree, the cache outcomes, and
+whether its device time came from CUDA events on a sampled query);
+`fused_batch` the size of the fused micro-batch it rode (0: none); `lane`
+the admission lane the server routed it through; `result_cache` "hit" when
+the result cache answered it with no device work, "miss" when the cache
+was asked and missed, "" when it was not asked.
 """
 
 from __future__ import annotations
@@ -96,6 +106,11 @@ class QueryMetrics:
     partial: bool = False
     coverage: Optional[float] = None
     rows_seen: int = 0
+    query_id: str = ""
+    receipt: Optional[dict] = None
+    fused_batch: int = 0
+    lane: str = ""
+    result_cache: str = ""
 
     @property
     def tier_declines(self) -> List[str]:
@@ -128,6 +143,8 @@ class QueryMetrics:
             f"finalize={self.finalize_ms:.2f}ms) "
             f"rows/s={self.rows_per_sec:,.0f} resident={self.bytes_resident}B"
             + (f" retries={self.retries}" if self.retries else "")
+            + (f" fused_batch={self.fused_batch}" if self.fused_batch else "")
+            + (f" result_cache={self.result_cache}" if self.result_cache else "")
             + (" DEGRADED" if self.degraded else "")
             + (" DEADLINE-EXCEEDED" if self.deadline_exceeded else "")
             + (

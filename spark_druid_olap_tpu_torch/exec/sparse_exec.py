@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..obs import SPAN_SPARSE_DISPATCH, prof, span
 from ..ops import sparse_groupby as sg
 from ..ops.groupby import SCATTER_CUTOVER
 from ..plan.cost import estimate_selectivity
@@ -91,14 +92,15 @@ class SparseExecMixin:
                 break
             cols = self._cols_for_segment(seg, ds, lowering.columns, m)
             fire("device_dispatch")
-            gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
-            st = sg.sparse_partial_aggregate(
-                gid, mask, sv, mmv, mmm,
-                num_groups=G, num_min=len(la.min_names), num_max=len(la.max_names),
-                slots=slots, inner_strategy=self._kernel_class(),
-                row_capacity=row_capacity,
-            )
-            state = st if state is None else sg.merge_sparse_states(state, st, G)
+            with span(SPAN_SPARSE_DISPATCH, segment=seg.uid), prof.device_timer(self.device):
+                gid, mask, sv, mmv, mmm = lowering.row_arrays(cols)
+                st = sg.sparse_partial_aggregate(
+                    gid, mask, sv, mmv, mmm,
+                    num_groups=G, num_min=len(la.min_names), num_max=len(la.max_names),
+                    slots=slots, inner_strategy=self._kernel_class(),
+                    row_capacity=row_capacity,
+                )
+                state = st if state is None else sg.merge_sparse_states(state, st, G)
             m.dispatch_count += 1
             if pc is not None:
                 pc.add_seen(1, seg.num_rows)

@@ -49,6 +49,7 @@ import torch
 
 from ..catalog.segment import NULL_ID, ROW_PAD, DataSource
 from ..models import query as Q
+from ..obs import SPAN_DEVICE_FETCH, SPAN_FINALIZE, SPAN_STREAM_CHUNK, prof, span
 from ..resilience import checkpoint_partial, current_partial, fire
 from .engine import Engine, fold_partials, shard_partials
 from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
@@ -195,17 +196,21 @@ class StreamExecutor:
                     break
                 fire("device_dispatch")
                 t0 = time.perf_counter()
-                cols = self._prep(dev, base, nrows, ds.time_column, chunk_rows)
-                # the fold is in chunk order, whatever the copy order
-                state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
+                with span(SPAN_STREAM_CHUNK, chunk=self.stats.chunks), \
+                        prof.device_timer(eng.device):
+                    cols = self._prep(dev, base, nrows, ds.time_column, chunk_rows)
+                    # the fold is in chunk order, whatever the copy order
+                    state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
                 self.stats.chunks += 1
                 self.stats.dispatch_s += time.perf_counter() - t0
                 if pc is not None:
                     pc.add_seen(1, nrows)
         if state is None:  # empty stream
             state = empty_partials(la, G, eng.device)
-        sums, mins, maxs, sketches, _ = eng._host_state(la, state)
-        return finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
+        with span(SPAN_DEVICE_FETCH):
+            sums, mins, maxs, sketches, _ = eng._host_state(la, state)
+        with span(SPAN_FINALIZE):
+            return finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
 
     # -- chunk plumbing ------------------------------------------------------
 

@@ -1,0 +1,59 @@
+"""Observability: per-query span traces, process metrics, cost receipts.
+
+  * `obs.trace`: an injectable-clock span tracer producing a per-query span
+    tree under a Druid `query_id`, a bounded trace ring served over HTTP,
+    and the slow-query log;
+  * `obs.registry`: the process-wide Prometheus metrics registry
+    (counters, gauges, histograms) the engine, the resilience layer, the
+    serving core and the HTTP server publish into, rendered at
+    `GET /status/metrics`;
+  * `obs.prof`: sampled device timing with CUDA events, per-query cost
+    receipts and the workload profiler behind `GET /status/profile`;
+  * `obs.otlp`: the emit-only OTLP/JSON export of finished traces.
+
+Instrumented code imports from here (`from ..obs import span, SPAN_...`).
+"""
+
+from .registry import (  # noqa: F401
+    MetricsRegistry,
+    bounded_label,
+    get_registry,
+    record_partial,
+    record_query_metrics,
+)
+from . import prof  # noqa: F401
+from .trace import (  # noqa: F401
+    SPAN_ADAPTIVE_PROBE,
+    SPAN_ADMISSION,
+    SPAN_ARENA_BUILD,
+    SPAN_DEGRADED,
+    SPAN_DEVICE_FETCH,
+    SPAN_EXECUTE,
+    SPAN_FALLBACK,
+    SPAN_FALLBACK_DECODE,
+    SPAN_FINALIZE,
+    SPAN_FUSED_BATCH,
+    SPAN_H2D,
+    SPAN_LANE,
+    SPAN_LOWER,
+    SPAN_NAMES,
+    SPAN_PARTIAL,
+    SPAN_PLAN,
+    SPAN_QUERY,
+    SPAN_RETRY,
+    SPAN_SEGMENT_DISPATCH,
+    SPAN_SPARSE_DISPATCH,
+    SPAN_STREAM_CHUNK,
+    SPAN_STREAM_FLUSH,
+    QueryTrace,
+    Span,
+    TraceRing,
+    Tracer,
+    current_query_id,
+    current_span,
+    current_trace,
+    default_tracer,
+    new_query_id,
+    span,
+    span_event,
+)

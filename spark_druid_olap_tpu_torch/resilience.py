@@ -38,9 +38,17 @@ time:
     tests or the `SDOL_FAULTS` environment variable, so every degradation
     path above runs on the CPU and on the card alike.
 
+  * **Admission control.**  The server gates every query on a bounded slot
+    pool with a queue-wait timeout (`AdmissionController`), after the
+    slot pool of its priority lane (`serve/lanes.py`); a full pool answers
+    503 with a Retry-After estimated from observed load.
+
 Every decision is observable on `QueryMetrics`: `retries`, `degraded`,
 `deadline_exceeded`, `circuit_state`, `error_class`, `partial` and
-`coverage`; `ResilienceState.health()` reports the breakers and counters.
+`coverage`; `ResilienceState.health()` reports the breakers, the admission
+and lane pools and the counters, and the process metrics registry
+(`obs/registry.py`) counts retries, breaker transitions, degradations,
+deadlines and admission decisions under the JAX package's series names.
 """
 
 from __future__ import annotations
@@ -54,9 +62,16 @@ from typing import Callable, Dict, Optional
 
 import torch
 
+from .obs import SPAN_RETRY, get_registry, span
 from .utils.log import get_logger
 
 log = get_logger("resilience")
+
+
+def _count(name: str, help_text: str, labels=(), **labelvals) -> None:
+    """Publish one event into the process metrics registry (obs/)."""
+    fam = get_registry().counter(name, help_text, labels=labels)
+    (fam.labels(**labelvals) if labels else fam).inc()
 
 
 # ---------------------------------------------------------------------------
@@ -132,6 +147,15 @@ def _sticky_cuda_error(exc: BaseException) -> bool:
         return True
     msg = str(exc).lower()
     return any(s in msg for s in _STICKY_CUDA_ERRORS)
+
+
+def device_fault(exc: BaseException) -> bool:
+    """A fault of the card or the code that runs on it, not of one query: a
+    kernel that does not build, launch or capture (`KernelError`) or a
+    sticky CUDA error.  A fused batch raises it to every member instead of
+    rerouting them."""
+    return isinstance(exc, KernelError) or (
+        isinstance(exc, RuntimeError) and _sticky_cuda_error(exc))
 
 
 def classify_error(exc: BaseException) -> str:
@@ -618,7 +642,13 @@ def run_device_attempts(engine, run_once, evict, what: str = "device"):
     attempts = max(1, int(engine._retry_attempts))
     for i in range(attempts):
         try:
-            out = run_once()
+            if i == 0:
+                out = run_once()
+            else:
+                # a re-attempt gets its own span: the trace shows where the
+                # query's latency went when a transient failure struck
+                with span(SPAN_RETRY, attempt=i, what=what):
+                    out = run_once()
             if engine.breaker is not None:
                 engine.breaker.record_success()
             if i and engine.last_metrics is not None:
@@ -707,6 +737,13 @@ class CircuitBreaker:
                 self._probe_started_at = now
             return True
 
+    def release_probe(self) -> None:
+        """Hand back a probe lease without a verdict: the admitted query
+        never touched the device (the result cache answered it), so the
+        next caller may probe at once."""
+        with self._lock:
+            self._probe_started_at = None
+
     def record_success(self) -> None:
         with self._lock:
             self._successes_total += 1
@@ -714,6 +751,8 @@ class CircuitBreaker:
             self._probe_started_at = None
             if self._state != "closed":
                 log.info("%s circuit breaker closing (probe succeeded)", self.backend)
+                _count("sdol_breaker_transitions_total", "circuit breaker state transitions",
+                       labels=("to", "backend"), to="closed", backend=self.backend)
             self._state = "closed"
 
     def record_failure(self) -> None:
@@ -726,6 +765,8 @@ class CircuitBreaker:
                 self._opened_at = self._clock()
                 self._trips += 1
                 log.warning("%s circuit breaker re-opened (probe failed)", self.backend)
+                _count("sdol_breaker_transitions_total", "circuit breaker state transitions",
+                       labels=("to", "backend"), to="open", backend=self.backend)
             elif self._state == "closed" and self._consecutive_failures >= self.failure_threshold:
                 self._state = "open"
                 self._opened_at = self._clock()
@@ -735,6 +776,8 @@ class CircuitBreaker:
                     "traffic routes around it for %.0fms",
                     self.backend, self._consecutive_failures, self.cooldown_ms,
                 )
+                _count("sdol_breaker_transitions_total", "circuit breaker state transitions",
+                       labels=("to", "backend"), to="open", backend=self.backend)
 
     def to_dict(self) -> dict:
         with self._lock:
@@ -751,6 +794,132 @@ class CircuitBreaker:
 
 
 # ---------------------------------------------------------------------------
+# Admission control
+# ---------------------------------------------------------------------------
+
+
+class AdmissionController:
+    """Bounded slot pool with a queue-wait timeout.
+
+    `acquire()` waits up to `queue_timeout_ms` for a slot and returns False
+    on timeout: the server answers 503 with Retry-After instead of piling
+    handler threads behind a busy card.  The Retry-After hint comes from
+    observed load: the callers queued now (`queue_depth`) and an EWMA of
+    how long admitted queries hold a slot, so an idle pool that rejected a
+    burst says 1 s and a pool behind a slow card scales with its backlog."""
+
+    # weight of the newest hold-time observation: enough to follow a phase
+    # change within a few queries, not enough for one outlier to swing it
+    _HOLD_EWMA_ALPHA = 0.2
+
+    def __init__(self, max_concurrent: int = 8, queue_timeout_ms: float = 2000.0,
+                 clock: Callable[[], float] = time.monotonic, lane: str = ""):
+        self.max_concurrent = max(1, int(max_concurrent))
+        self.queue_timeout_ms = float(queue_timeout_ms)
+        # set when this pool is one priority lane of the serving core
+        # (serve/lanes.py): decisions also publish under `sdol_lane_*`
+        self.lane = lane
+        self._clock = clock
+        self._sem = threading.BoundedSemaphore(self.max_concurrent)
+        self._lock = threading.Lock()
+        self._in_use = 0
+        self.admitted_total = 0
+        self.rejected_total = 0
+        self._waiting = 0  # callers blocked in acquire()
+        self._hold_ewma_ms: Optional[float] = None
+        self._held_since: Dict[int, float] = {}  # thread id -> acquire time
+
+    def resize(self, max_concurrent: int, queue_timeout_ms: float) -> None:
+        """`SET max_concurrent_queries` (or a lane's slots): a new slot count
+        takes effect at once while no slot is held, else raises."""
+        n = max(1, int(max_concurrent))
+        with self._lock:
+            self.queue_timeout_ms = float(queue_timeout_ms)
+            if n == self.max_concurrent:
+                return
+            if self._in_use or self._waiting:
+                raise RuntimeError(
+                    f"cannot resize an admission pool with {self._in_use} slots held "
+                    f"and {self._waiting} callers waiting")
+            self.max_concurrent = n
+            self._sem = threading.BoundedSemaphore(n)
+
+    def acquire(self) -> bool:
+        with self._lock:
+            self._waiting += 1
+            sem = self._sem
+        ok = sem.acquire(timeout=self.queue_timeout_ms / 1e3)
+        with self._lock:
+            self._waiting -= 1
+            if ok:
+                self._in_use += 1
+                self.admitted_total += 1
+                self._held_since[threading.get_ident()] = self._clock()
+            else:
+                self.rejected_total += 1
+        _count("sdol_admission_decisions_total",
+               "admission-pool outcomes (admitted vs 503-rejected)",
+               labels=("outcome",), outcome="admitted" if ok else "rejected")
+        if self.lane:
+            _count("sdol_lane_decisions_total", "per-lane admission outcomes (serve/lanes.py)",
+                   labels=("lane", "outcome"), lane=self.lane,
+                   outcome="admitted" if ok else "rejected")
+        return ok
+
+    def release(self) -> None:
+        with self._lock:
+            self._in_use -= 1
+            t0 = self._held_since.pop(threading.get_ident(), None)
+            if t0 is not None:
+                held_ms = (self._clock() - t0) * 1e3
+                a = self._HOLD_EWMA_ALPHA
+                self._hold_ewma_ms = (
+                    held_ms if self._hold_ewma_ms is None
+                    else (1 - a) * self._hold_ewma_ms + a * held_ms)
+            sem = self._sem
+        sem.release()
+
+    @property
+    def in_use(self) -> int:
+        with self._lock:
+            return self._in_use
+
+    @property
+    def queue_depth(self) -> int:
+        """Callers blocked waiting for a slot."""
+        with self._lock:
+            return self._waiting
+
+    def retry_after_s(self) -> int:
+        """Client backoff hint: the queue ahead of a returning client
+        drains in `depth / slots` hold intervals, plus its own tenure.
+        Before any hold time is observed the configured queue wait stands
+        in.  Clamped to [1 s, 60 s]."""
+        with self._lock:
+            depth = self._waiting
+            hold_ms = (self._hold_ewma_ms if self._hold_ewma_ms is not None
+                       else self.queue_timeout_ms)
+        eta_ms = hold_ms * (depth / self.max_concurrent + 1.0)
+        return max(1, min(60, int(-(-eta_ms // 1000))))
+
+    def to_dict(self) -> dict:
+        with self._lock:
+            hold = self._hold_ewma_ms
+            return {
+                "slots_in_use": self._in_use,
+                "slots_total": self.max_concurrent,
+                "queue_depth": self._waiting,
+                "hold_ewma_ms": round(hold, 3) if hold is not None else None,
+                "queue_timeout_ms": self.queue_timeout_ms,
+                "admitted_total": self.admitted_total,
+                "rejected_total": self.rejected_total,
+            }
+
+
+# numeric breaker states of the `sdol_breaker_state` gauge
+BREAKER_STATE_CODES = {"closed": 0, "half_open": 1, "open": 2}
+
+# ---------------------------------------------------------------------------
 # Per-context state
 # ---------------------------------------------------------------------------
 
@@ -760,8 +929,8 @@ BREAKER_BACKENDS = ("device", "fallback")
 
 
 class ResilienceState:
-    """One context's breakers and failure counters.  The fault injector is
-    process-wide."""
+    """One context's breakers, its admission and lane pools and its failure
+    counters.  The fault injector is process-wide."""
 
     def __init__(self, config):
         self.breakers: Dict[str, CircuitBreaker] = {
@@ -772,9 +941,69 @@ class ResilienceState:
             )
             for b in BREAKER_BACKENDS
         }
+        self.admission = AdmissionController(
+            max_concurrent=config.max_concurrent_queries,
+            queue_timeout_ms=config.admission_queue_timeout_ms,
+        )
+        # priority lanes (serve/lanes.py): separate slot pools, so cheap
+        # dashboard queries never queue behind large scans
+        self.lanes: Dict[str, AdmissionController] = {
+            "interactive": AdmissionController(
+                max_concurrent=config.lane_interactive_slots,
+                queue_timeout_ms=config.admission_queue_timeout_ms,
+                lane="interactive",
+            ),
+            "heavy": AdmissionController(
+                max_concurrent=config.lane_heavy_slots,
+                queue_timeout_ms=config.admission_queue_timeout_ms,
+                lane="heavy",
+            ),
+        }
         self._lock = threading.Lock()
         self.degraded_total = 0
         self.deadline_exceeded_total = 0
+        self.server_errors_total = 0
+        self.last_error: Optional[Dict] = None
+        # live gauges, read by callback at scrape time so the acquire and
+        # release paths pay nothing; a new context takes over the series
+        reg = get_registry()
+        reg.gauge(
+            "sdol_admission_queue_depth",
+            "callers currently blocked waiting for an admission slot",
+        ).set_function(lambda a=self.admission: a.queue_depth)
+        reg.gauge(
+            "sdol_admission_slots_in_use",
+            "admission slots currently held by executing queries",
+        ).set_function(lambda a=self.admission: a.in_use)
+        state_gauge = reg.gauge(
+            "sdol_breaker_state",
+            "circuit breaker state by backend (0=closed 1=half_open 2=open)",
+            labels=("backend",),
+        )
+        for b, cb in self.breakers.items():
+            state_gauge.labels(backend=b).set_function(
+                lambda cb=cb: BREAKER_STATE_CODES.get(cb.state, -1))
+        lane_depth = reg.gauge(
+            "sdol_lane_queue_depth",
+            "callers blocked waiting for a lane slot, by lane",
+            labels=("lane",),
+        )
+        lane_in_use = reg.gauge(
+            "sdol_lane_slots_in_use",
+            "lane slots currently held by executing queries, by lane",
+            labels=("lane",),
+        )
+        for name, pool in self.lanes.items():
+            lane_depth.labels(lane=name).set_function(lambda p=pool: p.queue_depth)
+            lane_in_use.labels(lane=name).set_function(lambda p=pool: p.in_use)
+
+    def configure(self, config) -> None:
+        """`SET` on an admission or lane flag: the pools take the new sizes
+        and queue timeout (a pool with held slots cannot resize)."""
+        t = config.admission_queue_timeout_ms
+        self.admission.resize(config.max_concurrent_queries, t)
+        self.lanes["interactive"].resize(config.lane_interactive_slots, t)
+        self.lanes["heavy"].resize(config.lane_heavy_slots, t)
 
     @property
     def breaker(self) -> CircuitBreaker:
@@ -783,24 +1012,45 @@ class ResilienceState:
     def breaker_for(self, backend: str) -> CircuitBreaker:
         return self.breakers.get(backend, self.breakers["device"])
 
+    def lane(self, name: str) -> AdmissionController:
+        """The slot pool of one priority lane; an unknown name gates on
+        the interactive lane."""
+        return self.lanes.get(name, self.lanes["interactive"])
+
     def note_degraded(self) -> None:
         with self._lock:
             self.degraded_total += 1
+        _count("sdol_degraded_total", "queries answered DEGRADED on the host fallback")
 
     def note_deadline_exceeded(self) -> None:
         with self._lock:
             self.deadline_exceeded_total += 1
+        _count("sdol_deadline_exceeded_total", "queries cancelled on their wall-clock deadline")
+
+    def note_server_error(self, exc: BaseException) -> None:
+        with self._lock:
+            self.server_errors_total += 1
+            self.last_error = {
+                "errorClass": type(exc).__name__,
+                "classification": classify_error(exc),
+            }
+        _count("sdol_server_errors_total",
+               "unhandled query failures surfaced as structured 500s")
 
     def health(self) -> dict:
         with self._lock:
             counters = {
                 "degraded_total": self.degraded_total,
                 "deadline_exceeded_total": self.deadline_exceeded_total,
+                "server_errors_total": self.server_errors_total,
+                "last_error": self.last_error,
             }
         return {
             "healthy": True,
             "breaker": self.breaker.to_dict(),
             "breakers": {b: cb.to_dict() for b, cb in self.breakers.items()},
+            "admission": self.admission.to_dict(),
+            "lanes": {name: pool.to_dict() for name, pool in self.lanes.items()},
             "counters": counters,
             "faults": injector().state(),
         }

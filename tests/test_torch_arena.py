@@ -327,7 +327,8 @@ def test_grouping_sets_dispatch_every_set_before_fetching(datasources):
     events = []
     eng = ctx.engine
     dispatch, fetch = eng._dispatch_groupby_once, eng._host_state
-    eng._dispatch_groupby_once = lambda q, ds: (events.append("dispatch"), dispatch(q, ds))[1]
+    eng._dispatch_groupby_once = lambda q, ds, scope: (
+        events.append("dispatch"), dispatch(q, ds, scope))[1]
     eng._host_state = lambda la, st: (events.append("fetch"), fetch(la, st))[1]
     sql = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
            "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")

@@ -241,7 +241,8 @@ def test_rho_on_card_matches_cpu(card):
 
 def test_sketch_queries_on_card_match_cpu(card):
     tables = ssb.gen_tables(0.01, seed=11)
-    ctxs = {d: TPUOlapContext(device=d) for d in ("cpu", card)}
+    ctxs = {d: TPUOlapContext(SessionConfig(result_cache_entries=0), device=d)
+            for d in ("cpu", card)}
     for ctx in ctxs.values():
         ssb.register(ctx, tables=tables, rows_per_segment=16384)
     frame = ssb.flat_frame(tables)
@@ -311,7 +312,7 @@ def test_high_cardinality_tiers_on_card_match_cpu(card):
     names = ["q2_1", "q2_2", "q2_3", "q3_1", "q3_2", "q3_3", "q3_4", "q4_2", "q4_3"]
     exact = {}
     for where in ("cpu", card):
-        ctx = TPUOlapContext(device=where)
+        ctx = TPUOlapContext(SessionConfig(result_cache_entries=0), device=where)
         ctx.register_datasource(keyed, star_schema=ssb.KEYED_STAR_SCHEMA)
         ctx.sql("SET count_distinct_mode = 'exact'")
         exact[where] = ctx
@@ -422,7 +423,7 @@ def test_assisted_q18_class_on_card_equals_assist_off(card):
     query with the assist off (keys and counts exact, sums within rtol
     2e-5), and a second run is bit-identical."""
     tables = tpch.gen_tables(0.05)
-    ctx = TPUOlapContext(device=card)
+    ctx = TPUOlapContext(SessionConfig(result_cache_entries=0), device=card)
     tpch.register(ctx, tables=tables, rows_per_segment=1 << 16)
     sql = """
         SELECT l_orderkey, sum(l_quantity) AS total FROM lineitem
@@ -748,3 +749,68 @@ def test_kernel_errors_are_never_retried(card, monkeypatch):
         eng.execute(q, ds)
     assert eng.last_metrics.retries == 0 and eng.breaker.state == "closed"
     assert eng.breaker.to_dict()["failures_total"] == 0
+
+
+def _sync_count(fn):
+    """(fn's result, the synchronizing CUDA calls it made: torch's sync
+    debug mode)."""
+    import warnings
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    return out, sum("called a synchronizing" in str(w.message) for w in caught)
+
+
+def test_warm_fused_batch_is_one_replay_and_one_fetch(card):
+    """A fused micro-batch over resident segments: its first batch runs the
+    fused eager loop, its second captures one CUDA graph, the third is one
+    replay and one host fetch.  Its launches equal the sum of its members'
+    in-scope segments, and every member's frame is bit-identical to its
+    serial run on the card."""
+    from spark_druid_olap_tpu_torch.exec.engine import segments_in_scope
+
+    tables = ssb.gen_tables(0.01, seed=11)
+    ctx = TPUOlapContext(SessionConfig(result_cache_entries=0), device=card)
+    ssb.register(ctx, tables=tables, rows_per_segment=16384)
+    ds = ctx.catalog.get("lineorder")
+    qs = [ssb.NATIVE_QUERIES[n] for n in ("q1_1", "q1_2", "q4_1")] + [
+        ssb.TIMESERIES_QUERY, ssb.TOPN_QUERY]
+    serial = [ctx.engine.execute(q, ds) for q in qs]
+    for _ in range(2):
+        ctx.engine.execute_fused(qs, ds)
+    segs = 0
+    for q in qs:
+        inner, _ = ctx.engine._groupby_family(q, ds)
+        segs += len(segments_in_scope(inner, ds))
+    before = cg.LAUNCHES
+    out, syncs = _sync_count(lambda: ctx.engine.execute_fused(qs, ds))
+    m = out[0][2]
+    assert m.dispatch_count == 1 and m.graph_replays == 1, m.describe()
+    assert syncs == 1 and cg.LAUNCHES - before == segs
+    for (df, _, _), want in zip(out, serial):
+        pd.testing.assert_frame_equal(df, want, check_exact=True)
+
+
+def test_sampled_receipts_carry_cuda_event_time(card):
+    """At the default sample rate a query adds no sync; a sampled query's
+    receipt holds the CUDA-event time of its dispatches."""
+    from spark_druid_olap_tpu_torch.obs import prof
+
+    tables = ssb.gen_tables(0.01, seed=11)
+    ctx = TPUOlapContext(SessionConfig(result_cache_entries=0), device=card)
+    ssb.register(ctx, tables=tables, rows_per_segment=16384)
+    for _ in range(3):
+        ctx.sql(ssb.QUERIES["q4_1"])
+    before = prof.SYNCS
+    rc = ctx.sql(ssb.QUERIES["q4_1"]).attrs["receipt"]
+    assert prof.SYNCS == before and rc["device_timing"] == "span" and rc["syncs"] == 0
+    ctx.sql("SET prof_sample_rate = 1")
+    rc = ctx.sql(ssb.QUERIES["q4_1"]).attrs["receipt"]
+    assert rc["sampled"] and rc["device_timing"] == "cuda_events"
+    assert rc["device_ms"] > 0 and rc["syncs"] >= 1 and prof.SYNCS > before
+

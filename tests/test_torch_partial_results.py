@@ -73,7 +73,7 @@ def ssb_ctxs():
     tables = jssb.gen_tables(scale=0.01, seed=11)
     ref = sd.TPUOlapContext(dataclasses.replace(reference_config(), result_cache_entries=0))
     jssb.register(ref, tables=tables, rows_per_segment=4096)
-    port = TPUOlapContext(device="cpu")
+    port = TPUOlapContext(SessionConfig(result_cache_entries=0), device="cpu")
     tssb.register(port, tables=tables, rows_per_segment=4096)
     return ref, port
 
@@ -332,7 +332,7 @@ def _tpch_ctxs(tables):
     """Fresh contexts (fresh segment uids: a cold decode cache)."""
     ref = sd.TPUOlapContext(dataclasses.replace(reference_config(), result_cache_entries=0))
     jtpch.register(ref, tables=tables, rows_per_segment=4096)
-    port = TPUOlapContext(SessionConfig(), device="cpu")
+    port = TPUOlapContext(SessionConfig(result_cache_entries=0), device="cpu")
     ttpch.register(port, tables=tables, rows_per_segment=4096)
     return ref, port
 
@@ -356,6 +356,30 @@ def test_fallback_drain_rerun_matches_reference(tpch_tables, skip):
         assert got.attrs.get(key) == want.attrs.get(key), key
     assert_frames_match(got, want, RTOL)
     assert port.resilience.breaker_for("fallback").state == "closed"
+
+
+IN_SUBQUERY = ("SELECT l_returnflag, sum(l_quantity) AS q FROM lineitem WHERE l_orderkey IN "
+               "(SELECT l_orderkey FROM lineitem GROUP BY l_orderkey "
+               "HAVING sum(l_quantity) > 150.0) GROUP BY l_returnflag ORDER BY l_returnflag")
+
+
+@pytest.mark.parametrize("skip,plans", [(1, 2), (4, 1)], ids=["in_subquery", "after_it"])
+def test_fallback_drain_takes_answered_subqueries(tpch_tables, monkeypatch, skip, plans):
+    """A drain takes the subqueries its first run answered (`drain_memo`),
+    their collector counts added again: the reference's partial attrs and
+    frame, which reruns them; an expiry inside the subquery computes it
+    again in the drain."""
+    from spark_druid_olap_tpu_torch.exec import fallback as tfallback
+
+    ref, port = _tpch_ctxs(tpch_tables)
+    built = []
+    inner_plan = tfallback._inner_plan
+    monkeypatch.setattr(tfallback, "_inner_plan",
+                        lambda *a: (built.append(1), inner_plan(*a))[1])
+    _deadline_at("fallback.interp", skip, skip)
+    want, got = ref.sql(IN_SUBQUERY), port.sql(IN_SUBQUERY)
+    _assert_same_partial(got, want)
+    assert got.attrs["partial"] and len(built) == plans
 
 
 # -- progressive execution -------------------------------------------------------------

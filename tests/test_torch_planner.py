@@ -28,6 +28,7 @@ from spark_druid_olap_tpu.sql.parser import parse_sql as jparse
 from spark_druid_olap_tpu.workloads import ssb as jssb
 from spark_druid_olap_tpu.workloads import tpch as jtpch
 from spark_druid_olap_tpu_torch.api import TPUOlapContext
+from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.exec import engine as tengine
 from spark_druid_olap_tpu_torch.ops import cuda_groupby as tcuda
 from spark_druid_olap_tpu_torch.ops import groupby as tgroupby
@@ -128,7 +129,9 @@ def ctxs():
     st = jssb.gen_tables(scale=0.01, seed=11)
     tt = jtpch.gen_tables(scale=0.01)
     ref = register_all(sd.TPUOlapContext(), jssb, jtpch, st, tt)
-    port = register_all(TPUOlapContext(device="cpu"), tssb, ttpch, st, tt)
+    # the result cache off: the tests below read each execution's metrics
+    port = register_all(TPUOlapContext(SessionConfig(result_cache_entries=0), device="cpu"),
+                        tssb, ttpch, st, tt)
     return ref, port
 
 

@@ -67,7 +67,7 @@ def _configs(**flags):
     routes (`reference_config`), its result cache off, no retry backoff."""
     ref = dataclasses.replace(reference_config(), result_cache_entries=0, retry_backoff_ms=0.0,
                               **flags)
-    port = SessionConfig(retry_backoff_ms=0.0, **flags)
+    port = SessionConfig(result_cache_entries=0, retry_backoff_ms=0.0, **flags)
     return ref, port
 
 

@@ -266,8 +266,9 @@ GAPS = {
         "LIMIT 5",
         "device",
     ),
-    # a flag of a tier the port does not have yet (the result cache)
-    "unported_flag": ("SET result_cache_entries = 64", KeyError),
+    # a flag of a tier the port does not have yet (the result cache's
+    # delta reuse, which needs ingest's delta segments)
+    "unported_flag": ("SET result_cache_delta_reuse = true", KeyError),
 }
 
 
