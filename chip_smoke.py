@@ -94,7 +94,7 @@ Phases, one JSON line each:
    7, and a CUBE of revenue alone, whose sets are all captured) run with
    the arena on (SET arena_execution = true): a first run (eager), a
    second (the capture) and a third (a replay), bit-identical and held
-   against the oracle; then 3 warm runs each way, on and off interleaved,
+   against the oracle; then 2 warm runs each way, on and off interleaved,
    every frame bit-identical to the replay's; then one profiled run each
    way.  The run fails where a pass neither replayed (one dispatch over
    every in-scope segment) nor recorded an "arena:" decline, or where the
@@ -164,7 +164,7 @@ Phases, one JSON line each:
    wall, overshoot past the timeout and coverage reported, the run failing
    only where the overshoot passes the p50 (no checkpoint reached).  (c)
    Every query of phase 9 with no deadline and one armed that never
-   expires (60 s), 2 pairs interleaved after a first armed run: frames
+   expires (60 s), one pair after a first armed run: frames
    bit-identical, p50 each way and their ratio.  (d) Retries: q4.1 with its
    graph warm and `device_dispatch` armed once, an injected fault and a CUDA
    out-of-memory error: one retry, not degraded, the clean frame's bits,
@@ -241,7 +241,37 @@ Phases, one JSON line each:
    sync (`obs.prof.SYNCS`, and a traced query's sync sites equal an
    untraced one's); the p50 with a trace open and without.
 
-Every kernel launch of phases 4 to 14, CUDA graph replays included
+15. ingest and storage (run after phase 14, on its resident SSB SF10
+   context, before phase 13 frees it).  (a) 16 batches of 4096 flat-fact
+   rows (values from the existing dictionaries, `ssb.fact_rows`) and one
+   full 65536-row delta appended to lineorder; after each, q1.1, q4.1
+   (the kernel), q2.1 (the adaptive tier) and the TopN run natively, as
+   SQL and natively again (on the new segment set: the eager loop, the
+   capture, a replay), every frame held against the float64 oracle over
+   the base rows and every appended row; the append ack p50/p95, the
+   append-to-visible p50, captures and replays per version, launches per
+   run, and the arena's churn.  (b) One row with a c_city no dictionary
+   holds: every segment remaps; the remap ms, the re-upload bytes and ms,
+   the first and warm q4.1; no device column, pinned copy or graph of a
+   retired uid is left.  (c) Compaction into 2^19-row segments: its ms,
+   the answers against the oracle, the retired uids gone, the warm q4.1
+   against phase 4's.  (d) q4.1 cached (the result cache on), then three
+   appends of 5000 rows: each refresh launches the kernel over the new
+   delta alone, against the oracle; beside it the full first run, and a
+   cached HLL and theta query refreshed alike, equal to its full run.  (e)
+   The server's ingest route: an append visible to the next served query,
+   503 with Retry-After on a held ingest slot.  (f) A fresh SSB SF1
+   context (`ssb.register_streamed`) with `storage_dir` in a temporary
+   directory: append, flush, append (a WAL tail), a new context on the
+   directory (snapshot mmap and WAL replay) serving bit-identical frames;
+   the recover ms, the first cold query from disk-backed columns, the warm
+   p50; `save_table`, `load_table` and the SQL load of the saved
+   directory.  (g) `__sys`: sampler ticks around four queries, then
+   `SELECT sum(delta) FROM __sys` on the card.  Phase 3 checks the delta
+   segments' padded row counts (1024, 4096, 5120, 65536) at the headline
+   (G, Ms, Mn, Mx).
+
+Every kernel launch of phases 4 to 15, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -263,6 +293,7 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -272,6 +303,7 @@ import numpy as np
 import torch
 
 from spark_druid_olap_tpu_torch import resilience
+from spark_druid_olap_tpu_torch.catalog.persist import is_disk_backed
 from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.api import (
     TPUOlapContext,
@@ -346,6 +378,10 @@ MAIN_SHAPES.append((524288, 36, 1, 1, 0))
 STREAM_SHAPE = (1 << 21, 169, 2, 0, 1)
 MAIN_SHAPES.append(STREAM_SHAPE)
 HEADLINE = (524288, 208, 4, 1, 1)
+# the padded row counts of phase 15's delta segments, at the headline's
+# (G, Ms, Mn, Mx): a one-row delta, a 4096-row batch, 5000 rows (5120: no
+# whole number of the kernel's 2048- or 4096-row chunks), a full delta
+DELTA_ROWS = (1024, 4096, 5120, 65536)
 # Timeseries over a time-sorted segment: one or two months per segment
 SKEWED = (524288, 84, 2, 0, 0)
 # the sparse tier's pass over 4096 slots, on rows sorted by slot, at each
@@ -588,6 +624,20 @@ def kernel_phase(device):
             **time_kernel(args, R, G, Ms, Mn, Mx, device),
         })
         emit("kernel_timing", **timed[-1])
+    for i, R in enumerate(DELTA_ROWS):
+        shape = (R,) + HEADLINE[1:]
+        args, max_abs, max_rel = check_kernel_shape(*shape, device, seed=200 + i)
+        G, Ms, Mn, Mx = HEADLINE[1:]
+        kw = dict(num_groups=G, num_min=Mn, num_max=Mx)
+        rows.append({
+            "shape": shape, "delta": True, "max_abs_err": max_abs, "max_rel_err": max_rel,
+            "geometry": cuda_groupby.geometry(R, G, Ms, Mn + Mx)._asdict(),
+            "call_ms": cuda_ms(lambda: cuda_groupby.cuda_partial_aggregate(*args, **kw)),
+            "plain_ms": cuda_ms(lambda: cuda_groupby.plain_partial_aggregate(*args, G, Mn, Mx),
+                                reps=3),
+            "bound_ms": bound(*shape)[0],
+        })
+        emit("kernel_delta_check", **rows[-1])
     emit("kernel_check", cases=rows, rtol=KERNEL_RTOL, bit_stable=True)
     return rows, timed
 
@@ -716,7 +766,10 @@ def _top_k_check(name, got, want, value):
     return float((np.abs(g - w) / np.abs(w)).max()) if len(w) else 0.0
 
 
-def check_against_oracle(name, got, frame, workload):
+def check_against_oracle(name, got, frame, workload, want=None):
+    """`got` against the float64 oracle of query `name` over `frame` (or
+    `want`, an oracle computed elsewhere); returns the largest relative
+    error."""
     if workload == "tpch":
         want = oracle(workload, name, frame)
         if isinstance(want, float):
@@ -728,7 +781,8 @@ def check_against_oracle(name, got, frame, workload):
             return _top_k_check(name, got[list(want.columns)], want, "revenue")
         keys = [c for c in want.columns if want[c].dtype.kind not in "f"]
         return _frame_check(name, got[list(want.columns)], want, keys)
-    want = oracle(workload, name, frame)
+    if want is None:
+        want = oracle(workload, name, frame)
     if isinstance(want, float):
         g = float(got["revenue"].iloc[0])
         if len(got) != 1 or abs(g - want) > ORACLE_RTOL * abs(want):
@@ -1458,7 +1512,7 @@ def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
 
 # -- phase 9: one dispatch per query, batch dispatch, the transfer pipeline -----
 
-ARENA_WARM = 3  # warm runs each way, arena on and off interleaved
+ARENA_WARM = 2  # warm runs each way, arena on and off interleaved (3 until phase 15 came)
 # a CUBE without sketches: every set's pass is captured (G 1 to 288, Ms 2)
 CUBE_REVENUE = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
                 "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")
@@ -2249,7 +2303,7 @@ def run_native_surface(ctxs, workloads, warm=NATIVE_WARM):
 
 # -- phase 12: resilience ----------------------------------------------------------
 
-RESILIENCE_PAIRS = 2  # interleaved pairs, deadline off and armed, per arena query
+RESILIENCE_PAIRS = 1  # pairs, deadline off and armed, per arena query (2 until phase 15 came)
 ARMED_TIMEOUT_MS = 60_000  # armed, never expiring
 SWEEP_QUERIES = {  # the columns each query's oracle reads (every oracle reads the last two)
     "q4_1": ("c_region", "s_region", "p_mfgr", "d_year", "c_nation", "lo_revenue",
@@ -3200,6 +3254,474 @@ def run_serving(ctxs, workloads):
             "admission": admission, "obs": obs}
 
 
+# -- phase 15: ingest and storage --------------------------------------------------
+
+APPEND_BATCHES = 16  # batches appended to lineorder, a query round after each
+APPEND_ROWS = 4096
+FULL_DELTA_ROWS = 1 << 16  # delta_seal_rows: one full delta segment
+ODD_DELTA_ROWS = 5000  # pads to 5120 rows: no whole number of the kernel's chunks
+NEW_CITY = "CANADA  NEW"  # sorts before "CANADA0": every later city's code shifts
+INGEST_QUERIES = ("q1_1", "q4_1", "q2_1", "topn")
+TOPN_SQL = ("SELECT c_nation, sum(lo_revenue) AS revenue FROM lineorder "
+            "JOIN customer ON lo_custkey = c_custkey "
+            "GROUP BY c_nation ORDER BY revenue DESC LIMIT 10")
+DELTA_REFRESHES = 3  # append + cached refresh cycles of phase 15 (d)
+# phase 15 (d)'s sketch query: HLL and theta states merged on the host by
+# the delta refresh (the CUBE set (c_region)'s kernel shape)
+DELTA_SKETCH_SQL = ("SELECT c_region, approx_count_distinct(lo_custkey) AS u_hll, "
+                    "approx_count_distinct_ds_theta(lo_custkey) AS u_theta, "
+                    "sum(lo_revenue) AS revenue FROM lineorder GROUP BY c_region")
+RESTART_SCALE = 1.0  # the restart's own SSB context: a depth cut (PERF.md §4)
+RESTART_WARM = 3
+SYS_TICKS = 3
+
+
+def _merge_oracle(name, a, b):
+    """The oracle over two row sets from the oracles over each: grouped
+    sums add by key (float64); the TopN keeps every nation, descending."""
+    import pandas as pd
+
+    if isinstance(a, float):
+        return a + b
+    value = "profit" if "profit" in a.columns else "revenue"
+    keys = [c for c in a.columns if c != value]
+    both = pd.concat([a.assign(**{k: a[k].astype(object) for k in keys if k != "d_year"}),
+                      b.assign(**{k: b[k].astype(object) for k in keys if k != "d_year"})])
+    out = both.groupby(keys, sort=True)[value].sum().reset_index()
+    if name == "topn":
+        out = out.sort_values(value, ascending=False, kind="stable").reset_index(drop=True)
+    return out
+
+
+class IngestOracle:
+    """The float64 oracles of phase 15's queries over the base rows (phase
+    4's, cached) and every batch appended since."""
+
+    def __init__(self, base_frame):
+        self.want = {n: oracle("ssb", n, base_frame) for n in INGEST_QUERIES}
+
+    def add(self, batch):
+        f = ssb.rows_frame(batch)
+        for n in INGEST_QUERIES:
+            self.want[n] = _merge_oracle(n, self.want[n], ssb.oracle(f, n))
+
+
+def _ingest_run(ctx, name, side):
+    """One run of a phase-15 query, native (`Engine.execute` on the live
+    snapshot) or SQL: (frame, ms, metrics, launches)."""
+    before = cuda_groupby.LAUNCHES
+    t0 = time.perf_counter()
+    if side == "native":
+        q = ssb.TOPN_QUERY if name == "topn" else ssb.NATIVE_QUERIES[name]
+        df = ctx.engine.execute(q, ctx.catalog.get("lineorder"))
+    else:
+        df = ctx.sql(TOPN_SQL if name == "topn" else ssb.QUERIES[name])
+    ms = (time.perf_counter() - t0) * 1e3
+    return df, ms, ctx.last_metrics, cuda_groupby.LAUNCHES - before
+
+
+def ingest_round(ctx, orc, tag, runs=("native", "sql", "native")):
+    """Each phase-15 query run `runs` (on a new segment set: the eager
+    loop, the capture, a replay), every frame held against the oracle over
+    every appended row, the SQL frame bit-identical to the native one.
+    Returns per-query rows."""
+    import pandas as pd
+
+    out = {}
+    for name in INGEST_QUERIES:
+        frames, row = {}, {"ms": [], "captures": 0, "replays": 0, "launches": []}
+        for side in runs:
+            df, ms, m, launches = _ingest_run(ctx, name, side)
+            check_against_oracle(name, df, None, "ssb", want=orc.want[name])
+            if side in frames and side == "native":
+                pd.testing.assert_frame_equal(df, frames[side], check_exact=True)
+            frames.setdefault(side, df)
+            if m.strategy == "cuda" and launches == 0:
+                raise AssertionError(f"{tag} {name}: {m.describe()} but the kernel never launched")
+            row["ms"].append(ms)
+            row["launches"].append(launches)
+            row["captures"] += m.graph_captures
+            row["replays"] += m.graph_replays
+            row["strategy"], row["segments"] = m.strategy, m.segments
+        if name != "topn" and "sql" in frames:
+            cols = [c for c in frames["sql"].columns if c in frames["native"].columns]
+            pd.testing.assert_frame_equal(frames["sql"][cols].reset_index(drop=True),
+                                          frames["native"][cols].reset_index(drop=True),
+                                          check_exact=True)
+        out[name] = row
+    return out
+
+
+def check_retired(ctx, retired, what):
+    """No device column, pinned host copy, arena program or warm mark of a
+    retired uid is left: no graph can replay over a freed column."""
+    eng = ctx.engine
+    left = {
+        "resident": len(retired & eng.resident_uids()),
+        "pinned": sum(1 for k in eng._pipeline._pinned if k[0] in retired),
+        "arena_columns": sum(1 for ck in eng._arena._by_col if ck[0] in retired),
+        "programs": sum(1 for key in eng._arena.keys() if set(key[-1]) & retired),
+    }
+    if any(left.values()):
+        raise AssertionError(f"{what}: retired uids left behind {left}")
+    return left
+
+
+def _arena_lineorder(ctx):
+    """(lineorder programs in the arena cache, those the newest delta is
+    not in: no later query can reach them)."""
+    ds = ctx.catalog.get("lineorder")
+    uids = {s.uid for s in ds.segments}
+    newest = max((s.seq, s.uid) for s in ds.delta_segments())[1] if ds.delta_segments() else None
+    mine = [k for k in ctx.engine._arena.keys() if set(k[-1]) & uids]
+    return len(mine), sum(1 for k in mine if newest is not None and newest not in k[-1])
+
+
+def ingest_appends(ctx, tables, orc):
+    """(a): APPEND_BATCHES batches of APPEND_ROWS fact rows, values from the
+    existing dictionaries, then one full delta; a query round after each."""
+    acks, visible, versions = [], [], []
+    captured = 0
+    arena_before = len(ctx.engine._arena.keys())
+    sizes = [APPEND_ROWS] * APPEND_BATCHES + [FULL_DELTA_ROWS]
+    for i, n in enumerate(sizes):
+        batch = ssb.fact_rows(tables, n, seed=100 + i)
+        t0 = time.perf_counter()
+        ack = ctx.append_rows("lineorder", batch)
+        acks.append((time.perf_counter() - t0) * 1e3)
+        if ack["appended"] != n:
+            raise AssertionError(f"append {i}: {ack}")
+        orc.add(batch)
+        rows = ingest_round(ctx, orc, f"append {i}")
+        visible.append(acks[-1] + rows["q1_1"]["ms"][0])
+        version = ack["datasourceVersion"]
+        versions.append({"version": version, **{
+            n: {"captures": r["captures"], "replays": r["replays"], "launches": r["launches"],
+                "ms": r["ms"], "strategy": r["strategy"], "segments": r["segments"]}
+            for n, r in rows.items()}})
+        captured += sum(r["captures"] for r in rows.values())
+        emit("ingest_version", batch_rows=n, **versions[-1])
+    lineorder_programs, unreachable = _arena_lineorder(ctx)
+    row = {
+        "batches": len(sizes),
+        "ack_p50_ms": statistics.median(acks),
+        "ack_p95_ms": float(np.percentile(acks, 95)),
+        "append_to_visible_p50_ms": statistics.median(visible),
+        "captures": captured,
+        "replays": sum(v[n]["replays"] for v in versions for n in INGEST_QUERIES),
+        "arena_programs_before": arena_before,
+        "arena_programs_after": len(ctx.engine._arena.keys()),
+        "arena_capacity": ctx.engine._arena.entries,
+        "lineorder_programs": lineorder_programs,
+        "unreachable_programs": unreachable,
+        "delta_rows": ctx.catalog.get("lineorder").delta_rows,
+        "delta_segments": len(ctx.catalog.get("lineorder").delta_segments()),
+    }
+    emit("ingest_appends", **row)
+    return row
+
+
+def ingest_remap(ctx, tables, orc):
+    """(b): one row with a c_city no dictionary holds: every segment
+    remaps (new uids); the retired ones leave the card; the first and warm
+    runs after it re-upload and hold the oracle."""
+    ds = ctx.catalog.get("lineorder")
+    old = {s.uid for s in ds.segments}
+    batch = ssb.fact_rows(tables, 1, seed=300, new_city=NEW_CITY)
+    t0 = time.perf_counter()
+    ctx.append_rows("lineorder", batch)
+    remap_ms = (time.perf_counter() - t0) * 1e3
+    if ctx.catalog.get("lineorder").dicts["c_city"].code_of(NEW_CITY) is None:
+        raise AssertionError("the new city is not in the extended dictionary")
+    orc.add(batch)
+    left = check_retired(ctx, old, "remap")
+    first = _ingest_run(ctx, "q4_1", "native")
+    check_against_oracle("q4_1", first[0], None, "ssb", want=orc.want["q4_1"])
+    rows = ingest_round(ctx, orc, "remap")
+    warm = [_ingest_run(ctx, "q4_1", "native") for _ in range(WARM_RUNS)]
+    for df, _, _, _ in warm:
+        check_against_oracle("q4_1", df, None, "ssb", want=orc.want["q4_1"])
+    check_retired(ctx, old, "remap, after the runs")
+    row = {"remap_ms": remap_ms, "segments_remapped": len(old),
+           "reupload_bytes": first[2].h2d_bytes, "reupload_ms": first[2].h2d_ms,
+           "first_ms": first[1], "warm_p50_ms": statistics.median(w[1] for w in warm),
+           "warm_replays": sum(w[2].graph_replays for w in warm), "left": left,
+           "round_captures": sum(r["captures"] for r in rows.values())}
+    emit("ingest_remap", **row)
+    return row
+
+
+def ingest_compact(ctx, orc, phase4_p50):
+    """(c): the deltas (and the undersized historical tail) rolled into
+    2^19-row segments; the answers hold the oracle and the retired uids
+    leave the card; then the warm p50 of q4.1 against phase 4's."""
+    ds = ctx.catalog.get("lineorder")
+    retired = {s.uid for s in ds.delta_segments()}
+    t0 = time.perf_counter()
+    summary = ctx.compact("lineorder")
+    compact_ms = (time.perf_counter() - t0) * 1e3
+    after = ctx.catalog.get("lineorder")
+    old_tail = {s.uid for s in ds.historical_segments()} - {s.uid for s in after.segments}
+    retired |= old_tail
+    if after.delta_rows or after.num_rows != ds.num_rows:
+        raise AssertionError(f"compaction changed the row set: {summary}")
+    left = check_retired(ctx, retired, "compaction")
+    ingest_round(ctx, orc, "compaction")
+    warm = [_ingest_run(ctx, "q4_1", "native") for _ in range(WARM_RUNS)]
+    for df, _, _, _ in warm:
+        check_against_oracle("q4_1", df, None, "ssb", want=orc.want["q4_1"])
+    row = {"compact_ms": compact_ms, **summary, "absorbed_tail_segments": len(old_tail),
+           "segments_after": len(after.segments), "left": left,
+           "q4_1_warm_p50_ms": statistics.median(w[1] for w in warm),
+           "q4_1_phase4_p50_ms": phase4_p50}
+    emit("ingest_compaction", **row)
+    return row
+
+
+def ingest_delta_reuse(ctx, tables, orc):
+    """(d): q4.1 cached (result cache on), then DELTA_REFRESHES cycles of an
+    append of ODD_DELTA_ROWS rows and the cached query again: a delta
+    refresh whose launches are the new delta's alone, against the oracle;
+    beside it the same query in full on the new segment set (the eager
+    loop a refresh saves).  Beside it DELTA_SKETCH_SQL, cached and
+    refreshed after each append: its HLL and theta states merge on the
+    host, and the refreshed frame equals the same query run in full (the
+    sketch columns exactly)."""
+    sql = ssb.QUERIES["q4_1"]
+    ctx.sql("SET result_cache_entries = 64")
+    try:
+        for text in (sql, DELTA_SKETCH_SQL):
+            ctx.sql(text)
+            if ctx.last_metrics.result_cache != "miss":
+                raise AssertionError(f"{text}: the first run did not execute")
+        refresh_ms, full_ms = [], []
+        for i in range(DELTA_REFRESHES):
+            batch = ssb.fact_rows(tables, ODD_DELTA_ROWS, seed=400 + i)
+            ctx.append_rows("lineorder", batch)
+            orc.add(batch)
+            ds = ctx.catalog.get("lineorder")
+            in_scope = len(segments_in_scope(ssb.NATIVE_QUERIES["q4_1"], ds))
+            before = cuda_groupby.LAUNCHES
+            t0 = time.perf_counter()
+            df = ctx.sql(sql)
+            refresh_ms.append((time.perf_counter() - t0) * 1e3)
+            m = ctx.last_metrics
+            launches = cuda_groupby.LAUNCHES - before
+            on_card = ctx.engine.device.type == "cuda"
+            if m.strategy != "result-cache-delta" or m.segments != 1 or launches != on_card:
+                raise AssertionError(f"delta refresh {i}: {launches} launches, {m.describe()}")
+            check_against_oracle("q4_1", df, None, "ssb", want=orc.want["q4_1"])
+            full, ms, fm, flaunch = _ingest_run(ctx, "q4_1", "native")
+            if on_card and flaunch != in_scope:
+                raise AssertionError(f"full run {i}: {flaunch} launches over {in_scope} segments")
+            check_against_oracle("q4_1", full, None, "ssb", want=orc.want["q4_1"])
+            full_ms.append(ms)
+            sketch = ctx.sql(DELTA_SKETCH_SQL)
+            if ctx.last_metrics.strategy != "result-cache-delta":
+                raise AssertionError(f"sketch refresh {i}: {ctx.last_metrics.describe()}")
+            _same_sketch_frame(sketch, ctx.execute_rewrite(ctx.plan_sql(DELTA_SKETCH_SQL),
+                                                           use_result_cache=False))
+        stats = ctx.serve.result_cache.to_dict()
+    finally:
+        ctx.sql("SET result_cache_entries = 0")
+    row = {"refresh_p50_ms": statistics.median(refresh_ms), "refresh_ms": refresh_ms,
+           "full_first_run_p50_ms": statistics.median(full_ms), "full_ms": full_ms,
+           "launches_per_refresh": 1, "delta_rows": ODD_DELTA_ROWS, "cache": stats}
+    emit("ingest_delta_reuse", **row)
+    return row
+
+
+def _same_sketch_frame(got, want):
+    """A delta-refreshed DELTA_SKETCH_SQL frame against the full run's: the
+    keys and the sketch estimates equal, the revenue within KERNEL_RTOL
+    (the kernel folds the rows in another order)."""
+    got, want = (f.sort_values("c_region").reset_index(drop=True) for f in (got, want))
+    if list(got.columns) != list(want.columns) or len(got) != len(want):
+        raise AssertionError(f"sketch refresh: frame {list(got.columns)} x {len(got)}")
+    for c in ("c_region", "u_hll", "u_theta"):
+        if not np.array_equal(np.asarray(got[c]), np.asarray(want[c])):
+            raise AssertionError(f"sketch refresh: {c} differs from the full run")
+    np.testing.assert_allclose(np.asarray(got["revenue"], np.float64),
+                               np.asarray(want["revenue"], np.float64), rtol=KERNEL_RTOL)
+
+
+def ingest_http(ctx, tables, orc):
+    """(e): the server's ingest route on the card's context: an append as
+    columns, visible to the next served query; a held ingest slot gives
+    503 with Retry-After."""
+    from spark_druid_olap_tpu_torch.server import OlapServer
+
+    batch = ssb.fact_rows(tables, 512, seed=500)
+    body = {"columns": {k: [v.item() if hasattr(v, "item") else v for v in col]
+                        for k, col in batch.items()},
+            "context": {"queryId": "phase15-ingest"}}
+    srv = OlapServer(ctx, port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    try:
+        t0 = time.perf_counter()
+        status, headers, raw = _http(base, "/druid/v2/ingest/lineorder", body)
+        ack_ms = (time.perf_counter() - t0) * 1e3
+        ack = json.loads(raw)
+        if status != 200 or ack["appended"] != 512 or headers.get("X-Druid-Query-Id") != "phase15-ingest":
+            raise AssertionError(f"ingest route: {status} {raw[:200]!r}")
+        orc.add(batch)
+        q = json.loads(json.dumps(ssb.NATIVE_QUERIES["q1_1"].to_druid(), default=str))
+        status, _, raw = _http(base, "/druid/v2", q)
+        got = float(json.loads(raw)[0]["event"]["revenue"])
+        want = orc.want["q1_1"]
+        if status != 200 or abs(got - want) > ORACLE_RTOL * abs(want):
+            raise AssertionError(f"served q1_1 after the append: {got} vs oracle {want}")
+        adm = ctx.resilience.ingest_admission
+        adm.queue_timeout_ms = 50.0
+        held = [adm.acquire() for _ in range(adm.max_concurrent)]
+        try:
+            full = _http(base, "/druid/v2/ingest/lineorder", body)
+        finally:
+            for _ in held:
+                adm.release()
+            adm.queue_timeout_ms = float(ctx.config.ingest_queue_timeout_ms)
+        if full[0] != 503 or int(full[1].get("Retry-After", 0)) < 1:
+            raise AssertionError(f"a held ingest slot: {full[0]} {full[1].get('Retry-After')}")
+        status, _, raw = _http(base, "/status/health")
+        health = json.loads(raw)
+    finally:
+        srv.shutdown()
+    row = {"ack_status": 200, "ack_ms": ack_ms, "served_q1_1": got,
+           "held_slot_status": full[0], "retry_after_s": int(full[1]["Retry-After"]),
+           "ingest_admission": health["ingest_admission"]}
+    emit("ingest_http", **row)
+    return row
+
+
+def _restart_frames(ctx):
+    out = {}
+    for name in INGEST_QUERIES:
+        native = _ingest_run(ctx, name, "native")[0]
+        out[name] = (native, ctx.sql(TOPN_SQL if name == "topn" else ssb.QUERIES[name]))
+    return out
+
+
+def ingest_restart(device, seed=7):
+    """(f): a fresh SSB context at RESTART_SCALE with `storage_dir` in a
+    temporary directory (removed at the end), registered through the
+    sharded ingest (`ssb.register_streamed`): append, flush, append again
+    (a WAL tail); a new context on the directory recovers (snapshot mmap
+    and WAL replay) and serves frames bit-identical to the old one's; the
+    first cold query reads the memory-mapped columns.  Then `load_table`
+    and the SQL load of a saved directory answer alike."""
+    import shutil
+    import tempfile
+
+    import pandas as pd
+
+    root = tempfile.mkdtemp(prefix="sdol-phase15-")
+    cfg = dict(result_cache_entries=0, storage_dir=os.path.join(root, "store"))
+    try:
+        t0 = time.perf_counter()
+        ctx = TPUOlapContext(SessionConfig(**cfg), device=device)
+        tables = ssb.register_streamed(ctx, RESTART_SCALE, seed=seed, chunk_rows=1 << 20,
+                                       workers=STREAM_WORKERS)
+        register_s = time.perf_counter() - t0
+        ctx.append_rows("lineorder", ssb.fact_rows(tables, APPEND_ROWS, seed=600))
+        t0 = time.perf_counter()
+        ctx.storage.flush("lineorder")
+        flush_ms = (time.perf_counter() - t0) * 1e3
+        ctx.append_rows("lineorder", ssb.fact_rows(tables, APPEND_ROWS, seed=601,
+                                                   new_city=NEW_CITY))
+        before = _restart_frames(ctx)
+        ctx.close()
+        del ctx
+        t0 = time.perf_counter()
+        again = TPUOlapContext(SessionConfig(**cfg), device=device)
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        rec = again.storage.last_recovery
+        if rec["replayed_rows"] != APPEND_ROWS:
+            raise AssertionError(f"recovery replayed {rec}")
+        ds = again.catalog.get("lineorder")
+        # the remap at replay reads every historical segment's c_city; the
+        # other columns stay memory-mapped until a query reads them
+        if not any(is_disk_backed(s.metrics["lo_revenue"]) for s in ds.segments):
+            raise AssertionError("the restored columns are not disk-backed")
+        first = _ingest_run(again, "q4_1", "native")
+        after = _restart_frames(again)
+        for name in INGEST_QUERIES:
+            for a, b in zip(after[name], before[name]):
+                pd.testing.assert_frame_equal(a, b, check_exact=True)
+        pd.testing.assert_frame_equal(first[0], before["q4_1"][0], check_exact=True)
+        warm = [_ingest_run(again, "q4_1", "native")[1] for _ in range(RESTART_WARM)]
+        saved = os.path.join(root, "saved")
+        t0 = time.perf_counter()
+        again.save_table("lineorder", saved)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        again.load_table(saved, name="lineorder_loaded")
+        load_ms = (time.perf_counter() - t0) * 1e3
+        status = again.sql(f"CREATE TABLE lineorder_sql USING tpu_olap OPTIONS (path '{saved}')")
+        q = ssb.NATIVE_QUERIES["q4_1"]
+        for name in ("lineorder_loaded", "lineorder_sql"):
+            got = again.engine.execute(dataclasses.replace(q, datasource=name),
+                                       again.catalog.get(name))
+            pd.testing.assert_frame_equal(got, before["q4_1"][0], check_exact=True)
+        again.close()
+        row = {"scale": RESTART_SCALE, "rows": ds.num_rows, "segments": len(ds.segments),
+               "register_streamed_s": register_s, "flush_ms": flush_ms,
+               "recover_ms": recover_ms, "replayed_rows": rec["replayed_rows"],
+               "first_cold_ms": first[1], "first_cold_h2d_bytes": first[2].h2d_bytes,
+               "warm_p50_ms": statistics.median(warm), "save_table_ms": save_ms,
+               "load_table_ms": load_ms, "sql_load": status["status"][0],
+               "bit_identical": True}
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    emit("ingest_restart", **row)
+    return row
+
+
+def ingest_sys(ctx):
+    """(g): SYS_TICKS sampler ticks around a known number of queries, then
+    SQL over `__sys` on the card."""
+    from spark_druid_olap_tpu_torch.obs.telemetry import SYS_TABLE, SysSampler
+
+    sampler = SysSampler(ctx, max_series=ctx.config.sys_sampler_max_series)
+    sampler.sample_once()
+    for _ in range(SYS_TICKS - 1):
+        for name in ("q1_1", "q4_1"):
+            _ingest_run(ctx, name, "native")
+        sampler.sample_once()
+    sql = f"SELECT sum(delta) AS d FROM {SYS_TABLE} WHERE metric = 'sdol_queries_total'"
+    before = cuda_groupby.LAUNCHES
+    t0 = time.perf_counter()
+    df = ctx.sql(sql)
+    ms = (time.perf_counter() - t0) * 1e3
+    want = 2 * (SYS_TICKS - 1)
+    on_card = ctx.engine.device.type == "cuda"
+    if float(df["d"].iloc[0]) != want or (on_card and cuda_groupby.LAUNCHES == before):
+        raise AssertionError(f"__sys: {df} (want {want}), {ctx.last_metrics.describe()}")
+    row = {"ticks": sampler.ticks, "rows": ctx.catalog.get(SYS_TABLE).num_rows,
+           "queries_counted": want, "sql_ms": ms, "strategy": ctx.last_metrics.strategy,
+           "launches": cuda_groupby.LAUNCHES - before, "errors": sampler.errors}
+    emit("ingest_sys", **row)
+    return row
+
+
+def run_ingest(ctxs, workloads, main_rows):
+    """Phase 15 on phase 14's resident SSB SF10 context, then the restart
+    on its own SSB SF1 context."""
+    ctx = ctxs["ssb"]
+    ctx.sql("SET result_cache_entries = 0")
+    ctx.sql("SET fusion_window_ms = 0")
+    tables = workloads["dims"]["ssb"]
+    orc = IngestOracle(workloads["ssb"][1])
+    phase4 = next(r["p50_ms"] for r in main_rows if r["query"] == "q4_1")
+    out = {"appends": ingest_appends(ctx, tables, orc)}
+    out["remap"] = ingest_remap(ctx, tables, orc)
+    out["compaction"] = ingest_compact(ctx, orc, phase4)
+    out["delta_reuse"] = ingest_delta_reuse(ctx, tables, orc)
+    out["http"] = ingest_http(ctx, tables, orc)
+    out["sys"] = ingest_sys(ctx)
+    out["restart"] = ingest_restart(ctx.engine.device)
+    return out
+
+
 # -- phase 13: streaming ---------------------------------------------------------
 
 
@@ -3757,6 +4279,22 @@ def main(argv=None) -> int:
     if serving_launches == 0:
         raise AssertionError("the serving phase never launched the kernel")
 
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the ingest phase's launches
+    ingest = run_ingest(ctxs, workloads, queries)
+    ingest_launches = cuda_groupby.LAUNCHES
+    emit("ingest", seconds=time.perf_counter() - t0, kernel_launches=ingest_launches,
+         ack_p50_ms=ingest["appends"]["ack_p50_ms"], ack_p95_ms=ingest["appends"]["ack_p95_ms"],
+         append_to_visible_p50_ms=ingest["appends"]["append_to_visible_p50_ms"],
+         remap_ms=ingest["remap"]["remap_ms"], compact_ms=ingest["compaction"]["compact_ms"],
+         delta_refresh_p50_ms=ingest["delta_reuse"]["refresh_p50_ms"],
+         full_first_run_p50_ms=ingest["delta_reuse"]["full_first_run_p50_ms"],
+         recover_ms=ingest["restart"]["recover_ms"],
+         restart_first_cold_ms=ingest["restart"]["first_cold_ms"],
+         bytes_resident=resident(), peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if ingest_launches == 0:
+        raise AssertionError("the ingest phase never launched the kernel")
+
     del ctxs, engines, exact, workloads, dims, tctx  # phase 13 needs host memory
     gc.collect()
     torch.cuda.empty_cache()
@@ -3795,7 +4333,8 @@ def main(argv=None) -> int:
         "replaces": "spark_druid_olap_tpu/ops/pallas_groupby.py:65",
         "launches": (launches + sql_launches + sketch_launches + tier_launches
                      + arena_launches + fallback_launches + native_launches
-                     + resilience_launches + serving_launches + stream_launches),
+                     + resilience_launches + serving_launches + ingest_launches
+                     + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
@@ -3805,6 +4344,7 @@ def main(argv=None) -> int:
         "launches_native_surface": native_launches,
         "launches_resilience": resilience_launches,
         "launches_serving": serving_launches,
+        "launches_ingest": ingest_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

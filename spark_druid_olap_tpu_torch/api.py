@@ -67,6 +67,17 @@ micro-batch fusion scheduler (`fusion_window_ms`), then runs the query
 alone, and stores the answer unless a deadline cut it.  An open breaker or
 a deadline drain serves a cached complete answer before it degrades or
 drains.  `OlapServer(ctx)` serves the context over HTTP.
+
+Ingest and storage (`ingest/`, `storage.py`, `catalog/persist.py`):
+`append_rows` publishes delta segments the next query answers from,
+`compact` rolls them into historical segments, and under
+`SessionConfig.storage_dir` every append is journaled (fsync) before it is
+published and the context recovers at construction (snapshots memory-mapped,
+WAL tails replayed).  Retired segment uids leave the engine and the
+fallback's decode cache at once (`_on_segments_dropped`).  `save_table` and
+`load_table` move a datasource through a directory in the JAX package's
+format; `start_sys_sampler` feeds the `__sys` datasource; `close` stops
+the context's threads.
 """
 
 from __future__ import annotations
@@ -168,6 +179,24 @@ class TPUOlapContext:
         from .serve import ServingCore
 
         self.serve = ServingCore(self)
+        # streamed ingest (ingest/): appends publish delta segments, and the
+        # compactor rolls them into historical ones.  Retired segment uids
+        # (a compaction, a dictionary-extension remap) leave the engine's
+        # residency, pinned copies and graphs and the fallback's decode
+        # cache at once (`_on_segments_dropped`)
+        from .ingest import Compactor, IngestManager
+
+        self.ingest = IngestManager(self.catalog, self.config)
+        self.ingest.on_segments_dropped = self._on_segments_dropped
+        self.compactor = Compactor(
+            self.ingest,
+            rows_per_segment=self.config.compaction_rows_per_segment,
+            min_delta_rows=self.config.compaction_min_delta_rows,
+            interval_s=self.config.compaction_interval_s,
+            sys_retention_s=self.config.sys_retention_s,
+        )
+        self.storage = None
+        self.sys_sampler = None
         self.apply_config()
         # SQL text -> (Rewrite, logical plan): a repeated dashboard query
         # pays parse + plan once, and keeps the plan it degrades to.  Keyed
@@ -177,6 +206,25 @@ class TPUOlapContext:
         # CREATE VIEW registry: view name -> defining SELECT text; the parser
         # expands references as derived tables
         self.views: Dict[str, str] = {}
+        # the durable tier (storage.py) under `storage_dir`: the append WAL
+        # and crash-safe snapshots.  Recovery runs now, before the context
+        # is handed out: a restarted process serves the state it had (the
+        # snapshots memory-mapped, the WAL tails replayed) from its first
+        # query.  `storage_dir` is read here only
+        if self.config.storage_dir:
+            from .storage import DurableStorage
+
+            self.storage = DurableStorage(self.config.storage_dir, self.catalog, self.ingest,
+                                          fsync=self.config.storage_fsync)
+            self.ingest.storage = self.storage
+            self.compactor.storage = self.storage
+            self.storage.recover(self.resilience)
+            if self.config.snapshot_flush_s > 0:
+                self.storage.start_flush_sweep(self.config.snapshot_flush_s)
+        # the `__sys` telemetry sampler (obs/telemetry.py), built on first
+        # start; `sys_sampler_s` > 0 starts its thread now
+        if self.config.sys_sampler_s > 0:
+            self.start_sys_sampler()
         # (metrics of the last answer that did not come from the engine's
         # own execution, i.e. a host-fallback query, a result-cache hit or
         # a fused batch's member, and the engine's metrics object then):
@@ -188,8 +236,9 @@ class TPUOlapContext:
         """Hands the session's execution flags to the engine (transfer
         pipeline, arena, retry budget), the breaker flags to the breakers,
         the serving flags to the result cache, the fusion scheduler and the
-        admission and lane pools, and the tracing flags to the tracer;
-        `SET` calls it after every change."""
+        admission, ingest and lane pools, the tracing flags to the tracer,
+        and the ingest and storage flags to the compactor, the WALs and the
+        sweeps; `SET` calls it after every change."""
         cfg = self.config
         self.engine.configure_pipeline(cfg)
         for br in self.resilience.breakers.values():
@@ -201,6 +250,38 @@ class TPUOlapContext:
         self.tracer.sampler.rate = float(cfg.prof_sample_rate)
         self.tracer.ring.capacity = max(1, int(cfg.trace_ring_capacity))
         self.tracer.otlp_path = cfg.otlp_export_path
+        self._apply_ingest_config(cfg)
+
+    def _apply_ingest_config(self, cfg) -> None:
+        """The ingest and storage flags: the compactor's sizes, period and
+        retention, the WALs' fsync, and the flush sweep's and the `__sys`
+        sampler's threads (started, re-timed or stopped).  The ingest
+        manager reads `delta_seal_rows` from the session config at each
+        append; `storage_dir` is read at construction only."""
+        c = self.compactor
+        c.rows_per_segment = int(cfg.compaction_rows_per_segment)
+        c.min_delta_rows = int(cfg.compaction_min_delta_rows)
+        c.interval_s = float(cfg.compaction_interval_s)
+        c.sys_retention_s = float(cfg.sys_retention_s)
+        # a thread starts, re-times or stops only when its own flag changed
+        # (a SET of another flag leaves a sampler started by hand running)
+        threads = (float(cfg.snapshot_flush_s), float(cfg.sys_sampler_s))
+        before, self._thread_flags = getattr(self, "_thread_flags", threads), threads
+        if self.storage is not None:
+            self.storage.set_fsync(cfg.storage_fsync)
+            if threads[0] != before[0]:
+                if threads[0] > 0:
+                    self.storage.start_flush_sweep(threads[0])
+                else:
+                    self.storage.stop_flush_sweep()
+        if self.sys_sampler is not None:
+            self.sys_sampler.max_series = int(cfg.sys_sampler_max_series)
+        if threads[1] != before[1]:
+            if threads[1] > 0:
+                self.start_sys_sampler(threads[1])
+                self.sys_sampler.interval_s = max(0.1, threads[1])
+            else:
+                self.stop_sys_sampler()
 
     def _stamp_metrics(self, m) -> None:
         """Makes `m` the context's last metrics (a fallback run, a cache
@@ -221,6 +302,7 @@ class TPUOlapContext:
         rows_per_segment: int = 1 << 22,
         dicts: Optional[Mapping] = None,
         sort_by: Sequence[str] = (),
+        rollup_granularity: Optional[str] = None,
     ) -> DataSource:
         """Register a datasource from a pandas DataFrame, a dict of numpy
         columns, or a parquet/csv path (catalog/ingest.py).  `dicts` supplies
@@ -228,7 +310,14 @@ class TPUOlapContext:
 
         `sort_by` orders rows by the named columns before segmenting (the
         Druid secondary-partitioning analog): filters on those columns then
-        prune whole segments via zone maps instead of masking rows."""
+        prune whole segments via zone maps instead of masking rows.
+
+        `rollup_granularity` opts the datasource into Druid-style ingest-time
+        rollup: appends pre-aggregate under the declared fixed-period
+        granularity ("second" .. "week"; a time column is required) before
+        they are journaled and published, so count(*) counts rolled rows.
+
+        With a durable tier the snapshot commits before the call returns."""
         from .catalog.ingest import to_columns
 
         cols = to_columns(source)
@@ -275,13 +364,124 @@ class TPUOlapContext:
             rows_per_segment=rows_per_segment,
             dicts=dicts,
         )
+        if rollup_granularity is not None:
+            from .utils.granularity import granularity_period_ms
+
+            if time_column is None:
+                raise ValueError("rollup_granularity requires a time column")
+            if granularity_period_ms(rollup_granularity) is None:
+                raise ValueError(
+                    f"rollup_granularity {rollup_granularity!r} has no fixed period; "
+                    "use second/minute/.../week")
+            ds = dataclasses.replace(ds, rollup_granularity=str(rollup_granularity).lower())
         return self.register_datasource(ds, star_schema)
 
     def register_datasource(self, ds: DataSource, star_schema=None):
-        """Register an already-built DataSource under its own name."""
+        """Register an already-built DataSource (a sharded or streamed build,
+        one loaded from disk) under its own name; with a durable tier its
+        snapshot commits before the call returns."""
         if star_schema is not None and not isinstance(star_schema, StarSchemaInfo):
             star_schema = StarSchemaInfo.from_json(star_schema)
-        return self.catalog.put(ds, star_schema)
+        published = self.catalog.put(ds, star_schema)
+        if self.storage is not None:
+            self.storage.flush(ds.name)
+        return published
+
+    # -- streamed ingest, compaction, persistence ---------------------------
+
+    def append_rows(self, name: str, rows) -> dict:
+        """Append streamed rows (a list of row objects or a mapping of
+        columns) to a registered datasource, inside an `ingest` trace.  The
+        rows are in the next query's answer: they publish as delta
+        segments, whose partials merge with the historical ones on the
+        device.  With a durable tier the batch is journaled and fsync'd
+        before the publish.  Returns the acknowledgement {"appended",
+        "datasourceVersion", "totalRows"}."""
+        with self.tracer.query_trace(query_type="ingest", slow_ms=self.config.slow_query_ms):
+            return self.ingest.append_rows(name, rows)
+
+    def compact(self, name: str) -> dict:
+        """Roll `name`'s delta segments into historical segments of
+        `compaction_rows_per_segment` rows now (the background sweep does it
+        on its period).  The row set and every answer stay the same; the
+        version bumps and the retired uids are evicted."""
+        with self.tracer.query_trace(query_type="compaction", slow_ms=self.config.slow_query_ms):
+            return self.compactor.compact(name)
+
+    def start_compaction(self):
+        """Starts the background compaction sweep (a daemon thread)."""
+        self.compactor.start()
+        return self
+
+    def stop_compaction(self):
+        self.compactor.stop()
+
+    def start_sys_sampler(self, interval_s: Optional[float] = None):
+        """Starts the `__sys` telemetry sampler's thread: every tick appends
+        the metrics registry's readings to the `__sys` datasource
+        (obs/telemetry.py).  `sys_sampler.sample_once()` takes one tick
+        without a thread."""
+        from .obs.telemetry import SysSampler
+
+        if self.sys_sampler is None:
+            self.sys_sampler = SysSampler(
+                self,
+                interval_s=interval_s if interval_s is not None else self.config.sys_sampler_s or 5.0,
+                max_series=self.config.sys_sampler_max_series,
+            )
+        self.sys_sampler.start()
+        return self.sys_sampler
+
+    def stop_sys_sampler(self):
+        if self.sys_sampler is not None:
+            self.sys_sampler.stop()
+
+    def close(self) -> None:
+        """Stops the context's threads (the compaction sweep, the `__sys`
+        sampler, the snapshot flush sweep) and closes its WAL files.  Data
+        stays as published; a durable context loses nothing it
+        acknowledged."""
+        self.stop_compaction()
+        self.stop_sys_sampler()
+        if self.storage is not None:
+            self.storage.close()
+
+    def _on_segments_dropped(self, uids):
+        """The ingest tier retired segment uids: the engine drops their
+        device columns, pinned host copies and graphs, and the fallback
+        its decoded frames."""
+        self.engine.evict_segments(uids)
+        evict_decoded_segments(uids)
+
+    def save_table(self, name: str, directory: str) -> str:
+        """Persist a registered datasource (codes, dictionaries, star
+        schema) to a directory in the JAX package's format; `load_table`
+        or `CREATE TABLE t USING tpu_olap OPTIONS (path '<dir>')` restores
+        it without ingest or encoding."""
+        from .catalog.persist import save_datasource
+
+        ds = self.catalog.get(name)
+        if ds is None:
+            raise KeyError(f"table {name!r} does not exist")
+        return save_datasource(ds, directory, self.catalog.star_schema(name))
+
+    def load_table(self, directory: str, name: Optional[str] = None):
+        """Register a datasource saved by `save_table` (either package's),
+        under `name` or its saved name."""
+        from .catalog.persist import load_datasource
+
+        ds, star = load_datasource(directory, name=name)
+        # drop first: put() keeps an old star when none is given, and a
+        # star-less load over a starred table must not keep it
+        old = self.catalog.get(ds.name)
+        self.catalog.drop(ds.name)
+        if old is not None:
+            evict_decoded_segments(s.uid for s in old.segments)
+            self.engine.evict_segments(s.uid for s in old.segments)
+        published = self.catalog.put(ds, star)
+        if self.storage is not None:
+            self.storage.flush(ds.name)
+        return published
 
     def register_lookup(self, name: str, mapping: Mapping[str, str]):
         """Register a query-time lookup table (Druid lookup extraction):
@@ -295,6 +495,7 @@ class TPUOlapContext:
         self.catalog.drop(name)
         if ds is not None:
             evict_decoded_segments(s.uid for s in ds.segments)
+            self.engine.evict_segments(s.uid for s in ds.segments)
 
     def clear_cache(self):
         """Clear-metadata-cache command: drops the catalog, the device
@@ -518,7 +719,7 @@ class TPUOlapContext:
         if can_degrade and not br.allow():
             # an open circuit must not cost a cached answer: the cache holds
             # complete frames that need no device work
-            hit = self._cached_result(rw, count_miss=False)
+            hit = self._cached_result(rw)
             if hit is not None:
                 return hit
             log.warning("%s circuit open; answering on the host fallback", backend)
@@ -539,7 +740,7 @@ class TPUOlapContext:
                 if pc is not None:
                     # a complete cached answer (an identical query finished
                     # meanwhile) beats any partial one
-                    hit = self._cached_result(rw, count_miss=False)
+                    hit = self._cached_result(rw)
                     if hit is not None:
                         return hit
                     pc.trigger(getattr(err, "site", "") or "deadline")
@@ -605,6 +806,7 @@ class TPUOlapContext:
             m.partial = True
             m.coverage = info["coverage"]
             m.rows_seen = info["rows_seen"]
+            m.delta_rows_seen = info["delta_rows_seen"]
         df.attrs.update(info)
         return df
 
@@ -785,6 +987,7 @@ class TPUOlapContext:
             m.partial = True
             m.coverage = pc.coverage()
             m.rows_seen = pc.rows_seen
+            m.delta_rows_seen = pc.delta_rows_seen
         self._stamp_metrics(m)
         # the host interpreter publishes into the process registry as the
         # engine does
@@ -815,19 +1018,17 @@ class TPUOlapContext:
             repr(self.config),
         )
 
-    def _cached_result(self, rw: Rewrite, rkey=None, count_miss: bool = True):
-        """A result-cache hit for `rw` at its datasource's version, or
-        None.  The serving core stamps the hit's metrics as the context's
-        last."""
+    def _cached_result(self, rw: Rewrite):
+        """A complete result-cache answer for `rw` at its datasource's
+        version, or None (the degraded and partial routes: no miss counted,
+        no delta refresh).  The serving core stamps the hit's metrics as
+        the context's last."""
         if self.config.result_cache_entries <= 0:
             return None
         ds = self.catalog.get(rw.datasource)
         if ds is None:
             return None
-        rkey = rkey or self._result_key(rw, ds)
-        if rkey is None:
-            return None
-        return self.serve.cached_result(rw, ds, rkey, count_miss=count_miss)
+        return self.serve.cached_result(rw, ds, self._result_key(rw, ds))
 
     def _fusable(self, rw: Rewrite, ds) -> bool:
         """May this rewrite ride micro-batch fusion?  GroupBy-family, no
@@ -851,31 +1052,15 @@ class TPUOlapContext:
         rkey = None
         if use_result_cache and self.config.result_cache_entries > 0:
             rkey = self._result_key(rw, ds)
-            hit = self._cached_result(rw, rkey)
-            if hit is not None:
-                return hit
-        fused = (self.serve.fused_execute(rw.query, ds)
-                 if self.serve.fusion.enabled and self._fusable(rw, ds) else None)
-        if fused is not None:
-            df, _state, m = fused
-            self._stamp_metrics(m)
-        elif rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
+        execute = None
+        if rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
             # the engine resolves its own group-by strategy from G: the CUDA
             # kernel at G <= SCATTER_CUTOVER on a card, scatter above
-            df = execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine)
-        else:
-            df = self.engine.execute(rw.query, ds)
-        m = self.last_metrics
-        if rkey is not None and m is not None:
-            m.result_cache = "miss"
-        df = self._post_process(rw, ds, df)
-        if rkey is not None:
-            pc = current_partial()
-            # a deadline-truncated answer never enters the cache: it would
-            # be served back as the exact answer
-            if pc is None or not pc.triggered:
-                self.serve.store_result(rw, ds, rkey, df)
-        return df
+            def execute():
+                return execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine)
+        return self.serve.answer(rw.query, ds, rkey, self._fusable(rw, ds),
+                                 post=lambda df: self._post_process(rw, ds, df),
+                                 execute=execute)
 
     def _execute_exact_distinct(self, spec, use_result_cache: bool = True):
         """Two-phase exact COUNT(DISTINCT): the inner rewrite (grouped by the

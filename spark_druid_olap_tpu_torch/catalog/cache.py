@@ -6,8 +6,11 @@ are immutable by construction (frozen dataclasses holding arrays nobody
 mutates), and `clear()` is the clear-metadata-cache command, which drops
 the lookups too.  Every mutation bumps `version`, which the SQL plan cache
 keys on, so a re-registered table or lookup invalidates cached rewrites.
-Every publish of a datasource also bumps its own version, stamped on the
-DataSource it publishes, which the result cache keys on.
+Every publish of a datasource (a registration, a delta append, a
+dictionary remap, a compaction, a retention drop, a recovery) goes through
+`put` and bumps its own version, stamped on the DataSource it publishes,
+which the result cache keys on.  Versions never go back: a drop keeps the
+count, and recovery from disk raises the floor first (`seed_version`).
 """
 
 from __future__ import annotations
@@ -57,6 +60,14 @@ class MetadataCache:
         """The datasource's publish count (0: never published)."""
         with self._lock:
             return self._ds_versions.get(name, 0)
+
+    def seed_version(self, name: str, version: int) -> None:
+        """Raise the datasource's version floor (never lowers it).  Boot
+        recovery seeds it from the persisted snapshot before republishing,
+        so versions stay monotonic across restarts: an answer cached at a
+        pre-crash version N never meets another segment set stamped N."""
+        with self._lock:
+            self._ds_versions[name] = max(self._ds_versions.get(name, 0), int(version))
 
     def get(self, name: str) -> Optional[DataSource]:
         with self._lock:

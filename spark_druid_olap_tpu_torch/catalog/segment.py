@@ -13,10 +13,13 @@ reads to the device once and keeps them resident.
   * Rows are padded to a multiple of `ROW_PAD` with a validity mask, so
     every kernel sees whole 1024-row blocks.
 
-`build_datasource` encodes raw host columns; `datasource_from_numpy`
-rebuilds a datasource from an already-encoded plain dict of arrays (the
-form another process or the reference package exports), so both scan
-identical segments.
+`build_datasource` encodes raw host columns (`build_datasource_streamed`
+an iterator of chunks); `datasource_from_numpy` rebuilds a datasource from
+an already-encoded plain dict of arrays (the form another process or the
+reference package exports), so both scan identical segments.  Streamed
+appends arrive as `DeltaSegment`s (`ingest/delta.py`); a novel dimension
+value extends a dictionary (`extend_dict`, a monotone LUT) and remaps
+every segment's codes (`remap_segment_codes`, with a fresh uid).
 """
 
 from __future__ import annotations
@@ -245,13 +248,44 @@ class Segment:
 
 
 @dataclasses.dataclass(frozen=True)
+class DeltaSegment(Segment):
+    """An append-only delta shard: rows that arrived through streamed ingest
+    (`ingest/delta.py`) and are not yet compacted into historical segments.
+
+    The same columnar layout and immutability as `Segment`: each append
+    publishes its own delta segments and compaction later rolls them up,
+    so every executor merges a delta's partials through the machinery
+    historical segments use.  The subclass lets compaction and the
+    accounting tell the two tiers apart; `seq` orders deltas within a
+    datasource."""
+
+    seq: int = 0
+
+
+def as_delta(seg: Segment, seq: int) -> DeltaSegment:
+    """Rewrap a built Segment as a DeltaSegment (same arrays, same uid)."""
+    return DeltaSegment(
+        **{f.name: getattr(seg, f.name) for f in dataclasses.fields(seg)},
+        seq=seq,
+    )
+
+
+@dataclasses.dataclass(frozen=True)
 class DataSource:
     """A named datasource: schema + dictionaries + a list of segments.
 
     The analog of a Druid datasource's metadata and segment list.
     `version` is its publish count in the catalog (stamped by
-    `MetadataCache.put`; 0 before it is published), which the result cache
-    keys its entries on.
+    `MetadataCache.put`; 0 before it is published): every registration,
+    delta append, dictionary remap and compaction bumps it, and the result
+    cache keys its entries on it.
+
+    `rollup_granularity` opts the datasource into ingest-time rollup (the
+    Druid `rollup` spec): appends pre-aggregate under the declared
+    fixed-period granularity ("second" .. "week") before they are journaled
+    or encoded (time truncated to the bucket, rows grouped by every
+    dimension and the bucket, metrics summed), so count(*) counts rolled
+    rows.  None keeps exact rows.
     """
 
     name: str
@@ -260,6 +294,7 @@ class DataSource:
     segments: Tuple[Segment, ...]
     time_column: Optional[str] = None
     version: int = 0
+    rollup_granularity: Optional[str] = None
 
     @property
     def num_rows(self) -> int:
@@ -279,6 +314,91 @@ class DataSource:
         if not ivs:
             return None
         return (min(i[0] for i in ivs), max(i[1] for i in ivs))
+
+    def delta_segments(self) -> Tuple["DeltaSegment", ...]:
+        return tuple(s for s in self.segments if isinstance(s, DeltaSegment))
+
+    def historical_segments(self) -> Tuple[Segment, ...]:
+        return tuple(s for s in self.segments if not isinstance(s, DeltaSegment))
+
+    @property
+    def delta_rows(self) -> int:
+        return sum(s.num_rows for s in self.delta_segments())
+
+
+def row_counts(segs) -> Tuple[int, int]:
+    """(real rows, rows of delta segments) of a segment list: the partial
+    collector's accounting unit, which reports fresh rows apart."""
+    rows = delta = 0
+    for s in segs:
+        rows += s.num_rows
+        if isinstance(s, DeltaSegment):
+            delta += s.num_rows
+    return rows, delta
+
+
+# ---------------------------------------------------------------------------
+# Dictionary extension and code remap (the novel-value path of an append)
+# ---------------------------------------------------------------------------
+
+
+def extend_dict(
+    old: DimensionDict, new_values
+) -> Tuple[DimensionDict, Optional[np.ndarray]]:
+    """Extend a sorted dictionary with `new_values` (only novel values are
+    added): `(new_dict, lut)` with `lut[old_code] = new_code`.
+
+    Both domains are sorted and the old one is a subset of the new, so the
+    LUT is strictly monotone: code order keeps meaning value order, so zone
+    maps remap as `(lut[min], lut[max])` and range filters keep translating
+    into code space.  `lut` is None when nothing was novel (the common
+    append, once dictionaries converge)."""
+    novel = [v for v in set(new_values) if not _is_null(v) and old.code_of(v) is None]
+    if not novel:
+        return old, None
+    if old.numeric_values is not None or (
+        not old.values and all(
+            isinstance(v, (int, np.integer)) and not isinstance(v, bool) for v in novel
+        )
+    ):
+        merged = sorted({int(v) for v in old.values} | {int(v) for v in novel})
+    else:
+        merged = sorted({str(v) for v in old.values} | {str(v) for v in novel})
+    new = DimensionDict(values=tuple(merged))
+    # the old -> new LUT through the new dictionary's own vectorized
+    # encoders (a per-value code_of loop is O(card^2) on string domains)
+    if not old.values:
+        lut = np.empty(1, dtype=np.int32)
+    elif new.numeric_values is not None:
+        lut = new.encode_numeric(np.asarray(old.values, dtype=np.int64))
+    else:
+        lut = new.encode(list(old.values))
+    return new, lut
+
+
+def remap_segment_codes(
+    seg: Segment,
+    luts: Mapping[str, np.ndarray],
+    cards: Mapping[str, int],
+) -> Segment:
+    """The segment with the dimension columns in `luts` re-encoded into the
+    extended code space (`new = lut[old]`, nulls stay NULL_ID) and its
+    code-space zone maps shifted through the same monotone LUTs.
+
+    A new segment with a fresh uid: residency and program caches key on
+    the uid, so stale codes are never served from them."""
+    dims = dict(seg.dims)
+    stats = dict(seg.stats) if seg.stats is not None else None
+    for name, lut in luts.items():
+        if name not in dims:
+            continue
+        codes = np.asarray(dims[name])
+        out = np.where(codes >= 0, lut[np.maximum(codes, 0)], NULL_ID)
+        dims[name] = out.astype(code_dtype(cards[name]), copy=False)
+        if stats is not None and name in stats:
+            lo, hi = stats[name]
+            stats[name] = (float(lut[int(lo)]), float(lut[int(hi)]))
+    return dataclasses.replace(seg, dims=dims, stats=stats, uid=next(_SEGMENT_UIDS))
 
 
 def schema_datasource(
@@ -457,6 +577,70 @@ def build_datasource(
     )
 
 
+def build_datasource_streamed(
+    name: str,
+    chunks,
+    dimension_cols: Sequence[str],
+    metric_cols: Sequence[str],
+    time_col: Optional[str] = None,
+    rows_per_segment: int = 1 << 22,
+    dicts: Optional[Mapping[str, DimensionDict]] = None,
+) -> DataSource:
+    """Build a DataSource from an iterator of column-mapping chunks without
+    holding the whole table on the host: peak host memory is one chunk
+    (plus a sub-segment remainder) on top of the encoded segments.
+
+    Every dimension must arrive pre-encoded (integer codes) or have a
+    dictionary in `dicts`: the code space must be global across chunks,
+    which per-chunk dictionaries would not give."""
+    dicts = dict(dicts) if dicts else {}
+    for d in dimension_cols:
+        if d not in dicts:
+            raise ValueError(
+                f"streamed ingest needs a global dictionary for dimension "
+                f"{d!r}: per-chunk dictionaries would not share a code "
+                "space (pass dicts= or pre-encode the column)"
+            )
+    segments: List[Segment] = []
+    metas = None
+    buf: Optional[Dict[str, np.ndarray]] = None
+
+    def emit(cols: Dict[str, np.ndarray], last: bool) -> None:
+        nonlocal buf, metas
+        if buf is not None:
+            cols = {k: np.concatenate([buf[k], np.asarray(v)]) for k, v in cols.items()}
+            buf = None
+        n = len(next(iter(cols.values())))
+        cut = n if last else (n // rows_per_segment) * rows_per_segment
+        if cut < n:
+            buf = {k: v[cut:] for k, v in cols.items()}
+            cols = {k: v[:cut] for k, v in cols.items()}
+        if cut == 0:
+            return
+        part = build_datasource(
+            name, cols, dimension_cols, metric_cols, time_col, rows_per_segment, dicts,
+        )
+        if metas is None:
+            metas = part.columns
+        for s in part.segments:
+            segments.append(dataclasses.replace(s, segment_id=f"{name}_{len(segments):06d}"))
+
+    for chunk in chunks:
+        emit(dict(chunk), last=False)
+    if buf is not None:
+        tail, buf = buf, None
+        emit(tail, last=True)
+    if metas is None:
+        raise ValueError("streamed ingest produced no rows")
+    return DataSource(
+        name=name,
+        columns=metas,
+        dicts=dicts,
+        segments=tuple(segments),
+        time_column=time_col,
+    )
+
+
 def datasource_to_numpy(ds) -> dict:
     """A datasource as a plain dict of numpy arrays and Python values, the
     form `datasource_from_numpy` takes.  Reads attributes only, so it
@@ -464,6 +648,7 @@ def datasource_to_numpy(ds) -> dict:
     return {
         "name": ds.name,
         "time_column": ds.time_column,
+        "rollup_granularity": getattr(ds, "rollup_granularity", None),
         "columns": [
             {"name": c.name, "kind": c.kind, "dtype": c.dtype,
              "cardinality": c.cardinality}
@@ -481,6 +666,8 @@ def datasource_to_numpy(ds) -> dict:
                 "interval": s.interval,
                 "time_name": s.time_name,
                 "stats": None if s.stats is None else dict(s.stats),
+                # a delta segment's sequence number; None for a historical one
+                "seq": getattr(s, "seq", None),
             }
             for s in ds.segments
         ],
@@ -491,11 +678,12 @@ def datasource_from_numpy(d: Mapping) -> DataSource:
     """Build a DataSource from the plain dict `datasource_to_numpy` makes:
     dictionaries, per-segment codes, metrics, time, validity, zone maps and
     intervals are taken as they are (no re-encoding), so the result scans
-    exactly the segments the exporter held.  Arrays are copied: segments
-    never alias a caller's buffers."""
+    exactly the segments the exporter held, a delta segment as a delta with
+    its `seq`.  Arrays are copied: segments never alias a caller's
+    buffers."""
     segments = []
     for s in d["segments"]:
-        segments.append(Segment(
+        seg = Segment(
             segment_id=s["segment_id"],
             num_rows=int(s["num_rows"]),
             dims={k: np.array(v) for k, v in s["dims"].items()},
@@ -510,7 +698,10 @@ def datasource_from_numpy(d: Mapping) -> DataSource:
             stats=None if s["stats"] is None else {
                 k: (float(lo), float(hi)) for k, (lo, hi) in s["stats"].items()
             },
-        ))
+        )
+        if s.get("seq") is not None:
+            seg = as_delta(seg, seq=int(s["seq"]))
+        segments.append(seg)
     return DataSource(
         name=d["name"],
         columns=tuple(ColumnMeta(**c) for c in d["columns"]),
@@ -520,4 +711,5 @@ def datasource_from_numpy(d: Mapping) -> DataSource:
         },
         segments=tuple(segments),
         time_column=d["time_column"],
+        rollup_granularity=d.get("rollup_granularity"),
     )

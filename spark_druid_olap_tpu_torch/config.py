@@ -1,9 +1,8 @@
 """Session flags (the SQLConf analog).
 
 Only the flags this package reads, with the JAX package's defaults.  A flag
-of a tier the port does not have yet (the cost model, ingest and storage,
-multi-device, the cluster, the result cache's delta reuse, the `__sys`
-telemetry sampler) is absent, so `SET` on it raises KeyError instead of
+of a tier the port does not have yet (the cost model, multi-device, the
+cluster) is absent, so `SET` on it raises KeyError instead of
 reporting a change that nothing reads; each comes back with the slice that
 reads it.  `SET` applies a flag at once (`TPUOlapContext.apply_config`):
 the serving and tracing flags reach the result cache, the fusion
@@ -90,6 +89,12 @@ class SessionConfig:
     # on the query's JSON, the dictionary signature and the session flags,
     # and carry the datasource version they were computed at.  0 disables
     result_cache_entries: int = 64
+    # delta-aware reuse: after an append publishes new segments (and retires
+    # none), a cached entry's partial state is merged with the partials of
+    # the appended segments alone, instead of running the query in full.  A
+    # dictionary extension changes the key (a full miss).  False keeps
+    # version-exact hits only
+    result_cache_delta_reuse: bool = True
     # micro-batch fusion: compatible concurrent GroupBy-family queries over
     # one datasource wait this many ms for each other and run as one fused
     # execution (one captured CUDA graph over resident segments).  0
@@ -114,6 +119,36 @@ class SessionConfig:
     max_concurrent_queries: int = 8
     admission_queue_timeout_ms: int = 2000
 
+    # -- streamed ingest (ingest/) ----------------------------------------------
+    # rows per published delta segment before an append batch splits (the
+    # floor is catalog.segment.ROW_PAD, the padding granularity)
+    delta_seal_rows: int = 1 << 16
+    # background compaction: the sweep period, and the delta-row backlog
+    # below which a datasource is left alone (a sweep also compacts once 64
+    # delta segments accrue, whatever their rows)
+    compaction_interval_s: float = 5.0
+    compaction_min_delta_rows: int = 1 << 15
+    # rows per historical segment compaction emits
+    compaction_rows_per_segment: int = 1 << 19
+    # ingest admission: a slot pool of its own, so appends (encode, and a
+    # dictionary extension's remap) and queries cannot starve each other
+    max_concurrent_ingests: int = 2
+    ingest_queue_timeout_ms: int = 2000
+
+    # -- durable storage (storage.py, ingest/wal.py, catalog/persist.py) --------
+    # root of the durable tier: per-datasource append WALs and versioned
+    # columnar snapshots.  None keeps the catalog in the process (nothing
+    # survives a restart).  When set, a context recovers at construction:
+    # the snapshots load memory-mapped and the WALs replay past them
+    storage_dir: Optional[str] = None
+    # fsync each WAL record before the publish and the acknowledgement (the
+    # durability guarantee); False gives it up for append latency
+    storage_fsync: bool = True
+    # every this many seconds a thread flushes each datasource whose
+    # published version moved past its snapshot, so a restart maps instead
+    # of replaying; 0 starts no thread (appends stay durable through the WAL)
+    snapshot_flush_s: float = 0.0
+
     # -- observability (obs/) --------------------------------------------------
     # slow-query log: a finished query whose span-tree total reaches this
     # logs its rendered tree at WARNING; 0 disables
@@ -134,3 +169,13 @@ class SessionConfig:
     # disables a lane's burn rate
     lane_interactive_slo_ms: float = 250.0
     lane_heavy_slo_ms: float = 30_000.0
+    # the `__sys` telemetry sampler (obs/telemetry.py): above 0, a thread
+    # appends the metrics registry's readings to the `__sys` datasource every
+    # this many seconds (through the ingest and WAL tier, rolled up at
+    # `second` granularity); 0 registers nothing and starts no thread
+    sys_sampler_s: float = 0.0
+    # series one sampler tick appends at most (the cardinality guard)
+    sys_sampler_max_series: int = 512
+    # the compaction sweep drops each historical `__sys` segment whose newest
+    # row is older than this many seconds (whole segments); 0 keeps all
+    sys_retention_s: float = 0.0

@@ -49,7 +49,7 @@ from typing import List, Optional, Set
 import numpy as np
 import torch
 
-from ..catalog.segment import DataSource
+from ..catalog.segment import DataSource, row_counts
 from ..models import filters as F
 from ..ops.filters import numeric_dict_code_bounds
 from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate
@@ -346,10 +346,10 @@ class AdaptiveDomainMixin:
             # the whole scope to prove it
             pc = current_partial()
             if pc is not None:
-                rows = sum(s.num_rows for s in segs)
+                rows = row_counts(segs)
                 pc.begin_pass()
-                pc.add_scope(len(segs), rows)
-                pc.add_seen(len(segs), rows)
+                pc.add_scope(len(segs), *rows)
+                pc.add_seen(len(segs), *rows)
             m.inner_strategy = "none"
             return lowering, empty_partials(lowering.la, 0, self.device)
         extra = ("adaptive",) + tuple(kd.tobytes() for kd in kept)

@@ -89,6 +89,7 @@ from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import torch
 
+from ..catalog.segment import row_counts
 from ..obs import SPAN_ARENA_BUILD, SPAN_SEGMENT_DISPATCH, prof, span
 from ..ops import cuda_groupby
 from ..resilience import (
@@ -555,6 +556,14 @@ class ArenaCache:
                 old_key, old = self._programs.popitem(last=False)
                 self._unindex(old_key, old.plan.col_keys)
 
+    def invalidate_uids(self, uids) -> int:
+        """Drops every program and warm mark of a scope that reads a column
+        of a segment in `uids` (retired segments); returns how many
+        programs went."""
+        with self._lock:
+            return sum(self.invalidate_column(ck) for ck in
+                       [ck for ck in self._by_col if ck[0] in uids])
+
     def invalidate_column(self, col_key) -> int:
         """Drops every program and warm mark of a scope that reads
         `col_key`; returns how many programs went."""
@@ -615,7 +624,7 @@ def run_plan(engine, ds, plan: ArenaPlan, m):
     m.graph_replays += prog.graph is not None
     pc = current_partial()
     if pc is not None:
-        pc.add_seen(len(plan.segs), sum(s.num_rows for s in plan.segs))
+        pc.add_seen(len(plan.segs), *row_counts(plan.segs))
     return state
 
 
@@ -643,5 +652,5 @@ def _run_chunks(engine, ds, plan: ArenaPlan, prog: ChunkedProgram, m):
         m.dispatch_count += 1
         m.arena_segments += 1
         if pc is not None:
-            pc.add_seen(1, seg.num_rows)
+            pc.add_seen(1, *row_counts((seg,)))
     return _empty(engine, plan) if state is None else state

@@ -75,6 +75,16 @@ per code with `torch.bincount` on the device.  TimeBoundary,
 DataSourceMetadata and SegmentMetadata read catalog metadata and dispatch
 no device work.
 
+Ingest (`ingest/`): a delta segment is one more segment in scope.
+`evict_segments` drops the device columns, pinned host copies and arena
+programs of retired segment uids (a remap, a compaction), so no graph
+replays over a freed column.  For the result cache's delta reuse,
+`state_capture` keeps an execution's merged host partial state,
+`groupby_partials_host` computes one over chosen segments (through the
+arena), and `merge_groupby_states` / `finalize_groupby_state` merge and
+finalize them on the host (the merge never touches the card, so it needs
+no execution lock).
+
 Entry points run on CUDA unless the caller passes `device="cpu"`; with no
 device given and no GPU present, `Engine()` raises.
 """
@@ -90,7 +100,7 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
-from ..catalog.segment import DataSource, Segment
+from ..catalog.segment import DataSource, Segment, row_counts
 from ..config import SessionConfig
 from ..models import filters as F
 from ..models import query as Q
@@ -454,6 +464,9 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         # host work that also stages device constants
         self._lowering_cache = CountBudgetCache(LOWERING_CACHE_ENTRIES)
         self.last_metrics: Optional[QueryMetrics] = None
+        # per thread: the holder `state_capture` armed for the next
+        # execution's merged host state (the result cache's delta reuse)
+        self._capture_local = threading.local()
         # what the tiers learn per query (memo_key): the adaptive kept sets
         # and declines, the sparse rungs, and the queries pinned off the
         # sparse tier because their groups overflow its top rung
@@ -578,6 +591,25 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             self._pipeline.clear()
             self._lowering_cache.clear()
 
+    def evict_segments(self, uids) -> None:
+        """Retire segment uids (a dictionary remap or a compaction replaced
+        their segments): their device columns, the arena and fused programs
+        and warm marks that read any of them, and their pinned host copies
+        all go at once, so no graph ever replays over a freed column and no
+        retired segment holds memory until LRU pressure."""
+        uids = frozenset(uids)
+        if not uids:
+            return
+        with self._exec_lock:
+            self._arena.invalidate_uids(uids)
+            for k in [k for k in self._device_cache if k[0] in uids]:
+                self._device_cache.pop(k)  # on_evict: programs and accounting
+            self._pipeline.retire(uids)
+
+    def resident_uids(self) -> frozenset:
+        """Uids of the segments with a column resident on the device."""
+        return frozenset(k[0] for k in self._device_cache)
+
     # -- entry points --------------------------------------------------------
 
     def execute(self, q: Q.QuerySpec, ds: DataSource):
@@ -646,7 +678,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         pc = current_partial()
         if pc is not None:
             pc.begin_pass()
-            pc.add_scope(len(segs), _row_count(segs))
+            pc.add_scope(len(segs), *row_counts(segs))
         state = None
         if segs:
             plan = arena.plan_for(self, lowering, segs, strategy, key_extra, ds, m)
@@ -703,7 +735,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 state = fold_partials(lowering.la, state, shard_partials(lowering, cols, strategy))
             m.dispatch_count += 1
             if pc is not None:
-                pc.add_seen(1, seg.num_rows)
+                pc.add_seen(1, *row_counts((seg,)))
         return state
 
     def _host_state(self, la: LoweredAggs, state):
@@ -802,6 +834,101 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             out.append(finishes[i]() if finishes[i] is not None else self._execute_groupby(q, ds))
         return out
 
+    # -- host partial states (the result cache's delta reuse) ----------------
+
+    @contextlib.contextmanager
+    def state_capture(self):
+        """Captures the merged host partial state of the next group-by
+        execution on this thread: yields a dict whose "state" holds it
+        ({"sums", "mins", "maxs", "sketches"}, the reference's layout), or
+        None when the execution took a path with no state over the query's
+        own groups (the adaptive or sparse tier) or a deadline cut it (a
+        partial state must never seed the cache)."""
+        holder = {"state": None}
+        self._capture_local.holder = holder
+        try:
+            yield holder
+        finally:
+            self._capture_local.holder = None
+
+    def _capture_state(self, sums, mins, maxs, sketches) -> None:
+        holder = getattr(self._capture_local, "holder", None)
+        if holder is None:
+            return
+        pc = current_partial()
+        if pc is not None and pc.triggered:
+            return
+        holder["state"] = {"sums": sums, "mins": mins, "maxs": maxs, "sketches": sketches}
+
+    def groupby_partials_host(self, q: Q.QuerySpec, ds: DataSource, within_uids=None):
+        """The merged host partial state of a GroupBy-family query over its
+        in-scope segments whose uid is in `within_uids` (None: the whole
+        scope), by the kernel strategy of its G, through the arena (so a
+        repeated refresh over one set of delta segments captures and then
+        replays its graph).  The result cache's delta reuse calls it with
+        the uids appended since a cached answer, so a refresh scans the
+        deltas alone.  Returns (state, the QueryMetrics of the pass)."""
+        inner, _ = self._groupby_family(q, ds)
+        if inner is None:
+            raise ValueError(f"{type(q).__name__} has no partial state")
+        lower_ms, inner, lowering, segs = self._lower_scope(groupby_with_time_granularity(inner), ds)
+        if within_uids is not None:
+            within = frozenset(within_uids)
+            segs = [s for s in segs if s.uid in within]
+        t0 = time.perf_counter()
+        G = lowering.num_groups
+        m = QueryMetrics(
+            query_type=_wire_type(q), strategy=self._resolve_strategy(G), datasource=ds.name,
+            device=str(self.device), query_id=current_query_id(),
+            rows_scanned=_row_count(segs), bytes_scanned=_bytes_scanned(segs, lowering.columns),
+            segments=len(segs), num_groups=G,
+        )
+        with self._exec_lock:
+            state = self._partials_for_query(lowering, segs, ds, m.strategy, m)
+            with span(SPAN_DEVICE_FETCH):
+                sums, mins, maxs, sketches, _ = self._host_state(lowering.la, state)
+        m.total_ms = lower_ms + (time.perf_counter() - t0) * 1e3
+        return {"sums": sums, "mins": mins, "maxs": maxs, "sketches": sketches}, m
+
+    def merge_groupby_states(self, q: Q.QuerySpec, ds: DataSource, a, b):
+        """Two host partial states of one query over one dictionary domain
+        merged, `a` first: sums add, min/max fold, sketches merge by type
+        through the ops the segment fold uses.  The states are host arrays
+        and so is the merge: it runs on the CPU, outside the execution lock,
+        and never touches the card, where another thread may be capturing
+        a graph.  Raises ValueError on a shape mismatch (the domain
+        changed)."""
+        if a["sums"].shape != b["sums"].shape:
+            raise ValueError(
+                f"partial-state shape mismatch {a['sums'].shape} vs {b['sums'].shape} "
+                "(dictionary domain changed)")
+        inner, _ = self._groupby_family(q, ds)
+        la = self._lowering_for(groupby_with_time_granularity(inner), ds).la
+        sketches = {}
+        for agg in la.sketch_aggs:
+            ops = sketch_ops(agg)
+            merged = ops.merge_states(ops.from_reference_state(a["sketches"][agg.name], "cpu"),
+                                      ops.from_reference_state(b["sketches"][agg.name], "cpu"),
+                                      agg)
+            sketches[agg.name] = ops.to_reference_state(merged)
+        return {
+            "sums": a["sums"] + b["sums"],
+            "mins": np.minimum(a["mins"], b["mins"]),
+            "maxs": np.maximum(a["maxs"], b["maxs"]),
+            "sketches": sketches,
+        }
+
+    def finalize_groupby_state(self, q: Q.QuerySpec, ds: DataSource, state):
+        """A host partial state as the query's result frame: the finalize
+        the execution path runs."""
+        inner, shape = self._groupby_family(q, ds)
+        inner = groupby_with_time_granularity(inner)
+        lowering = self._lowering_for(inner, ds)
+        with span(SPAN_FINALIZE):
+            df = finalize_groupby(inner, lowering.dims, lowering.la, state["sums"],
+                                  state["mins"], state["maxs"], state["sketches"])
+        return shape(df)
+
     # -- micro-batch fusion (serve/) -----------------------------------------
 
     def _groupby_family(self, q: Q.QuerySpec, ds: DataSource):
@@ -842,9 +969,10 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         bit-identical to `execute`'s.  A deadline that expires first
         (`engine.fused_loop`) raises: the fusion scheduler then sends every
         member to its serial path.  Returns a list of (df, state, metrics)
-        per member, in order; `state` is None (the result cache keeps
-        frames only).  The device half and the fetch run under the
-        execution lock, the finalizing after it."""
+        per member, in order; `state` is the member's merged host partial
+        state (the result cache keeps it for delta reuse).  The device half
+        and the fetch run under the execution lock, the finalizing after
+        it."""
         t0 = time.perf_counter()
         queries = list(queries)
         n = len(queries)
@@ -872,7 +1000,9 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             la, G = lowering.la, lowering.num_groups
             states = []
             for w in (len(la.sum_names), len(la.min_names), len(la.max_names)):
-                states.append(host[at:at + G * w].reshape(G, w))
+                # an owned copy: a cached state must not keep the whole
+                # batch's packed buffer alive
+                states.append(host[at:at + G * w].reshape(G, w).copy())
                 at += G * w
             with span(SPAN_FINALIZE, member=i):
                 df = shape(finalize_groupby(inner, lowering.dims, la, *states, sketches[i]))
@@ -901,7 +1031,8 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 bytes_resident=self.bytes_resident(),
             )
             record_query_metrics(m, "ok")
-            out.append((df, None, m))
+            out.append((df, {"sums": states[0], "mins": states[1], "maxs": states[2],
+                             "sketches": sketches[i]}, m))
         self.last_metrics = out[-1][2] if out else None
         return out
 
@@ -1058,6 +1189,9 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 with span(SPAN_DEVICE_FETCH):
                     sums, mins, maxs, sketches, slot_gids = (
                         host if host is not None else self._host_state(low.la, state))
+                if host is None and low is lowering:
+                    # a state over the query's own groups (no tier's)
+                    self._capture_state(sums, mins, maxs, sketches)
             except BaseException as err:
                 m.deadline_exceeded = isinstance(err, DeadlineExceeded)
                 done("deadline" if m.deadline_exceeded else "error", t_fetch)
@@ -1095,6 +1229,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             m.partial = True
             m.coverage = pc.coverage()
             m.rows_seen = pc.rows_seen
+            m.delta_rows_seen = pc.delta_rows_seen
         self.last_metrics = m
         record_query_metrics(m, "partial" if outcome == "ok" and m.partial else outcome)
 
@@ -1184,7 +1319,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         pc = current_partial()
         if pc is not None:
             pc.begin_pass()
-            pc.add_scope(len(segs), rows_total)
+            pc.add_scope(len(segs), *row_counts(segs))
 
         def refinement(state):
             sums, mins, maxs, sketches, _ = self._host_state(la, state)
@@ -1208,7 +1343,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                     m.dispatch_count += 1
                     rows_seen += seg.num_rows
                     if pc is not None:
-                        pc.add_seen(1, seg.num_rows)
+                        pc.add_seen(1, *row_counts((seg,)))
                     df = refinement(state)
                 yield df, {
                     "sequence": seq,
@@ -1283,7 +1418,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         pc = current_partial()
         if pc is not None:
             pc.begin_pass()
-            pc.add_scope(len(segs), _row_count(segs))
+            pc.add_scope(len(segs), *row_counts(segs))
         frames = []
         for seg in segs:  # canonical segment order: the row order
             # past its deadline a scan answers with the rows fetched so far
@@ -1320,7 +1455,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             m.rows_scanned += seg.num_rows
             m.dispatch_count += 1
             if pc is not None:
-                pc.add_seen(1, seg.num_rows)
+                pc.add_seen(1, *row_counts((seg,)))
             if remaining is not None and remaining <= 0:
                 break
         out = (pd.concat(frames, ignore_index=True) if frames
@@ -1369,7 +1504,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         pc = current_partial()
         if pc is not None:
             pc.begin_pass()
-            pc.add_scope(len(segs), _row_count(segs))
+            pc.add_scope(len(segs), *row_counts(segs))
         for seg in segs:
             # the counts over the segments seen so far are a sound answer
             if checkpoint_partial("engine.search_loop"):
@@ -1388,7 +1523,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             m.rows_scanned += seg.num_rows
             m.dispatch_count += 1
             if pc is not None:
-                pc.add_seen(1, seg.num_rows)
+                pc.add_seen(1, *row_counts((seg,)))
         with self._exec_lock:
             host = {dim: c.cpu().numpy() for dim, c in counts.items()}
             del counts

@@ -45,7 +45,7 @@ from typing import Dict, Optional
 import numpy as np
 import pandas as pd
 
-from ..catalog.segment import DataSource
+from ..catalog.segment import DataSource, row_counts
 from ..models import aggregations as A
 from ..plan import expr as E
 from ..plan import logical as L
@@ -150,7 +150,7 @@ def _decoded_frame(ds: DataSource, columns=None) -> pd.DataFrame:
     if pc is not None:
         # the scope accumulates across the plan's tables: `_run_fallback`
         # owns the pass
-        pc.add_scope(len(segs), sum(s.num_rows for s in segs))
+        pc.add_scope(len(segs), *row_counts(segs))
     parts: Dict[str, list] = {n: [] for n in names}
     draining = False
     for seg in segs:
@@ -175,7 +175,7 @@ def _decoded_frame(ds: DataSource, columns=None) -> pd.DataFrame:
                     cache[key] = arr
             parts[n].append(arr)
         if pc is not None:
-            pc.add_seen(1, seg.num_rows)
+            pc.add_seen(1, *row_counts((seg,)))
     return pd.DataFrame({
         n: (np.concatenate(p) if p else np.array([], dtype=object)) for n, p in parts.items()
     })
@@ -1389,9 +1389,9 @@ def _cached_scan_frame(catalog, table: str, needed) -> pd.DataFrame:
     elif pc is not None:
         # a hit saw the whole table without a decode
         segs = list(ds.segments)
-        rows = sum(s.num_rows for s in segs)
-        pc.add_scope(len(segs), rows)
-        pc.add_seen(len(segs), rows)
+        rows = row_counts(segs)
+        pc.add_scope(len(segs), *rows)
+        pc.add_seen(len(segs), *rows)
     return df.copy(deep=False)
 
 

@@ -45,7 +45,9 @@ fallback (the device failed after its retries, or its breaker was open);
 device breaker's state when the query was routed and `error_class` the
 class of the exception it failed on.  `partial` marks a deadline-bounded
 best-effort answer, `coverage` the share of in-scope rows it saw (None when
-the denominator is unknown, as for a stream) and `rows_seen` their count.
+the denominator is unknown, as for a stream) and `rows_seen` their count,
+`delta_rows_seen` the share of them from delta segments (streamed appends;
+on a delta-aware result-cache refresh, the delta rows it scanned).
 
 Serving and observability (`serve/`, `obs/`): `query_id` is the id of the
 query's trace (Druid's `context.queryId` on the server, generated
@@ -54,8 +56,10 @@ device, host and transfer ms from its span tree, the cache outcomes, and
 whether its device time came from CUDA events on a sampled query);
 `fused_batch` the size of the fused micro-batch it rode (0: none); `lane`
 the admission lane the server routed it through; `result_cache` "hit" when
-the result cache answered it with no device work, "miss" when the cache
-was asked and missed, "" when it was not asked.
+the result cache answered it with no device work, "delta" when it merged
+a cached partial state with the partials of the segments appended since
+(the strategy is then "result-cache-delta"), "miss" when the cache was
+asked and missed, "" when it was not asked.
 """
 
 from __future__ import annotations
@@ -106,6 +110,7 @@ class QueryMetrics:
     partial: bool = False
     coverage: Optional[float] = None
     rows_seen: int = 0
+    delta_rows_seen: int = 0
     query_id: str = ""
     receipt: Optional[dict] = None
     fused_batch: int = 0
@@ -114,8 +119,9 @@ class QueryMetrics:
 
     @property
     def tier_declines(self) -> List[str]:
-        """The declines of the tiers, without the arena's."""
-        return [d for d in self.declines if not d.startswith("arena:")]
+        """The declines of the tiers, without the arena's and the result
+        cache's."""
+        return [d for d in self.declines if not d.startswith(("arena:", "result-cache:"))]
 
     @property
     def rows_per_sec(self) -> float:

@@ -29,12 +29,16 @@ The engine's segment loop reads a column that is not resident through
 (`SessionConfig.transfer_pipeline`) the column comes from a page-locked
 host copy of it, made at its first copy and kept (an LRU under
 PINNED_BUDGET_FRACTION of the host's memory, dropped by
-`Engine.clear_cache`), as a DMA on the compute stream that the host does
-not wait for; the kernels that read it are queued behind it on the same
+`Engine.clear_cache`, and for a retired segment by `retire`), as a DMA on
+the compute stream that the host does not wait for; the kernels that read it are queued behind it on the same
 stream.  Off, the column comes from the segment's pageable array, a copy
 the host waits for.  A scope that returns after its columns left the
 card is then pure DMA at the link's rate; the first copy of a column pays
-its pinning.  The reference's prefetch of the next segments on a copy
+its pinning.  A column of a snapshot loaded from disk is a read-only
+memmap: `pin_host` reads it from disk once, straight into the page-locked
+buffer, and a later copy of it reads the buffer, never the file; with the
+pipeline off it is read into an owned array (`materialize`) at each copy.
+The reference's prefetch of the next segments on a copy
 stream, its residency-first order and its speculative next-interval
 prefetch are not ported: the port's cold loop is host-bound, and on the
 H100 a prefetch of the next two segments on a copy stream ran 1.22x
@@ -52,6 +56,7 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 import torch
 
+from ..catalog.persist import materialize
 from ..utils.lru import ByteBudgetCache
 
 _BYTES_PER_ROW = 8  # the widest column a chunk ships (int64 time)
@@ -153,6 +158,16 @@ def column_key(seg, name: Optional[str] = None) -> Tuple:
     return (seg.uid, "valid") if name is None else (seg.uid, "col", name)
 
 
+def pin_host(host: np.ndarray) -> torch.Tensor:
+    """A page-locked copy of `host`, filled by one host copy: a memmap is
+    read from disk straight into the page-locked buffer, with no owned
+    intermediate and no torch view of the read-only map."""
+    dtype = torch.from_numpy(np.empty(0, dtype=host.dtype)).dtype
+    out = torch.empty(host.shape, dtype=dtype, pin_memory=True)
+    np.copyto(out.numpy(), host, casting="no")
+    return out
+
+
 class TransferPipeline:
     """An engine's copies of segment columns to the device: the setting and
     the pinned host copies."""
@@ -171,17 +186,28 @@ class TransferPipeline:
     def put(self, key, host: np.ndarray) -> torch.Tensor:
         """Column `key` (its host array `host`) on the device: on a card with
         the pipeline on, from its pinned copy, on the compute stream, the
-        host not waiting; else from `host` itself."""
+        host not waiting; else from `host` itself (a disk-backed column
+        read into an owned array first)."""
         dev = self.engine.device
         if not self.enabled or dev.type != "cuda":
-            return torch.from_numpy(np.ascontiguousarray(host)).to(dev)
+            return torch.from_numpy(np.ascontiguousarray(materialize(host))).to(dev)
+        # the host allocator keeps the pinned copy's memory until this copy
+        # is done, even if the LRU drops it first
+        return self.pinned(key, host).to(dev, non_blocking=True)
+
+    def pinned(self, key, host: np.ndarray) -> torch.Tensor:
+        """The page-locked host copy of column `key`, made from `host` at its
+        first use and kept: `host` is read once per pinning."""
         pinned = self._pinned.get(key)
         if pinned is None:
-            pinned = torch.from_numpy(np.ascontiguousarray(host)).pin_memory()
+            pinned = pin_host(host)
             self._pinned[key] = pinned
-        # the host allocator keeps `pinned`'s memory until this copy is done,
-        # even if the LRU drops it first
-        return pinned.to(dev, non_blocking=True)
+        return pinned
+
+    def retire(self, uids) -> None:
+        """Drops the pinned host copies of the columns of retired segments."""
+        for key in [k for k in self._pinned if k[0] in uids]:
+            self._pinned.pop(key)
 
     def clear(self) -> None:
         """Drops the pinned host copies."""

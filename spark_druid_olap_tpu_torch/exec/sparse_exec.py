@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import torch
 
+from ..catalog.segment import row_counts
 from ..obs import SPAN_SPARSE_DISPATCH, prof, span
 from ..ops import sparse_groupby as sg
 from ..ops.groupby import SCATTER_CUTOVER
@@ -84,7 +85,7 @@ class SparseExecMixin:
         pc = current_partial()
         if pc is not None:
             pc.begin_pass()
-            pc.add_scope(len(segs), sum(s.num_rows for s in segs))
+            pc.add_scope(len(segs), *row_counts(segs))
         state = None
         m.sparse_passes += 1
         for seg in segs:  # canonical segment order: the merge order
@@ -103,7 +104,7 @@ class SparseExecMixin:
                 state = st if state is None else sg.merge_sparse_states(state, st, G)
             m.dispatch_count += 1
             if pc is not None:
-                pc.add_seen(1, seg.num_rows)
+                pc.add_seen(1, *row_counts((seg,)))
         return state
 
     @staticmethod

@@ -583,3 +583,163 @@ def record_query_metrics(m, outcome: str = "ok") -> None:
     ):
         if value > 0 or phase == "total":
             hist.labels(phase=phase).observe(value, exemplar=qid)
+
+
+# -- ingest and storage (ingest/, storage.py, catalog/persist.py) ---------------
+
+
+def record_ingest(datasource: str, rows: int, outcome: str = "ok") -> None:
+    """Publish one streamed append: request count by datasource/outcome
+    plus appended rows — per-datasource labels ride through the
+    cardinality guard (a hostile datasource-name stream cannot explode
+    the registry)."""
+    reg = get_registry()
+    ds = bounded_label("ingest_datasource", datasource)
+    reg.counter(
+        "sdol_ingest_requests_total",
+        "streamed ingest appends, by datasource / outcome",
+        labels=("datasource", "outcome"),
+    ).labels(datasource=ds, outcome=outcome).inc()
+    if rows:
+        reg.counter(
+            "sdol_ingest_rows_total",
+            "rows appended through the streamed ingest tier",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(rows)
+
+
+def record_compaction(datasource: str, rows: int, delta_segments: int) -> None:
+    """Publish one delta->historical compaction."""
+    reg = get_registry()
+    ds = bounded_label("ingest_datasource", datasource)
+    reg.counter(
+        "sdol_compactions_total",
+        "delta->historical compactions, by datasource",
+        labels=("datasource",),
+    ).labels(datasource=ds).inc()
+    if rows:
+        reg.counter(
+            "sdol_compacted_rows_total",
+            "delta rows rolled into historical segments",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(rows)
+    if delta_segments:
+        reg.counter(
+            "sdol_compacted_delta_segments_total",
+            "delta segments consumed by compaction",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(delta_segments)
+
+
+def record_wal_append(datasource: str, rows: int) -> None:
+    """Publish one durable WAL journal write (storage.py):
+    acked appends are exactly the journaled ones, so this series is the
+    durability-side mirror of `sdol_ingest_rows_total`."""
+    reg = get_registry()
+    ds = bounded_label("ingest_datasource", datasource)
+    reg.counter(
+        "sdol_wal_appends_total",
+        "fsync'd WAL journal writes, by datasource",
+        labels=("datasource",),
+    ).labels(datasource=ds).inc()
+    if rows:
+        reg.counter(
+            "sdol_wal_rows_total",
+            "rows journaled to the append WAL",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(rows)
+
+
+def record_wal_replay(datasource: str, records: int, rows: int) -> None:
+    """Publish one boot-time WAL replay (records past the snapshot
+    watermark re-applied through the live append path)."""
+    reg = get_registry()
+    ds = bounded_label("ingest_datasource", datasource)
+    reg.counter(
+        "sdol_wal_replays_total",
+        "boot-time WAL replay passes, by datasource",
+        labels=("datasource",),
+    ).labels(datasource=ds).inc()
+    if records:
+        reg.counter(
+            "sdol_wal_replayed_records_total",
+            "WAL records replayed at boot",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(records)
+    if rows:
+        reg.counter(
+            "sdol_wal_replayed_rows_total",
+            "rows re-applied from the WAL at boot",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(rows)
+
+
+def record_snapshot_flush(datasource: str, segments: int) -> None:
+    """Publish one persistent-snapshot commit (atomic rename landed)."""
+    reg = get_registry()
+    ds = bounded_label("ingest_datasource", datasource)
+    reg.counter(
+        "sdol_snapshot_flushes_total",
+        "persistent segment snapshot commits, by datasource",
+        labels=("datasource",),
+    ).labels(datasource=ds).inc()
+    if segments:
+        reg.counter(
+            "sdol_snapshot_segments_total",
+            "segments written by snapshot flushes",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(segments)
+
+
+def record_snapshot_sweep(flushed: int) -> None:
+    """Publish one background snapshot-flush sweep pass (the timer
+    fired and scanned for dirty datasources).  Per-datasource flush
+    volume is already on `sdol_snapshot_flushes_total`; this counts the
+    sweep itself plus how many tables it found dirty."""
+    reg = get_registry()
+    reg.counter(
+        "sdol_snapshot_sweeps_total",
+        "background snapshot-flush sweep passes",
+    ).inc()
+    if flushed:
+        reg.counter(
+            "sdol_snapshot_sweep_flushes_total",
+            "datasources flushed by the background snapshot sweep",
+        ).inc(flushed)
+
+
+def record_rollup(datasource: str, rows_in: int, rows_out: int) -> None:
+    """Publish one ingest-time rollup: input vs surviving rows.  The
+    ratio is the fleet-level answer to "what does rollup actually buy"
+    — Druid's own rollup-ratio metric."""
+    reg = get_registry()
+    ds = bounded_label("ingest_datasource", datasource)
+    if rows_in:
+        reg.counter(
+            "sdol_rollup_input_rows_total",
+            "append rows entering ingest-time rollup",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(rows_in)
+    if rows_out:
+        reg.counter(
+            "sdol_rollup_output_rows_total",
+            "pre-aggregated rows surviving ingest-time rollup",
+            labels=("datasource",),
+        ).labels(datasource=ds).inc(rows_out)
+
+
+def record_storage_load(nbytes: int) -> None:
+    """Publish one disk-tier column open (np.load mmap of a persisted
+    column file): the DISK rung of the residency ladder, next to the
+    h2d byte counters the device tiers publish."""
+    reg = get_registry()
+    reg.counter(
+        "sdol_storage_column_opens_total",
+        "lazy opens of persisted column files (disk residency tier)",
+    ).inc()
+    if nbytes:
+        reg.counter(
+            "sdol_storage_column_bytes_total",
+            "logical bytes of persisted columns opened from disk "
+            "(mmap-backed; pages fault in lazily on first touch)",
+        ).inc(nbytes)

@@ -73,6 +73,13 @@ SPAN_STREAM_FLUSH = "stream_flush"  # one progressive-response refinement
 SPAN_FUSED_BATCH = "fused_batch"  # one micro-batch fused execution (serve/)
 SPAN_LANE = "lane"  # waiting for a priority-lane slot (serve/lanes.py)
 SPAN_ARENA_BUILD = "arena_build"  # a CUDA graph capture of a scope or a fused batch (exec/arena.py)
+SPAN_INGEST = "ingest"  # one streamed append (ingest/delta.py)
+SPAN_INGEST_ENCODE = "ingest_encode"  # dictionary extension, remap and encode of an append batch
+SPAN_ROLLUP = "rollup"  # ingest-time pre-aggregation of an append batch
+SPAN_COMPACT = "compact"  # delta -> historical roll of one datasource (ingest/compact.py)
+SPAN_WAL_APPEND = "wal_append"  # fsync'd journal write of one append batch (storage.py)
+SPAN_WAL_REPLAY = "wal_replay"  # boot-time recovery of one datasource: snapshot load and WAL replay
+SPAN_SNAPSHOT_FLUSH = "snapshot_flush"  # one persistent snapshot commit
 
 SPAN_NAMES = frozenset(
     {
@@ -97,6 +104,13 @@ SPAN_NAMES = frozenset(
         SPAN_FUSED_BATCH,
         SPAN_LANE,
         SPAN_ARENA_BUILD,
+        SPAN_INGEST,
+        SPAN_INGEST_ENCODE,
+        SPAN_ROLLUP,
+        SPAN_COMPACT,
+        SPAN_WAL_APPEND,
+        SPAN_WAL_REPLAY,
+        SPAN_SNAPSHOT_FLUSH,
     }
 )
 

@@ -37,11 +37,15 @@ time:
     checkpoint site) to raise, delay or truncate deterministically, from
     tests or the `SDOL_FAULTS` environment variable, so every degradation
     path above runs on the CPU and on the card alike.
+    The durable storage tier's stages are sites too (`STORAGE_SITES`): a
+    test raises at one and boots a new context over the same directory,
+    which is what a process killed there leaves behind.
 
   * **Admission control.**  The server gates every query on a bounded slot
     pool with a queue-wait timeout (`AdmissionController`), after the
     slot pool of its priority lane (`serve/lanes.py`); a full pool answers
-    503 with a Retry-After estimated from observed load.
+    503 with a Retry-After estimated from observed load.  Streamed appends
+    gate on a pool of their own (`ResilienceState.ingest_admission`).
 
 Every decision is observable on `QueryMetrics`: `retries`, `degraded`,
 `deadline_exceeded`, `circuit_state`, `error_class`, `partial` and
@@ -291,7 +295,7 @@ class PartialCollector:
     __slots__ = (
         "enabled", "triggered_site", "in_fallback", "scope_declared",
         "segments_total", "segments_seen", "rows_total", "rows_seen",
-        "collect_sets", "set_label", "set_records", "_pass_label", "_lock",
+        "delta_rows_total", "delta_rows_seen", "collect_sets", "set_label", "set_records", "_pass_label", "_lock",
     )
 
     def __init__(self, enabled: bool = True):
@@ -306,6 +310,9 @@ class PartialCollector:
         self.scope_declared = False
         self.segments_total = self.segments_seen = 0
         self.rows_total = self.rows_seen = 0
+        # rows of delta segments (streamed appends), apart from historical
+        # ones: how much of a best-effort answer came from fresh rows
+        self.delta_rows_total = self.delta_rows_seen = 0
         self.collect_sets = False
         self.set_label: Optional[str] = None
         # the label the live pass started under (the expansion moves
@@ -328,6 +335,7 @@ class PartialCollector:
         self.scope_declared = False
         self.segments_total = self.segments_seen = 0
         self.rows_total = self.rows_seen = 0
+        self.delta_rows_total = self.delta_rows_seen = 0
 
     def begin_pass(self) -> None:
         """A fresh pass over the query's scope supersedes earlier accounting
@@ -352,6 +360,8 @@ class PartialCollector:
             "segments_total": self.segments_total,
             "rows_seen": self.rows_seen,
             "rows_total": self.rows_total,
+            "delta_rows_seen": self.delta_rows_seen,
+            "delta_rows_total": self.delta_rows_total,
         }
         for i, old in enumerate(self.set_records):
             if old.get("set") == rec["set"]:
@@ -374,18 +384,22 @@ class PartialCollector:
             return list(self.set_records)
 
     def _agg_locked(self):
-        """(segments_total, segments_seen, rows_total, rows_seen, declared)
-        over the archived set records and the live pass."""
+        """(segments_total, segments_seen, rows_total, rows_seen,
+        delta_rows_total, delta_rows_seen, declared) over the archived set
+        records and the live pass."""
         st, ss = self.segments_total, self.segments_seen
         rt, rs = self.rows_total, self.rows_seen
+        dt, dsn = self.delta_rows_total, self.delta_rows_seen
         declared = self.scope_declared
         for r in self.set_records:
             st += r["segments_total"]
             ss += r["segments_seen"]
             rt += r["rows_total"]
             rs += r["rows_seen"]
+            dt += r["delta_rows_total"]
+            dsn += r["delta_rows_seen"]
             declared = True
-        return st, ss, rt, rs, declared
+        return st, ss, rt, rs, dt, dsn, declared
 
     def reset_for_drain(self) -> None:
         """Zeroes the accounting for the fallback's drain rerun, whose own
@@ -394,20 +408,22 @@ class PartialCollector:
         with self._lock:
             self._zero_locked()
 
-    def add_scope(self, segments: int, rows: int) -> None:
+    def add_scope(self, segments: int, rows: int, delta_rows: int = 0) -> None:
         with self._lock:
             self.scope_declared = True
             self.segments_total += int(segments)
             self.rows_total += int(rows)
+            self.delta_rows_total += int(delta_rows)
 
-    def add_seen(self, segments: int, rows: int) -> None:
+    def add_seen(self, segments: int, rows: int, delta_rows: int = 0) -> None:
         with self._lock:
             self.segments_seen += int(segments)
             self.rows_seen += int(rows)
+            self.delta_rows_seen += int(delta_rows)
 
     def coverage(self) -> Optional[float]:
         with self._lock:
-            st, ss, rt, rs, declared = self._agg_locked()
+            st, ss, rt, rs, _dt, _ds, declared = self._agg_locked()
         return _coverage(rt, rs, st, ss, declared)
 
     @property
@@ -416,7 +432,7 @@ class PartialCollector:
         if not self.triggered:
             return False
         with self._lock:
-            st, ss, rt, rs, declared = self._agg_locked()
+            st, ss, rt, rs, _dt, _ds, declared = self._agg_locked()
         if rt > 0:
             return rs < rt
         if st > 0:
@@ -426,7 +442,7 @@ class PartialCollector:
     def to_dict(self) -> dict:
         cov = self.coverage()
         with self._lock:
-            st, ss, rt, rs, _ = self._agg_locked()
+            st, ss, rt, rs, dt, dsn, _ = self._agg_locked()
             d = {
                 "partial": True,
                 "coverage": _round(cov),
@@ -435,6 +451,8 @@ class PartialCollector:
                 "segments_total": st,
                 "rows_seen": rs,
                 "rows_total": rt,
+                "delta_rows_seen": dsn,
+                "delta_rows_total": dt,
             }
             if self.set_records:
                 d["sets"] = [dict(r) for r in self.set_records]
@@ -481,6 +499,21 @@ def partial_scope(enabled: bool = True):
 # ---------------------------------------------------------------------------
 # Fault injection
 # ---------------------------------------------------------------------------
+
+# the fault sites of the durable storage tier (storage.py, ingest/wal.py,
+# catalog/persist.py), each a `checkpoint`: every stage of the append and
+# flush order (journal -> fsync -> publish -> snapshot rename -> retire ->
+# truncate) and of boot replay is a point where a test kills the process
+STORAGE_SITES = (
+    "wal.journal_write",  # before any byte of the record lands
+    "wal.pre_fsync",  # bytes written, not yet durable (the torn-tail zone)
+    "wal.post_fsync_pre_publish",  # durable but unpublished (not acknowledged)
+    "wal.replay_record",  # between replayed records at boot
+    "persist.snapshot_rename",  # before the snapshot.json commit rename
+    "compact.retire",  # before retired column files are deleted
+    "storage.replay_batch",  # before a replayed batch is applied
+)
+
 
 class _FaultSpec:
     __slots__ = ("mode", "times", "delay_ms", "fraction", "error_type", "skip")
@@ -929,8 +962,8 @@ BREAKER_BACKENDS = ("device", "fallback")
 
 
 class ResilienceState:
-    """One context's breakers, its admission and lane pools and its failure
-    counters.  The fault injector is process-wide."""
+    """One context's breakers, its admission, ingest and lane pools and its
+    failure counters.  The fault injector is process-wide."""
 
     def __init__(self, config):
         self.breakers: Dict[str, CircuitBreaker] = {
@@ -944,6 +977,13 @@ class ResilienceState:
         self.admission = AdmissionController(
             max_concurrent=config.max_concurrent_queries,
             queue_timeout_ms=config.admission_queue_timeout_ms,
+        )
+        # streamed appends (the server's ingest route, boot replay) take
+        # slots of their own pool, so appends and queries cannot starve
+        # each other; a full pool answers 503 with Retry-After
+        self.ingest_admission = AdmissionController(
+            max_concurrent=config.max_concurrent_ingests,
+            queue_timeout_ms=config.ingest_queue_timeout_ms,
         )
         # priority lanes (serve/lanes.py): separate slot pools, so cheap
         # dashboard queries never queue behind large scans
@@ -1004,6 +1044,8 @@ class ResilienceState:
         self.admission.resize(config.max_concurrent_queries, t)
         self.lanes["interactive"].resize(config.lane_interactive_slots, t)
         self.lanes["heavy"].resize(config.lane_heavy_slots, t)
+        self.ingest_admission.resize(config.max_concurrent_ingests,
+                                     config.ingest_queue_timeout_ms)
 
     @property
     def breaker(self) -> CircuitBreaker:
@@ -1050,6 +1092,7 @@ class ResilienceState:
             "breaker": self.breaker.to_dict(),
             "breakers": {b: cb.to_dict() for b, cb in self.breakers.items()},
             "admission": self.admission.to_dict(),
+            "ingest_admission": self.ingest_admission.to_dict(),
             "lanes": {name: pool.to_dict() for name, pool in self.lanes.items()},
             "counters": counters,
             "faults": injector().state(),

@@ -5,22 +5,28 @@ lane classification of SQL text (a native query classifies from its
 decoded QuerySpec; SQL from its planned rewrite, through the plan cache,
 so a repeated dashboard statement pays planning once).
 
-The api layer calls in at three points:
+The api layer and the server's native route call `answer(q, ds, key,
+fusable, post)` for one query's answer: the result cache (a hit at the
+datasource's version, no device work; after appends, a delta refresh,
+`_delta_refresh`: the cached partial state merged with the partials of the
+appended segments alone), else micro-batch fusion, else the engine alone,
+keeping the merged host partial state when a later delta refresh could
+use it; the answer is post-processed and stored at the version of the
+snapshot it was computed on.  A refresh that cannot run records why, and
+the reason is appended to the metrics of the full execution that follows.
+Only these deterministic declines route a query on; any error of the
+refresh (the engine's, the kernel's) raises.
 
-  * `cached_result(rw, ds, key)`: a hit at the datasource's version (no
-    device work), or None;
-  * `fused_execute(q, ds)`: micro-batch fusion for GroupBy-family queries
-    (None: the caller runs its serial path);
-  * `store_result(rw, ds, key, df)`: publish one computed answer at the
-    version of the snapshot it was computed on.
-
-The server calls `decode_native`, `cached_native`, `store_native` and
-`lane_for_sql`, and `serve.lanes.classify_native` to route admission
-through `ResilienceState.lanes`.
+The degraded and partial routes ask `cached_result(rw, ds, key)` or
+`cached_native(q, ds)` for a complete answer alone.  The server calls
+`decode_native`, `native_key` and `lane_for_sql`, and
+`serve.lanes.classify_native` to route admission through
+`ResilienceState.lanes`.
 """
 
 from __future__ import annotations
 
+import time
 from typing import Optional
 
 from ..obs import current_query_id, get_registry, prof, record_query_metrics
@@ -42,7 +48,8 @@ class ServingCore:
             adaptive=cfg.fusion_adaptive_window,
             max_window_ms=cfg.fusion_window_max_ms,
         )
-        self.result_cache = ResultCache(entries=cfg.result_cache_entries)
+        self.result_cache = ResultCache(entries=cfg.result_cache_entries,
+                                        delta_reuse=cfg.result_cache_delta_reuse)
         # the decoded-QuerySpec cache of the wire path: dashboards post the
         # identical body every refresh, so a hit skips `query_from_druid`.
         # Decoding is a pure function of the body (no catalog input), so
@@ -55,6 +62,7 @@ class ServingCore:
         """`SET` on a serving flag reaches the cache and the scheduler."""
         if self.result_cache.entries != max(int(config.result_cache_entries), 0):
             self.result_cache.resize(config.result_cache_entries)
+        self.result_cache.delta_reuse = bool(config.result_cache_delta_reuse)
         self.fusion.configure(config.fusion_window_ms, config.fusion_max_batch,
                               config.fusion_adaptive_window, config.fusion_window_max_ms)
 
@@ -103,13 +111,13 @@ class ServingCore:
 
     # -- result cache ----------------------------------------------------------
 
-    def cached_result(self, rw, ds, key, count_miss: bool = True):
-        """`rw`'s answer from the cache at `ds`'s version (post-processed
-        when it was stored), or None.  `count_miss=False` on the degraded
-        and partial routes, which ask the cache only for a complete answer
-        to serve instead of a fallback or a drain (the JAX package counts
-        no miss there)."""
-        return self._cached(rw.query, ds, key, count_miss)
+    def cached_result(self, rw, ds, key):
+        """`rw`'s complete answer from the cache at `ds`'s version (post-
+        processed as stored), or None: the degraded and partial routes'
+        lookup, which counts no miss (the JAX package counts none there)
+        and runs no delta refresh (it would dispatch to the device they are
+        avoiding, or be cut short)."""
+        return self._cached(rw.query, ds, key, allow_delta=False)[0]
 
     def native_key(self, q, ds):
         """Result-cache key of one wire-native QuerySpec, or None when it is
@@ -132,30 +140,135 @@ class ServingCore:
             repr(self.ctx.config),
         )
 
-    def cached_native(self, q, ds, key=None, count_miss: bool = True):
-        """The native route's cache lookup: None on a miss or for an
-        uncacheable type.  `key` lets the caller compute the key once for
-        lookup and store."""
-        key = key if key is not None else self.native_key(q, ds)
-        if key is None:
-            return None
-        return self._cached(q, ds, key, count_miss)
+    def cached_native(self, q, ds):
+        """The native degraded route's lookup, as `cached_result`: None on
+        a miss or for an uncacheable type."""
+        return self._cached(q, ds, self.native_key(q, ds), allow_delta=False)[0]
 
-    def _cached(self, q, ds, key, count_miss=True):
-        if key is None or self.ctx.config.result_cache_entries <= 0:
-            return None
+    def _cached(self, q, ds, key, allow_delta=True, post=None):
+        """(answer or None, the declines of its delta refresh).  A lookup
+        that may refresh (`allow_delta`) counts its miss."""
+        cfg = self.ctx.config
+        if key is None or cfg.result_cache_entries <= 0:
+            return None, []
         hit = self.result_cache.get(key, ds.version)
         if hit is not None:
             self._stamp_hit_metrics(q, ds)
-            return hit
-        if count_miss:
+            return hit, []
+        declines = []
+        if allow_delta and cfg.result_cache_delta_reuse:
+            entry, decline = self.result_cache.reusable_entry(
+                key, ds.version, (s.uid for s in ds.segments))
+            if entry is not None:
+                out, decline = self._delta_refresh(q, ds, key, entry, post)
+                if out is not None:
+                    return out, []
+            if decline:
+                declines.append(decline)
+        if allow_delta:
             self.result_cache.note_miss()
-        return None
+        return None, declines
 
-    def _stamp_hit_metrics(self, q, ds):
+    def answer(self, q, ds, key, fusable: bool, post=None, execute=None):
+        """One query's answer through the serving core.  `key` is its
+        result-cache key (None: the cache is not used); `fusable` whether
+        it may ride a fused micro-batch; `post` the host post-processing of
+        the engine's frame; `execute` the engine call for a query that is
+        neither fused nor plain (grouping sets).
+
+        A cache hit or a delta refresh answers at once.  Otherwise the
+        query runs fused, else through `execute`, else on the engine alone,
+        which keeps its merged host partial state when the cache could
+        refresh the entry from it after an append.  The refresh's declines
+        go onto the metrics of this execution, and a complete answer is
+        stored at the executed snapshot's own version (never the live
+        catalog's: an append racing this write must read as a version
+        mismatch); a deadline-truncated one never is (it would be served
+        back as the exact answer)."""
+        from ..resilience import current_partial
+
+        cfg = self.ctx.config
+        if cfg.result_cache_entries <= 0:
+            key = None
+        hit, declines = self._cached(q, ds, key, post=post)
+        if hit is not None:
+            return hit
+        engine = self.ctx.engine
+        state = None
+        fused = self.fused_execute(q, ds) if fusable and self.fusion.enabled else None
+        if fused is not None:
+            df, state, m = fused
+            self.ctx._stamp_metrics(m)
+        elif execute is not None:
+            df = execute()
+        elif fusable and key is not None and cfg.result_cache_delta_reuse:
+            # the merged host state rides beside the answer: the next
+            # append refreshes the entry by scanning its deltas alone
+            with engine.state_capture() as cap:
+                df = engine.execute(q, ds)
+            state = cap["state"]
+        else:
+            df = engine.execute(q, ds)
+        m = self.ctx.last_metrics
+        if key is not None and m is not None:
+            m.result_cache = "miss"
+            m.declines.extend(declines)
+        if post is not None:
+            df = post(df)
+        pc = current_partial()
+        if key is not None and (pc is None or not pc.triggered):
+            self.result_cache.put(key, df, version=ds.version,
+                                  uids=frozenset(s.uid for s in ds.segments), state=state)
+        return df
+
+    def _delta_refresh(self, q, ds, key, entry, post=None):
+        """(cached partial state) merged with (the partials of the segments
+        appended since): the engine scans only the segments the entry did
+        not cover, the states merge, and the answer is finalized (with the
+        SQL surface's host post-processing), cached at the new version and
+        returned as (df, "").  Deterministic declines return (None,
+        reason): a deadline cut the delta scan (a truncated state must not
+        be cached as the exact answer), or the states' shapes differ.  Any
+        other failure raises: a device fault is never hidden behind a full
+        execution."""
+        from ..catalog.segment import row_counts
+        from ..resilience import current_partial
+
+        t0 = time.perf_counter()
+        engine = self.ctx.engine
+        fresh = [s for s in ds.segments if s.uid not in entry.uids]
+        delta_state, dm = engine.groupby_partials_host(
+            q, ds, within_uids=frozenset(s.uid for s in fresh))
+        pc = current_partial()
+        if pc is not None and pc.triggered:
+            return None, "result-cache: a deadline cut the delta scan"
+        if delta_state["sums"].shape != entry.state["sums"].shape:
+            return None, (f"result-cache: partial states do not merge "
+                          f"({entry.state['sums'].shape} vs {delta_state['sums'].shape})")
+        merged = engine.merge_groupby_states(q, ds, entry.state, delta_state)
+        df = engine.finalize_groupby_state(q, ds, merged)
+        if post is not None:
+            df = post(df)
+        self.result_cache.put(key, df, version=ds.version,
+                              uids=frozenset(s.uid for s in ds.segments), state=merged)
+        self.result_cache.note_delta_hit(entry)
+        m = self._stamp_hit_metrics(q, ds, outcome="delta")
+        for f in ("strategy", "rows_scanned", "bytes_scanned", "segments", "num_groups",
+                  "h2d_bytes", "h2d_ms", "dispatch_count", "arena_segments",
+                  "graph_captures", "graph_replays", "capture_ms", "declines"):
+            setattr(m, f, getattr(dm, f))
+        m.strategy = "result-cache-delta"
+        m.delta_rows_seen = row_counts(fresh)[1]
+        m.total_ms = (time.perf_counter() - t0) * 1e3
+        log.info("delta refresh on %r: %d appended segments (%d rows) merged onto the "
+                 "cached partial state", ds.name, len(fresh), dm.rows_scanned)
+        return df.copy(), ""
+
+    def _stamp_hit_metrics(self, q, ds, outcome: str = "hit"):
         """QueryMetrics of a cache-served answer (the wire query type, so
         the hit lands on the same series as executed siblings), stamped as
-        the context's most recent metrics."""
+        the context's most recent metrics.  `outcome` "hit" (no device
+        work) or "delta" (a delta refresh)."""
         from ..exec.metrics import QueryMetrics
 
         try:
@@ -168,37 +281,12 @@ class ServingCore:
             executor="device",
             datasource=ds.name,
             query_id=current_query_id(),
-            result_cache="hit",
+            result_cache=outcome,
         )
         self.ctx._stamp_metrics(m)
         record_query_metrics(m, "ok")
-        prof.note_result_cache("hit")
+        prof.note_result_cache(outcome)
         return m
-
-    def store_result(self, rw, ds, key, df) -> None:
-        """Publish one computed answer at the executed snapshot's own
-        version (never the live catalog's: a re-registration racing this
-        write must read as a version mismatch)."""
-        if key is None or self.ctx.config.result_cache_entries <= 0:
-            return
-        self.result_cache.put(key, df, version=ds.version,
-                              uids=frozenset(s.uid for s in ds.segments))
-
-    def store_native(self, q, ds, df, key=None) -> None:
-        """Publish one native answer; a deadline-truncated frame is never
-        stored (it would be served back as the exact answer)."""
-        from ..resilience import current_partial
-
-        if self.ctx.config.result_cache_entries <= 0:
-            return
-        key = key if key is not None else self.native_key(q, ds)
-        if key is None:
-            return
-        pc = current_partial()
-        if pc is not None and pc.triggered:
-            return
-        self.result_cache.put(key, df, version=ds.version,
-                              uids=frozenset(s.uid for s in ds.segments))
 
     # -- fusion ----------------------------------------------------------------
 

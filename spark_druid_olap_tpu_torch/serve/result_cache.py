@@ -1,20 +1,30 @@
-"""Version-keyed result cache.
+"""Version-keyed result cache with delta-aware reuse.
 
-Dashboards post the same query every refresh.  The cache answers a repeat
-with no device work at all:
+Dashboards post the same query every refresh, and a realtime datasource
+takes appends between refreshes.  Every aggregate state is mergeable, so:
 
   * Entries key on the query's identity, the datasource's dictionary
     signature and the session flags (never the segment uids), and carry
     the monotonic per-datasource `version` (`catalog/cache.py`) the answer
-    was computed against, with the segment uids it covered.
-  * A lookup at the entry's version is a hit: the final frame, copied.
-  * Any other version is a miss (a re-registration, a new segment set).
+    was computed against, the segment uids it covered and, where the
+    execution produced one, its merged host partial state.
+  * A lookup at the entry's version is a hit: the final frame, copied, no
+    device work.
+  * A lookup at a later version whose entry holds a state and covers a
+    strict subset of the live segment uids (segments were appended, none
+    retired) can be reused (`reusable_entry`): the engine scans only the
+    new segments, the two states merge, and the refreshed entry is cached
+    at the new version (`serve/core.py`), so an append costs its deltas,
+    not the history.
+  * A retired uid (a compaction, or a remap that kept the key), an entry
+    without a state (the adaptive or sparse tier answered, or the state
+    was over `_STATE_BYTES_MAX`), or a dictionary extension (the key
+    changes) is a full miss.  A fused batch's member keeps its own copy of
+    its state.
 
 Writes go through `put(...)` with a required keyword `version`: an entry
 without the version it was computed at is the stale-dashboard bug this
-cache exists to prevent.  The JAX package also reuses a stale entry's
-partial state when only appends separate it from the live segments (delta
-reuse); that needs delta segments, which come with ingest.
+cache exists to prevent.
 """
 
 from __future__ import annotations
@@ -27,25 +37,40 @@ from ..utils.lru import CountBudgetCache
 
 log = get_logger("serve.result_cache")
 
+# partial states larger than this are not kept (a cached [G, M] state is
+# host memory held per entry): the entry keeps its frame alone
+_STATE_BYTES_MAX = 32 << 20
+
+
+def _state_nbytes(state) -> int:
+    if state is None:
+        return 0
+    total = sum(int(getattr(state[k], "nbytes", 0)) for k in ("sums", "mins", "maxs"))
+    return total + sum(int(getattr(v, "nbytes", 0)) for v in state.get("sketches", {}).values())
+
 
 class CacheEntry:
-    __slots__ = ("df", "version", "uids", "hits")
+    __slots__ = ("df", "state", "version", "uids", "hits", "delta_hits")
 
-    def __init__(self, df, version: int, uids: FrozenSet):
+    def __init__(self, df, state, version: int, uids: FrozenSet):
         self.df = df
+        self.state = state
         self.version = int(version)
         self.uids = frozenset(uids)
         self.hits = 0
+        self.delta_hits = 0
 
 
 class ResultCache:
-    """LRU result cache of final frames."""
+    """LRU result cache of final frames and their mergeable partial states."""
 
-    def __init__(self, entries: int = 64):
+    def __init__(self, entries: int = 64, delta_reuse: bool = True):
         self.entries = max(int(entries), 0)
+        self.delta_reuse = bool(delta_reuse)
         self._cache = CountBudgetCache(max(self.entries, 1))
         self._lock = threading.Lock()
         self.hits = 0
+        self.delta_hits = 0
         self.misses = 0
 
     @property
@@ -61,6 +86,8 @@ class ResultCache:
         with self._lock:
             if outcome == "hit":
                 self.hits += 1
+            elif outcome == "delta":
+                self.delta_hits += 1
             else:
                 self.misses += 1
         get_registry().counter(
@@ -83,17 +110,44 @@ class ResultCache:
         self._count("hit")
         return entry.df.copy()
 
+    def reusable_entry(self, key, version: int, current_uids):
+        """(entry, decline): the entry a delta refresh can extend (present,
+        at an earlier version, holding a partial state, covering a strict
+        subset of the live uids: segments were appended and none retired),
+        else None with the reason it cannot ("" when there is no entry or
+        it is at this version)."""
+        if not self.enabled:
+            return None, ""
+        entry: Optional[CacheEntry] = self._cache.get(key)
+        if entry is None or entry.version == int(version):
+            return None, ""
+        if entry.state is None:
+            return None, "result-cache: the cached answer holds no partial state to merge"
+        if not entry.uids < frozenset(current_uids):
+            return None, ("result-cache: segments retired since the cached version "
+                          "(a compaction or a remap)")
+        return entry, ""
+
+    def note_delta_hit(self, entry: CacheEntry) -> None:
+        entry.delta_hits += 1
+        self._count("delta")
+
     def note_miss(self) -> None:
         if self.enabled:
             self._count("miss")
 
-    def put(self, key, df, *, version: int, uids) -> None:
+    def put(self, key, df, *, version: int, uids, state=None) -> None:
         """Publish one answer.  `version` (keyword-only, required) is the
         datasource version the answer was computed against; `uids` the
-        segment uids it covered (what delta reuse will extend)."""
+        segment uids it covered; `state` its merged host partial state,
+        when the execution produced one (what delta reuse extends)."""
         if not self.enabled:
             return
-        self._cache[key] = CacheEntry(df.copy(), version=version, uids=uids)
+        if state is not None and _state_nbytes(state) > _STATE_BYTES_MAX:
+            log.info("partial state too large to keep (%d B); caching the frame alone",
+                     _state_nbytes(state))
+            state = None
+        self._cache[key] = CacheEntry(df.copy(), state, version=version, uids=uids)
 
     def resize(self, entries: int) -> None:
         """`SET result_cache_entries`: re-budget and evict down (0 releases
@@ -112,8 +166,8 @@ class ResultCache:
             return {
                 "entries": len(self._cache),
                 "capacity": self.entries,
-                "delta_reuse": False,
+                "delta_reuse": self.delta_reuse,
                 "hits": self.hits,
-                "delta_hits": 0,
+                "delta_hits": self.delta_hits,
                 "misses": self.misses,
             }

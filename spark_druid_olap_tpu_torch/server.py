@@ -8,7 +8,8 @@ and dashboards can point at it:
     GET  /druid/v2/datasources            -> ["lineorder", ...]
     GET  /druid/v2/datasources/{name}     -> {"dimensions": .., "metrics": ..}
     GET  /druid/v2/trace/{query_id}       -> span tree (and cost receipt) of a recent query
-    GET  /status, /status/health          -> liveness, breakers, admission, last metrics
+    POST /druid/v2/ingest/{datasource}    streamed rows -> {"appended", "datasourceVersion", "totalRows"}
+    GET  /status, /status/health          -> liveness, breakers, admission, storage, last metrics
     GET  /status/metrics                  -> Prometheus text exposition
     GET  /status/profile                  -> the rolling workload profile
 
@@ -20,10 +21,16 @@ collector; a partial answer and, on a sampled query, the cost receipt ride
 `X-Druid-Response-Context`.  Errors are Druid's structured error objects:
 400 for a malformed query, 404 for an unknown route or trace, 500 with
 nothing internal in it (the traceback goes to the log), 503 with
-Retry-After when admission or a lane is full or the device breaker is open
-and the query cannot degrade, 504 on an expired deadline.  The streamed
-ingest route and the cluster's scatter route of the JAX package answer 501
-until those tiers are ported.
+Retry-After when admission or a lane is full, the device breaker is open
+and the query cannot degrade, or the node is replaying its WAL at boot,
+504 on an expired deadline.  The cluster's scatter route of the JAX
+package answers 501 until the cluster tier is ported.
+
+    POST /druid/v2/ingest/{datasource}    {"rows": [...]} | {"columns": {...}} -> ack
+
+appends streamed rows (`TPUOlapContext.ingest.append_rows`) behind the
+ingest admission pool (503 with Retry-After when it is full), and the
+rows are in the next query's answer.
 
 Native queries bypass the SQL planner (they are its output language) and
 go through the serving core: the result cache, micro-batch fusion, then
@@ -256,8 +263,10 @@ class _Handler(BaseHTTPRequestHandler):
             # breaker state + slots in use: a load balancer (or the
             # concurrent-serving test) reads degradation from here
             doc = res.health()
-            # the durable tier comes with ingest and storage
-            doc["storage"] = {"enabled": False}
+            # the durable tier: WAL sequence, snapshot version, replay in
+            # progress, dirty deltas (what a restart would replay)
+            storage = getattr(self.ctx, "storage", None)
+            doc["storage"] = storage.state() if storage is not None else {"enabled": False}
             return self._send(200, doc)
         if path == "/status/metrics":
             # Prometheus text exposition of the process registry (engine,
@@ -316,8 +325,12 @@ class _Handler(BaseHTTPRequestHandler):
                     # registry summary: counter/gauge values + histogram
                     # p50/p95/p99 (full series live at /status/metrics)
                     "metrics": get_registry().to_dict(),
-                    # the __sys telemetry sampler comes with ingest
-                    "sys_sampler": None,
+                    # the __sys telemetry sampler (obs/telemetry.py)
+                    "sys_sampler": (
+                        self.ctx.sys_sampler.status()
+                        if getattr(self.ctx, "sys_sampler", None) is not None
+                        else None
+                    ),
                 },
             )
         if path == "/druid/v2/datasources":
@@ -358,10 +371,7 @@ class _Handler(BaseHTTPRequestHandler):
                 400, "invalid JSON body", "BadJsonQueryException"
             )
         if path.startswith("/druid/v2/ingest/"):
-            return self._error(
-                501, "streamed ingest is not available in this package yet",
-                "UnsupportedOperationException",
-            )
+            return self._ingest(path.rsplit("/", 1)[1], body)
         if path == "/druid/v2/cluster/partial":
             return self._error(
                 501, "the cluster tier is not available in this package yet",
@@ -418,7 +428,94 @@ class _Handler(BaseHTTPRequestHandler):
                     # 0-chunk has no socket to land on — not an error
                     pass
 
+    def _ingest(self, name: str, body: dict):
+        """POST /druid/v2/ingest/{datasource}: a streamed row append (the
+        realtime node's push).  Body: {"rows": [row objects]} or
+        {"columns": {name: [values]}}.  Gated on the ingest admission pool
+        (503 with Retry-After when it is full), so appends and queries
+        cannot starve each other, and under the deadline queries get
+        (`context.timeout`).  Answers the acknowledgement with 200; 400 for
+        a malformed body or an unknown datasource; 504 on an expired
+        deadline."""
+        res = self._resilience()
+        cfg = getattr(self.ctx, "config", None)
+        qctx = body.get("context")
+        qctx = qctx if isinstance(qctx, dict) else {}
+        client_qid = qctx.get("queryId")
+        self._query_id = str(client_qid) if client_qid else new_query_id()
+        rows = body.get("rows", body.get("columns"))
+        if rows is None:
+            return self._error(
+                400,
+                'body must carry "rows" (row objects) or "columns" '
+                "(column arrays)",
+                "BadQueryException",
+            )
+        with span(SPAN_ADMISSION):
+            admitted = res is None or res.ingest_admission.acquire()
+        if not admitted:
+            return self._error(
+                503,
+                "ingest capacity exceeded; retry later",
+                "QueryCapacityExceededException",
+                headers={
+                    "Retry-After": res.ingest_admission.retry_after_s()
+                },
+            )
+        try:
+            # tolerate a malformed context.timeout exactly like the query
+            # route: client noise means "no timeout", never a 500
+            if "timeout" in qctx:
+                try:
+                    timeout_ms = float(qctx["timeout"])
+                except (TypeError, ValueError):
+                    timeout_ms = 0
+            else:
+                timeout_ms = cfg.query_timeout_ms if cfg else 0
+            if timeout_ms <= 0:
+                timeout_ms = float("inf")
+            with self._tracer().query_trace(
+                query_id=self._query_id,
+                query_type="ingest",
+                slow_ms=cfg.slow_query_ms if cfg else 0.0,
+            ), deadline_scope(timeout_ms):
+                ack = self.ctx.ingest.append_rows(name, rows)
+            return self._send(200, ack)
+        except KeyError as e:
+            return self._error(
+                400, f"unknown dataSource: {e}", "BadQueryException"
+            )
+        except ValueError as e:
+            # malformed client payload (ragged columns, unknown columns,
+            # unparseable time values): 400, not a server error
+            return self._error(400, str(e), "BadQueryException")
+        except DeadlineExceeded as e:
+            if res is not None:
+                res.note_deadline_exceeded()
+            return self._error(504, str(e), "QueryTimeoutException")
+        except Exception as e:  # nothing internal in the 500's body
+            log.error("ingest failed: %s", type(e).__name__, exc_info=True)
+            if res is not None:
+                res.note_server_error(e)
+            return self._error(
+                500, "ingest failed; see server logs", type(e).__name__
+            )
+        finally:
+            if res is not None:
+                res.ingest_admission.release()
+
     def _handle_query(self, path, body, qctx, res, cfg):
+        # a recovering node is busy, not wedged: while boot replay applies
+        # the WAL, an answer would read a state between the snapshot and
+        # the acknowledged tail, so 503 with Retry-After, as a full pool
+        storage = getattr(self.ctx, "storage", None)
+        if storage is not None and storage.replay_in_progress:
+            return self._error(
+                503,
+                "node is recovering (WAL replay in progress); retry later",
+                "QueryUnavailableException",
+                headers={"Retry-After": res.admission.retry_after_s() if res is not None else 1},
+            )
         # admission is per-route and LANE-FIRST (serve/lanes.py): the
         # query takes its priority lane's slot before the global pool,
         # so a heavy query queued on a full heavy lane never sits on a
@@ -627,7 +724,7 @@ class _Handler(BaseHTTPRequestHandler):
             # an open circuit must not cost a cached answer (as on the SQL
             # path): a hit needs no device
             if serve is not None:
-                hit = serve.cached_native(q, ds, count_miss=False)
+                hit = serve.cached_native(q, ds)
                 if hit is not None:
                     return self._send(
                         200, druid_result_shape(q, hit),
@@ -664,25 +761,7 @@ class _Handler(BaseHTTPRequestHandler):
             # the engine alone, the answer stored back
             if serve is None:
                 return self.ctx.engine.execute(q, ds)
-            # one key computation per request (it serializes the spec),
-            # shared by lookup and store
-            rkey = serve.native_key(q, ds)
-            hit = serve.cached_native(q, ds, key=rkey)
-            if hit is not None:
-                return hit
-            fused = (serve.fused_execute(q, ds)
-                     if serve.fusion.enabled and self.ctx.engine.fusable(q, ds)
-                     else None)
-            if fused is not None:
-                df, _state, m = fused
-                self.ctx._stamp_metrics(m)
-            else:
-                df = self.ctx.engine.execute(q, ds)
-            m = self.ctx.last_metrics
-            if rkey is not None and m is not None:
-                m.result_cache = "miss"
-            serve.store_native(q, ds, df, key=rkey)
-            return df
+            return serve.answer(q, ds, serve.native_key(q, ds), self.ctx.engine.fusable(q, ds))
 
         try:
             self.ctx._sync_engine_resilience(self.ctx.engine)

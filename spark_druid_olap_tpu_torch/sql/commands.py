@@ -3,6 +3,8 @@
     CREATE [TEMPORARY] TABLE t USING <fmt> OPTIONS (path '...', timeColumn
         'ts', dimensions 'a,b', metrics 'x', starSchema '<json>',
         columnMapping '<json>', rowsPerSegment '4194304')
+    CREATE TABLE t USING tpu_olap OPTIONS (path '<saved directory>')
+    CREATE TABLE t AS SELECT ...
     DROP TABLE [IF EXISTS] t
     SHOW TABLES
     DESCRIBE t | SHOW COLUMNS FROM t
@@ -241,12 +243,16 @@ def run_command(ctx, cmd: Command):
         import os
 
         if cmd.fmt == "tpu_olap" and os.path.isdir(path):
-            # a saved-datasource directory: the on-disk format belongs to
-            # the storage tier, which this package does not carry yet
-            raise NotImplementedError(
-                "loading a saved datasource directory needs the storage "
-                "tier (catalog/persist.py), not ported yet: ROADMAP queue A "
-                "item 7"
+            # a saved-datasource directory (catalog/persist.py, either
+            # package's): the encoded segments load as they are, no ingest
+            if opts:
+                raise ValueError(
+                    "saved-datasource load takes no options besides path; "
+                    f"got {sorted(opts)}"
+                )
+            ds = ctx.load_table(path, name=cmd.table)
+            return pd.DataFrame(
+                {"status": [f"loaded {cmd.table} ({ds.num_rows} rows)"]}
             )
         kwargs = {}
         if "timeColumn" in opts:

@@ -23,6 +23,10 @@ specs, and float64 pandas oracles.
 * `SKETCH_QUERIES` are the approximate queries of BASELINE configs #3
   (TopN + HLL, and the same over a filter) and #5 (CUBE + distinct count,
   as HLL and as theta) and an APPROX_QUANTILE query, over the flat fact.
+* `register_streamed(ctx, scale)` registers the same star at a large scale
+  factor through the sharded ingest pipeline, chunk by chunk;
+  `fact_rows(tables, n, seed)` draws a batch of fact rows in domain values
+  for `append_rows`.
 * `oracle(frame, name)` computes each result in float64 pandas, over
   `flat_frame(tables)` (decoded strings, small scales) or
   `coded_frame(cols, dicts)` (categoricals over the codes, any scale);
@@ -33,7 +37,7 @@ specs, and float64 pandas oracles.
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 
@@ -191,10 +195,13 @@ def gen_dim_tables(scale: float, rng) -> Dict[str, Dict[str, np.ndarray]]:
     }
 
 
-def _gen_fact(n: int, rng, datekeys, n_c: int, n_s: int, n_p: int):
+def _gen_fact(n: int, rng, datekeys, n_c: int, n_s: int, n_p: int,
+              date_lo: int = 0, date_hi: Optional[int] = None):
     # dates are drawn pre-sorted (every other column is iid), so the fact
-    # arrives time-sorted, the order Druid segments by
-    date_idx = np.sort(rng.integers(0, len(datekeys), size=n, dtype=np.int16))
+    # arrives time-sorted, the order Druid segments by; a chunk of the
+    # stream draws from its slice [date_lo, date_hi) of the days
+    date_idx = np.sort(rng.integers(
+        date_lo, len(datekeys) if date_hi is None else date_hi, size=n, dtype=np.int16))
     quantity = rng.integers(1, 51, size=n).astype(np.float32)
     extendedprice = rng.random(n).astype(np.float32) * 55_450 + 90
     discount = rng.integers(0, 11, size=n).astype(np.float32)
@@ -266,6 +273,132 @@ def flat_columns(tables) -> Tuple[Dict[str, np.ndarray], Dict[str, DimensionDict
     ad = _attr_dicts(tables)
     cols = _flat_chunk(tables["lineorder"], tables, ad)
     return cols, {attr: d for attr, (d, _) in ad.items()}
+
+
+def n_fact_chunks(scale: float, chunk_rows: int) -> int:
+    return -(-int(6_000_000 * scale) // chunk_rows)
+
+
+_FACT_STREAM = 90_001  # spawn-key tag separating fact chunks from dim draws
+
+
+def gen_fact_chunk(ci: int, scale: float, seed: int, chunk_rows: int, tables):
+    """Fact chunk `ci` of the streamed generator, from its own stream
+    default_rng((seed, _FACT_STREAM, ci)): reproducible given the same
+    (scale, seed, chunk_rows), so an oracle iterates with the chunk
+    geometry the ingest used.  Chunk ci covers its slice of the date span,
+    proportional to row position, so events arrive in time order and
+    date predicates prune across the whole stream.  The JAX package's
+    generator, value for value."""
+    n = int(6_000_000 * scale)
+    datekeys = tables["dwdate"]["d_datekey"]
+    n_days = len(datekeys)
+    start = ci * chunk_rows
+    rows = min(chunk_rows, n - start)
+    rng = np.random.default_rng((seed, _FACT_STREAM, ci))
+    lo = (start * n_days) // n
+    hi = max(lo + 1, ((start + rows) * n_days) // n)
+    return _gen_fact(
+        rows, rng, datekeys,
+        len(tables["customer"]["c_custkey"]),
+        len(tables["supplier"]["s_suppkey"]),
+        len(tables["part"]["p_partkey"]),
+        lo, hi,
+    )
+
+
+def fact_chunks(scale: float, seed: int, chunk_rows: int, tables):
+    """Generator of lineorder chunks at SF `scale`, one `gen_fact_chunk`
+    per step: the whole fact is never held."""
+    for ci in range(n_fact_chunks(scale, chunk_rows)):
+        yield gen_fact_chunk(ci, scale, seed, chunk_rows, tables)
+
+
+def _sorted_flat_chunk(ci, scale, seed, chunk_rows, tables, ad):
+    """Chunk ci generated, flat-encoded and time-sorted (the dates are
+    drawn sorted, so the sort is a check unless another source feeds it)."""
+    c = _flat_chunk(gen_fact_chunk(ci, scale, seed, chunk_rows, tables), tables, ad)
+    dates = c["lo_orderdate"]
+    if np.all(dates[1:] >= dates[:-1]):
+        return c
+    day = ((dates - dates.min()) // _MS_DAY).astype(np.int16)
+    order = np.argsort(day, kind="stable")
+    return {k: np.asarray(v)[order] for k, v in c.items()}
+
+
+_APPEND_STREAM = 90_002  # spawn-key tag of `fact_rows`, apart from the fact's
+
+
+def fact_rows(tables, n: int, seed: int, new_city: Optional[str] = None) -> Dict[str, np.ndarray]:
+    """`n` lineorder rows drawn as the generator draws the fact, over the
+    dimension tables of `tables`, as the flat datasource's columns in
+    domain values (strings and numbers, epoch-ms dates): a batch for
+    `append_rows`, whose values the dictionaries already hold, and, as a
+    DataFrame, a frame `oracle` reads like `flat_frame`.  `new_city`
+    replaces the c_city of every 1024th row with a value no dictionary
+    holds, with the nation and region of the first row (so the star's
+    functional dependencies hold)."""
+    dw = tables["dwdate"]
+    rng = np.random.default_rng((seed, _APPEND_STREAM))
+    lo = _gen_fact(n, rng, dw["d_datekey"], len(tables["customer"]["c_custkey"]),
+                   len(tables["supplier"]["s_suppkey"]), len(tables["part"]["p_partkey"]))
+    out: Dict[str, np.ndarray] = {"lo_orderdate": lo["lo_orderdate"],
+                                  **{m: lo[m] for m in FLAT_METRICS}}
+    idx: Dict[str, np.ndarray] = {}
+    for attr, (table, fk_col) in DIM_ATTRS.items():
+        if table not in idx:
+            idx[table] = _fk_row_index(lo, fk_col, table, dw)
+        vals = np.asarray(tables[table][attr])[idx[table]]
+        out[attr] = vals.astype(object) if vals.dtype.kind in "US" else vals
+    if new_city is not None:
+        for attr in ("c_city", "c_nation", "c_region"):
+            out[attr] = out[attr].copy()
+            # one nation and region for the new city, as for every city
+            out[attr][::1024] = new_city if attr == "c_city" else out[attr][0]
+    return out
+
+
+def rows_frame(rows: Dict[str, np.ndarray]):
+    """A batch of `fact_rows` as the frame `oracle` reads (`flat_frame`'s
+    layout: metrics in float64)."""
+    import pandas as pd
+
+    return pd.DataFrame({k: np.asarray(v, dtype=np.float64) if k in FLAT_METRICS else v
+                         for k, v in rows.items()})
+
+
+def register_streamed(ctx, scale: float, seed: int = 7,
+                      rows_per_segment: int = 1 << 19,
+                      chunk_rows: int = 1 << 22,
+                      workers: Optional[int] = None):
+    """Register the SSB star at a large scale factor: the fact is
+    generated, encoded and segmented chunk by chunk through the sharded
+    ingest pipeline (`ingest.shard.build_datasource_sharded`), never held
+    whole.  Chunks are date-sliced and time-sorted, so a segment spans a
+    narrow date range and date predicates prune by zone map.  `workers`
+    None resolves through `ingest.shard.sharded_ingest_workers`; 0 runs
+    inline.  Returns the dimension tables (for an oracle)."""
+    from ..ingest.shard import build_datasource_sharded
+
+    tables = gen_dim_tables(scale, np.random.default_rng(seed))
+    ad = _attr_dicts(tables)
+    dicts = {attr: d for attr, (d, _) in ad.items()}
+    chunks = (
+        _sorted_flat_chunk(ci, scale, seed, chunk_rows, tables, ad)
+        for ci in range(n_fact_chunks(scale, chunk_rows))
+    )
+    ds = build_datasource_sharded(
+        "lineorder", chunks,
+        dimension_cols=FLAT_DIMS, metric_cols=FLAT_METRICS,
+        time_col="lo_orderdate",
+        rows_per_segment=rows_per_segment, dicts=dicts,
+        workers=1 if workers == 0 else workers,
+    )
+    ctx.register_datasource(ds, star_schema=STAR_SCHEMA)
+    ctx.register_table("dwdate", tables["dwdate"], time_column="d_datekey")
+    for t in ("customer", "supplier", "part"):
+        ctx.register_table(t, tables[t])
+    return tables
 
 
 def datasource(cols, dicts, rows_per_segment: int = 1 << 19) -> DataSource:

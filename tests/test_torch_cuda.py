@@ -814,3 +814,164 @@ def test_sampled_receipts_carry_cuda_event_time(card):
     assert rc["sampled"] and rc["device_timing"] == "cuda_events"
     assert rc["device_ms"] > 0 and rc["syncs"] >= 1 and prof.SYNCS > before
 
+
+
+# -- ingest and storage on the card -------------------------------------------------
+
+INGEST_QUERIES = ("q1_1", "q2_1", "q4_1")
+
+
+def _ingest_contexts(card, tables, **kw):
+    """(card context, CPU context) over the same SSB tables, the result
+    cache off."""
+    out = []
+    for dev in (card, "cpu"):
+        ctx = TPUOlapContext(SessionConfig(result_cache_entries=0, **kw), device=dev)
+        ssb.register(ctx, tables=tables, rows_per_segment=16384)
+        out.append(ctx)
+    return out
+
+
+def _replays_match_cpu(gpu, cpu, runs=3):
+    """Each query `runs` times on the card (eager, capture, replay) against
+    the CPU: frames within the parity bound, the last run a graph replay
+    over live uids only."""
+    ds = gpu.catalog.get("lineorder")
+    live = {s.uid for s in ds.segments}
+    for name in INGEST_QUERIES:
+        q = ssb.NATIVE_QUERIES[name]
+        want = cpu.engine.execute(q, cpu.catalog.get("lineorder"))
+        for _ in range(runs):
+            got = gpu.engine.execute(q, ds)
+        m = gpu.engine.last_metrics
+        if m.strategy == "cuda":
+            assert m.graph_replays == 1, (name, m.describe())
+        _assert_frames_close(got, want)
+        assert gpu.engine.resident_uids() <= live | _other_uids(gpu)
+
+
+def _other_uids(ctx):
+    return {s.uid for t in ctx.catalog.tables() if t != "lineorder"
+            for s in ctx.catalog.get(t).segments}
+
+
+def _assert_frames_close(got, want, rtol=2e-5):
+    assert list(got.columns) == list(want.columns) and len(got) == len(want)
+    for c in want.columns:
+        g, w = np.asarray(got[c]), np.asarray(want[c])
+        if w.dtype.kind == "f":
+            np.testing.assert_allclose(g, w, rtol=rtol, err_msg=c)
+        else:
+            np.testing.assert_array_equal(g, w, err_msg=c)
+
+
+def test_append_then_replay(card):
+    tables = ssb.gen_tables(0.01, seed=11)
+    gpu, cpu = _ingest_contexts(card, tables)
+    _replays_match_cpu(gpu, cpu)
+    for i in range(3):
+        batch = ssb.fact_rows(tables, 3000 + i, seed=i)
+        for c in (gpu, cpu):
+            c.append_rows("lineorder", batch)
+        _replays_match_cpu(gpu, cpu)
+    assert gpu.catalog.get("lineorder").delta_rows == 9003
+
+
+def test_remap_then_replay(card):
+    tables = ssb.gen_tables(0.01, seed=11)
+    gpu, cpu = _ingest_contexts(card, tables)
+    _replays_match_cpu(gpu, cpu)
+    old = {s.uid for s in gpu.catalog.get("lineorder").segments}
+    graphs = len(gpu.engine._arena.keys())
+    assert graphs >= 1
+    batch = ssb.fact_rows(tables, 2048, seed=5, new_city="CANADA  NEW")
+    for c in (gpu, cpu):
+        c.append_rows("lineorder", batch)
+    # every segment remapped: no column, pinned copy or graph of the old
+    # uids is left, so nothing replays over a freed column
+    assert not old & gpu.engine.resident_uids()
+    assert not any(k[0] in old for k in gpu.engine._pipeline._pinned)
+    assert not any(ck[0] in old for ck in gpu.engine._arena._by_col)
+    _replays_match_cpu(gpu, cpu)
+
+
+def test_compaction_then_replay(card):
+    tables = ssb.gen_tables(0.01, seed=11)
+    gpu, cpu = _ingest_contexts(card, tables, compaction_rows_per_segment=16384)
+    for i in range(4):
+        batch = ssb.fact_rows(tables, 2500, seed=10 + i)
+        for c in (gpu, cpu):
+            c.append_rows("lineorder", batch)
+    _replays_match_cpu(gpu, cpu)
+    deltas = {s.uid for s in gpu.catalog.get("lineorder").delta_segments()}
+    for c in (gpu, cpu):
+        c.compact("lineorder")
+    assert not deltas & gpu.engine.resident_uids()
+    assert not any(ck[0] in deltas for ck in gpu.engine._arena._by_col)
+    _replays_match_cpu(gpu, cpu)
+
+
+def test_restart_from_disk(card, tmp_path):
+    tables = ssb.gen_tables(0.01, seed=11)
+    gpu = TPUOlapContext(SessionConfig(result_cache_entries=0, storage_dir=str(tmp_path)),
+                         device=card)
+    ssb.register(gpu, tables=tables, rows_per_segment=16384)
+    gpu.append_rows("lineorder", ssb.fact_rows(tables, 4000, seed=3))
+    before = {n: gpu.sql(ssb.QUERIES[n]) for n in INGEST_QUERIES}
+    gpu.close()
+    again = TPUOlapContext(SessionConfig(result_cache_entries=0, storage_dir=str(tmp_path)),
+                           device=card)
+    assert again.storage.last_recovery["replayed_rows"] == 4000
+    for _ in range(3):  # cold from the memory-mapped columns, capture, replay
+        after = {n: again.sql(ssb.QUERIES[n]) for n in INGEST_QUERIES}
+        for n in INGEST_QUERIES:
+            pd.testing.assert_frame_equal(after[n], before[n], check_exact=True)
+
+
+def test_delta_refresh_of_sketches_beside_concurrent_captures(card):
+    """A delta refresh of a sketch query (HLL, theta, quantiles) merges its
+    cached states with the deltas' on the host, so it runs beside another
+    thread capturing graphs on the same engine: no capture fails, and every
+    refreshed answer equals the CPU's full run."""
+    import threading
+
+    tables = ssb.gen_tables(0.01, seed=11)
+    gpu = TPUOlapContext(device=card)  # the result cache and delta reuse on
+    cpu = TPUOlapContext(SessionConfig(result_cache_entries=0), device="cpu")
+    for c in (gpu, cpu):
+        ssb.register(c, tables=tables, rows_per_segment=16384)
+    sketches = [ssb.SKETCH_QUERIES["topn_hll"], ssb.SKETCH_QUERIES["quantiles"],
+                "SELECT c_region, approx_count_distinct_ds_theta(lo_custkey) AS u, "
+                "sum(lo_revenue) AS r FROM lineorder GROUP BY c_region"]
+    for sql in sketches:
+        gpu.sql(sql)
+    stop, errors, scopes = threading.Event(), [], [0]
+
+    def capture_loop():
+        k = 2
+        try:
+            while not stop.is_set():
+                q = gpu.plan_sql("SELECT d_year, sum(lo_revenue) AS r FROM lineorder "
+                                 f"WHERE lo_quantity < {k} GROUP BY d_year").query
+                for _ in range(2):  # a new scope: the eager loop, then its capture
+                    gpu.engine.execute(q, gpu.catalog.get("lineorder"))
+                scopes[0] += 1
+                k = k % 49 + 2
+        except BaseException as err:  # reported by the main thread
+            errors.append(err)
+
+    t = threading.Thread(target=capture_loop)
+    t.start()
+    try:
+        for i in range(4):
+            batch = ssb.fact_rows(tables, 4096, seed=40 + i)
+            for c in (gpu, cpu):
+                c.append_rows("lineorder", batch)
+            for sql in sketches:
+                _assert_frames_close(gpu.sql(sql), cpu.sql(sql))
+    finally:
+        stop.set()
+        t.join()
+    assert not errors, errors
+    assert gpu.serve.result_cache.to_dict()["delta_hits"] == 4 * len(sketches)
+    assert scopes[0] > 0 and len(gpu.engine._arena.keys()) > 0

@@ -50,7 +50,9 @@ def test_importing_the_port_loads_no_jax():
         f"spark_druid_olap_tpu_torch.{m}"
         for m in ("exec.engine", "exec.adaptive_exec", "exec.sparse_exec",
                   "ops.sparse_groupby", "plan.cost", "exec.streaming",
-                  "exec.pipeline", "exec.fallback", "exec.arena")
+                  "exec.pipeline", "exec.fallback", "exec.arena",
+                  "ingest", "ingest.shard", "ingest.delta", "ingest.compact",
+                  "ingest.wal", "catalog.persist", "storage", "obs.telemetry")
     } <= set(out)
     assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []

@@ -142,7 +142,13 @@ def test_fused_batch_equals_serial_and_reference(ctxs, serial, arena_on):
     for out in runs:
         for name, (df, state, m) in zip(names, out):
             _bit_equal(df, serial[name])
-            assert state is None and m.fused_batch == len(names) and m.query_id == name
+            assert m.fused_batch == len(names) and m.query_id == name
+            # the member's merged host state (the result cache's delta reuse)
+            assert state["sums"].shape[0] == m.num_groups and set(state) == {
+                "sums", "mins", "maxs", "sketches"}
+            # owned arrays: a cached state holds its own bytes, not the
+            # batch's packed buffer
+            assert all(state[k].base is None for k in ("sums", "mins", "maxs"))
     last = runs[-1][0][2]
     if arena_on:  # the third batch runs the member set's program: one dispatch
         assert last.dispatch_count == 1 and last.arena_segments == len(ds.segments)

@@ -266,9 +266,9 @@ GAPS = {
         "LIMIT 5",
         "device",
     ),
-    # a flag of a tier the port does not have yet (the result cache's
-    # delta reuse, which needs ingest's delta segments)
-    "unported_flag": ("SET result_cache_delta_reuse = true", KeyError),
+    # a flag of a tier the port does not have yet (the cluster's replica
+    # count)
+    "unported_flag": ("SET cluster_replication = 3", KeyError),
 }
 
 
