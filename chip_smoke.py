@@ -10,7 +10,7 @@ Phases, one JSON line each:
 2. build: compiles the group-by kernel from `csrc/` (nvcc, sm_90a);
 3. kernel: the kernel against its plain PyTorch version on the card, at
    the reference kernel's test shapes, the all-masked case and the shapes
-   the main path launches in phases 4 to 13 (one 512K-row segment at each
+   the main path launches in phases 4 to 16 (one 512K-row segment at each
    query's and grouping set's G and column counts, at the tier's presence
    counts and compacted domains, at the fallback's assisted subtrees, plus a time-sorted Timeseries segment, the
    sparse tier's 4096 slots on rows sorted by slot, and the stream's 2^21-row
@@ -78,8 +78,7 @@ Phases, one JSON line each:
    bit-equal; and the host syncs of one sparse pass and one compacted pass.
    Then the 11 high-cardinality SQL queries (SSB q2.x, q3.x, q4.2, q4.3;
    TPC-H q3, q10) under "auto", "sparse" and "segment": under "auto" the
-   adaptive or sparse tier answers (scatter only after a recorded
-   decline), the kernel launches for every pass at most 4096 wide, frames
+   plan's class answers (the next path only after a recorded decline), the kernel launches for every pass at most 4096 wide, frames
    hold against the oracle, are bit-identical over two runs and agree
    across tiers (keys exact, sums within 2e-5); per query and tier the
    tier taken, G', the rungs, launches, the p50 of 3 warm runs, and device
@@ -94,7 +93,7 @@ Phases, one JSON line each:
    7, and a CUBE of revenue alone, whose sets are all captured) run with
    the arena on (SET arena_execution = true): a first run (eager), a
    second (the capture) and a third (a replay), bit-identical and held
-   against the oracle; then 2 warm runs each way, on and off interleaved,
+   against the oracle; then a warm run each way, on and off interleaved,
    every frame bit-identical to the replay's; then one profiled run each
    way.  The run fails where a pass neither replayed (one dispatch over
    every in-scope segment) nor recorded an "arena:" decline, or where the
@@ -241,7 +240,7 @@ Phases, one JSON line each:
    sync (`obs.prof.SYNCS`, and a traced query's sync sites equal an
    untraced one's); the p50 with a trace open and without.
 
-15. ingest and storage (run after phase 14, on its resident SSB SF10
+15. ingest and storage (run after phase 16, on its resident SSB SF10
    context, before phase 13 frees it).  (a) 16 batches of 4096 flat-fact
    rows (values from the existing dictionaries, `ssb.fact_rows`) and one
    full 65536-row delta appended to lineorder; after each, q1.1, q4.1
@@ -271,14 +270,42 @@ Phases, one JSON line each:
    segments' padded row counts (1024, 4096, 5120, 65536) at the headline
    (G, Ms, Mn, Mx).
 
-Every kernel launch of phases 4 to 15, CUDA graph replays included
+16. cost model (run after phase 14, on its resident SSB SF10 and TPC-H SF1
+   contexts, the result cache and fusion off, before phase 15's appends
+   change the data under the oracles and phase 13 frees the contexts).  Phases 4 to 15 already run
+   their contexts under `SessionConfig.load_calibrated()` (the committed
+   `calibration.torch_cuda.json` when it names this card; the loaded file
+   and its constants are printed first, beside the card's name and power
+   limit), so every SQL query runs its plan's class.  (a) `plan/calibrate`
+   on the card into a temporary file, loaded back: every constant
+   measured, finite and positive, the file naming this card.  (b) The 13
+   SSB queries, the Timeseries and the TopN, and TPC-H Q1, q3 and q10:
+   the plan's pick (and the pick under (a)'s fresh calibration), the
+   modelled µs of every class the model prices, and each such class's
+   warm p50 with the engine pinned to it (phase 8's forced runs reused;
+   a class whose first run is 10x the fastest's is timed once); the
+   planned run takes its plan's route or records a decline and holds the
+   oracle, as does every pinned class but where its sums miss the oracle's
+   tolerance, which is reported.  Whether each pick is within 1.25x of the
+   fastest class is reported, not failed.  (c) Phase 10's twelve classes:
+   the calibrated assist's decisions (assisted, or declined with the
+   modelled figures), and where the model declined, the query again
+   under the rules alone (no cost gate) for its ms, against the oracle.  (d)
+   The stream's class at (2^21, 169) under (a)'s calibration: the model's
+   class runs two chunks against the oracle.  Phase 3 checks and times
+   the calibration's launches (G 256 and 4096 at 2^19 and 2^17 rows, two
+   sums; the sparse tier's 4096 slots at 2^23 and 2^21 rows).
+
+Every kernel launch of phases 4 to 16, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
 
-Phases 4 and 6 also check the route of every query above 4096 groups, and
-that the kernel launched for every query whose pass (G, G' or the slots)
-is at most 4096 wide.
+Phases 4 and 6 also check the route of every query (a native query above
+4096 groups takes the adaptive or sparse tier; a SQL query its plan's
+class, or the next path after a recorded decline; phase 6's native run of
+the planned spec takes the same class), and that the kernel launched for
+every query whose pass (G, G' or the slots) is at most 4096 wide.
 
 Then the `kernels` line, the nvidia-smi line, and last
 `{"ok": true, "device": {...}}`.  Any failed check raises: the script
@@ -297,6 +324,7 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -304,7 +332,11 @@ import torch
 
 from spark_druid_olap_tpu_torch import resilience
 from spark_druid_olap_tpu_torch.catalog.persist import is_disk_backed
-from spark_druid_olap_tpu_torch.config import SessionConfig
+from spark_druid_olap_tpu_torch.config import (
+    CALIBRATED_FLOATS,
+    CALIBRATED_INTS,
+    SessionConfig,
+)
 from spark_druid_olap_tpu_torch.api import (
     TPUOlapContext,
     execute_grouping_sets,
@@ -321,6 +353,7 @@ from spark_druid_olap_tpu_torch.exec.metrics import QueryMetrics
 from spark_druid_olap_tpu_torch.exec.lowering import (
     groupby_with_time_granularity,
     lower_groupby,
+    timeseries_to_groupby,
     topn_to_groupby,
 )
 from spark_druid_olap_tpu_torch.models import aggregations as A
@@ -328,6 +361,14 @@ from spark_druid_olap_tpu_torch.models import query as Q
 from spark_druid_olap_tpu_torch.models import wire
 from spark_druid_olap_tpu_torch.exec.streaming import StreamExecutor
 from spark_druid_olap_tpu_torch.ops import cuda_groupby, hll
+from spark_druid_olap_tpu_torch.ops.groupby import SCATTER_CUTOVER
+from spark_druid_olap_tpu_torch.plan import calibrate
+from spark_druid_olap_tpu_torch.plan.cost import (
+    _kernel_costs,
+    choose_kernel_strategy,
+    choose_physical,
+    query_kernel_costs,
+)
 from spark_druid_olap_tpu_torch.plan.expr import col
 from spark_druid_olap_tpu_torch.utils import datagen
 from spark_druid_olap_tpu_torch.workloads import ssb, tpch
@@ -377,6 +418,10 @@ MAIN_SHAPES.append((524288, 36, 1, 1, 0))
 # latency maxed
 STREAM_SHAPE = (1 << 21, 169, 2, 0, 1)
 MAIN_SHAPES.append(STREAM_SHAPE)
+# phase 16's calibration (`plan/calibrate.py`): the dense class at G 256 and
+# 4096 over a segment's rows and a quarter of them, two sums (its rows
+# random; the sparse tier's pass over 4096 slots at both row counts is below)
+MAIN_SHAPES += [(R, G, 2, 0, 0) for G in (256, 4096) for R in (524288, 131072)]
 HEADLINE = (524288, 208, 4, 1, 1)
 # the padded row counts of phase 15's delta segments, at the headline's
 # (G, Ms, Mn, Mx): a one-row delta, a 4096-row batch, 5000 rows (5120: no
@@ -387,9 +432,14 @@ SKEWED = (524288, 84, 2, 0, 0)
 # the sparse tier's pass over 4096 slots, on rows sorted by slot, at each
 # query's column counts: SSB and TPC-H q3 (revenue, rows), TPC-H q10 (two
 # hidden max carriers), the exact-distinct inner groupings (rows alone; rows
-# and revenue, with c_city's hidden max carrier)
+# and revenue, with c_city's hidden max carrier); and the calibration's, at
+# its eager classes' 2^23 and 2^21 rows
 SORTED_SHAPES = [(524288, 4096, 2, 0, 0), (524288, 4096, 1, 0, 0), (524288, 4096, 2, 0, 2),
-                 (524288, 4096, 2, 0, 1)]
+                 (524288, 4096, 2, 0, 1), (8388608, 4096, 2, 0, 0), (2097152, 4096, 2, 0, 0)]
+# the plain version is timed 3 times after two warm-ups; once, warm from the
+# shape's check, where its one-hot product has more than 2^31 cells (seconds
+# a call)
+PLAIN_REPS_CELLS = 1 << 31
 ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
 WARM_RUNS = 3  # warm runs of a query: few enough to keep the run in its time limit
 SQL_PAIRS = 4  # interleaved SQL/native pairs per query in phase 6 (even)
@@ -445,11 +495,11 @@ def make_inputs(R, G, Ms, Mn, Mx, device, seed=0, mask_p=0.8, layout="random"):
     return [torch.from_numpy(a).to(device) for a in arrs]
 
 
-def cuda_ms(fn, reps: int = 20) -> float:
-    """Median of `reps` CUDA-event timings of fn() after two warm-ups: the
+def cuda_ms(fn, reps: int = 20, warm: int = 2) -> float:
+    """Median of `reps` CUDA-event timings of fn() after `warm` warm-ups: the
     host's time to issue the call and the card's to run it."""
-    fn()
-    fn()
+    for _ in range(warm):
+        fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -592,7 +642,9 @@ def time_kernel(args, R, G, Ms, Mn, Mx, device):
         "events": [sum(e.values()) for e in (events, l2_events, floor_events)],
         "rotated_sets": n,
         "call_ms": cuda_ms(lambda: cuda_groupby.cuda_partial_aggregate(*args, **kw)),
-        "plain_ms": cuda_ms(lambda: cuda_groupby.plain_partial_aggregate(*args, G, Mn, Mx), reps=3),
+        # above PLAIN_REPS_CELLS one run, warm from the shape's check
+        "plain_ms": cuda_ms(lambda: cuda_groupby.plain_partial_aggregate(*args, G, Mn, Mx),
+                            *((3, 2) if R * G <= PLAIN_REPS_CELLS else (1, 0))),
         "library_ms": library_ms,
         "bound_ms": b_ms,
         "bound_by": b_by,
@@ -656,15 +708,44 @@ def uses_kernel(m: QueryMetrics) -> bool:
     return m.strategy == "cuda" and m.segments > 0
 
 
-def check_route(name: str, m: QueryMetrics, strategy: str = "auto") -> None:
-    """Above 4096 groups, under "auto" the adaptive or sparse tier answers,
-    and the scatter path only after a recorded decline; a forced tier
-    answers itself unless it recorded a decline."""
-    if m.num_groups <= 4096 or m.segments == 0:
+def class_strategy(cls: str, device) -> str:
+    """The path (`QueryMetrics.strategy`) a cost-model class runs as: dense
+    is the kernel on a card and its plain version on the CPU."""
+    if cls == "dense":
+        return "cuda" if torch.device(device).type == "cuda" else "dense"
+    return cls
+
+
+# the paths a tier hands its query to after a recorded decline
+_AFTER_DECLINE = {"adaptive": ("sparse", "segment"), "sparse": ("segment",)}
+
+
+def check_route(name: str, m: QueryMetrics, strategy: str = "auto", plan=None,
+                device=None) -> None:
+    """A query takes its route.  With `plan` (a cost-model class: the SQL
+    path under "auto") it runs the plan's class; a forced `strategy`
+    ("sparse", "segment", "adaptive", "dense") runs itself; a native query
+    under "auto" (no plan: the engine's own ladder) runs the adaptive or
+    sparse tier above 4096 groups.  A tier passes its query on only after
+    a recorded decline."""
+    if m.segments == 0:
         return
-    want = {"auto": ("adaptive", "sparse"), "sparse": ("sparse",), "segment": ("segment",)}
-    if m.strategy not in want[strategy] and not (m.strategy == "segment" and m.tier_declines):
-        raise AssertionError(f"{name}: {strategy} took {m.strategy} ({m.declines})")
+    if plan is not None or strategy != "auto":
+        cls = plan if strategy == "auto" else strategy
+        want = class_strategy(cls, device or "cuda")
+        if want == "cuda" and m.num_groups > 4096:
+            want = "segment"  # the card has no one-hot path above the kernel's range
+        elif want in ("sparse", "adaptive") and m.num_groups <= 4096:
+            want = class_strategy("dense", device or "cuda")  # no tier that narrow
+        ok = m.strategy == want or (m.tier_declines and m.strategy in _AFTER_DECLINE.get(want, ()))
+        if not ok:
+            raise AssertionError(f"{name}: {cls} took {m.strategy} ({m.declines})")
+        return
+    if m.num_groups <= 4096:
+        return
+    if m.strategy not in ("adaptive", "sparse") and not (
+            m.strategy == "segment" and m.tier_declines):
+        raise AssertionError(f"{name}: auto took {m.strategy} ({m.declines})")
 
 
 def tier_fields(m: QueryMetrics) -> dict:
@@ -746,7 +827,7 @@ def oracle(workload, name, frame):
     return _ORACLES[key]
 
 
-def _top_k_check(name, got, want, value):
+def _top_k_check(name, got, want, value, rtol=ORACLE_RTOL):
     """ORDER BY value DESC LIMIT k against the oracle's top k, tie-aware:
     the values agree in order, every returned key that the oracle also
     returns carries its value, and a key the oracle left out sits at the
@@ -755,37 +836,37 @@ def _top_k_check(name, got, want, value):
     w = np.asarray(want[value], dtype=np.float64)
     if len(g) != len(w) or (np.diff(g) > 0).any():
         raise AssertionError(f"{name}: wrong length or order")
-    if not (np.abs(g - w) <= ORACLE_RTOL * np.abs(w)).all():
+    if not (np.abs(g - w) <= rtol * np.abs(w)).all():
         raise AssertionError(f"{name}: top-{len(w)} values differ from the oracle")
     keys = [c for c in want.columns if c != value]
     wmap = dict(zip(map(tuple, want[keys].astype(str).to_numpy()), w))
     for k, v in zip(map(tuple, got[keys].astype(str).to_numpy()), g):
         ref = wmap.get(k, w[-1])
-        if abs(v - ref) > ORACLE_RTOL * abs(ref):
+        if abs(v - ref) > rtol * abs(ref):
             raise AssertionError(f"{name}: {k} {v} vs oracle {ref}")
     return float((np.abs(g - w) / np.abs(w)).max()) if len(w) else 0.0
 
 
-def check_against_oracle(name, got, frame, workload, want=None):
+def check_against_oracle(name, got, frame, workload, want=None, rtol=ORACLE_RTOL):
     """`got` against the float64 oracle of query `name` over `frame` (or
-    `want`, an oracle computed elsewhere); returns the largest relative
-    error."""
+    `want`, an oracle computed elsewhere), sums within `rtol`; returns the
+    largest relative error."""
     if workload == "tpch":
         want = oracle(workload, name, frame)
         if isinstance(want, float):
             g = float(got.iloc[0, -1])
-            if len(got) != 1 or abs(g - want) > ORACLE_RTOL * abs(want):
+            if len(got) != 1 or abs(g - want) > rtol * abs(want):
                 raise AssertionError(f"{name}: {g} vs oracle {want}")
             return abs(g - want) / abs(want)
         if name in ("q3", "q10"):  # ORDER BY revenue DESC LIMIT k
-            return _top_k_check(name, got[list(want.columns)], want, "revenue")
+            return _top_k_check(name, got[list(want.columns)], want, "revenue", rtol)
         keys = [c for c in want.columns if want[c].dtype.kind not in "f"]
-        return _frame_check(name, got[list(want.columns)], want, keys)
+        return _frame_check(name, got[list(want.columns)], want, keys, rtol)
     if want is None:
         want = oracle(workload, name, frame)
     if isinstance(want, float):
         g = float(got["revenue"].iloc[0])
-        if len(got) != 1 or abs(g - want) > ORACLE_RTOL * abs(want):
+        if len(got) != 1 or abs(g - want) > rtol * abs(want):
             raise AssertionError(f"{name}: {g} vs oracle {want}")
         return abs(g - want) / abs(want)
     if name == "topn":
@@ -795,19 +876,19 @@ def check_against_oracle(name, got, frame, workload, want=None):
         rev = np.asarray(got.revenue, dtype=np.float64)
         worst = 0.0
         for n, r in zip(got.c_nation.astype(str), rev):
-            if abs(r - w[n]) > ORACLE_RTOL * abs(w[n]):
+            if abs(r - w[n]) > rtol * abs(w[n]):
                 raise AssertionError(f"topn: {n} {r} vs oracle {w[n]}")
             worst = max(worst, abs(r - w[n]) / abs(w[n]))
         k = ssb.TOPN_QUERY.threshold
         if len(got) != k or (np.diff(rev) > 0).any():
             raise AssertionError("topn: wrong length or order")
         left_out = [v for n, v in w.items() if n not in set(got.c_nation.astype(str))]
-        if left_out and max(left_out) > rev[-1] * (1 + ORACLE_RTOL):
+        if left_out and max(left_out) > rev[-1] * (1 + rtol):
             raise AssertionError("topn: a nation above the cut was left out")
         return worst
     keys = [c for c in want.columns if c not in ("revenue", "profit")]
     want = want.assign(**{c: want[c].astype(object) for c in keys if c != "timestamp"})
-    return _frame_check(name, got[list(want.columns)], want, keys)
+    return _frame_check(name, got[list(want.columns)], want, keys, rtol)
 
 
 def build_workloads(ssb_scale: float, tpch_scale: float, seed: int = 7):
@@ -1012,13 +1093,15 @@ def run_sql_path(ctxs, workloads, pairs: int = SQL_PAIRS):
         plan_cached = _median_ms(lambda: ctx.plan_cached(sql), 20)
         ds = ctx.catalog.get(rw.datasource)
         native_q = spec if spec is not None else rw.query
-        native = ctx.engine.execute(native_q, ds)
+        # the native run of the same spec under the same plan's class
+        strategy = ctx.strategy_for(rw)
+        native = ctx.engine.execute(native_q, ds, strategy)
         native_strategy = ctx.last_metrics.strategy
         sql_ms, native_ms, warm_launches = _interleaved_ms(
-            lambda: ctx.sql(sql), lambda: ctx.engine.execute(native_q, ds), pairs)
+            lambda: ctx.sql(sql), lambda: ctx.engine.execute(native_q, ds, strategy), pairs)
         launches += warm_launches
         if ctx.engine.device.type == "cuda":
-            check_route(name, m)
+            check_route(name, m, plan=rw.physical.strategy, device=ctx.engine.device)
             if uses_kernel(m) and launches == 0:
                 raise AssertionError(f"{name}: {m.describe()} but the kernel never launched")
         diffs = [a - b for a, b in zip(sql_ms, native_ms)]
@@ -1032,6 +1115,7 @@ def run_sql_path(ctxs, workloads, pairs: int = SQL_PAIRS):
         out.append({
             "query": f"{name} (TPC-H)" if workload == "tpch" else name,
             "json_equals_native": None if spec is None else True,
+            "plan": rw.physical.strategy,
             "strategy": m.strategy,
             "num_groups": m.num_groups,
             **tier_fields(m),
@@ -1450,7 +1534,8 @@ def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
                 ctx.sql(sql)
                 times.append((time.perf_counter() - t0) * 1e3)
             launches = cuda_groupby.LAUNCHES - before
-            check_route(name, m, strategy)
+            plan = ctx.plan_sql(sql).physical.strategy
+            check_route(name, m, strategy, plan=plan, device=ctx.engine.device)
             if ctx.engine.device.type == "cuda" and uses_kernel(m) and launches == 0:
                 raise AssertionError(f"{name}: {m.describe()} but the kernel never launched")
             busy = sum(profiled_device_ms(lambda: ctx.sql(sql),
@@ -1460,7 +1545,8 @@ def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
                 frames.setdefault(name, {})[strategy] = first
             out.append({
                 "query": name, "workload": workload, "strategy_asked": strategy,
-                "strategy": m.strategy, "num_groups": m.num_groups, **tier_fields(m),
+                "plan": plan, "strategy": m.strategy, "num_groups": m.num_groups,
+                **tier_fields(m),
                 "segments": m.segments, "result_rows": len(first), "cold_ms": cold_ms,
                 "p50_ms": p50, "kernel_launches": launches, "device_busy_ms": busy,
                 "device_idle_share": 1 - busy / p50,
@@ -1479,8 +1565,9 @@ def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
 def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
     """`ssb.EXACT_DISTINCT_QUERIES` through `ctx.sql` under count_distinct_mode
     = 'exact': bit-identical runs, distinct counts equal to the exact oracle,
-    the inner grouping answered by the sparse tier on a segmented-reduce
-    rung; the rungs and the p50."""
+    the inner grouping on its plan's route (a sparse or adaptive plan
+    answered by the sparse tier on a segmented-reduce rung); the rungs and
+    the p50."""
     import pandas as pd
 
     out = []
@@ -1496,11 +1583,13 @@ def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
             t0 = time.perf_counter()
             ctx.sql(sql)
             times.append((time.perf_counter() - t0) * 1e3)
-        check_route(name, m)
-        if m.strategy != "sparse" or m.sparse_slots <= 4096:
+        plan = ctx.plan_sql(sql).physical.strategy  # the inner grouping's
+        check_route(name, m, plan=plan, device=ctx.engine.device)
+        if plan in ("sparse", "adaptive") and (m.strategy != "sparse" or m.sparse_slots <= 4096):
             raise AssertionError(f"{name}: the inner grouping took {m.describe()}")
         out.append({
-            "query": name, "strategy": m.strategy, "num_groups": m.num_groups, **tier_fields(m),
+            "query": name, "plan": plan, "strategy": m.strategy, "num_groups": m.num_groups,
+            **tier_fields(m),
             "segments": m.segments, "result_rows": len(first), "cold_ms": cold_ms,
             "p50_ms": statistics.median(times), "kernel_launches": cuda_groupby.LAUNCHES - before,
             **ssb.check_sketch_answer(name, first, ssb.sketch_oracle(frame, name)),
@@ -1512,7 +1601,7 @@ def run_exact_distinct(ctx, frame, warm=WARM_RUNS):
 
 # -- phase 9: one dispatch per query, batch dispatch, the transfer pipeline -----
 
-ARENA_WARM = 2  # warm runs each way, arena on and off interleaved (3 until phase 15 came)
+ARENA_WARM = 1  # warm runs each way, arena on and off interleaved (3 until phase 15, 2 until 16)
 # a CUBE without sketches: every set's pass is captured (G 1 to 288, Ms 2)
 CUBE_REVENUE = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
                 "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")
@@ -1530,8 +1619,8 @@ def _with_set_metrics(engine, fn):
     got = []
     orig = engine._dispatch_groupby_once
 
-    def dispatch(q, ds, scope):
-        fetch = orig(q, ds, scope)
+    def dispatch(q, ds, scope, strategy=None):
+        fetch = orig(q, ds, scope, strategy)
 
         def fetched():
             finish = fetch()
@@ -4098,6 +4187,248 @@ def profile_stream(device, chunks, chunk_rows: int, double_buffer: bool):
             **{k: profiler[k] for k in ("copy_overlap_share", "h2d_link_gb_per_s",
                                         "device_busy_share", "device_idle_share")}}
 
+# -- phase 16: the cost model ---------------------------------------------------
+
+COST_WARM = 3  # timed runs of each class of a query, after its first run and capture
+# the SSB queries of phase 4 (the 13, the Timeseries, the TopN) and TPC-H Q1, q3, q10
+COST_QUERIES = ([("ssb", n) for n in ssb.QUERIES] + [("ssb", "timeseries"), ("ssb", "topn")]
+                + [("tpch", n) for n in ("q1", "q3", "q10")])
+PICK_SLACK = 1.25  # a pick within this factor of the fastest class is reported a hit
+COST_SKIP = 10  # a class whose first run is this many times the fastest's is timed once
+# the pick that flips between calibrations (PERF.md section 6): TPC-H q3's
+# adaptive and sparse price within the constants' spread
+KNOWN_FLIPS = {("tpch", "q3")}
+
+
+def scatter_sum_rtol(ds) -> float:
+    """The tolerance the scatter's sums are held to at few groups: the
+    forward error bound of a sequential float32 sum (n - 1) u, u = 2^-24,
+    for the n = a segment's rows that `index_add_` adds to one group one
+    after another, plus the fold of the segments' states."""
+    segs = list(ds.segments)
+    return (max(s.num_rows for s in segs) + len(segs)) * 2.0 ** -24
+
+
+def cost_constants(cfg) -> dict:
+    """The calibrated constants of a config."""
+    return {k: getattr(cfg, k) for k in CALIBRATED_FLOATS + CALIBRATED_INTS}
+
+
+def calibrate_on_card(device, path):
+    """(a) `plan/calibrate.calibrate` on the card into `path`, loaded back:
+    every constant measured, finite and positive, the file naming this card.
+    Returns (the loaded config, the file's contents)."""
+    t0 = time.perf_counter()
+    out = calibrate.calibrate(save_path=path, device=device)
+    seconds = time.perf_counter() - t0
+    cfg = SessionConfig.load_calibrated(path=path, device=device)
+    consts = cost_constants(cfg)
+    missing = [k for k in CALIBRATED_FLOATS if out.get(k) is None]
+    bad = {k: v for k, v in consts.items() if not (np.isfinite(v) and v > 0)}
+    if missing or bad or out["partial"]:
+        raise AssertionError(f"calibration: unmeasured {missing}, not finite and positive {bad}")
+    if out["device"] != torch.cuda.get_device_name(device) or not cfg.calibration_meta["applied"]:
+        raise AssertionError(f"calibration of {out['device']} not applied: {cfg.calibration_meta}")
+    emit("cost_calibration", seconds=seconds, file=path, device=out["device"],
+         power_limit=out["power_limit"], constants=consts,
+         per_row_dense_at=out["per_row_dense_at"], spread=out["spread"],
+         meta=cfg.calibration_meta)
+    return cfg, out
+
+
+def _cost_case(ctx, workload, name, fresh_cfg):
+    """One query of phase 16: (its plan, the plan under the fresh
+    calibration, the modelled us per class, run(strategy) -> frame).  A SQL
+    query's plan is its rewrite's, and `ctx.sql` runs it (the strategy
+    argument aside: the context passes the plan's class, or the engine's
+    pin); the native Timeseries' and TopN's is `choose_physical` at the
+    engine's G, as the planner prices a SQL one, and `run` passes the
+    strategy it is given (None: the engine's, its pin)."""
+    dev = ctx.engine.device
+    if name in ("timeseries", "topn"):
+        q = ssb.TIMESERIES_QUERY if name == "timeseries" else ssb.TOPN_QUERY
+        ds = ctx.catalog.get(q.datasource)
+        inner = timeseries_to_groupby(q) if name == "timeseries" else topn_to_groupby(q)
+        G = ctx.engine._lowering_for(groupby_with_time_granularity(inner), ds).num_groups
+
+        def run(strategy):
+            return ctx.engine.execute(q, ds, strategy)
+    else:
+        sql = (tpch if workload == "tpch" else ssb).QUERIES[name]
+        rw = ctx.plan_sql(sql)
+        q, ds, G = rw.query, ctx.catalog.get(rw.datasource), rw.num_groups
+
+        def run(strategy):
+            return ctx.sql(sql)
+    phys = choose_physical(q, ds, G, ctx.config, device=dev)
+    fresh = choose_physical(q, ds, G, fresh_cfg, device=dev)
+    costs = query_kernel_costs(q, ds, G, ctx.config, device=dev)
+    return phys, fresh, costs, run, ds
+
+
+def _class_p50(ctx, name, workload, frame, run, cls, warm, best_ms=None, rtol=ORACLE_RTOL):
+    """The p50 of `warm` runs of one query pinned to class `cls`
+    (`ctx.engine.strategy`), after a first run (held against the oracle,
+    sums within `rtol`) and a second (the capture); (p50, runs timed, the
+    first run's metrics, its largest relative error).  A first run above
+    COST_SKIP times `best_ms` (the fastest class so far) stands as the
+    class's time, one run: a class that far behind needs no p50 to lose."""
+    ctx.engine.strategy = cls
+    try:
+        t0 = time.perf_counter()
+        first = run(None)
+        first_ms = (time.perf_counter() - t0) * 1e3
+        m = ctx.last_metrics
+        try:
+            err = check_against_oracle(name, first, frame, workload, rtol=rtol)
+        except AssertionError as fault:
+            raise AssertionError(f"{cls}, rtol {rtol}: {fault}") from None
+        if best_ms is not None and first_ms > COST_SKIP * best_ms:
+            return first_ms, 1, m, err
+        run(None)
+        times = _runs_ms(lambda: run(None), warm)
+    finally:
+        ctx.engine.strategy = "auto"
+    return statistics.median(times), warm, m, err
+
+
+def run_cost_picks(ctxs, workloads, tier_rows, fresh_cfg, warm=COST_WARM):
+    """(b) Each query's plan and the warm p50 of every class the model
+    prices (finite cost), each pinned in turn (`ctx.engine.strategy`), its
+    answer held against the oracle; a class phase 8 already forced on the
+    query (its path not declined) reuses phase 8's p50.  The planned run
+    (the engine's strategy "auto") takes its plan's route or records a
+    decline, and its answer holds against the oracle.  Every answer is held
+    to ORACLE_RTOL, but the scatter's pinned at G <= SCATTER_CUTOVER, where
+    it adds thousands of a group's rows one after another in float32: those
+    are held to the bound of such a sum (`scatter_sum_rtol`).  Reported per
+    query: the pick, the pick under (a)'s fresh calibration, the modelled us
+    and the p50 per class, the fastest, each class's largest relative
+    error, and whether the pick's p50 is within PICK_SLACK of the fastest
+    (reported, not failed); then the queries whose pick the fresh
+    calibration changes, beside KNOWN_FLIPS (reported, not failed)."""
+    reuse = {}
+    for r in tier_rows:  # a forced class that answered itself, or the plan's
+        cls = r["strategy_asked"] if r["strategy_asked"] != "auto" else r["plan"]
+        if r["strategy"] == class_strategy(cls, "cuda"):
+            reuse[(r["workload"], r["query"], cls)] = r["p50_ms"]
+    out = []
+    for workload, name in COST_QUERIES:
+        ctx = ctxs[workload]
+        dev = ctx.engine.device
+        _, frame = workloads[workload]
+        phys, fresh, costs, run, ds = _cost_case(ctx, workload, name, fresh_cfg)
+        first = run(phys.strategy)
+        m = ctx.last_metrics
+        check_route(name, m, plan=phys.strategy, device=dev)
+        err = check_against_oracle(name, first, frame, workload)
+        p50, runs, reused, class_err, tol = {}, {}, [], {}, {}
+        # the plan's class first: the others are timed against it
+        for cls in sorted((c for c, us in costs.items() if np.isfinite(us)),
+                          key=lambda c: c != phys.strategy):
+            if (workload, name, cls) in reuse:
+                p50[cls] = reuse[(workload, name, cls)]
+                reused.append(cls)
+                continue
+            few = cls == "segment" and phys.num_groups <= SCATTER_CUTOVER
+            tol[cls] = scatter_sum_rtol(ds) if few else ORACLE_RTOL
+            ms, runs[cls], cm, class_err[cls] = _class_p50(
+                ctx, name, workload, frame, run, cls, warm, min(p50.values(), default=None),
+                rtol=tol[cls])
+            check_route(f"{name} ({cls})", cm, cls, device=dev)
+            p50[cls] = ms
+        fastest = min(p50, key=p50.get)
+        out.append({
+            "query": name, "workload": workload, "num_groups": phys.num_groups,
+            "pick": phys.strategy, "pick_fresh": fresh.strategy, "ran": m.strategy,
+            "declines": m.tier_declines, "modelled_us": {k: v for k, v in costs.items()
+                                                         if np.isfinite(v)},
+            "p50_ms": p50, "runs": runs, "reused_from_phase_8": reused,
+            "class_max_rel_err": class_err, "class_rtol": tol,
+            "fastest": fastest,
+            "pick_over_fastest": p50[phys.strategy] / p50[fastest],
+            "within_slack": p50[phys.strategy] <= PICK_SLACK * p50[fastest],
+            "oracle_max_rel_err": err,
+        })
+        emit("cost_pick", **out[-1])
+    flips = [(r["workload"], r["query"]) for r in out if r["pick_fresh"] != r["pick"]]
+    emit("cost_pick_agreement", queries=len(out), picks_within_slack=sum(
+        r["within_slack"] for r in out), fresh_flips=flips,
+         fresh_flips_beyond_known=[f for f in flips if f not in KNOWN_FLIPS])
+    return out
+
+
+def assist_against_rule(ctx, tables, frame, fallback_rows):
+    """(c) The calibrated assist's decision on each of phase 10's twelve
+    classes (phase 10 ran them under the calibrated context): assisted, or
+    declined with the modelled figures.  Where the cost model declined a
+    subtree, the query runs once more under the rules alone (the assist
+    without its cost gate: `_assist_cost_decline` answering None), its
+    answer held against the oracle, for its ms (one run: its phase-10
+    decode cache is warm); elsewhere the decisions are the rule's and
+    phase 10's p50 stands for both."""
+    out = []
+    for r in fallback_rows:
+        name = r["query"]
+        modelled = [d for d in r["declines"] if d.startswith("assist: modelled")]
+        row = {"query": name, "executor": r["executor"], "assist_subplans": r["assist_subplans"],
+               "cost_declines": modelled, "p50_ms": r["p50_ms"],
+               "assist_off_p50_ms": r["assist_off_p50_ms"]}
+        if modelled:
+            sql = tpch.EXTENDED_QUERIES[name]
+            ctx._assist_cost_decline = lambda rw, rows: None
+            try:
+                t0 = time.perf_counter()
+                got = ctx.sql(sql)
+                rule_ms = (time.perf_counter() - t0) * 1e3
+                m = ctx.last_metrics
+            finally:
+                del ctx._assist_cost_decline
+            _extended_check(f"{name} (rule)", got, tpch.extended_oracle(tables, name, frame))
+            row.update(rule_ms=rule_ms, rule_assist_subplans=m.assist_subplans,
+                       rule_executor=m.executor)
+        else:
+            row.update(rule_ms=r["p50_ms"], rule_assist_subplans=r["assist_subplans"],
+                       rule_executor=r["executor"], same_as_rule=True)
+        out.append(row)
+        emit("cost_assist", **row)
+    return out
+
+
+def stream_class_check(device, cfg, chunks: int = 2):
+    """(d) The stream's class at (2^21 rows, G 169) under the fresh
+    calibration: the executor's strategy is the model's class there, and
+    a short stream in that class holds against the oracle."""
+    rows = STREAM_SHAPE[0]
+    staged, oracle, _ = stage_stream(chunks, rows, workers=2)
+    engine = Engine(device=device)
+    engine.cost_config = cfg
+    ex = StreamExecutor(engine=engine)
+    q, ds = stream_query(), datagen.event_stream_schema()
+    cls = choose_kernel_strategy(rows, STREAM_SHAPE[1], cfg, device=device)
+    t0 = time.perf_counter()
+    frame = ex.execute(q, ds, iter(staged), rows)
+    wall_ms = (time.perf_counter() - t0) * 1e3
+    check_stream_whole("stream class", ex, chunks)
+    if ex.stats.strategy != class_strategy(cls, device):
+        raise AssertionError(f"stream ran {ex.stats.strategy}, the model's class is {cls}")
+    out = {"class": cls, "strategy": ex.stats.strategy, "chunks": chunks, "wall_ms": wall_ms,
+           "modelled_us": {k: v for k, v in _kernel_costs(rows, STREAM_SHAPE[1], cfg, False,
+                                                          device=device) if np.isfinite(v)},
+           "oracle_max_rel_err": _stream_frame_check(frame, oracle)}
+    emit("cost_stream", **out)
+    return out
+
+
+def run_cost_model(ctxs, workloads, tier_rows, fallback_rows, device, tmp):
+    """Phase 16: (a) to (d) above; returns their records."""
+    cfg, cal = calibrate_on_card(device, os.path.join(tmp, "calibration.torch_cuda.json"))
+    picks = run_cost_picks(ctxs, workloads, tier_rows, cfg)
+    assists = assist_against_rule(ctxs["tpch"], workloads["dims"]["tpch"],
+                                  workloads["tpch"][1], fallback_rows)
+    stream = stream_class_check(device, cfg)
+    return {"calibration": cal, "picks": picks, "assists": assists, "stream": stream}
+
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
@@ -4122,18 +4453,26 @@ def main(argv=None) -> int:
 
     workloads = build_workloads(args.ssb_scale, args.tpch_scale)
     # one context per workload: its engine drives that workload through
-    # phases 4 to 6, which share its residency
-    # the result cache off: phases 6 to 12 time and count every execution
+    # phases 4 to 6, which share its residency.  Each routes by the card's
+    # calibration (`SessionConfig.load_calibrated`: the committed
+    # calibration.torch_cuda.json when it names this card), with the
+    # result cache off: phases 6 to 12 time and count every execution
     # (phase 14 turns it on for its repeat pass)
-    ctxs = {w: TPUOlapContext(SessionConfig(result_cache_entries=0), device=device)
+    calibrated = SessionConfig.load_calibrated(device=device)
+    emit("calibration", nvidia_smi=card, meta=calibrated.calibration_meta,
+         constants=cost_constants(calibrated))
+    session = dataclasses.replace(calibrated, result_cache_entries=0)
+    ctxs = {w: TPUOlapContext(dataclasses.replace(session), device=device)
             for w in ("ssb", "tpch")}
     engines = {w: c.engine for w, c in ctxs.items()}
+    for e in engines.values():  # phase 4's native runs: the engine's own ladder
+        e.cost_config = session
 
     def resident():
         return sum(e.bytes_resident() for e in engines.values())
 
     torch.cuda.reset_peak_memory_stats(device)
-    shapes = KernelShapes().start()  # every launch of phases 4 to 13
+    shapes = KernelShapes().start()  # every launch of phases 4 to 16 and 13
     WATCH.install()  # nothing degraded unseen in phases 4 to 11
     cuda_groupby.LAUNCHES = 0  # count only the main path's launches
     t0 = time.perf_counter()
@@ -4179,7 +4518,7 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     dims = workloads["dims"]["ssb"]
-    exact = TPUOlapContext(SessionConfig(result_cache_entries=0), device=device)
+    exact = TPUOlapContext(dataclasses.replace(session), device=device)
     exact.engine = ctxs["ssb"].engine  # the same segments, already resident
     exact.register_datasource(
         ssb.key_dimension_datasource(workloads["ssb"][0], len(dims["customer"]["c_custkey"])),
@@ -4279,6 +4618,27 @@ def main(argv=None) -> int:
     if serving_launches == 0:
         raise AssertionError("the serving phase never launched the kernel")
 
+    # phase 16 before phase 15, whose appends change the SSB data under the
+    # oracles of phases 4 to 14; the serving flags back off
+    for c in ctxs.values():
+        c.sql("SET result_cache_entries = 0")
+        c.sql("SET fusion_window_ms = 0")
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the cost model phase's launches
+    with tempfile.TemporaryDirectory() as tmp:
+        cost = run_cost_model(ctxs, workloads, tiers, fallback, device, tmp)
+    cost_launches = cuda_groupby.LAUNCHES
+    picks = cost["picks"]
+    emit("cost_model", seconds=time.perf_counter() - t0, kernel_launches=cost_launches,
+         queries=len(picks), within_slack=sum(1 for r in picks if r["within_slack"]),
+         picks={r["query"]: r["pick"] for r in picks},
+         fresh_picks_differ=[r["query"] for r in picks if r["pick_fresh"] != r["pick"]],
+         assists_declined_by_cost=[r["query"] for r in cost["assists"] if r["cost_declines"]],
+         stream_class=cost["stream"]["class"],
+         bytes_resident=resident(), peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if cost_launches == 0:
+        raise AssertionError("the cost model phase never launched the kernel")
+
     t0 = time.perf_counter()
     cuda_groupby.LAUNCHES = 0  # count only the ingest phase's launches
     ingest = run_ingest(ctxs, workloads, queries)
@@ -4334,7 +4694,7 @@ def main(argv=None) -> int:
         "launches": (launches + sql_launches + sketch_launches + tier_launches
                      + arena_launches + fallback_launches + native_launches
                      + resilience_launches + serving_launches + ingest_launches
-                     + stream_launches),
+                     + cost_launches + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
@@ -4345,6 +4705,7 @@ def main(argv=None) -> int:
         "launches_resilience": resilience_launches,
         "launches_serving": serving_launches,
         "launches_ingest": ingest_launches,
+        "launches_cost_model": cost_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

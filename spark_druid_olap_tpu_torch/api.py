@@ -12,9 +12,20 @@
 
 A SQL string goes through the lexer and parser (`sql/`) to a logical plan,
 through the planner (`plan/`: star-join elimination, interval extraction,
-aggregate mapping, TopN/Timeseries routing) to a Druid query spec, through
-`exec.engine.Engine` on the device, and through host post-processing here
-(FD restores, host post-expressions, residual HAVING, output projection).
+aggregate mapping, TopN/Timeseries routing, and the cost model's kernel
+class, `Rewrite.physical`) to a Druid query spec, through
+`exec.engine.Engine` on the device under the plan's class, and through host
+post-processing here (FD restores, host post-expressions, residual HAVING,
+output projection).
+
+The cost model (`plan/cost.py`) prices each class with the session's
+constants: `TPUOlapContext()` loads the calibration of its device
+(`SessionConfig.load_calibrated`: `calibration.torch_cuda.json` on a card,
+the CPU profile on the CPU; `config.calibration_meta` says which), and
+`SET` on a constant replans at once (the plan cache keys on the config).
+The plan's class reaches each execution as an argument, so concurrent
+queries never route each other; `ctx.engine.strategy` set to anything but
+"auto" pins every query of the context to that strategy instead.
 
 CUBE, ROLLUP and GROUPING SETS run one engine pass per set, every set
 dispatched before any is fetched (`execute_grouping_sets`,
@@ -30,8 +41,9 @@ the host fallback (`exec/fallback.py`, `_run_fallback`) under
 `SessionConfig.fallback_execution`: the same logical plan interpreted over
 decoded host frames, with every Aggregate subtree offered to the planner
 first (`device_subplan`), so a GROUP BY the planner can rewrite still runs
-on the engine.  `last_metrics.executor` says which ran: "device",
-"fallback" or "device+fallback".  A non-aggregate SELECT plans to a Scan
+on the engine where the cost model prices it 3x below the interpreter.
+`last_metrics.executor` says which ran: "device", "fallback" or
+"device+fallback".  A non-aggregate SELECT plans to a Scan
 query, which the engine answers on the device.
 
 `TableQuery` (`ctx.table(name)`) builds the same logical plans through
@@ -103,8 +115,10 @@ from .exec.fallback import (
     plan_tables,
 )
 from .exec.finalize import apply_limit_spec
+from .exec.lowering import groupby_with_time_granularity
 from .exec.metrics import QueryMetrics
 from .models import query as Q
+from .ops.groupby import SCATTER_CUTOVER
 from .obs import (
     SPAN_DEGRADED,
     SPAN_EXECUTE,
@@ -122,6 +136,7 @@ from .obs import (
 )
 from .plan import expr as E
 from .plan import logical as L
+from .plan.cost import choose_kernel_strategy, query_kernel_costs
 from .plan.planner import Planner, Rewrite, RewriteError
 from .plan.transforms import RewritePolicyError
 from .resilience import (
@@ -162,9 +177,11 @@ class TPUOlapContext:
     present the constructor raises."""
 
     def __init__(self, config: Optional[SessionConfig] = None, device=None):
-        self.config = config or SessionConfig()
-        self.catalog = MetadataCache()
         self.engine = Engine(device=device)
+        # the cost constants of the engine's device (its calibration file,
+        # or on the CPU the CPU profile) unless the caller brings a config
+        self.config = config or SessionConfig.load_calibrated(device=self.engine.device)
+        self.catalog = MetadataCache()
         # the breakers (device, fallback), the admission and lane pools and
         # the failure counters
         self.resilience = ResilienceState(self.config)
@@ -241,6 +258,7 @@ class TPUOlapContext:
         sweeps; `SET` calls it after every change."""
         cfg = self.config
         self.engine.configure_pipeline(cfg)
+        self.engine.cost_config = cfg
         for br in self.resilience.breakers.values():
             br.failure_threshold = max(1, int(cfg.breaker_failure_threshold))
             br.cooldown_ms = float(cfg.breaker_cooldown_ms)
@@ -522,7 +540,25 @@ class TPUOlapContext:
     # -- planning ------------------------------------------------------------
 
     def _planner(self) -> Planner:
-        return Planner(self.catalog, self.config)
+        return Planner(self.catalog, self.config, device=self.engine.device)
+
+    def _pinned_strategy(self) -> Optional[str]:
+        """The engine's strategy when it pins this context's queries (set
+        to anything but "auto"), else None."""
+        s = self.engine.strategy
+        return None if s == "auto" else s
+
+    def strategy_for(self, rw: Rewrite) -> str:
+        """The strategy one execution of `rw` runs under: the plan's class
+        (`rw.physical.strategy`), unless the engine's strategy pins it.  It
+        is passed to the engine per execution and never stored on it.  The
+        session's cost constants reach the engine here on every call (the
+        adaptive tier's compacted pass prices with them), also after the
+        config was replaced."""
+        self.engine.cost_config = self.config
+        if self._pinned_strategy() is not None or rw.physical is None:
+            return self.engine.strategy
+        return rw.physical.strategy
 
     def plan_sql(self, sql_text: str) -> Rewrite:
         lp, _, _ = parse_sql(sql_text, views=self.views)
@@ -532,7 +568,7 @@ class TPUOlapContext:
         """EXPLAIN DRUID REWRITE analog: logical plan -> chosen query spec
         JSON -> the paths this context's engine tries for it."""
         lp, _, _ = parse_sql(sql_text, views=self.views)
-        return self._planner().explain(lp, self.engine)
+        return self._planner().explain(lp, self.engine, self._pinned_strategy())
 
     def explain_analyze(self, sql_text: str):
         """EXPLAIN ANALYZE analog: runs the query and returns (DataFrame,
@@ -557,7 +593,7 @@ class TPUOlapContext:
             else:
                 with span(SPAN_EXECUTE):
                     df = self.execute_rewrite(rw, use_result_cache=False)
-                text = planner.explain(lp, self.engine)
+                text = planner.explain(lp, self.engine, self._pinned_strategy())
             m = self.last_metrics
             if m is not None:
                 text += "\n\n== Execution Metrics ==\n" + m.describe()
@@ -622,7 +658,7 @@ class TPUOlapContext:
                     if explain:
                         import pandas as pd
 
-                        text = planner.explain(lp, self.engine)
+                        text = planner.explain(lp, self.engine, self._pinned_strategy())
                         return pd.DataFrame({"plan": text.split("\n")})
                     try:
                         rw = planner.plan(lp)
@@ -682,10 +718,11 @@ class TPUOlapContext:
         ds = self.catalog.get(rw.datasource)
         if ds is None:
             return None
+        strategy = self.strategy_for(rw)
 
         def refinements():
             with self._query_scope():
-                for df, info in self.engine.execute_progressive(q, ds):
+                for df, info in self.engine.execute_progressive(q, ds, strategy):
                     yield self._post_process(rw, ds, df), info
 
         return refinements()
@@ -895,9 +932,11 @@ class TPUOlapContext:
             planner raises RewriteError, when the rewrite is not a GroupBy
             (or is an exact COUNT(DISTINCT)) over fewer than
             max(device_assist_min_rows, 2^23) rows unless
-            `device_assist_force`, and when the frame lacks a column the
-            node declares.  Any other error, of the planner, the engine or
-            the kernel, propagates."""
+            `device_assist_force`, when the cost model prices the engine
+            no 3x better than the interpreter (`_assist_cost_decline`;
+            `device_assist_force` skips it), and when the frame lacks a
+            column the node declares.  Any other error, of the planner, the
+            engine or the kernel, propagates."""
             nonlocal assists
             if assist_declined is None and self.resilience.breaker.state == "open":
                 declines.append("assist: device breaker open")
@@ -922,6 +961,11 @@ class TPUOlapContext:
             if kind != "GroupByQuery" and rows < floor and not cfg.device_assist_force:
                 declines.append(f"assist: {kind} over {rows} rows < {floor}")
                 return None
+            if kind == "GroupByQuery" and not cfg.device_assist_force:
+                why = self._assist_cost_decline(rw, rows)
+                if why is not None:
+                    declines.append(why)
+                    return None
             # a column the node declares that the rewrite does not output
             # (the hidden aggregate of a HAVING) is known before running it
             spec = rw.exact_distinct or rw
@@ -994,6 +1038,30 @@ class TPUOlapContext:
         record_query_metrics(m, "partial" if m.partial else "ok")
         return df
 
+    def _assist_cost_decline(self, rw: Rewrite, rows: int) -> Optional[str]:
+        """The calibrated assist decision for a GroupBy subtree over `rows`
+        input rows: None to assist, else the decline with its modelled
+        figures.  The engine side is the cheapest kernel class at the
+        subtree's G (`plan/cost.query_kernel_costs`), one dispatch, a third
+        of the copy of its columns not resident on the card (the residency
+        keeps them for the repeats this workload makes), and the host's
+        decode of each result group; it must beat one pandas pass over the
+        rows (`cost_per_row_interp`) 3x over."""
+        cfg = self.config
+        ds = self.catalog.get(rw.datasource)
+        lowering = self.engine._lowering_for(groupby_with_time_granularity(rw.query), ds)
+        G = lowering.num_groups
+        kernel_us = min(query_kernel_costs(rw.query, ds, G, cfg,
+                                           device=self.engine.device).values())
+        h2d_us = self.engine.missing_resident_bytes(ds, lowering.columns) / cfg.h2d_bytes_per_s * 1e6
+        assist_us = kernel_us + cfg.cost_dispatch_us + h2d_us / 3.0 + G * cfg.cost_per_group_decode
+        interp_us = rows * cfg.cost_per_row_interp
+        if assist_us * 3 < interp_us:
+            return None
+        return (f"assist: modelled engine {assist_us:.6g} us x 3 >= interpreter "
+                f"{interp_us:.6g} us (G={G}, kernel {kernel_us:.6g} us, h2d {h2d_us:.6g} us, "
+                f"{rows} rows)")
+
     def _result_key(self, rw: Rewrite, ds=None):
         """Result-cache key of a rewrite, or None when it is not cacheable
         (an unknown table, an exact COUNT(DISTINCT)'s outer shape).  It
@@ -1030,20 +1098,21 @@ class TPUOlapContext:
             return None
         return self.serve.cached_result(rw, ds, self._result_key(rw, ds))
 
-    def _fusable(self, rw: Rewrite, ds) -> bool:
-        """May this rewrite ride micro-batch fusion?  GroupBy-family, no
-        grouping sets (they batch already) and the engine's own gate."""
+    def _fusable(self, rw: Rewrite, ds, strategy: str) -> bool:
+        """May this rewrite ride micro-batch fusion under `strategy`?
+        GroupBy-family, no grouping sets (they batch already) and the
+        engine's own gate."""
         if rw.grouping_sets or rw.exact_distinct is not None:
             return False
         if not isinstance(rw.query, (Q.GroupByQuery, Q.TimeseriesQuery, Q.TopNQuery)):
             return False
-        return self.engine.fusable(rw.query, ds)
+        return self.engine.fusable(rw.query, ds, strategy)
 
     def execute_rewrite(self, rw: Rewrite, use_result_cache: bool = True):
         """A rewrite's answer: from the result cache, else a fused
-        micro-batch, else the engine alone (grouping sets batched), then
-        the host post-processing; a complete answer is stored in the
-        cache."""
+        micro-batch, else the engine alone (grouping sets batched), under
+        the plan's strategy (`strategy_for`), then the host
+        post-processing; a complete answer is stored in the cache."""
         if rw.exact_distinct is not None:
             return self._execute_exact_distinct(rw.exact_distinct, use_result_cache)
         ds = self.catalog.get(rw.datasource)
@@ -1052,15 +1121,19 @@ class TPUOlapContext:
         rkey = None
         if use_result_cache and self.config.result_cache_entries > 0:
             rkey = self._result_key(rw, ds)
+        strategy = self.strategy_for(rw)
         execute = None
         if rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
-            # the engine resolves its own group-by strategy from G: the CUDA
-            # kernel at G <= SCATTER_CUTOVER on a card, scatter above
+            # every set under the plan's class, resolved at the set's own G
+            # (a narrow set under a planned scatter priced again there)
+            planned = self.config if self._pinned_strategy() is None else None
+
             def execute():
-                return execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine)
-        return self.serve.answer(rw.query, ds, rkey, self._fusable(rw, ds),
+                return execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine,
+                                             strategy=strategy, cfg=planned)
+        return self.serve.answer(rw.query, ds, rkey, self._fusable(rw, ds, strategy),
                                  post=lambda df: self._post_process(rw, ds, df),
-                                 execute=execute)
+                                 execute=execute, strategy=strategy)
 
     def _execute_exact_distinct(self, spec, use_result_cache: bool = True):
         """Two-phase exact COUNT(DISTINCT): the inner rewrite (grouped by the
@@ -1152,7 +1225,9 @@ def grouping_set_queries(q: Q.GroupByQuery, grouping_sets) -> List[Q.GroupByQuer
     ]
 
 
-def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
+def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine,
+                          strategy: Optional[str] = None,
+                          cfg: Optional[SessionConfig] = None):
     """CUBE/ROLLUP/GROUPING SETS: one engine pass per set, all dispatched
     before any is fetched (`Engine.execute_groupby_batch`), absent
     dimensions emitted as nulls, plus a __grouping_id bitmask (SQL
@@ -1161,7 +1236,12 @@ def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
     sort would fail on sets that drop the orderBy dimension.  Under a
     partial collector each set's pass is accounted under its own label, so
     the coverage describes every set (the collector's `sets` name the ones
-    a deadline truncated)."""
+    a deadline truncated).  Every set runs under `strategy` (None: the
+    engine's), but where `strategy` is a plan's scatter class, priced by
+    `cfg` at the whole query's G: a set of at most SCATTER_CUTOVER groups is
+    priced again at its own G (`choose_kernel_strategy`), so that on a card
+    the kernel, not float32 `index_add_`, adds up a narrow set's many rows
+    a group."""
     import pandas as pd
 
     all_dims = q.dimensions
@@ -1172,8 +1252,15 @@ def execute_grouping_sets(q: Q.GroupByQuery, grouping_sets, ds, engine):
     if pc is not None:
         pc.arm_set_collection()
         set_labels = [",".join(all_dims[i].name for i in s) or "()" for s in grouping_sets]
-    results = engine.execute_groupby_batch(grouping_set_queries(q, grouping_sets), ds,
-                                           set_labels=set_labels)
+    queries = grouping_set_queries(q, grouping_sets)
+    strategies = [strategy] * len(queries)
+    if cfg is not None and strategy == "segment":
+        for i, sq in enumerate(queries):
+            G = engine._lowering_for(groupby_with_time_granularity(sq), ds).num_groups
+            if G <= SCATTER_CUTOVER:
+                strategies[i] = choose_kernel_strategy(ds.num_rows, G, cfg, device=engine.device)
+    results = engine.execute_groupby_batch(queries, ds, set_labels=set_labels,
+                                           strategies=strategies)
     if pc is not None:
         pc.finish_sets()
     for s, f in zip(grouping_sets, results):

@@ -1,9 +1,10 @@
 """Session flags (the SQLConf analog).
 
-Only the flags this package reads, with the JAX package's defaults.  A flag
-of a tier the port does not have yet (the cost model, multi-device, the
-cluster) is absent, so `SET` on it raises KeyError instead of
-reporting a change that nothing reads; each comes back with the slice that
+Only the flags this package reads, with the JAX package's defaults, except
+the cost model's constants: those are the port's own, measured on its card
+(`plan/calibrate.py`).  A flag of a tier the port does not have yet
+(multi-device, the cluster) is absent, so `SET` on it raises KeyError instead
+of reporting a change that nothing reads; each comes back with the slice that
 reads it.  `SET` applies a flag at once (`TPUOlapContext.apply_config`):
 the serving and tracing flags reach the result cache, the fusion
 scheduler, the admission and lane pools and the tracer.
@@ -12,7 +13,52 @@ scheduler, the admission and lane pools and the tracer.
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 from typing import Optional
+
+import torch
+
+from .utils.log import get_logger
+
+_REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the port's calibration of its card, written by `python -m
+# spark_druid_olap_tpu_torch.plan.calibrate` on the card and committed; the
+# CPU has a built-in profile and no file
+CUDA_CALIBRATION = os.path.join(_REPO_ROOT, "calibration.torch_cuda.json")
+
+# the constants a calibration file sets (plan/calibrate.py writes them)
+CALIBRATED_FLOATS = (
+    "cost_per_row_dense",
+    "cost_per_row_scatter",
+    "cost_per_row_scatter_hi",
+    "cost_per_row_sparse",
+    "cost_per_row_compact",
+    "cost_per_group_state",
+    "cost_dispatch_us",
+    "h2d_bytes_per_s",
+    "cost_per_row_interp",
+    "cost_per_group_decode",
+)
+CALIBRATED_INTS = ("dense_tile_groups", "scatter_lo_groups", "scatter_hi_groups")
+
+
+log = get_logger("config")
+
+
+def calibration_device(device=None) -> torch.device:
+    """The device a calibration is of: `device`, else the card when there
+    is one, else the CPU."""
+    if device is None:
+        device = "cuda" if torch.cuda.is_available() else "cpu"
+    return torch.device(device)
+
+
+def device_name(device=None) -> str:
+    """The name a calibration file records for `device`: the card's
+    (`torch.cuda.get_device_name`), or "cpu"."""
+    device = calibration_device(device)
+    return torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
 
 
 @dataclasses.dataclass
@@ -52,9 +98,58 @@ class SessionConfig:
     # this many input rows is offered to the planner and, when it rewrites,
     # runs on the engine; below it the host answers in float64
     device_assist_min_rows: int = 1 << 18
-    # assist a subtree even where the rules would decline it (a Timeseries,
-    # TopN or exact-distinct rewrite under 2^23 rows); the row floor stays
+    # the assist's cost decision (api._run_fallback): a subtree is assisted
+    # when its modelled engine time, at least 3x over, beats rows x
+    # cost_per_row_interp, the host fallback interpreting an Aggregate
+    # subtree (us per input row); the engine side re-pays
+    # cost_per_group_decode (us) per result group on the host (the fetch,
+    # the decode, the frame).  Both are host constants, measured by
+    # plan/calibrate.py on the host of the card below, and apply on every
+    # device
+    cost_per_row_interp: float = 0.7041531702677367
+    cost_per_group_decode: float = 0.09857616424560679
+    # assist a subtree even where the rules or the cost decision would
+    # decline it; the row floor stays
     device_assist_force: bool = False
+
+    # -- the cost model (plan/cost.py) -------------------------------------------
+    # Each query's kernel class (dense, segment, sparse, adaptive) is the
+    # cheapest by these constants, in microseconds (bytes/s for the link).
+    # The defaults are the port's calibration of one NVIDIA H100 80GB HBM3 at
+    # 700.00 W (calibration.torch_cuda.json, written by `python -m
+    # spark_druid_olap_tpu_torch.plan.calibrate` on the card);
+    # `load_calibrated()` reads that file on a card and applies the built-in
+    # CPU profile on the CPU.  False: dense up to dense_max_groups, else
+    # sparse where it applies, else segment
+    cost_model_enabled: bool = True
+    # the dense class's widest domain; on a card the kernel takes at most
+    # SCATTER_CUTOVER (4096) groups, whatever this says
+    dense_max_groups: int = 4096
+    # the dense class: us per row per tile of dense_tile_groups groups.  The
+    # kernel reads its rows once whatever G is; its time grows with G by the
+    # measured tile width (the plain version on the CPU: its one-hot product)
+    cost_per_row_dense: float = 5.786259968976858e-06
+    dense_tile_groups: int = 2348
+    # the scatter (index_add_): us per row at scatter_lo_groups and at
+    # scatter_hi_groups, interpolated in log G between them, plus us per
+    # group of state per segment
+    cost_per_row_scatter: float = 0.0005513193209965728
+    cost_per_row_scatter_hi: float = 0.0005513193209965728
+    scatter_lo_groups: int = 1024
+    scatter_hi_groups: int = 1048576
+    cost_per_group_state: float = 8.651479830880916e-06
+    # the sparse tier: us per sorted row (the sort-reduce pass over 4096
+    # slots) and per row of the compaction pass ahead of it
+    cost_per_row_sparse: float = 0.00015026664733881222
+    cost_per_row_compact: float = 0.0005513193209965728
+    # one launch and its sync (us); the host-to-card link from pinned memory
+    cost_dispatch_us: float = 65.12599999908275
+    h2d_bytes_per_s: float = 45286504919.31948
+    # where the cost constants came from (`load_calibrated`): {"path",
+    # "device", "power_limit", "partial", "applied", "source"}, and
+    # "mismatch" when a file of another device was ignored; None when the
+    # config was built directly (the class defaults)
+    calibration_meta: Optional[dict] = None
 
     # transfer pipeline (exec/pipeline.py): a cold segment column is
     # copied from a pinned host copy kept per column, a DMA the host does
@@ -179,3 +274,73 @@ class SessionConfig:
     # the compaction sweep drops each historical `__sys` segment whose newest
     # row is older than this many seconds (whole segments); 0 keeps all
     sys_retention_s: float = 0.0
+
+    @classmethod
+    def load_calibrated(cls, path: Optional[str] = None, device=None) -> "SessionConfig":
+        """A config with the cost constants measured on `device` (default:
+        the card when there is one, else the CPU).  On a card: the committed
+        `calibration.torch_cuda.json` (or `path`) when it was measured on a
+        card of the same name, else the class defaults.  On the CPU: the
+        built-in CPU profile (`apply_platform_profile`), and a file only
+        when `path` names one.  A file of another device is ignored with a
+        warning: constants of one device route another's queries badly.
+        `calibration_meta` records what was applied."""
+        cfg = cls().apply_platform_profile(device)
+        cur = device_name(device)
+        source = "cpu profile" if cur == "cpu" else "defaults"
+        if path is None and cur != "cpu":
+            path = CUDA_CALIBRATION
+        meta = {"path": None, "device": cur, "power_limit": None, "partial": None,
+                "applied": False, "source": source}
+        data = None
+        if path is not None and os.path.exists(path):
+            try:
+                with open(path) as f:
+                    data = json.load(f)
+            except (OSError, ValueError):
+                data = None
+            if not isinstance(data, dict):
+                log.warning("ignoring unreadable calibration file %s; using the %s", path, source)
+                data = None
+        if data is not None and data.get("device") != cur:
+            log.warning(
+                "ignoring calibration file %s measured on %s (the device is %s); using "
+                "the %s: run `python -m spark_druid_olap_tpu_torch.plan.calibrate` here",
+                path, data.get("device"), cur, source)
+            meta.update(path=path, device=data.get("device"), partial=data.get("partial"),
+                        power_limit=data.get("power_limit"), mismatch=True)
+            data = None
+        if data is not None:
+            for k in CALIBRATED_FLOATS:
+                if data.get(k) is not None and data[k] > 0:
+                    setattr(cfg, k, float(data[k]))
+            for k in CALIBRATED_INTS:
+                if data.get(k) is not None and data[k] > 0:
+                    setattr(cfg, k, int(data[k]))
+            meta.update(path=path, power_limit=data.get("power_limit"),
+                        partial=data.get("partial"), applied=True, source="file")
+        cfg.calibration_meta = meta
+        return cfg
+
+    def apply_platform_profile(self, device=None) -> "SessionConfig":
+        """Overwrite (in place) the cost constants with the CPU profile when
+        `device` is the CPU; on a card the class defaults, the H100's, stay.
+        The profile is `python -m spark_druid_olap_tpu_torch.plan.calibrate
+        --device cpu --rows 131072 --launches 2` run over the port's plain
+        versions on 8 cores of an Intel Xeon (the dense class is the one-hot
+        product there, not the kernel); it routes the CPU's queries and
+        tests and is no speed result."""
+        if calibration_device(device).type != "cpu":
+            return self
+        self.cost_per_row_dense = 0.14642043304202712
+        self.dense_tile_groups = 186
+        self.cost_per_row_scatter = 0.033783467615992414
+        self.cost_per_row_scatter_hi = 0.03499985250695244
+        self.scatter_lo_groups = 1024
+        self.scatter_hi_groups = 1048576
+        self.cost_per_group_state = 6.469034409920919e-05
+        self.cost_per_row_sparse = 7.579217508953591
+        self.cost_per_row_compact = 0.033783467615992414
+        self.cost_dispatch_us = 11.244001143495552
+        self.h2d_bytes_per_s = 5059719217.713223
+        return self

@@ -16,7 +16,10 @@ the compacted domain:
             code -> compact code (-1 = absent);
   compacted the engine's segment loop over a lowering whose dimensions read
             their codes through the remap, so the kernel runs at G' instead
-            of scatter at G.  Sketch aggregators ride along unchanged.
+            of scatter at G.  Its kernel class is the cost model's at
+            (the datasource's rows, G') (`plan/cost.choose_kernel_strategy`
+            with the engine's `cost_config`).  Sketch aggregators ride
+            along unchanged.
 
 When the filter pins every grouped dimension (a Selector, In or Bound
 conjunct on it), the kept sets come from the dictionaries with no pass at
@@ -54,6 +57,7 @@ from ..models import filters as F
 from ..ops.filters import numeric_dict_code_bounds
 from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate
 from ..obs import SPAN_ADAPTIVE_PROBE, prof, span
+from ..plan.cost import choose_kernel_strategy
 from ..plan.expr import DeviceConst
 from ..resilience import DeadlineExceeded, checkpoint, current_partial, fire
 from .lowering import (
@@ -215,12 +219,13 @@ class AdaptiveDomainMixin:
     engine's `_adaptive_kept` (memo key -> kept sets), `_adaptive_declined`
     (memo key -> reason), residency and segment loop."""
 
-    def _adaptive_eligible(self, lowering: GroupByLowering) -> bool:
-        """Under "auto" or "adaptive", for a grouped query above the
-        scatter cutover, sketches included.  An explicit kernel strategy
-        ("cuda", "dense", "segment", "sparse") is honoured as such."""
+    def _adaptive_eligible(self, lowering: GroupByLowering, strategy: Optional[str] = None) -> bool:
+        """Under "auto" or "adaptive" (`strategy`, None: the engine's), for
+        a grouped query above the scatter cutover, sketches included.  An
+        explicit kernel strategy ("cuda", "dense", "segment", "sparse") is
+        honoured as such."""
         return (
-            self.strategy in ("auto", "adaptive")
+            (self.strategy if strategy is None else strategy) in ("auto", "adaptive")
             and lowering.num_groups > SCATTER_CUTOVER
             and bool(lowering.dims)
         )
@@ -318,6 +323,15 @@ class AdaptiveDomainMixin:
             return None
         return kept
 
+    def _adaptive_main_strategy(self, ds: DataSource, g_compact: int) -> str:
+        """The compacted pass's kernel strategy: the cost model's class at
+        (the datasource's rows, G'), by the engine's cost constants; dense
+        is the kernel on a card (priced only up to SCATTER_CUTOVER there)
+        and its plain version on the CPU."""
+        cls = choose_kernel_strategy(ds.num_rows, g_compact, self.cost_config,
+                                     device=self.device)
+        return self._resolve_strategy(g_compact, cls)
+
     def _groupby_adaptive(self, q, ds: DataSource, lowering: GroupByLowering, segs, m):
         """The adaptive tier over the (non-empty) segment scope: the
         compacted lowering and the merged state of its pass on the device,
@@ -358,6 +372,6 @@ class AdaptiveDomainMixin:
         if clow is None:
             clow = compacted_lowering(lowering, kept)
             self._lowering_cache[key] = clow
-        m.inner_strategy = self._resolve_strategy(clow.num_groups)
+        m.inner_strategy = self._adaptive_main_strategy(ds, clow.num_groups)
         state = self._partials_for_query(clow, segs, ds, m.inner_strategy, m, key_extra=extra)
         return clow, state

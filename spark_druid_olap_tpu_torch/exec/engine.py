@@ -15,8 +15,10 @@ segments.  A GroupBy, Timeseries or TopN runs as follows:
    adaptive domain compaction (`exec/adaptive_exec.py`) runs the kernel over
    the codes present under the filter, the sparse tier
    (`exec/sparse_exec.py`) over the present group ids compacted to slots,
-   and the scatter path runs only after both declined.  From the same group
-   ids and mask,
+   and the scatter path runs only after both declined.  Which of these
+   runs is the execution's strategy: an argument of each entry point (a
+   context passes its plan's class, `plan/cost.choose_physical`), else the
+   engine's own `strategy`.  From the same group ids and mask,
    `sketch_partials` builds each sketch aggregator's partial state (HLL
    registers, theta hash sets, quantile samples: `ops/hll.py`,
    `ops/theta.py`, `ops/quantiles.py`);
@@ -106,7 +108,7 @@ from ..models import filters as F
 from ..models import query as Q
 from ..models.filters import _ms_to_iso
 from ..ops.filters import compile_filter, numeric_dict_code_bounds
-from ..ops.groupby import partial_aggregate, resolve_strategy
+from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate, resolve_strategy
 from ..obs import (
     SPAN_DEVICE_FETCH,
     SPAN_FINALIZE,
@@ -433,7 +435,15 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
     * "segment": the scatter path at every G;
     * "cuda": the kernel at every G (it takes G <= SCATTER_CUTOVER);
     * "dense": the one-hot class: the kernel on a card, its plain version
-      on the CPU, and on a card the sparse tier above the cutover.
+      on the CPU, and on a card the sparse tier above the cutover (then
+      the scatter: the card has no one-hot path that wide).
+
+    Every entry point also takes a `strategy` for its own execution (a
+    context passes its plan's; concurrent executions never share it);
+    None is the engine's.  The adaptive tier's compacted pass and the
+    stream ask the cost model at their own (rows, G), with `cost_config`
+    (a context sets its session's; else the device's calibration,
+    `SessionConfig.load_calibrated`).
 
     A tier declines only for the deterministic reasons it records in
     `QueryMetrics.declines`; an error raises."""
@@ -443,6 +453,9 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             raise ValueError(f"unknown strategy {strategy!r}; one of {STRATEGIES}")
         self.device = resolve_device(device)
         self.strategy = strategy
+        # the cost constants of the adaptive tier's compacted pass and the
+        # stream (`cost_config`); a context sets its session's on each call
+        self._cost_config: Optional[SessionConfig] = None
         # LRU residency of device columns under a byte budget; a column that
         # leaves it takes the arena programs that read it along
         self._device_cache = ByteBudgetCache(
@@ -491,14 +504,32 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         CPU."""
         return resolve_strategy("auto", 1, self.device)
 
-    def _resolve_strategy(self, num_groups: int) -> str:
+    def _resolve_strategy(self, num_groups: int, strategy: Optional[str] = None) -> str:
         """The kernel strategy of a pass over `num_groups` groups outside the
-        tiers."""
-        if self.strategy in ("auto", "adaptive", "sparse"):
+        tiers, under `strategy` (None: the engine's).  "dense" is the
+        kernel's class: on a card the kernel, which takes at most
+        SCATTER_CUTOVER groups (the scatter above), on the CPU its plain
+        version."""
+        s = self.strategy if strategy is None else strategy
+        if s in ("auto", "adaptive", "sparse"):
             return resolve_strategy("auto", num_groups, self.device)
-        if self.strategy == "dense":
-            return self._kernel_class()
-        return self.strategy
+        if s == "dense":
+            k = self._kernel_class()
+            return "segment" if k == "cuda" and num_groups > SCATTER_CUTOVER else k
+        return s
+
+    @property
+    def cost_config(self) -> SessionConfig:
+        """The cost constants the adaptive tier and the stream price with:
+        the context's session (set on each call), else the calibration of
+        this engine's device, loaded once."""
+        if self._cost_config is None:
+            self._cost_config = SessionConfig.load_calibrated(device=self.device)
+        return self._cost_config
+
+    @cost_config.setter
+    def cost_config(self, cfg: SessionConfig) -> None:
+        self._cost_config = cfg
 
     def configure_pipeline(self, config) -> None:
         """Applies the session's execution flags (`api.TPUOlapContext` calls
@@ -606,24 +637,37 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 self._device_cache.pop(k)  # on_evict: programs and accounting
             self._pipeline.retire(uids)
 
+    def missing_resident_bytes(self, ds: DataSource, cols) -> int:
+        """Bytes a query over `cols` would copy to the card before it runs:
+        4 a row for each column and the validity mask of each segment not
+        in the residency cache (a column held only as a pinned host copy
+        still crosses the link); 0 when all are resident."""
+        return sum(
+            4 * seg.num_rows
+            for seg in ds.segments
+            for key in [column_key(seg, c) for c in cols] + [column_key(seg)]
+            if key not in self._device_cache
+        )
+
     def resident_uids(self) -> frozenset:
         """Uids of the segments with a column resident on the device."""
         return frozenset(k[0] for k in self._device_cache)
 
     # -- entry points --------------------------------------------------------
 
-    def execute(self, q: Q.QuerySpec, ds: DataSource):
-        """One query's frame.  A group-by holds the execution lock across
-        its device half and fetch only; a Scan or Search one segment at a
-        time, so a long one does not hold the card from other queries; the
-        metadata queries do no device work."""
+    def execute(self, q: Q.QuerySpec, ds: DataSource, strategy: Optional[str] = None):
+        """One query's frame, a group-by under `strategy` (None: the
+        engine's).  A group-by holds the execution lock across its device
+        half and fetch only; a Scan or Search one segment at a time, so a
+        long one does not hold the card from other queries; the metadata
+        queries do no device work."""
         if isinstance(q, Q.GroupByQuery):
-            return self._execute_groupby(q, ds)
+            return self._execute_groupby(q, ds, strategy)
         if isinstance(q, Q.TimeseriesQuery):
-            df = self._execute_groupby(timeseries_to_groupby(q), ds)
+            df = self._execute_groupby(timeseries_to_groupby(q), ds, strategy)
             return finalize_timeseries(df, q, ds)
         if isinstance(q, Q.TopNQuery):
-            df = self._execute_groupby(topn_to_groupby(q), ds)
+            df = self._execute_groupby(topn_to_groupby(q), ds, strategy)
             return finalize_topn(df, q)
         if isinstance(q, Q.ScanQuery):
             return self._execute_scan(q, ds)
@@ -647,10 +691,10 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             self._lowering_cache[key] = lowering
         return lowering
 
-    def tiers(self, q: Q.QuerySpec, ds: DataSource) -> List[str]:
-        """The paths this engine tries for a group-by, in order: the tiers
-        that apply to it, then the kernel strategy that answers when they
-        decline."""
+    def tiers(self, q: Q.QuerySpec, ds: DataSource, strategy: Optional[str] = None) -> List[str]:
+        """The paths this engine tries for a group-by under `strategy`
+        (None: the engine's), in order: the tiers that apply to it, then
+        the kernel strategy that answers when they decline."""
         if isinstance(q, Q.TimeseriesQuery):
             q = timeseries_to_groupby(q)
         elif isinstance(q, Q.TopNQuery):
@@ -658,11 +702,11 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         q = groupby_with_time_granularity(q)
         lowering = self._lowering_for(q, ds)
         out = []
-        if self._adaptive_eligible(lowering):
+        if self._adaptive_eligible(lowering, strategy):
             out.append("adaptive")
-        if self._sparse_eligible(lowering):
+        if self._sparse_eligible(lowering, strategy):
             out.append("sparse")
-        return out + [self._resolve_strategy(lowering.num_groups)]
+        return out + [self._resolve_strategy(lowering.num_groups, strategy)]
 
     def _partials_for_query(
         self, lowering: GroupByLowering, segs, ds: DataSource, strategy: str,
@@ -752,7 +796,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             at += t.numel()
         return (*out, sketch_states_to_reference(la, sketches), None)
 
-    def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource):
+    def _execute_groupby(self, q: Q.GroupByQuery, ds: DataSource, strategy: Optional[str] = None):
         """One group-by under the retry policy (`run_device_attempts`):
         queries are read-only, so a re-dispatch after a transient failure is
         always safe.  An attempt lowers on the host, holds the execution
@@ -765,7 +809,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         def attempt():
             scope = self._lower_scope(q, ds)
             with self._exec_lock:
-                finish = self._dispatch_groupby_once(q, ds, scope)()
+                finish = self._dispatch_groupby_once(q, ds, scope, strategy)()
             return finish()
 
         return run_device_attempts(self, attempt, lambda: self.evict_query_state(q, ds))
@@ -786,7 +830,8 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             for k in [k for k in self._device_cache if k[0] in uids]:
                 self._device_cache.pop(k)
 
-    def execute_groupby_batch(self, queries, ds: DataSource, set_labels=None) -> List:
+    def execute_groupby_batch(self, queries, ds: DataSource, set_labels=None,
+                              strategies=None) -> List:
         """Runs several group-bys (the sets of a CUBE or ROLLUP): every
         query is lowered, then every one's device work is dispatched, then
         each is fetched in order, so the card runs query i + 1 while the
@@ -795,8 +840,10 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         transient failure of one query's dispatch or fetch evicts its state
         and runs it again alone, under the retry policy.  `set_labels`
         names each query's pass for the partial collector's per-set
-        accounting."""
+        accounting; `strategies` each query's strategy (None: the
+        engine's)."""
         pc = current_partial()
+        strategies = list(strategies or [None] * len(queries))
 
         def label(i):
             if pc is not None and set_labels is not None:
@@ -816,7 +863,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             for i, q in enumerate(queries):
                 label(i)
                 try:
-                    fetches.append(self._dispatch_groupby_once(q, ds, scopes[i]))
+                    fetches.append(self._dispatch_groupby_once(q, ds, scopes[i], strategies[i]))
                 except RuntimeError as err:
                     failed(q, err, "dispatch")
                     fetches.append(None)
@@ -831,7 +878,8 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         out = []
         for i, q in enumerate(queries):
             label(i)
-            out.append(finishes[i]() if finishes[i] is not None else self._execute_groupby(q, ds))
+            out.append(finishes[i]() if finishes[i] is not None
+                       else self._execute_groupby(q, ds, strategies[i]))
         return out
 
     # -- host partial states (the result cache's delta reuse) ----------------
@@ -860,10 +908,12 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             return
         holder["state"] = {"sums": sums, "mins": mins, "maxs": maxs, "sketches": sketches}
 
-    def groupby_partials_host(self, q: Q.QuerySpec, ds: DataSource, within_uids=None):
+    def groupby_partials_host(self, q: Q.QuerySpec, ds: DataSource, within_uids=None,
+                              strategy: Optional[str] = None):
         """The merged host partial state of a GroupBy-family query over its
         in-scope segments whose uid is in `within_uids` (None: the whole
-        scope), by the kernel strategy of its G, through the arena (so a
+        scope), by the kernel strategy of its G under `strategy` (None: the
+        engine's; no tier runs), through the arena (so a
         repeated refresh over one set of delta segments captures and then
         replays its graph).  The result cache's delta reuse calls it with
         the uids appended since a cached answer, so a refresh scans the
@@ -878,7 +928,8 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         t0 = time.perf_counter()
         G = lowering.num_groups
         m = QueryMetrics(
-            query_type=_wire_type(q), strategy=self._resolve_strategy(G), datasource=ds.name,
+            query_type=_wire_type(q), strategy=self._resolve_strategy(G, strategy),
+            datasource=ds.name,
             device=str(self.device), query_id=current_query_id(),
             rows_scanned=_row_count(segs), bytes_scanned=_bytes_scanned(segs, lowering.columns),
             segments=len(segs), num_groups=G,
@@ -942,11 +993,11 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             return q, lambda df: df
         return None, None
 
-    def fusable(self, q: Q.QuerySpec, ds: DataSource) -> bool:
-        """May this query join a fused micro-batch?  GroupBy-family only
-        (mergeable partial state), no wire subtotals, and neither the
-        adaptive nor the sparse tier would engage (their passes read counts
-        on the host between dispatches)."""
+    def fusable(self, q: Q.QuerySpec, ds: DataSource, strategy: Optional[str] = None) -> bool:
+        """May this query join a fused micro-batch under `strategy` (None:
+        the engine's)?  GroupBy-family only (mergeable partial state), no
+        wire subtotals, and neither the adaptive nor the sparse tier would
+        engage (their passes read counts on the host between dispatches)."""
         inner, _ = self._groupby_family(q, ds)
         if inner is None or inner.subtotals:
             return False
@@ -954,9 +1005,10 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             lowering = self._lowering_for(groupby_with_time_granularity(inner), ds)
         except Exception:  # an unlowerable query declines fusion
             return False
-        return not (self._adaptive_eligible(lowering) or self._sparse_eligible(lowering))
+        return not (self._adaptive_eligible(lowering, strategy)
+                    or self._sparse_eligible(lowering, strategy))
 
-    def execute_fused(self, queries, ds: DataSource, query_ids=None):
+    def execute_fused(self, queries, ds: DataSource, query_ids=None, strategies=None):
         """Runs N fusable queries over one datasource snapshot as one
         execution, with the warm rule of a scope (`exec/arena.py`): a
         member set's first batch runs the fused eager loop (each segment's
@@ -966,7 +1018,9 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         mins, maxs) and comes back in one copy.  Sketch members and scopes
         the arena declines always run the fused eager loop.  Either way
         each member's fold is its serial fold, so its frame is
-        bit-identical to `execute`'s.  A deadline that expires first
+        bit-identical to `execute`'s under its strategy (`strategies`, one
+        per member: a member keeps its own plan; None: the engine's).  A
+        deadline that expires first
         (`engine.fused_loop`) raises: the fusion scheduler then sends every
         member to its serial path.  Returns a list of (df, state, metrics)
         per member, in order; `state` is the member's merged host partial
@@ -988,7 +1042,9 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 inner = groupby_with_time_granularity(inner)
                 lowering = self._lowering_for(inner, ds)
                 members.append((q, inner, shape, lowering, segments_in_scope(inner, ds)))
-        strategies = tuple(self._resolve_strategy(mb[3].num_groups) for mb in members)
+        asked = list(strategies or [None] * n)
+        strategies = tuple(self._resolve_strategy(mb[3].num_groups, s)
+                           for mb, s in zip(members, asked))
         bm = QueryMetrics(query_type="fused", device=str(self.device))
         # the card's share under the execution lock; finalizing runs after
         with self._exec_lock:
@@ -1136,9 +1192,11 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             lowering, segs = self._lowering_for(q, ds), segments_in_scope(q, ds)
         return (time.perf_counter() - t0) * 1e3, q, lowering, segs
 
-    def _dispatch_groupby_once(self, q: Q.GroupByQuery, ds: DataSource, scope):
-        """The device half of one group-by, under the caller's hold of the
-        execution lock: the tiers and the segment work, up to the merged
+    def _dispatch_groupby_once(self, q: Q.GroupByQuery, ds: DataSource, scope,
+                               strategy: Optional[str] = None):
+        """The device half of one group-by under `strategy` (None: the
+        engine's), under the caller's hold of the execution lock: the tiers
+        and the segment work, up to the merged
         state on the device (the sparse tier fetches as it climbs its
         ladders).  `scope` is `_lower_scope(q, ds)`, made before the lock
         was taken.  Returns `fetch() -> finish`: the fetch, under the same
@@ -1149,7 +1207,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         G = lowering.num_groups
         m = QueryMetrics(
             query_type="groupBy",
-            strategy=self._resolve_strategy(G),
+            strategy=self._resolve_strategy(G, strategy),
             datasource=ds.name,
             device=str(self.device),
             query_id=current_query_id(),
@@ -1160,7 +1218,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         )
         t_dev = time.perf_counter()
         try:
-            low, state, host = self._dispatch_tiers(q, ds, lowering, segs, m)
+            low, state, host = self._dispatch_tiers(q, ds, lowering, segs, m, strategy)
         except BaseException as err:
             # the failed attempt's metrics stand: the retry policy and the
             # API stamp them
@@ -1234,14 +1292,14 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         record_query_metrics(m, "partial" if outcome == "ok" and m.partial else outcome)
 
     def _dispatch_tiers(self, q, ds: DataSource, lowering: GroupByLowering, segs,
-                        m: QueryMetrics):
-        """The tiers in order, then the kernel strategy: (the lowering that
-        answered, its merged device state or None, the sparse tier's host
-        state or None)."""
+                        m: QueryMetrics, strategy: Optional[str] = None):
+        """The tiers `strategy` makes eligible, in order, then its kernel
+        strategy: (the lowering that answered, its merged device state or
+        None, the sparse tier's host state or None)."""
         G = lowering.num_groups
         qkey = memo_key(q, ds)
         low, state, host = lowering, None, None
-        if segs and self._adaptive_eligible(lowering):
+        if segs and self._adaptive_eligible(lowering, strategy):
             if qkey in self._adaptive_declined:
                 m.declines.append(self._adaptive_declined[qkey])
             else:
@@ -1249,7 +1307,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                 if out is not None:
                     m.strategy = "adaptive"
                     low, state = out
-        if state is None and segs and self._sparse_eligible(lowering):
+        if state is None and segs and self._sparse_eligible(lowering, strategy):
             if qkey in self._sparse_disabled:
                 m.declines.append(self._sparse_disabled[qkey])
             else:
@@ -1260,19 +1318,21 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
                         "arena: the sparse tier answered (its ladders read counts per pass)")
                     low, host = out[0], out[1:]
         if state is None and host is None:
-            m.strategy = self._resolve_strategy(G)
+            m.strategy = self._resolve_strategy(G, strategy)
             state = self._partials_for_query(lowering, segs, ds, m.strategy, m)
         return low, state, host
 
     # -- progressive execution -----------------------------------------------
 
-    def execute_progressive(self, q: Q.QuerySpec, ds: DataSource):
+    def execute_progressive(self, q: Q.QuerySpec, ds: DataSource,
+                            strategy: Optional[str] = None):
         """Refinements of one aggregate query: after each in-scope segment
         the running state is fetched and finalized, yielding `(df, info)`
         with `info` = {"sequence", "coverage", "rows_seen", "rows_total",
         "segments_seen", "segments_total", "final", "partial"}.  The last
         refinement is the exact answer, bit-identical to `execute`'s frame
-        (the same kernel strategy, the same fold order), unless a deadline
+        under `strategy` (the same kernel strategy, the same fold order;
+        None: the engine's), unless a deadline
         stops the loop: the last one is then the partial answer, flagged
         `partial`.  It runs the eager loop (each refinement fetches, so
         there is nothing to capture) and none of the high-cardinality
@@ -1307,7 +1367,7 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
         lowering = self._lowering_for(inner, ds)
         segs = segments_in_scope(inner, ds)
         la, G = lowering.la, lowering.num_groups
-        strategy = self._resolve_strategy(G)
+        strategy = self._resolve_strategy(G, strategy)
         rows_total = _row_count(segs)
         m = QueryMetrics(
             query_type="progressive", strategy=strategy, datasource=ds.name,

@@ -30,6 +30,8 @@ the next path drains.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 from ..catalog.segment import row_counts
@@ -46,17 +48,18 @@ class SparseExecMixin:
     engine's `_sparse_row_capacity` and `_sparse_slots` (memo key -> the
     rung learned) and `_sparse_disabled` (memo key -> reason)."""
 
-    def _sparse_eligible(self, lowering: GroupByLowering) -> bool:
+    def _sparse_eligible(self, lowering: GroupByLowering, strategy: Optional[str] = None) -> bool:
         """Above the scatter cutover, for plain aggregates over real
         dimensions (sketch states are dense per group; those queries stay
         on the adaptive tier or scatter).  Under "sparse" or "adaptive"; and
         under "auto" or "dense" where the kernel serves the device, the
         counterpart of the reference's TPU-only upgrade: on the CPU the
-        scatter path beats the sort."""
-        if self.strategy in ("sparse", "adaptive"):
+        scatter path beats the sort.  `strategy` None is the engine's."""
+        s = self.strategy if strategy is None else strategy
+        if s in ("sparse", "adaptive"):
             chosen = True
         else:
-            chosen = self.strategy in ("auto", "dense") and self._kernel_class() == "cuda"
+            chosen = s in ("auto", "dense") and self._kernel_class() == "cuda"
         return (
             chosen
             and lowering.num_groups > SCATTER_CUTOVER

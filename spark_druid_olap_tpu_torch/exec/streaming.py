@@ -29,10 +29,13 @@ the partial state is fetched; the answer's coverage is unknown (a stream
 declares no scope), its `rows_seen` the rows folded.  The producer thread
 never checks a deadline: it stops through its `cancelled` event.
 
-The kernel strategy is the engine's (`Engine._resolve_strategy`): the
-group-by kernel at G <= 4096 on a card, its plain version on the CPU, the
-scatter path above 4096.  Only dense states apply; the adaptive and sparse
-tiers are not offered to a stream.
+The kernel strategy is `_stream_strategy`: an engine with an explicit
+strategy is honoured through its own resolution; under "auto" the cost
+model picks the class at (rows per chunk, G), by the engine's cost
+constants (`plan/cost.choose_kernel_strategy`): dense (the group-by kernel
+on a card, at most 4096 groups; its plain version on the CPU) or the
+scatter path.  Only dense states apply; the adaptive and sparse tiers are
+not offered to a stream.
 """
 
 from __future__ import annotations
@@ -50,6 +53,7 @@ import torch
 from ..catalog.segment import NULL_ID, ROW_PAD, DataSource
 from ..models import query as Q
 from ..obs import SPAN_DEVICE_FETCH, SPAN_FINALIZE, SPAN_STREAM_CHUNK, prof, span
+from ..plan.cost import choose_kernel_strategy
 from ..resilience import checkpoint_partial, current_partial, fire
 from .engine import Engine, fold_partials, shard_partials
 from .finalize import finalize_groupby, finalize_timeseries, finalize_topn
@@ -176,7 +180,7 @@ class StreamExecutor:
         eng = self.engine
         lowering = eng._lowering_for(q, ds)
         la, G = lowering.la, lowering.num_groups
-        strategy = eng._resolve_strategy(G)
+        strategy = self._stream_strategy(G, chunk_rows)
         self.stats = StreamStats(strategy=strategy)
         pc = current_partial()
         if pc is not None:
@@ -211,6 +215,17 @@ class StreamExecutor:
             sums, mins, maxs, sketches, _ = eng._host_state(la, state)
         with span(SPAN_FINALIZE):
             return finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
+
+    def _stream_strategy(self, G: int, rows_per_dispatch: int) -> str:
+        """The kernel strategy of every chunk: the engine's own when it was
+        given one; under "auto" the cost model's class at the shape each
+        dispatch runs, (rows_per_dispatch, G), among the dense-state
+        classes (dense or segment)."""
+        eng = self.engine
+        if eng.strategy != "auto":
+            return eng._resolve_strategy(G)
+        cls = choose_kernel_strategy(rows_per_dispatch, G, eng.cost_config, device=eng.device)
+        return eng._resolve_strategy(G, cls)
 
     # -- chunk plumbing ------------------------------------------------------
 

@@ -1,20 +1,171 @@
-"""Filter selectivity estimate: the one piece of the cost model the port
-reads so far.
+"""The cost model: each query's kernel class on one card.
 
-The sparse tier (`exec/sparse_exec.py`) picks its first row-capacity rung
-from `estimate_selectivity`.  The rest of the reference's cost model (kernel
-classes, mesh choice, calibrated constants) ports with a CUDA calibration;
-until then the engine resolves its strategies itself
-(`ops/groupby.resolve_strategy` and the tiers of `exec/engine.Engine`).
+Four classes answer a group-by, and the model prices each in microseconds
+from the session's calibrated constants (`SessionConfig`, measured on the
+device by `plan/calibrate.py`):
+
+* **dense**: the one-hot class, `rows x cost_per_row_dense x tiles`, where a
+  tile is `dense_tile_groups` groups.  On a card it is the hand-written
+  kernel (`ops/cuda_groupby`), which reads its rows once whatever G is, and
+  takes at most SCATTER_CUTOVER groups: above that it is priced inf,
+  whatever `dense_max_groups` says.  On the CPU it is the kernel's plain
+  version, a one-hot product whose cost grows with G;
+* **segment**: the `index_add_` scatter, its per-row cost interpolated in
+  log G between two calibrated domains, plus its dense state per segment;
+* **sparse**: the sort-compaction tier (`exec/sparse_exec`), a compaction
+  pass over every row and a sort-reduce over the survivors' capacity rung;
+* **adaptive**: dictionary-domain compaction (`exec/adaptive_exec`), a
+  presence probe amortized over repeats plus the best of dense and segment
+  at the compacted domain G x selectivity.
+
+`choose_physical` is the planner's decision (`Rewrite.physical`);
+`choose_kernel_strategy` the class at one (rows, G) for a caller without a
+plan: the adaptive tier's compacted pass and the stream.  The engine maps
+"dense" onto the kernel on a card and onto its plain version on the CPU
+(`Engine._resolve_strategy`).
+
+The reference prices dense by 128-group tiles, after its accelerator's
+vector lanes; the port's tile width is its own, measured on the card
+(`dense_tile_groups`).  With `dense_tile_groups=128` and the same constants
+the two models agree.  The mesh half of the reference's model (the
+distributed target, the merge tree, the collective constants) comes with
+multi-device execution: on one card `PhysicalPlan.distributed` is False.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+from typing import Optional, Tuple
+
 import numpy as np
+import torch
 
 from ..catalog.segment import DataSource
+from ..config import SessionConfig
+from ..models import aggregations as A
 from ..models import filters as F
+from ..models import query as Q
 from ..ops.filters import numeric_dict_code_bounds
+from ..ops.groupby import SCATTER_CUTOVER
+from ..ops.sparse_groupby import ROW_CAPACITY_LADDER
+
+_INF = float("inf")
+
+
+@dataclasses.dataclass(frozen=True)
+class PhysicalPlan:
+    """The planner's execution decision for one query spec."""
+
+    query: Q.QuerySpec
+    strategy: str  # "dense" | "segment" | "sparse" | "adaptive"
+    distributed: bool  # False on one card
+    mesh_shape: Optional[Tuple[int, int]]  # None on one card
+    est_cost_local: float
+    est_cost_dist: float
+    num_groups: int
+    rows: int
+
+    def describe(self) -> str:
+        tgt = (
+            f"mesh(data={self.mesh_shape[0]}, groups={self.mesh_shape[1]})"
+            if self.distributed and self.mesh_shape
+            else "single-device"
+        )
+        return (
+            f"TPUAggregateScan[strategy={self.strategy}, target={tgt}, "
+            f"groups={self.num_groups}, rows={self.rows}, "
+            f"cost(local)={self.est_cost_local:.3g}, "
+            f"cost(dist)={self.est_cost_dist:.3g}]"
+        )
+
+
+def on_card(device) -> bool:
+    """Whether `device` is a card (the kernel's device)."""
+    return device is not None and torch.device(device).type == "cuda"
+
+
+def _g_tiles(num_groups: int, cfg: SessionConfig) -> int:
+    """Tiles of `dense_tile_groups` groups the dense class spans."""
+    return max(1, -(-num_groups // max(1, cfg.dense_tile_groups)))
+
+
+def _dense_cost(rows: float, num_groups: int, cfg: SessionConfig, device) -> float:
+    if num_groups > cfg.dense_max_groups or (on_card(device) and num_groups > SCATTER_CUTOVER):
+        return _INF
+    return rows * cfg.cost_per_row_dense * _g_tiles(num_groups, cfg)
+
+
+def scatter_row_cost(num_groups: int, cfg: SessionConfig) -> float:
+    """Per-row scatter cost at this domain: log-linear between the
+    calibrated low-G and high-G points, clamped outside them.  A state that
+    outgrows the cache costs more per row; the high point never prices
+    below the low one."""
+    lo_g = max(1, cfg.scatter_lo_groups)
+    hi_g = max(lo_g + 1, cfg.scatter_hi_groups)
+    lo = cfg.cost_per_row_scatter
+    hi = max(cfg.cost_per_row_scatter_hi, lo)
+    if num_groups <= lo_g:
+        return lo
+    if num_groups >= hi_g:
+        return hi
+    f = math.log(num_groups / lo_g) / math.log(hi_g / lo_g)
+    return lo + (hi - lo) * f
+
+
+def _kernel_costs(
+    rows: int,
+    num_groups: int,
+    cfg: SessionConfig,
+    sparse_ok: bool,
+    selectivity: float = 1.0,
+    n_segments: int = 1,
+    adaptive_ok: bool = False,
+    ndims: int = 1,
+    device=None,
+) -> Tuple[Tuple[str, float], ...]:
+    """(class, modelled us) for each kernel class (inf: inapplicable).
+    `selectivity` is the filter's estimated surviving share; `n_segments`
+    matters because the scatter's state and the sparse tier's sort are paid
+    per segment.  The adaptive class is one presence probe over the rows
+    (amortized over repeats: the kept-set cache skips it) plus the cheaper
+    of dense and segment at G' = G x selectivity.  `device` is the
+    executing device (None: the CPU's rules)."""
+    n_segments = max(1, n_segments)
+    dense = _dense_cost(rows, num_groups, cfg, device)
+
+    def scatter_at(g: int) -> float:
+        return rows * scatter_row_cost(g, cfg) + g * cfg.cost_per_group_state * n_segments
+
+    scatter = scatter_at(num_groups)
+    # the compaction reads at least what a scatter pass reads
+    compact = max(cfg.cost_per_row_compact, cfg.cost_per_row_scatter)
+    if not sparse_ok:
+        sparse = _INF
+    elif selectivity >= 1.0:
+        sparse = rows * cfg.cost_per_row_sparse  # a full-segment sort
+    else:
+        # the smallest capacity rung covering the estimated survivors per
+        # segment, sorted in every segment
+        seg_rows = max(1.0, rows / n_segments)
+        need = 2.0 * selectivity * seg_rows
+        rung = next((c for c in ROW_CAPACITY_LADDER if c >= need), seg_rows)
+        sorted_rows = n_segments * min(seg_rows, float(rung))
+        sparse = rows * compact + sorted_rows * cfg.cost_per_row_sparse
+    if not adaptive_ok:
+        adaptive = _INF
+    else:
+        g_c = max(1, min(num_groups, round(num_groups * selectivity)))
+        probe = rows * ndims * min(cfg.cost_per_row_dense, cfg.cost_per_row_scatter)
+        main = min(scatter_at(g_c), _dense_cost(rows, g_c, cfg, device))
+        # the probe and its dispatch amortized over repeats (/3)
+        adaptive = (probe + cfg.cost_dispatch_us) / 3.0 + main
+    return (
+        ("dense", dense),
+        ("segment", scatter),
+        ("sparse", sparse),
+        ("adaptive", adaptive),
+    )
 
 
 def estimate_selectivity(filt, ds: DataSource) -> float:
@@ -60,3 +211,99 @@ def estimate_selectivity(filt, ds: DataSource) -> float:
                 return max(0.0, (hi - lo + 1) / d.cardinality)
         return 1.0 / 3.0  # the textbook guess for an unmodeled range
     return 1.0
+
+
+def choose_kernel_strategy(rows: int, num_groups: int, cfg: SessionConfig,
+                           sparse_ok: bool = False, device=None) -> str:
+    """The cheapest class at (rows, G) for a caller without a plan: the
+    adaptive tier's compacted pass and the stream (dense or segment unless
+    `sparse_ok`)."""
+    return min(_kernel_costs(rows, num_groups, cfg, sparse_ok, device=device),
+               key=lambda kv: kv[1])[0]
+
+
+def query_kernel_costs(
+    q: Q.QuerySpec,
+    ds: DataSource,
+    num_groups: int,
+    cfg: SessionConfig,
+    selectivity: Optional[float] = None,
+    device=None,
+) -> dict:
+    """class -> modelled us for a planned query over `ds`.  Eligibility is
+    the engine's: sparse needs dimensions, no sketch state and G above the
+    cutover; adaptive needs dimensions and G above the cutover (it re-keys
+    sketch states).  A TopN's dimension counts: the engine runs it as a
+    GroupBy over it, tiers included (the reference reads `dimensions`
+    alone, which a TopN lacks, and prices only dense and segment there)."""
+    rows = ds.num_rows
+    aggs = getattr(q, "aggregations", ())
+    has_sketch = any(
+        isinstance(a.aggregator if isinstance(a, A.FilteredAgg) else a,
+                   (A.HyperUnique, A.CardinalityAgg, A.ThetaSketch))
+        for a in aggs
+    )
+    dims = (q.dimension,) if isinstance(q, Q.TopNQuery) else getattr(q, "dimensions", ())
+    sparse_ok = num_groups > SCATTER_CUTOVER and not has_sketch and bool(dims)
+    adaptive_ok = num_groups > SCATTER_CUTOVER and bool(dims)
+    segs = getattr(ds, "segments", None)
+    n_segments = len(segs) if segs is not None else max(1, rows // (1 << 22))
+    sel = (selectivity if selectivity is not None
+           else estimate_selectivity(getattr(q, "filter", None), ds))
+    return dict(_kernel_costs(rows, num_groups, cfg, sparse_ok, selectivity=sel,
+                              n_segments=n_segments, adaptive_ok=adaptive_ok,
+                              ndims=max(1, len(dims)), device=device))
+
+
+def choose_query_kernel(
+    q: Q.QuerySpec,
+    ds: DataSource,
+    num_groups: int,
+    cfg: SessionConfig,
+    exclude: Tuple[str, ...] = (),
+    costs: Optional[dict] = None,
+    device=None,
+) -> str:
+    """The cheapest class for a planned query, less `exclude`; `costs` a
+    `query_kernel_costs` already computed.  With the model off: dense where
+    it is priced (G <= dense_max_groups, and <= SCATTER_CUTOVER on a card),
+    else sparse where it applies, else segment."""
+    if costs is None:
+        costs = query_kernel_costs(q, ds, num_groups, cfg, device=device)
+    costs = {k: v for k, v in costs.items() if k not in exclude}
+    if not cfg.cost_model_enabled:
+        if costs.get("dense", _INF) != _INF:
+            return "dense"
+        if costs.get("sparse", _INF) != _INF:
+            return "sparse"
+        return "segment"
+    return min(costs.items(), key=lambda kv: kv[1])[0]
+
+
+def choose_physical(
+    q: Q.QuerySpec,
+    ds: DataSource,
+    num_groups: int,
+    cfg: SessionConfig,
+    n_devices: int = 1,
+    device=None,
+) -> PhysicalPlan:
+    """The kernel class of one query on one card, by modelled cost (us).
+    The selectivity walk runs once."""
+    if n_devices != 1:
+        raise ValueError("the port plans for one device; the mesh target comes with "
+                         "multi-device execution")
+    sel = estimate_selectivity(getattr(q, "filter", None), ds)
+    costs = query_kernel_costs(q, ds, num_groups, cfg, selectivity=sel, device=device)
+    strategy = choose_query_kernel(q, ds, num_groups, cfg, costs=costs, device=device)
+    local_cost = costs[strategy]
+    return PhysicalPlan(
+        query=q,
+        strategy=strategy,
+        distributed=False,
+        mesh_shape=None,
+        est_cost_local=local_cost,
+        est_cost_dist=local_cost,
+        num_groups=num_groups,
+        rows=ds.num_rows,
+    )

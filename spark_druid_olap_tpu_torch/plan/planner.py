@@ -26,6 +26,7 @@ from ..utils.log import get_logger
 from . import expr as E
 from . import logical as L
 from .builder import QueryBuilder
+from .cost import PhysicalPlan, choose_physical
 from .transforms import (
     RewriteError,
     RewritePolicyError,
@@ -87,15 +88,21 @@ class Rewrite:
     # set for an exact COUNT(DISTINCT) plan: `query` is then the inner
     # grouping and this is its host re-aggregation
     exact_distinct: Optional[ExactDistinctOuter] = None
+    # the cost model's decision (`plan/cost.choose_physical`): the kernel
+    # class the query runs, on the planner's device
+    physical: Optional[PhysicalPlan] = None
 
     def to_json(self) -> str:
         return json.dumps(self.query.to_druid(), indent=2, default=str)
 
 
 class Planner:
-    def __init__(self, catalog, cfg: Optional[SessionConfig] = None):
+    def __init__(self, catalog, cfg: Optional[SessionConfig] = None, device=None):
         self.catalog = catalog  # name -> DataSource (catalog/cache.py)
         self.cfg = cfg or SessionConfig()
+        # the executing device: the cost model prices the dense class by
+        # its kernel there (None: the CPU's rules)
+        self.device = device
 
     # -- plan walking --------------------------------------------------------
 
@@ -391,11 +398,14 @@ class Planner:
             )
 
         q = b.build()
-        log.debug("rewrite: %s over %s groups=%d", type(q).__name__, table, G_kernel)
+        phys = choose_physical(q, ds, G_kernel, self.cfg, 1, device=self.device)
+        log.debug("rewrite: %s over %s -> strategy=%s groups=%d", type(q).__name__, table,
+                  phys.strategy, G_kernel)
         return Rewrite(
             datasource=table,
             builder=b,
             query=q,
+            physical=phys,
             num_groups=G_kernel,
             output_columns=tuple(output_columns),
             dim_names=tuple(dim_names),
@@ -614,6 +624,7 @@ class Planner:
             datasource=node.table,
             builder=b,
             query=q,
+            physical=choose_physical(q, self._ds(node.table), 1, self.cfg, 1, device=self.device),
             num_groups=0,
             output_columns=tuple(columns),
             dim_names=(),
@@ -625,20 +636,25 @@ class Planner:
 
     # -- explain (EXPLAIN DRUID REWRITE analog) ------------------------------
 
-    def explain(self, lp: L.LogicalPlan, engine) -> str:
-        """The logical plan, the rewritten query spec, and the paths
-        `engine` tries for it (`Engine.tiers`): the first is printed as the
-        strategy, the rest are where it goes on a decline."""
+    def explain(self, lp: L.LogicalPlan, engine, strategy: Optional[str] = None) -> str:
+        """The logical plan, the rewritten query spec, the cost model's
+        decision (`PhysicalPlan.describe`), and the paths `engine` tries for
+        it under `strategy` (`Engine.tiers`; None: the plan's class): the
+        first is printed as the strategy, the rest are where it goes on a
+        decline."""
         lines = ["== Logical Plan ==", lp.pretty(), ""]
         try:
             rw = self.plan(lp)
+            if strategy is None:
+                strategy = rw.physical.strategy
             tiers = (["scan"] if rw.is_scan
-                     else engine.tiers(rw.query, self._ds(rw.datasource)))
+                     else engine.tiers(rw.query, self._ds(rw.datasource), strategy))
             lines += [
                 "== Rewrite: %s ==" % type(rw.query).__name__,
                 rw.to_json(),
                 "",
                 "== Physical Plan ==",
+                rw.physical.describe(),
                 f"strategy={tiers[0]} tiers={'>'.join(tiers)} "
                 f"estimated_groups={rw.num_groups} device={engine.device}",
             ]

@@ -145,9 +145,10 @@ class ServingCore:
         a miss or for an uncacheable type."""
         return self._cached(q, ds, self.native_key(q, ds), allow_delta=False)[0]
 
-    def _cached(self, q, ds, key, allow_delta=True, post=None):
+    def _cached(self, q, ds, key, allow_delta=True, post=None, strategy=None):
         """(answer or None, the declines of its delta refresh).  A lookup
-        that may refresh (`allow_delta`) counts its miss."""
+        that may refresh (`allow_delta`) counts its miss; a refresh runs
+        under `strategy`, the cached run's."""
         cfg = self.ctx.config
         if key is None or cfg.result_cache_entries <= 0:
             return None, []
@@ -160,7 +161,7 @@ class ServingCore:
             entry, decline = self.result_cache.reusable_entry(
                 key, ds.version, (s.uid for s in ds.segments))
             if entry is not None:
-                out, decline = self._delta_refresh(q, ds, key, entry, post)
+                out, decline = self._delta_refresh(q, ds, key, entry, post, strategy)
                 if out is not None:
                     return out, []
             if decline:
@@ -169,12 +170,13 @@ class ServingCore:
             self.result_cache.note_miss()
         return None, declines
 
-    def answer(self, q, ds, key, fusable: bool, post=None, execute=None):
+    def answer(self, q, ds, key, fusable: bool, post=None, execute=None, strategy=None):
         """One query's answer through the serving core.  `key` is its
         result-cache key (None: the cache is not used); `fusable` whether
         it may ride a fused micro-batch; `post` the host post-processing of
         the engine's frame; `execute` the engine call for a query that is
-        neither fused nor plain (grouping sets).
+        neither fused nor plain (grouping sets); `strategy` the execution's
+        (the plan's class; None: the engine's).
 
         A cache hit or a delta refresh answers at once.  Otherwise the
         query runs fused, else through `execute`, else on the engine alone,
@@ -190,12 +192,13 @@ class ServingCore:
         cfg = self.ctx.config
         if cfg.result_cache_entries <= 0:
             key = None
-        hit, declines = self._cached(q, ds, key, post=post)
+        hit, declines = self._cached(q, ds, key, post=post, strategy=strategy)
         if hit is not None:
             return hit
         engine = self.ctx.engine
         state = None
-        fused = self.fused_execute(q, ds) if fusable and self.fusion.enabled else None
+        fused = (self.fused_execute(q, ds, strategy=strategy)
+                 if fusable and self.fusion.enabled else None)
         if fused is not None:
             df, state, m = fused
             self.ctx._stamp_metrics(m)
@@ -205,10 +208,10 @@ class ServingCore:
             # the merged host state rides beside the answer: the next
             # append refreshes the entry by scanning its deltas alone
             with engine.state_capture() as cap:
-                df = engine.execute(q, ds)
+                df = engine.execute(q, ds, strategy)
             state = cap["state"]
         else:
-            df = engine.execute(q, ds)
+            df = engine.execute(q, ds, strategy)
         m = self.ctx.last_metrics
         if key is not None and m is not None:
             m.result_cache = "miss"
@@ -221,7 +224,7 @@ class ServingCore:
                                   uids=frozenset(s.uid for s in ds.segments), state=state)
         return df
 
-    def _delta_refresh(self, q, ds, key, entry, post=None):
+    def _delta_refresh(self, q, ds, key, entry, post=None, strategy=None):
         """(cached partial state) merged with (the partials of the segments
         appended since): the engine scans only the segments the entry did
         not cover, the states merge, and the answer is finalized (with the
@@ -238,7 +241,7 @@ class ServingCore:
         engine = self.ctx.engine
         fresh = [s for s in ds.segments if s.uid not in entry.uids]
         delta_state, dm = engine.groupby_partials_host(
-            q, ds, within_uids=frozenset(s.uid for s in fresh))
+            q, ds, within_uids=frozenset(s.uid for s in fresh), strategy=strategy)
         pc = current_partial()
         if pc is not None and pc.triggered:
             return None, "result-cache: a deadline cut the delta scan"
@@ -290,12 +293,12 @@ class ServingCore:
 
     # -- fusion ----------------------------------------------------------------
 
-    def fused_execute(self, q, ds, engine=None) -> Optional[tuple]:
+    def fused_execute(self, q, ds, engine=None, strategy=None) -> Optional[tuple]:
         """Micro-batch fusion: (df, state, metrics), or None for the serial
-        path."""
+        path.  The member runs under `strategy` (None: the engine's)."""
         if not self.fusion.enabled:
             return None
-        return self.fusion.execute(self.ctx, q, ds, engine=engine)
+        return self.fusion.execute(self.ctx, q, ds, engine=engine, strategy=strategy)
 
     # -- lanes -----------------------------------------------------------------
 

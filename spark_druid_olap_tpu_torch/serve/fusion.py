@@ -106,11 +106,12 @@ _ERROR = "error"  # raise the batch's static error on the member's thread
 
 
 class _Member:
-    __slots__ = ("query", "query_id", "event", "verdict", "payload")
+    __slots__ = ("query", "query_id", "strategy", "event", "verdict", "payload")
 
-    def __init__(self, query, query_id: str):
+    def __init__(self, query, query_id: str, strategy=None):
         self.query = query
         self.query_id = query_id
+        self.strategy = strategy  # the member's own plan (None: the engine's)
         self.event = threading.Event()
         self.verdict: Optional[str] = None
         self.payload = None
@@ -213,11 +214,12 @@ class FusionScheduler:
                 float(max_window_ms) if max_window_ms else 4.0 * float(window_ms)
             )
 
-    def execute(self, ctx, q, ds, engine=None):
+    def execute(self, ctx, q, ds, engine=None, strategy=None):
         """Join (or lead) the micro-batch for `q` over the `ds` snapshot.
         Returns (df, state, metrics) or None (the serial path); raises
         the fused execution's device fault.  `engine` is the executing
-        engine (None: ctx.engine)."""
+        engine (None: ctx.engine); `strategy` the member's own (its plan's
+        class; None: the engine's), which it keeps inside the batch."""
         if not self.enabled:
             return None
         from ..exec.lowering import schema_signature
@@ -230,7 +232,7 @@ class FusionScheduler:
         window_ms, mode, n_recent = self._decide_window_ms(now)
         self._note_arrival(now)
         sig = (ds.name, backend, schema_signature(ds))
-        me = _Member(q, current_query_id())
+        me = _Member(q, current_query_id(), strategy)
         with self._lock:
             batch = self._open.get(sig)
             if (
@@ -313,9 +315,9 @@ class FusionScheduler:
         import json as _json
 
         members.sort(
-            key=lambda m: _json.dumps(
+            key=lambda m: (_json.dumps(
                 m.query.to_druid(), sort_keys=True, default=str
-            )
+            ), str(m.strategy))
         )
         try:
             if len(members) == 1:
@@ -355,6 +357,7 @@ class FusionScheduler:
                     [m.query for m in members],
                     current,
                     query_ids=[m.query_id for m in members],
+                    strategies=[m.strategy for m in members],
                 )
             with self._lock:
                 self.batches_fused += 1

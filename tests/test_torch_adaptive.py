@@ -22,6 +22,7 @@ from spark_druid_olap_tpu.exec import adaptive_exec as jadaptive
 from spark_druid_olap_tpu.exec.lowering import lower_groupby as jlower
 from spark_druid_olap_tpu_torch.catalog.segment import datasource_from_numpy, datasource_to_numpy
 from spark_druid_olap_tpu_torch.exec import adaptive_exec as tadaptive
+from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.exec import engine as tengine
 from spark_druid_olap_tpu_torch.exec.lowering import lower_groupby as tlower
 from spark_druid_olap_tpu_torch.models import aggregations as A
@@ -146,6 +147,9 @@ def test_tier_passes_reach_the_kernel_as_on_a_card(data, monkeypatch):
     monkeypatch.setattr(tcuda, "cuda_partial_aggregate", kernel_spy)
     monkeypatch.setattr(tgroupby, "dense_partial_aggregate", dense_spy)
     eng = tengine.Engine(device="cpu")
+    # the card's constants (the class defaults): the compacted pass takes
+    # the kernel's class, as on a card
+    eng.cost_config = SessionConfig()
     # b is unpinned (an Or), so the kept sets are measured
     q = _query(And((_in("a", 10), Or((_in("b", 7), Selector("b", 300))))))
     eng.execute(q, tds)

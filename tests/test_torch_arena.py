@@ -51,6 +51,15 @@ from spark_druid_olap_tpu_torch.workloads import ssb
 MULTI = [c for c in CASES if c[1] in ("q1_1", "q2_1", "q3_2", "q4_1", "q1", "timeseries", "topn")]
 
 
+def card_priced(eng: Engine) -> Engine:
+    """`eng` pricing with the card's constants (the class defaults): the
+    adaptive tier's compacted pass takes the kernel's class, as on a card,
+    so the arena captures it (the CPU profile would take the scatter,
+    which it declines)."""
+    eng.cost_config = SessionConfig()
+    return eng
+
+
 @pytest.fixture(scope="module")
 def datasources():
     """Reference datasources of a few segments each and the port's copies
@@ -82,7 +91,7 @@ def _arena_declines(m):
 def test_arena_matches_reference_and_the_loop(datasources, workload, name, spec):
     ref, port = datasources
     want = JaxEngine().execute(to_reference(spec), ref[workload])
-    eng = Engine(device="cpu")
+    eng = card_priced(Engine(device="cpu"))
     runs = []
     for _ in range(3):
         runs.append(eng.execute(spec, port[workload]))
@@ -305,13 +314,13 @@ def test_compacted_programs_are_keyed_by_their_kept_sets(datasources):
     its own program, and both equal the loop."""
     _, port = datasources
     ds = port["ssb"]
-    eng = Engine(device="cpu")
+    eng = card_priced(Engine(device="cpu"))
     base = ssb.NATIVE_QUERIES["q3_2"]
     for nation in ("UNITED STATES", "CHINA"):
         q = dataclasses.replace(base, intervals=(), filter=And(
             (Selector("c_nation", nation), Selector("s_nation", nation))))
         with arena.arena_disabled():
-            want = Engine(device="cpu").execute(q, ds)
+            want = card_priced(Engine(device="cpu")).execute(q, ds)
         for _ in range(3):
             _exact(eng.execute(q, ds), want)
         m = eng.last_metrics
@@ -322,13 +331,14 @@ def test_compacted_programs_are_keyed_by_their_kept_sets(datasources):
 
 def test_grouping_sets_dispatch_every_set_before_fetching(datasources):
     _, port = datasources
-    ctx = TPUOlapContext(device="cpu")
+    # the card's constants (the class defaults): the sets plan the kernel's
+    # class, as the serial engine runs them
+    ctx = TPUOlapContext(SessionConfig(), device="cpu")
     ctx.register_datasource(port["ssb"], star_schema=ssb.STAR_SCHEMA)
     events = []
     eng = ctx.engine
     dispatch, fetch = eng._dispatch_groupby_once, eng._host_state
-    eng._dispatch_groupby_once = lambda q, ds, scope: (
-        events.append("dispatch"), dispatch(q, ds, scope))[1]
+    eng._dispatch_groupby_once = lambda *a: (events.append("dispatch"), dispatch(*a))[1]
     eng._host_state = lambda la, st: (events.append("fetch"), fetch(la, st))[1]
     sql = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
            "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")

@@ -24,7 +24,10 @@ Resilience: under an injected deadline the chunked replays (one graph per
 segment) give the loop's bits at every truncation point and the whole
 graph's past the last; a retry after a transient failure evicts the graphs
 and columns and replays none of them; a refused launch or a failed capture
-raises KernelError without a retry.
+raises KernelError without a retry.  The cost model: the calibration at
+small rows measures every constant on the card (the dense class through
+the kernel, by graph replays) and names the card; the dense class is never
+priced, planned or run above 4096 groups on a card.
 """
 
 import numpy as np
@@ -374,7 +377,10 @@ def _event_chunks(n, rows, short=777):
 def test_stream_on_card_matches_cpu(card, name):
     q, ds, rows = STREAM_QUERIES[name], datagen.event_stream_schema(), 16384
     chunks = _event_chunks(6, rows)
-    want = StreamExecutor(engine=Engine(device="cpu")).execute(q, ds, iter(chunks), rows)
+    # the CPU side pinned to the kernel's class (its plain version): the CPU
+    # profile would price the scatter cheaper there
+    want = StreamExecutor(engine=Engine(device="cpu", strategy="dense")).execute(
+        q, ds, iter(chunks), rows)
     engine = Engine(device=card)
     ex = StreamExecutor(engine=engine)
     before = cg.LAUNCHES
@@ -423,7 +429,10 @@ def test_assisted_q18_class_on_card_equals_assist_off(card):
     query with the assist off (keys and counts exact, sums within rtol
     2e-5), and a second run is bit-identical."""
     tables = tpch.gen_tables(0.05)
-    ctx = TPUOlapContext(SessionConfig(result_cache_entries=0), device=card)
+    # the assist's cost gate priced to assist (an interpreted row costs more
+    # than any engine run): it would decline a q18-class subtree
+    ctx = TPUOlapContext(SessionConfig(result_cache_entries=0, cost_per_row_interp=1e9),
+                         device=card)
     tpch.register(ctx, tables=tables, rows_per_segment=1 << 16)
     sql = """
         SELECT l_orderkey, sum(l_quantity) AS total FROM lineitem
@@ -975,3 +984,59 @@ def test_delta_refresh_of_sketches_beside_concurrent_captures(card):
     assert not errors, errors
     assert gpu.serve.result_cache.to_dict()["delta_hits"] == 4 * len(sketches)
     assert scopes[0] > 0 and len(gpu.engine._arena.keys()) > 0
+
+
+# -- the cost model ------------------------------------------------------------
+
+
+def test_calibrate_on_card(card, tmp_path):
+    """`plan/calibrate.calibrate` at small rows on the card: every constant
+    measured, finite and positive, the dense class through the kernel by
+    graph replays (their launches counted), the file naming the card, and
+    `load_calibrated` applying it."""
+    from spark_druid_olap_tpu_torch.config import CALIBRATED_FLOATS, CALIBRATED_INTS
+    from spark_druid_olap_tpu_torch.plan import calibrate
+
+    path = tmp_path / "calibration.torch_cuda.json"
+    before = cg.LAUNCHES
+    out = calibrate.calibrate(rows=1 << 15, launches=2, reps=3, save_path=str(path), device=card)
+    assert cg.LAUNCHES > before
+    assert (out["device"], out["platform"], out["kernel_class"], out["dense_timing"]) == (
+        torch.cuda.get_device_name(card), "cuda", "cuda", "graph replay")
+    assert out["partial"] is False and out["power_limit"]
+    for k in CALIBRATED_FLOATS + CALIBRATED_INTS:
+        assert np.isfinite(out[k]) and out[k] > 0, k
+    cfg = SessionConfig.load_calibrated(path=str(path), device=card)
+    assert cfg.calibration_meta["applied"] and cfg.calibration_meta["source"] == "file"
+    assert cfg.cost_per_row_dense == out["cost_per_row_dense"]
+
+
+def test_dense_class_is_never_planned_above_4096_on_card(card, monkeypatch):
+    """On a card the dense class is priced inf above 4096 groups, whatever
+    `dense_max_groups` says and with the model on or off; a context on the
+    card plans the kernel's class at G <= 4096 (and runs the kernel) and
+    another class above, and no query reaches the plain twin."""
+    from spark_druid_olap_tpu_torch.ops import groupby as tgroupby
+    from spark_druid_olap_tpu_torch.plan.cost import _kernel_costs
+
+    def plain_spy(*a, **kw):
+        raise AssertionError("the plain twin was reached on a card")
+
+    monkeypatch.setattr(tgroupby, "dense_partial_aggregate", plain_spy)
+    cfg = SessionConfig(dense_max_groups=1 << 20)
+    for g in (4097, 1 << 16):
+        assert dict(_kernel_costs(1 << 20, g, cfg, True, device=card))["dense"] == float("inf")
+    assert np.isfinite(dict(_kernel_costs(1 << 20, 4096, cfg, False, device=card))["dense"])
+    tables = ssb.gen_tables(0.01, seed=11)
+    for enabled in (True, False):
+        ctx = TPUOlapContext(SessionConfig(result_cache_entries=0, dense_max_groups=1 << 20,
+                                           cost_model_enabled=enabled), device=card)
+        ssb.register(ctx, tables=tables, rows_per_segment=16384)
+        for name in ("q1_1", "q4_1", "q3_2", "q4_3"):
+            rw = ctx.plan_sql(ssb.QUERIES[name])
+            ctx.sql(ssb.QUERIES[name])
+            m = ctx.last_metrics
+            if rw.num_groups > 4096:
+                assert rw.physical.strategy != "dense" and m.strategy != "cuda", m.describe()
+            else:
+                assert rw.physical.strategy == "dense" and m.strategy == "cuda", m.describe()

@@ -361,8 +361,14 @@ def test_fuzz_fallback_matches_reference_and_oracle(port_fuzz, seed):
 # -- routing ------------------------------------------------------------------
 
 
+# the assist's cost gate priced to assist every subtree (an interpreted row
+# costs more than any engine run): the routing cases below hold the rules
+# around it; `test_torch_cost.py` holds the gate
+ASSIST_ANY = {"cost_per_row_interp": 1e9}
+
+
 def _routing_ctx(cfg=None):
-    c = TPUOlapContext(config=cfg, device="cpu")
+    c = TPUOlapContext(config=cfg or SessionConfig(**ASSIST_ANY), device="cpu")
     _register_small(c)
     return c
 
@@ -427,9 +433,9 @@ def test_metrics_record_executor_assists_and_declines():
 
 def test_engine_failure_in_an_assisted_subtree_raises(monkeypatch):
     """No silent fallback: an engine error inside the assist propagates."""
-    c = _routing_ctx(SessionConfig(device_assist_min_rows=0))
+    c = _routing_ctx(SessionConfig(device_assist_min_rows=0, **ASSIST_ANY))
 
-    def broken(self, q, ds):
+    def broken(self, q, ds, strategy=None):
         raise RuntimeError("engine failure")
 
     monkeypatch.setattr(tengine.Engine, "execute", broken)

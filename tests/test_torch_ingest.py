@@ -478,7 +478,9 @@ def test_background_sweep_without_its_thread():
 
 def test_delta_reuse_equals_a_full_run_and_scans_the_deltas():
     base = rows(6000, 14)
-    port = TPUOlapContext(device="cpu")  # the cache on, delta reuse on
+    # the cache on, delta reuse on; routed by the card's constants (the
+    # class defaults) as `full` is, so no run declines the arena
+    port = TPUOlapContext(SessionConfig(), device="cpu")
     register(port, base)
     full = TPUOlapContext(SessionConfig(result_cache_entries=0), device="cpu")
     register(full, base)

@@ -52,7 +52,8 @@ def test_importing_the_port_loads_no_jax():
                   "ops.sparse_groupby", "plan.cost", "exec.streaming",
                   "exec.pipeline", "exec.fallback", "exec.arena",
                   "ingest", "ingest.shard", "ingest.delta", "ingest.compact",
-                  "ingest.wal", "catalog.persist", "storage", "obs.telemetry")
+                  "ingest.wal", "catalog.persist", "storage", "obs.telemetry",
+                  "config", "plan.calibrate", "plan.planner")
     } <= set(out)
     assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []

@@ -219,22 +219,25 @@ WORKLOAD_SQL = (
 
 
 def test_sql_strategy_equals_native_strategy(ctxs):
+    """The SQL path runs its plan's class (`rw.physical`), the path the
+    native run of the same spec takes under that strategy: the first of the
+    engine's tiers for it, a later one only after a recorded decline."""
     _, port = ctxs
     for sql in WORKLOAD_SQL:
         port.sql(sql)
         via_sql = port.last_metrics
         rw = port.plan_sql(sql)
-        port.engine.execute(rw.query, port.catalog.get(rw.datasource))
+        strategy = port.strategy_for(rw)
+        assert strategy == rw.physical.strategy
+        port.engine.execute(rw.query, port.catalog.get(rw.datasource), strategy)
         native = port.last_metrics
         assert via_sql.strategy == native.strategy, sql
         assert via_sql.num_groups == native.num_groups, sql
-        tiers = port.engine.tiers(rw.query, port.catalog.get(rw.datasource))
+        tiers = port.engine.tiers(rw.query, port.catalog.get(rw.datasource), strategy)
         assert via_sql.strategy in tiers, sql
         if native.num_groups <= tgroupby.SCATTER_CUTOVER:
-            assert via_sql.strategy == tgroupby.resolve_strategy(
-                "auto", native.num_groups, "cpu"
-            )
-        elif via_sql.strategy == "segment":  # only after the tiers declined
+            assert via_sql.strategy == port.engine._resolve_strategy(native.num_groups, strategy)
+        elif via_sql.strategy != tiers[0]:  # only after the tiers declined
             assert via_sql.tier_declines, sql
 
 
@@ -269,6 +272,10 @@ def test_no_sql_query_reaches_the_plain_twin_on_a_card(ctxs, monkeypatch):
     domain or slot count is at most SCATTER_CUTOVER."""
     _, port = ctxs
     calls = _card_spies(monkeypatch)
+    # the ladder pinned: under "adaptive" the engine tries the adaptive
+    # tier, then the sparse tier, then the scatter above 4096 groups, as
+    # "auto" did on a card before the cost model planned the class
+    monkeypatch.setattr(port.engine, "strategy", "adaptive")
     for sql in WORKLOAD_SQL:
         before = calls["kernel"]
         port.sql(sql)

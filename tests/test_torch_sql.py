@@ -35,6 +35,7 @@ import spark_druid_olap_tpu as sd
 from spark_druid_olap_tpu.workloads import ssb as jssb
 from spark_druid_olap_tpu.workloads import tpch as jtpch
 from spark_druid_olap_tpu_torch.api import TPUOlapContext
+from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.plan.planner import RewriteError
 from spark_druid_olap_tpu_torch.workloads import ssb as tssb
 from spark_druid_olap_tpu_torch.workloads import tpch as ttpch
@@ -71,13 +72,24 @@ def reference_config():
     )
 
 
+def port_config() -> SessionConfig:
+    """`reference_config`'s constants in the port: under equal constants
+    the port's cost model routes every group-by as the reference's does."""
+    return SessionConfig(
+        dense_max_groups=4096,
+        cost_per_row_dense=1e-9,
+        cost_per_row_sparse=1e6,
+        cost_dispatch_us=1e12,
+    )
+
+
 @pytest.fixture(scope="module")
 def ctxs(tables):
     """(reference context, port context) over the same tables."""
     ref = sd.TPUOlapContext(reference_config())
     jssb.register(ref, tables=tables["ssb"], rows_per_segment=16384)
     jtpch.register(ref, tables=tables["tpch"])
-    port = TPUOlapContext(device="cpu")
+    port = TPUOlapContext(port_config(), device="cpu")
     tssb.register(port, tables=tables["ssb"], rows_per_segment=16384)
     ttpch.register(port, tables=tables["tpch"])
     return ref, port

@@ -82,7 +82,9 @@ def chunks():
 
 
 def _executors(narrow=None, **kw):
-    port = tstreaming.StreamExecutor(engine=Engine(device="cpu"), **kw)
+    # the kernel's class pinned (the CPU profile would price the scatter
+    # cheaper); `test_stream_class_follows_the_cost_model` holds "auto"
+    port = tstreaming.StreamExecutor(engine=Engine(device="cpu", strategy="dense"), **kw)
     ref = jstreaming.StreamExecutor()
     if narrow is not None:
         port._narrow_time = ref._narrow_time = narrow

@@ -13,6 +13,7 @@ from spark_druid_olap_tpu.plan import expr as JE
 from spark_druid_olap_tpu.plan.planner import RewriteError as RefRewriteError
 from spark_druid_olap_tpu_torch import api as tapi
 from spark_druid_olap_tpu_torch.api import TPUOlapContext
+from spark_druid_olap_tpu_torch.config import SessionConfig
 from spark_druid_olap_tpu_torch.models import aggregations as TA
 from spark_druid_olap_tpu_torch.models import dimensions as TD
 from spark_druid_olap_tpu_torch.models import query as TQ
@@ -63,7 +64,11 @@ def _lookup_ctx(ctx):
 
 @pytest.fixture(scope="module")
 def lookup_ctxs():
-    return _lookup_ctx(sd.TPUOlapContext()), _lookup_ctx(TPUOlapContext(device="cpu"))
+    # the port routed by the card's constants (the class defaults): the
+    # kernel's class, as before the cost model (the CPU profile's scatter
+    # adds a group's rows in another order than the reference)
+    return (_lookup_ctx(sd.TPUOlapContext()),
+            _lookup_ctx(TPUOlapContext(SessionConfig(), device="cpu")))
 
 
 LOOKUP_SQL = {
