@@ -296,7 +296,30 @@ Phases, one JSON line each:
    the calibration's launches (G 256 and 4096 at 2^19 and 2^17 rows, two
    sums; the sparse tier's 4096 slots at 2^23 and 2^21 rows).
 
-Every kernel launch of phases 4 to 16, CUDA graph replays included
+17. mesh (run after phase 16, before phase 15's appends, on phases 4-5's
+   resident SSB SF10 and TPC-H SF1): multi-device execution
+   (`parallel/distributed.DistributedEngine`) on logical meshes of the card
+   (4 x cuda:0 as (4, 1); as (2, 2), the group domain sharded; as a 2 x 2
+   slice mesh under the flat and the hierarchical merge tree) and, where
+   the machine has two or more cards, (n, 1) over them with the NCCL merge;
+   each mesh and its device list printed.  (a) Phase 16's queries under
+   each mesh's plan, on (4, 1) also pinned to every class the model
+   prices: the oracle, the single-device port's frame under the same
+   class, the route, the kernel launched where the path runs it; the warm
+   p50 of each mesh's plan beside the single device's (`mesh_p50`, with
+   the card's name and power limit).  (b) topn_hll, cube_theta and the
+   quantiles through a context whose plans take the (4, 1) mesh: HLL and
+   theta columns equal the single device's, quantiles within the rank
+   bound; q4.1 as SQL with `last_metrics.distributed` and `mesh_shape`.
+   (c) BASELINE config #4's stream on (4, 1), 32 chunks of 2^21 rows,
+   against its oracle.  (d) A deadline before the arena's third step on
+   (4, 1) (coverage, the oracle over the folded blocks); a retry after a
+   fault at `mesh.dispatch`; the mesh breaker open while a single-device
+   query routes to "device"; a fused batch eager, captured and replayed.
+   Phase 3 checks and times the mesh's new shapes: half of every even G
+   (the (2, 2) mesh's per-device domains) and the stream's 2^19-row shard.
+
+Every kernel launch of phases 4 to 17, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -361,7 +384,9 @@ from spark_druid_olap_tpu_torch.models import query as Q
 from spark_druid_olap_tpu_torch.models import wire
 from spark_druid_olap_tpu_torch.exec.streaming import StreamExecutor
 from spark_druid_olap_tpu_torch.ops import cuda_groupby, hll
-from spark_druid_olap_tpu_torch.ops.groupby import SCATTER_CUTOVER
+from spark_druid_olap_tpu_torch.parallel import spmd_arena
+from spark_druid_olap_tpu_torch.parallel.distributed import DistributedEngine
+from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh, make_slice_mesh
 from spark_druid_olap_tpu_torch.plan import calibrate
 from spark_druid_olap_tpu_torch.plan.cost import (
     _kernel_costs,
@@ -690,6 +715,7 @@ def kernel_phase(device):
             "bound_ms": bound(*shape)[0],
         })
         emit("kernel_delta_check", **rows[-1])
+    rows += mesh_kernel_checks(device)
     emit("kernel_check", cases=rows, rtol=KERNEL_RTOL, bit_stable=True)
     return rows, timed
 
@@ -755,11 +781,21 @@ def tier_fields(m: QueryMetrics) -> dict:
             "sparse_passes": m.sparse_passes, "declines": m.declines}
 
 
+def checked_rows() -> dict:
+    """The most rows phase 3 checked at each (G, Ms, Mn, Mx): a launch of
+    that shape over more rows meets chunk counts no check met."""
+    out = {}
+    for R, *key in MAIN_SHAPES + SORTED_SHAPES + MESH_SHAPES:
+        out[tuple(key)] = max(out.get(tuple(key), 0), R)
+    return out
+
+
 class KernelShapes:
     """The (G, Ms, Mn, Mx) of every kernel launch on the card between
     `start` and `stop`, CUDA graph replays included: the wrapper's
     per-shape counter (`cuda_groupby.LAUNCH_SHAPES`), less what it held at
-    `start`."""
+    `start`; and the most rows a launch took at each
+    (`cuda_groupby.LAUNCH_ROWS`)."""
 
     def __init__(self):
         self._base = {}
@@ -781,13 +817,21 @@ class KernelShapes:
         self._final = self.seen
 
     def check(self):
-        """Fails on a launched shape that phase 3 did not check."""
-        checked = {s[1:] for s in MAIN_SHAPES + SORTED_SHAPES}
+        """Fails on a launched shape that phase 3 did not check, or that a
+        launch took over more rows than phase 3 checked it at."""
+        checked = checked_rows()
+        rows = {k: cuda_groupby.LAUNCH_ROWS.get(k, 0) for k in self.seen}
         missing = sorted(k for k in self.seen if k not in checked)
+        over = sorted((k, rows[k], checked[k]) for k in self.seen
+                      if k in checked and rows[k] > checked[k])
         emit("kernel_shapes", launched={str(k): v for k, v in sorted(self.seen.items())},
-             unchecked=missing)
+             most_rows={str(k): v for k, v in sorted(rows.items())},
+             unchecked=missing, over_checked_rows=over)
         if missing:
             raise AssertionError(f"kernel shapes (G, Ms, Mn, Mx) not checked in phase 3: {missing}")
+        if over:
+            raise AssertionError("kernel shapes launched over more rows than phase 3 checked "
+                                 f"((G, Ms, Mn, Mx), rows, checked rows): {over}")
 
 
 def _frame_check(name, got, want, keys, rtol=ORACLE_RTOL):
@@ -1938,10 +1982,11 @@ def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
     here): every frame against its float64 oracle, bit-identical over two
     runs, and equal (keys and counts exact, sums within ORACLE_RTOL) to the
     same query with the assist off (`device_assist_min_rows` above every
-    table's rows); `executor` "device" for q9 and "fallback" or
-    "device+fallback" for the rest.  Per query: the executor, assists and
-    declines, each assisted subtree's G and tier, kernel launches, the p50
-    of the warm runs with the assist on and off, decode ms (cold and warm),
+    table's rows) where the assist ran (elsewhere that is the same path);
+    `executor` "device" for q9 and "fallback" or "device+fallback" for the
+    rest.  Per query: the executor, assists and declines, each assisted
+    subtree's G and tier, kernel launches, the p50 of the warm runs with the
+    assist on and one run with it off, decode ms (cold and warm),
     and device busy ms and idle share from one profiled run; with `shapes`
     (a started KernelShapes), the (G, Ms, Mn, Mx) of its launches."""
     import pandas as pd
@@ -1983,17 +2028,22 @@ def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
             busy = sum(profiled_device_ms(
                 lambda: ctx.sql(sql), allow_empty=m.executor == "fallback").values()
             ) if launches else 0.0
-            ctx.sql(f"SET device_assist_min_rows = {off_rows}")
-            try:
-                off = ctx.sql(sql)
-                off_m = ctx.last_metrics
-                off_ms = _runs_ms(lambda: ctx.sql(sql), warm)
-            finally:
-                ctx.sql(f"SET device_assist_min_rows = {default_rows}")
-            if name != "q9" and off_m.assist_subplans:
-                raise AssertionError(f"{name}: the assist ran with device_assist_min_rows {off_rows}")
-            _extended_check(f"{name} (assist off)", off, first)
             p50 = statistics.median(on_ms)
+            off_ms, off_exec = [p50], m.executor  # no assist ran: the same path
+            if m.assist_subplans:
+                ctx.sql(f"SET device_assist_min_rows = {off_rows}")
+                try:
+                    t1 = time.perf_counter()
+                    off = ctx.sql(sql)
+                    off_ms = [(time.perf_counter() - t1) * 1e3]
+                    off_m = ctx.last_metrics
+                finally:
+                    ctx.sql(f"SET device_assist_min_rows = {default_rows}")
+                if off_m.assist_subplans:
+                    raise AssertionError(
+                        f"{name}: the assist ran with device_assist_min_rows {off_rows}")
+                _extended_check(f"{name} (assist off)", off, first)
+                off_exec = off_m.executor
             out.append({
                 "query": name, "executor": m.executor, "assist_subplans": m.assist_subplans,
                 "declines": m.declines if m.executor != "device" else [],
@@ -2005,7 +2055,8 @@ def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
                                  "rows_scanned": a.rows_scanned} for a in subtrees],
                 "rows_scanned": m.rows_scanned, "result_rows": len(first), "cold_ms": cold_ms,
                 "p50_ms": p50, "assist_off_p50_ms": statistics.median(off_ms),
-                "assist_off_executor": off_m.executor, "kernel_launches": launches,
+                "assist_off_executor": off_exec, "assist_off_ran": bool(m.assist_subplans),
+                "kernel_launches": launches,
                 "kernel_shapes": launched,
                 "decode_cold_ms": cold_decode_ms, "decode_warm_ms": warm_decode_ms,
                 "device_busy_ms": busy, "device_idle_share": 1 - busy / p50,
@@ -4200,15 +4251,6 @@ COST_SKIP = 10  # a class whose first run is this many times the fastest's is ti
 KNOWN_FLIPS = {("tpch", "q3")}
 
 
-def scatter_sum_rtol(ds) -> float:
-    """The tolerance the scatter's sums are held to at few groups: the
-    forward error bound of a sequential float32 sum (n - 1) u, u = 2^-24,
-    for the n = a segment's rows that `index_add_` adds to one group one
-    after another, plus the fold of the segments' states."""
-    segs = list(ds.segments)
-    return (max(s.num_rows for s in segs) + len(segs)) * 2.0 ** -24
-
-
 def cost_constants(cfg) -> dict:
     """The calibrated constants of a config."""
     return {k: getattr(cfg, k) for k in CALIBRATED_FLOATS + CALIBRATED_INTS}
@@ -4299,9 +4341,8 @@ def run_cost_picks(ctxs, workloads, tier_rows, fresh_cfg, warm=COST_WARM):
     query (its path not declined) reuses phase 8's p50.  The planned run
     (the engine's strategy "auto") takes its plan's route or records a
     decline, and its answer holds against the oracle.  Every answer is held
-    to ORACLE_RTOL, but the scatter's pinned at G <= SCATTER_CUTOVER, where
-    it adds thousands of a group's rows one after another in float32: those
-    are held to the bound of such a sum (`scatter_sum_rtol`).  Reported per
+    to ORACLE_RTOL, the scatter's pinned at G <= SCATTER_CUTOVER included
+    (it accumulates a segment's sums in float64).  Reported per
     query: the pick, the pick under (a)'s fresh calibration, the modelled us
     and the p50 per class, the fastest, each class's largest relative
     error, and whether the pick's p50 is within PICK_SLACK of the fastest
@@ -4330,8 +4371,7 @@ def run_cost_picks(ctxs, workloads, tier_rows, fresh_cfg, warm=COST_WARM):
                 p50[cls] = reuse[(workload, name, cls)]
                 reused.append(cls)
                 continue
-            few = cls == "segment" and phys.num_groups <= SCATTER_CUTOVER
-            tol[cls] = scatter_sum_rtol(ds) if few else ORACLE_RTOL
+            tol[cls] = ORACLE_RTOL
             ms, runs[cls], cm, class_err[cls] = _class_p50(
                 ctx, name, workload, frame, run, cls, warm, min(p50.values(), default=None),
                 rtol=tol[cls])
@@ -4428,6 +4468,397 @@ def run_cost_model(ctxs, workloads, tier_rows, fallback_rows, device, tmp):
                                   workloads["tpch"][1], fallback_rows)
     stream = stream_class_check(device, cfg)
     return {"calibration": cal, "picks": picks, "assists": assists, "stream": stream}
+
+
+# -- phase 17: multi-device ------------------------------------------------------
+
+MESH_WARM = 2  # warm runs of each query's plan on a mesh, after its cold run and capture
+MESH_STREAM_CHUNKS = 32  # BASELINE config #4's stream cut to 32 chunks of 2^21 rows
+MESH_DEADLINE_STEP = 3  # the local step the mesh's deadline sweep stops before
+MESH_SKETCHES = ("topn_hll", "cube_theta", "quantiles")
+
+
+def mesh_shapes():
+    """The kernel shapes phase 17 adds: on the (2, 2) mesh each device keeps
+    half of an even group domain, so every even G of MAIN_SHAPES launches
+    at G / 2 (an odd one runs replicated, at G); and the stream's 2^21-row
+    chunk splits into four 2^19-row shards on the (4, 1) mesh.  The
+    row-shard path launches at most a segment's 2^19 rows at a time
+    (`parallel.distributed.SHARD_BLOCK_ROWS`), so each is checked there."""
+    out = {(R, G // 2, Ms, Mn, Mx) for R, G, Ms, Mn, Mx in MAIN_SHAPES
+           if R == 524288 and G % 2 == 0 and G > 1}
+    out.add((STREAM_SHAPE[0] // 4,) + STREAM_SHAPE[1:])
+    return sorted(s for s in out if s not in set(MAIN_SHAPES))
+
+
+MESH_SHAPES = mesh_shapes()
+
+
+def mesh_kernel_checks(device):
+    """Phase 3's share for phase 17's shapes: each checked against the plain
+    version as the main shapes are, and timed by profiler device time over
+    inputs rotated past the L2 (one partial and one fold pass a call),
+    beside its bound, the wrapper's call and the plain version's."""
+    rows = []
+    for i, (R, G, Ms, Mn, Mx) in enumerate(MESH_SHAPES):
+        args, max_abs, max_rel = check_kernel_shape(R, G, Ms, Mn, Mx, device, seed=300 + i)
+        kw = dict(num_groups=G, num_min=Mn, num_max=Mx)
+        set_bytes = sum(t.numel() * t.element_size() for t in args)
+        n = max(20, -(-int(ROTATE_BYTES) // set_bytes))
+        sets = [args] + [[t.clone() for t in args] for _ in range(n - 1)]
+        ms, timer, _, events = device_ms(
+            lambda j: cuda_groupby.cuda_partial_aggregate(*sets[j], **kw), n, 2 * n)
+        del sets
+        b_ms, b_by = bound(R, G, Ms, Mn, Mx)
+        rows.append({
+            "shape": (R, G, Ms, Mn, Mx), "mesh": True, "max_abs_err": max_abs,
+            "max_rel_err": max_rel, "ms": ms, "timer": timer,
+            "events": sum(events.values()), "rotated_sets": n,
+            "call_ms": cuda_ms(lambda: cuda_groupby.cuda_partial_aggregate(*args, **kw)),
+            "plain_ms": cuda_ms(lambda: cuda_groupby.plain_partial_aggregate(*args, G, Mn, Mx),
+                                reps=1, warm=0),
+            "bound_ms": b_ms, "bound_by": b_by, "bound_share": b_ms / ms,
+        })
+        emit("kernel_mesh_check", **rows[-1])
+    return rows
+
+
+# cost constants under which the cost model picks each merge tree on the
+# 2 x 2 slice mesh (`plan.cost.choose_merge_tree`): a slow link within the
+# slices makes flat the cheaper tree, a slow link between them hierarchical
+TREE_RATES = {"flat": {"collective_bytes_per_us": 1e3, "dcn_bytes_per_us": 1e9},
+              "hierarchical": {"collective_bytes_per_us": 1e9, "dcn_bytes_per_us": 1e3}}
+
+
+def mesh_list(device):
+    """(label, mesh, the merge tree its rates make the cost model pick, or
+    None for the session's) of each mesh phase 17 drives: the logical
+    meshes on `device`, and (n, 1) over the real cards where there are two
+    or more."""
+    dev4 = [device] * 4
+    out = [("4x1", make_mesh(4, 1, dev4), None), ("2x2", make_mesh(2, 2, dev4), None),
+           ("slice2x2-flat", make_slice_mesh(2, 2, dev4), "flat"),
+           ("slice2x2-hier", make_slice_mesh(2, 2, dev4), "hierarchical")]
+    n = torch.cuda.device_count()
+    if n >= 2:
+        out.append((f"{n}x1-cards", make_mesh(n, 1), None))
+    return out
+
+
+MESH_BASELINE_LAUNCHES = [0]  # launches of phase 17's single-device baselines
+
+
+def _baseline(fn):
+    """A single-device run of phase 17, its launches counted apart from the
+    meshes' (MESH_BASELINE_LAUNCHES)."""
+    before = cuda_groupby.LAUNCHES
+    try:
+        return fn()
+    finally:
+        MESH_BASELINE_LAUNCHES[0] += cuda_groupby.LAUNCHES - before
+
+
+def _mesh_case(ctx, workload, name):
+    """(native spec, datasource, post, G) of one query of phase 17: a SQL
+    query's planned rewrite with the SQL surface's host post-processing,
+    or the native Timeseries and TopN."""
+    if name in ("timeseries", "topn"):
+        q = ssb.TIMESERIES_QUERY if name == "timeseries" else ssb.TOPN_QUERY
+        ds = ctx.catalog.get(q.datasource)
+        inner = timeseries_to_groupby(q) if name == "timeseries" else topn_to_groupby(q)
+        G = ctx.engine._lowering_for(groupby_with_time_granularity(inner), ds).num_groups
+        return q, ds, (lambda df: df), G
+    rw = ctx.plan_sql((tpch if workload == "tpch" else ssb).QUERIES[name])
+    ds = ctx.catalog.get(rw.datasource)
+    return rw.query, ds, (lambda df, rw=rw, ds=ds: ctx._post_process(rw, ds, df)), rw.num_groups
+
+
+def _same_as_single(name, got, single):
+    """The mesh's frame against the single-device port's: keys and counts
+    exact, sums within ORACLE_RTOL (another order of adds); for the ranked
+    queries the ranked values."""
+    if name in ("topn", "q3", "q10"):
+        value = "revenue"
+        g = np.asarray(got[value], dtype=np.float64)
+        w = np.asarray(single[value], dtype=np.float64)
+        if len(g) != len(w) or not (np.abs(g - w) <= ORACLE_RTOL * np.abs(w)).all():
+            raise AssertionError(f"{name}: mesh ranking differs from the single device's")
+        return
+    floats = [c for c in single.columns if single[c].dtype.kind == "f"]
+    keys = [c for c in single.columns if c not in floats]
+    _frame_check(name, got[list(single.columns)], single, keys)
+
+
+def _mesh_plan(eng, q, ds) -> str:
+    """The class the mesh engine's cost model routes `q` to."""
+    from spark_druid_olap_tpu_torch.exec.lowering import memo_key
+
+    inner = groupby_with_time_granularity(eng._groupby_family(q, ds)[0])
+    return eng._route_class(inner, ds, eng._lowering_for(inner, ds), memo_key(inner, ds))
+
+
+def run_mesh_queries(ctxs, workloads, meshes, device):
+    """(a) Every query of phase 16 on each mesh under the mesh's plan (the
+    cost model at the query's G), on (4, 1) also pinned to every class the
+    model prices; each answer against the oracle and the single-device
+    port's frame under the same class, the route checked; the warm p50 of
+    the plan on each mesh beside the single device's."""
+    rows = []
+    engines = {}
+    trees = {}  # the merge trees each mesh ran
+    for label, mesh, tree in meshes:
+        eng = DistributedEngine(mesh)
+        engines[label] = eng
+        emit("mesh", label=label, **eng.describe(), merge_tree=tree or "cost model",
+             rates=TREE_RATES.get(tree, {}))
+    # the slice meshes and (4, 1) stack the same blocks on the same device
+    for label in ("slice2x2-flat", "slice2x2-hier"):
+        if label in engines and "4x1" in engines:
+            engines[label]._shard_cache = engines["4x1"]._shard_cache
+    for workload, name in COST_QUERIES:
+        ctx = ctxs[workload]
+        _, frame = workloads[workload]
+        q, ds, post, G = _mesh_case(ctx, workload, name)
+        costs = query_kernel_costs(q, ds, G, ctx.config, device=device)
+        splan = choose_physical(q, ds, G, ctx.config, device=device).strategy
+        single_p50 = _baseline(lambda: _median_ms(lambda: ctx.engine.execute(q, ds, splan),
+                                                  MESH_WARM))
+        singles = {}
+
+        def single(cls):
+            if cls not in singles:
+                singles[cls] = _baseline(lambda: post(ctx.engine.execute(q, ds, cls)))
+            return singles[cls]
+
+        row = {"query": name, "workload": workload, "num_groups": G, "single_plan": splan,
+               "single_p50_ms": single_p50, "mesh": {}}
+        for label, _mesh, tree in meshes:
+            eng = engines[label]
+            eng.cost_config = dataclasses.replace(ctx.config, **TREE_RATES.get(tree, {}))
+            pinned = [c for c, us in costs.items() if np.isfinite(us)] if label == "4x1" else []
+            for cls in [None] + pinned:
+                plan = _mesh_plan(eng, q, ds) if cls is None else cls
+                before = cuda_groupby.LAUNCHES
+                first = post(eng.execute(q, ds, cls))
+                launched = cuda_groupby.LAUNCHES - before
+                m = eng.last_metrics
+                if not (m.distributed and m.mesh_shape == tuple(eng.mesh.shape.values())):
+                    raise AssertionError(f"{label} {name}: metrics {m.describe()}")
+                check_route(f"{label} {name} ({cls or 'plan'})", m, plan=plan, device=device)
+                err = check_against_oracle(name, first, frame, workload)
+                _same_as_single(name, first, single(plan))
+                on_card = torch.device(device).type == "cuda"
+                if on_card and uses_kernel(m) and launched == 0:
+                    raise AssertionError(f"{label} {name}: {m.strategy} never launched the kernel")
+                # flat: the row-shard path; none: an empty scope or the
+                # sparse tier's all-gather
+                if tree and m.merge_tree not in (tree, "flat", ""):
+                    raise AssertionError(f"{label} {name}: merged by {m.merge_tree}, not {tree}")
+                trees.setdefault(label, set()).add(m.merge_tree)
+                entry = {"class": plan, "ran": m.strategy, "oracle_max_rel_err": err,
+                         "merge_tree": m.merge_tree, "declines": m.tier_declines,
+                         "launches": launched}
+                if cls is None:
+                    post(eng.execute(q, ds))  # the capture
+                    entry["p50_ms"] = _median_ms(lambda: eng.execute(q, ds), MESH_WARM)
+                    entry["graph_replays"] = eng.last_metrics.graph_replays
+                    row["mesh"][label] = entry
+                else:
+                    row["mesh"].setdefault(f"{label}:{cls}", entry)
+        rows.append(row)
+        emit("mesh_query", **row)
+    for label, _mesh, tree in meshes:
+        if tree and tree not in trees.get(label, ()):
+            raise AssertionError(f"{label}: no query merged by the {tree} tree")
+    return rows, engines
+
+
+def run_mesh_sketches_sql(ctxs, workloads, device):
+    """(b) The sketch queries and SQL through a context whose plans take the
+    (4, 1) mesh (its device list 4 x the card, the cost model off, sharing
+    the SSB context's catalog): HLL and theta columns equal the single
+    device's frame, quantiles equal it too (a row hashes its segment
+    position) and hold the rank bound of the exact oracle;
+    q4.1 as SQL, its metrics `distributed` with the mesh's shape."""
+    base = ctxs["ssb"]
+    mctx = TPUOlapContext(dataclasses.replace(base.config), device=device, devices=[device] * 4)
+    # the SSB context's catalog and resident engine (`run_mesh` gives the
+    # engine back its own session's settings after)
+    mctx.catalog = base.catalog
+    mctx.engine = base.engine
+    mctx.sql("SET cost_model_enabled = false")
+    out = []
+    frame = workloads["ssb"][1]
+    for name in MESH_SKETCHES:
+        sql = ssb.SKETCH_QUERIES[name]
+        got = mctx.sql(sql)
+        m = mctx.last_metrics
+        if not (m.distributed and m.mesh_shape == (4, 1)):
+            raise AssertionError(f"mesh sketch {name}: {m.describe()}")
+        want = _baseline(lambda: base.sql(sql))
+        row = {"query": name, "rows": len(got)}
+        if name == "quantiles":
+            # a row's priority is its segment position's: the single device's sample
+            row.update(ssb.check_sketch_answer(name, got, ssb.sketch_oracle(frame, name)))
+            keys = ["d_year"]
+            g = got.sort_values(keys).reset_index(drop=True)
+            w = want.sort_values(keys).reset_index(drop=True)
+            for c in ssb.QUANTILE_FRACTIONS:
+                if not np.array_equal(np.asarray(g[c]), np.asarray(w[c])):
+                    raise AssertionError(f"mesh quantiles: {c} differs from the single device")
+            row["quantiles_equal_single_device"] = True
+        else:
+            keys = [c for c in want.columns if want[c].dtype.kind not in "f"]
+            g = got.sort_values(keys, kind="stable").reset_index(drop=True)
+            w = want.sort_values(keys, kind="stable").reset_index(drop=True)
+            for c in want.columns:
+                if c == "revenue":
+                    _frame_check(name, g[[c]], w[[c]], [])
+                elif not np.array_equal(np.asarray(g[c]).astype(object),
+                                        np.asarray(w[c]).astype(object)):
+                    raise AssertionError(f"mesh sketch {name}: column {c} differs")
+            row["sketch_columns_equal_single_device"] = True
+        out.append(row)
+        emit("mesh_sketch", **row)
+    got = mctx.sql(ssb.QUERIES["q4_1"])
+    m = mctx.last_metrics
+    if not (m.distributed and m.mesh_shape == (4, 1)) or m.executor != "device":
+        raise AssertionError(f"mesh SQL: {m.describe()}")
+    check_against_oracle("q4_1", got, frame, "ssb")
+    out.append({"query": "q4_1 (SQL)", "distributed": True, "mesh_shape": m.mesh_shape,
+                "strategy": m.strategy})
+    emit("mesh_sql", **out[-1])
+    return out, mctx
+
+
+def run_mesh_stream(device, mesh):
+    """(c) BASELINE config #4's stream on the (4, 1) mesh, cut to
+    MESH_STREAM_CHUNKS chunks, against its oracle."""
+    chunk_rows = STREAM_SHAPE[0]
+    staged, oracle, info = stage_stream(MESH_STREAM_CHUNKS, chunk_rows)
+    ex = StreamExecutor(engine=Engine(device=device), mesh=mesh)
+    before = cuda_groupby.LAUNCHES
+    df, ms = _timed(lambda: ex.execute(stream_query(), datagen.event_stream_schema(),
+                                       iter(staged), chunk_rows))
+    err = _stream_frame_check(df, oracle)
+    launches = cuda_groupby.LAUNCHES - before
+    if torch.device(device).type == "cuda" and launches == 0:
+        raise AssertionError("mesh stream never launched the kernel")
+    row = {"chunks": len(staged), "rows": ex.stats.rows, "wall_ms": ms,
+           "rows_per_s": ex.stats.rows / (ms / 1e3), "strategy": ex.stats.strategy,
+           "h2d_bytes": ex.stats.h2d_bytes, "launches": launches, "oracle_max_rel_err": err,
+           "generate_s": info["generate_s"]}
+    emit("mesh_stream", **row)
+    del staged
+    return row
+
+
+def run_mesh_resilience(ctxs, workloads, eng, mctx):
+    """(d) On the (4, 1) mesh: a deadline injected before local step K of the
+    arena's step loop gives a partial answer whose coverage is the rows of
+    the steps folded, equal to the oracle over those blocks; a fault at
+    `mesh.dispatch` is retried once and the answer holds; the mesh's
+    breaker opens under repeated faults while a single-device query still
+    routes to "device"; and a fused batch runs as one arena dispatch per
+    device (eager, captured, replayed), each member equal to its serial
+    frame."""
+    ctx = ctxs["ssb"]
+    frame = workloads["ssb"][1]
+    q, ds, post, _ = _mesh_case(ctx, "ssb", "q4_1")
+    out = {}
+    # the deadline: steps 0..K-1 folded, on every device
+    inner = groupby_with_time_granularity(q)
+    scope = segments_in_scope(inner, ds)
+    layout = spmd_arena.plan_spmd_layout(ds, 4)
+    in_scope = {s.uid for s in scope}
+    blocks = sorted(layout.index[u] for u in in_scope)
+    j_lo, Lk = spmd_arena.scope_window(layout, blocks)
+    step = min(MESH_DEADLINE_STEP, Lk - 1)  # a step inside the window
+    covered = [layout.segs[b] for b in blocks if b // 4 < j_lo + step]
+    _arm("mesh.segment_loop", error_type=resilience.InjectedDeadline, skip=step, times=1)
+    try:
+        with resilience.partial_scope(True) as pc:
+            got = post(eng.execute(q, ds, "dense"))
+    finally:
+        _disarm()
+    rows_total = sum(s.num_rows for s in scope)
+    seen = sum(s.num_rows for s in covered)
+    if not pc.is_partial or pc.rows_seen != seen:
+        raise AssertionError(f"mesh deadline: rows {pc.rows_seen}, want {seen}")
+    err = _partial_oracle_check("q4_1", got, segments_frame(ds, covered,
+                                                             SWEEP_QUERIES["q4_1"]))
+    out["deadline"] = {"step": step, "window_steps": Lk, "segments": len(covered),
+                       "coverage": pc.coverage(), "rows_seen": seen, "rows_total": rows_total,
+                       "oracle_max_rel_err": err}
+    emit("mesh_deadline", **out["deadline"])
+    # a retry after a fault at mesh.dispatch
+    _arm("mesh.dispatch", mode="error", times=1)
+    try:
+        got = post(eng.execute(q, ds))
+    finally:
+        _disarm()
+    if eng.last_metrics.retries != 1:
+        raise AssertionError(f"mesh retry: {eng.last_metrics.describe()}")
+    check_against_oracle("q4_1", got, frame, "ssb")
+    out["retry"] = {"retries": 1}
+    emit("mesh_retry", **out["retry"])
+    # the mesh breaker opens; single-device queries still route to the card
+    sql = ssb.QUERIES["q4_1"]
+    mctx.sql("SET fallback_execution = false")
+    br = mctx.resilience.breaker_for("mesh")
+    _arm("mesh.dispatch", mode="error")
+    failures = 0
+    try:
+        while br.state == "closed" and failures < 10:
+            try:
+                mctx.sql(sql)
+            except resilience.InjectedFault:
+                failures += 1
+    finally:
+        _disarm()
+    if br.state != "open" or mctx.resilience.breaker_for("device").state != "closed":
+        raise AssertionError(f"mesh breaker {br.state} after {failures} failed queries")
+    mctx.sql("SET prefer_distributed = false")
+    got = _baseline(lambda: mctx.sql(sql))
+    m = mctx.last_metrics
+    if m.distributed or m.executor != "device" or mctx._backend_for(mctx.plan_sql(sql)) != "device":
+        raise AssertionError(f"single-device route under an open mesh breaker: {m.describe()}")
+    check_against_oracle("q4_1", got, frame, "ssb")
+    out["breaker"] = {"failed_queries": failures, "mesh_breaker": br.state,
+                      "device_breaker": mctx.resilience.breaker_for("device").state}
+    emit("mesh_breaker", **out["breaker"])
+    # a fused batch on the mesh
+    members = [_mesh_case(ctx, "ssb", n) for n in FUSED_MEMBERS]
+    serial = [_baseline(lambda: post(ctx.engine.execute(mq, mds)))
+              for mq, mds, post, _ in members]
+    replays = []
+    for _ in range(3):  # eager, captured, replayed
+        res = eng.execute_fused([mq for mq, *_ in members], ds)
+        for (df, _state, mm), (_, _, post, _), want, n in zip(res, members, serial,
+                                                               FUSED_MEMBERS):
+            _same_as_single(n, post(df), want)
+            if not mm.distributed or mm.fused_batch != len(members):
+                raise AssertionError(f"mesh fused {n}: {mm.describe()}")
+        replays.append(res[0][2].graph_replays)
+    if eng.device.type == "cuda" and replays[-1] == 0:
+        raise AssertionError(f"mesh fused batch never replayed: {replays}")
+    out["fused"] = {"members": list(FUSED_MEMBERS), "graph_replays": replays}
+    emit("mesh_fused", **out["fused"])
+    return out
+
+
+def run_mesh(ctxs, workloads, device):
+    """Phase 17 on phase 4's resident SSB SF10 and TPC-H SF1."""
+    meshes = mesh_list(device)
+    queries, engines = run_mesh_queries(ctxs, workloads, meshes, device)
+    sketches, mctx = run_mesh_sketches_sql(ctxs, workloads, device)
+    stream = run_mesh_stream(device, engines["4x1"].mesh)
+    res = run_mesh_resilience(ctxs, workloads, engines["4x1"], mctx)
+    for eng in engines.values():
+        eng.clear_cache()
+    ctxs["ssb"].apply_config()  # its engine's constants, flags and breaker back
+    return {"queries": queries, "sketches": sketches, "stream": stream, "resilience": res,
+            "meshes": [label for label, _, _ in meshes]}
 
 
 def main(argv=None) -> int:
@@ -4639,6 +5070,25 @@ def main(argv=None) -> int:
     if cost_launches == 0:
         raise AssertionError("the cost model phase never launched the kernel")
 
+    # phase 17 before phase 15 too: the meshes read phase 4's data
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only the mesh phase's launches
+    mesh = run_mesh(ctxs, workloads, device)
+    mesh_baseline_launches = MESH_BASELINE_LAUNCHES[0]
+    mesh_launches = cuda_groupby.LAUNCHES - mesh_baseline_launches
+    emit("mesh_p50", nvidia_smi=card, table={
+        r["query"]: {"single": r["single_p50_ms"],
+                     **{k: v["p50_ms"] for k, v in r["mesh"].items() if "p50_ms" in v}}
+        for r in mesh["queries"]})
+    emit("mesh", seconds=time.perf_counter() - t0, kernel_launches=mesh_launches,
+         baseline_kernel_launches=mesh_baseline_launches,
+         meshes=mesh["meshes"], queries=len(mesh["queries"]),
+         stream_rows_per_s=mesh["stream"]["rows_per_s"],
+         deadline_coverage=mesh["resilience"]["deadline"]["coverage"],
+         bytes_resident=resident(), peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if mesh_launches == 0:
+        raise AssertionError("the mesh phase never launched the kernel")
+
     t0 = time.perf_counter()
     cuda_groupby.LAUNCHES = 0  # count only the ingest phase's launches
     ingest = run_ingest(ctxs, workloads, queries)
@@ -4694,7 +5144,8 @@ def main(argv=None) -> int:
         "launches": (launches + sql_launches + sketch_launches + tier_launches
                      + arena_launches + fallback_launches + native_launches
                      + resilience_launches + serving_launches + ingest_launches
-                     + cost_launches + stream_launches),
+                     + cost_launches + mesh_launches + mesh_baseline_launches
+                     + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
@@ -4706,6 +5157,8 @@ def main(argv=None) -> int:
         "launches_serving": serving_launches,
         "launches_ingest": ingest_launches,
         "launches_cost_model": cost_launches,
+        "launches_mesh": mesh_launches,
+        "launches_mesh_baseline": mesh_baseline_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

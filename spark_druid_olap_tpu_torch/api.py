@@ -100,6 +100,7 @@ import time
 from typing import Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from .catalog.cache import MetadataCache
 from .catalog.segment import DataSource, build_datasource
@@ -174,10 +175,28 @@ class TPUOlapContext:
 
     Like `Engine`, it runs on CUDA unless the caller passes a device
     (`device="cpu"` runs on the host); with no device given and no GPU
-    present the constructor raises."""
+    present the constructor raises.
 
-    def __init__(self, config: Optional[SessionConfig] = None, device=None):
+    `devices` is the device list of its mesh (`parallel/distributed.py`):
+    by default every visible card on a card (one entry on the CPU), so a
+    one-card context never plans the mesh.  With more than one entry the
+    cost model plans a GroupBy-family query onto the mesh where it prices
+    it cheaper (`SET prefer_distributed`, `mesh_data_axis`,
+    `mesh_groups_axis`); a list may repeat a device (a logical mesh: 8 x
+    "cpu" in the tests, 4 x "cuda:0" on one card)."""
+
+    def __init__(self, config: Optional[SessionConfig] = None, device=None, devices=None):
         self.engine = Engine(device=device)
+        if devices is not None:
+            self.devices = [torch.device(d) for d in devices]
+        elif self.engine.device.type == "cuda":
+            self.devices = [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+        else:
+            self.devices = [self.engine.device]
+        # the mesh engine, built when a plan first takes the mesh; the
+        # engine the last execution ran on (`last_metrics` reads it)
+        self._dist_engine = None
+        self._last_engine = self.engine
         # the cost constants of the engine's device (its calibration file,
         # or on the CPU the CPU profile) unless the caller brings a config
         self.config = config or SessionConfig.load_calibrated(device=self.engine.device)
@@ -259,6 +278,8 @@ class TPUOlapContext:
         cfg = self.config
         self.engine.configure_pipeline(cfg)
         self.engine.cost_config = cfg
+        if self._dist_engine is not None:
+            self._sync_mesh_engine()
         for br in self.resilience.breakers.values():
             br.failure_threshold = max(1, int(cfg.breaker_failure_threshold))
             br.cooldown_ms = float(cfg.breaker_cooldown_ms)
@@ -304,7 +325,7 @@ class TPUOlapContext:
     def _stamp_metrics(self, m) -> None:
         """Makes `m` the context's last metrics (a fallback run, a cache
         hit, a fused member)."""
-        self._stamped_metrics = (m, self.engine.last_metrics)
+        self._stamped_metrics = (m, self._last_engine.last_metrics)
 
     # -- registration (CREATE TABLE ... USING ... OPTIONS analog) -----------
 
@@ -465,10 +486,13 @@ class TPUOlapContext:
             self.storage.close()
 
     def _on_segments_dropped(self, uids):
-        """The ingest tier retired segment uids: the engine drops their
-        device columns, pinned host copies and graphs, and the fallback
-        its decoded frames."""
+        """Retired segment uids (the ingest tier's, a replaced or dropped
+        table's): the engine drops their device columns, pinned host copies
+        and graphs, the mesh engine its shards and programs, and the
+        fallback its decoded frames."""
         self.engine.evict_segments(uids)
+        if self._dist_engine is not None:
+            self._dist_engine.evict_segments(uids)
         evict_decoded_segments(uids)
 
     def save_table(self, name: str, directory: str) -> str:
@@ -494,8 +518,7 @@ class TPUOlapContext:
         old = self.catalog.get(ds.name)
         self.catalog.drop(ds.name)
         if old is not None:
-            evict_decoded_segments(s.uid for s in old.segments)
-            self.engine.evict_segments(s.uid for s in old.segments)
+            self._on_segments_dropped(frozenset(s.uid for s in old.segments))
         published = self.catalog.put(ds, star)
         if self.storage is not None:
             self.storage.flush(ds.name)
@@ -512,8 +535,7 @@ class TPUOlapContext:
         ds = self.catalog.get(name)
         self.catalog.drop(name)
         if ds is not None:
-            evict_decoded_segments(s.uid for s in ds.segments)
-            self.engine.evict_segments(s.uid for s in ds.segments)
+            self._on_segments_dropped(frozenset(s.uid for s in ds.segments))
 
     def clear_cache(self):
         """Clear-metadata-cache command: drops the catalog, the device
@@ -523,6 +545,8 @@ class TPUOlapContext:
         self.catalog.clear()
         evict_decoded_segments(uids)
         self.engine.clear_cache()
+        if self._dist_engine is not None:
+            self._dist_engine.clear_cache()
         self._plan_cache.clear()
         self.serve.result_cache.clear()
 
@@ -533,14 +557,16 @@ class TPUOlapContext:
         a result-cache hit's (strategy "result-cache") or a fused member's
         after those, else the engine's."""
         fb = self._stamped_metrics
-        if fb is not None and fb[1] is self.engine.last_metrics:
+        last = self._last_engine.last_metrics
+        if fb is not None and fb[1] is last:
             return fb[0]
-        return self.engine.last_metrics
+        return last
 
     # -- planning ------------------------------------------------------------
 
     def _planner(self) -> Planner:
-        return Planner(self.catalog, self.config, device=self.engine.device)
+        return Planner(self.catalog, self.config, device=self.engine.device,
+                       n_devices=len(self.devices))
 
     def _pinned_strategy(self) -> Optional[str]:
         """The engine's strategy when it pins this context's queries (set
@@ -609,7 +635,7 @@ class TPUOlapContext:
             self.catalog.version,
             tuple(sorted(self.views.items())),  # view redefinition invalidates
             repr(self.config),
-            1,  # device count
+            len(self.devices),
         )
 
     def plan_cached(self, sql_text: str) -> Rewrite:
@@ -686,9 +712,9 @@ class TPUOlapContext:
         the host post-processing `sql` applies, so the last frame is
         `sql`'s answer.  None when the statement cannot stream (a command,
         EXPLAIN, a fallback shape, grouping sets, an exact COUNT(DISTINCT),
-        a query type other than GroupBy, Timeseries and TopN, or an open
-        device breaker: the buffered path then degrades properly); the
-        caller then answers with `sql`."""
+        a query type other than GroupBy, Timeseries and TopN, a plan on the
+        mesh, or an open device breaker: the buffered path then degrades
+        properly); the caller then answers with `sql`."""
         from .sql.commands import parse_command
 
         if parse_command(sql_text) is not None:
@@ -713,7 +739,9 @@ class TPUOlapContext:
             return None
         if isinstance(q, Q.GroupByQuery) and q.subtotals:
             return None
-        if not self.resilience.breaker_for(self._backend_for(rw)).allow():
+        if self._backend_for(rw) == "mesh":
+            return None  # the mesh has no per-segment refinement
+        if not self.resilience.breaker_for("device").allow():
             return None
         ds = self.catalog.get(rw.datasource)
         if ds is None:
@@ -737,9 +765,44 @@ class TPUOlapContext:
         engine._retry_backoff_ms = self.config.retry_backoff_ms
 
     def _backend_for(self, rw: Rewrite) -> str:
-        """The backend a rewrite runs on: "device", the one engine (a mesh
-        backend comes with the distributed engine)."""
+        """The backend a rewrite runs on: "mesh" when its plan took the mesh
+        and the context's device list fills the planned shape, else
+        "device".  `_engine_for` branches on it, so the breaker that gates a
+        query and the engine that runs it never disagree."""
+        phys = rw.physical
+        if phys is not None and phys.distributed and phys.mesh_shape is not None:
+            if len(self.devices) >= phys.mesh_shape[0] * phys.mesh_shape[1]:
+                return "mesh"
         return "device"
+
+    def _engine_for(self, rw: Rewrite):
+        """The engine that runs `rw`: the mesh engine (built on first use over
+        the context's device list at the planned shape, kept while the
+        shape stays) under the "mesh" breaker, synced to the session's
+        constants and flags; else the single-device engine."""
+        if self._backend_for(rw) != "mesh":
+            self._last_engine = self.engine
+            return self.engine
+        from .parallel.distributed import DistributedEngine
+        from .parallel.mesh import make_mesh
+
+        nd, ng = rw.physical.mesh_shape
+        eng = self._dist_engine
+        if eng is None or (eng.mesh.shape["data"], eng.mesh.shape["groups"]) != (nd, ng):
+            if eng is not None:
+                eng.clear_cache()
+            self._dist_engine = DistributedEngine(make_mesh(nd, ng, devices=self.devices))
+        self._sync_mesh_engine()
+        self._last_engine = self._dist_engine
+        return self._dist_engine
+
+    def _sync_mesh_engine(self) -> None:
+        """The session's constants, arena flag, breaker and retry budget on
+        the mesh engine."""
+        eng = self._dist_engine
+        eng.cost_config = self.config
+        eng.configure_pipeline(self.config)
+        self._sync_engine_resilience(eng, "mesh")
 
     def _execute_with_resilience(self, rw: Rewrite, lp):
         """Device execution under the backend's breaker.  An open breaker,
@@ -1101,12 +1164,12 @@ class TPUOlapContext:
     def _fusable(self, rw: Rewrite, ds, strategy: str) -> bool:
         """May this rewrite ride micro-batch fusion under `strategy`?
         GroupBy-family, no grouping sets (they batch already) and the
-        engine's own gate."""
+        executing engine's own gate."""
         if rw.grouping_sets or rw.exact_distinct is not None:
             return False
         if not isinstance(rw.query, (Q.GroupByQuery, Q.TimeseriesQuery, Q.TopNQuery)):
             return False
-        return self.engine.fusable(rw.query, ds, strategy)
+        return self._engine_for(rw).fusable(rw.query, ds, strategy)
 
     def execute_rewrite(self, rw: Rewrite, use_result_cache: bool = True):
         """A rewrite's answer: from the result cache, else a fused
@@ -1122,6 +1185,7 @@ class TPUOlapContext:
         if use_result_cache and self.config.result_cache_entries > 0:
             rkey = self._result_key(rw, ds)
         strategy = self.strategy_for(rw)
+        engine = self._engine_for(rw)
         execute = None
         if rw.grouping_sets and isinstance(rw.query, Q.GroupByQuery):
             # every set under the plan's class, resolved at the set's own G
@@ -1129,11 +1193,11 @@ class TPUOlapContext:
             planned = self.config if self._pinned_strategy() is None else None
 
             def execute():
-                return execute_grouping_sets(rw.query, rw.grouping_sets, ds, self.engine,
+                return execute_grouping_sets(rw.query, rw.grouping_sets, ds, engine,
                                              strategy=strategy, cfg=planned)
         return self.serve.answer(rw.query, ds, rkey, self._fusable(rw, ds, strategy),
                                  post=lambda df: self._post_process(rw, ds, df),
-                                 execute=execute, strategy=strategy)
+                                 execute=execute, strategy=strategy, engine=engine)
 
     def _execute_exact_distinct(self, spec, use_result_cache: bool = True):
         """Two-phase exact COUNT(DISTINCT): the inner rewrite (grouped by the

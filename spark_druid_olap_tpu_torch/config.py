@@ -2,10 +2,11 @@
 
 Only the flags this package reads, with the JAX package's defaults, except
 the cost model's constants: those are the port's own, measured on its card
-(`plan/calibrate.py`).  A flag of a tier the port does not have yet
-(multi-device, the cluster) is absent, so `SET` on it raises KeyError instead
-of reporting a change that nothing reads; each comes back with the slice that
-reads it.  `SET` applies a flag at once (`TPUOlapContext.apply_config`):
+(`plan/calibrate.py`), and the merge's rates, which are the H100's data
+sheet's and an assumption about the host link.  A flag of a tier the port
+does not have yet (the cluster) is absent, so `SET` on it raises KeyError
+instead of reporting a change that nothing reads; each comes back with the
+slice that reads it.  `SET` applies a flag at once (`TPUOlapContext.apply_config`):
 the serving and tracing flags reach the result cache, the fusion
 scheduler, the admission and lane pools and the tracer.
 """
@@ -41,6 +42,9 @@ CALIBRATED_FLOATS = (
     "cost_per_group_decode",
 )
 CALIBRATED_INTS = ("dense_tile_groups", "scatter_lo_groups", "scatter_hi_groups")
+# measured only on a host with two or more cards (None in a file of one):
+# applied where the file has it
+MULTI_CARD_FLOATS = ("collective_bytes_per_us",)
 
 
 log = get_logger("config")
@@ -145,6 +149,20 @@ class SessionConfig:
     # one launch and its sync (us); the host-to-card link from pinned memory
     cost_dispatch_us: float = 65.12599999908275
     h2d_bytes_per_s: float = 45286504919.31948
+    # the mesh's merge (`parallel/mesh.py`), bytes per us: NVLink's rate
+    # between two H100 cards, 450 GB/s each way, from NVIDIA's data sheet
+    # (measured into the calibration only on a host with several cards)
+    collective_bytes_per_us: float = 450_000.0
+    # the slice hop of a slice mesh (`plan/cost.choose_merge_tree`): an
+    # assumed host-to-host link of 50 GB/s (a 400 Gb/s NIC), unmeasured
+    dcn_bytes_per_us: float = 50_000.0
+    # multi-device execution (`parallel/distributed.py`): with more than one
+    # device in the context's list, plan the mesh when it is modelled
+    # cheaper; the data axis (None: the devices left by the groups axis)
+    # and the groups axis that shards the group domain
+    prefer_distributed: bool = True
+    mesh_data_axis: Optional[int] = None
+    mesh_groups_axis: int = 1
     # where the cost constants came from (`load_calibrated`): {"path",
     # "device", "power_limit", "partial", "applied", "source"}, and
     # "mismatch" when a file of another device was ignored; None when the
@@ -317,6 +335,9 @@ class SessionConfig:
             for k in CALIBRATED_INTS:
                 if data.get(k) is not None and data[k] > 0:
                     setattr(cfg, k, int(data[k]))
+            for k in MULTI_CARD_FLOATS:
+                if data.get(k) is not None and data[k] > 0:
+                    setattr(cfg, k, float(data[k]))
             meta.update(path=path, power_limit=data.get("power_limit"),
                         partial=data.get("partial"), applied=True, source="file")
         cfg.calibration_meta = meta

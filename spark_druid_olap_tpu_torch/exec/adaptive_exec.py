@@ -214,6 +214,82 @@ def compacted_lowering(lowering: GroupByLowering, kept: List[np.ndarray]) -> Gro
     return dataclasses.replace(lowering, dims=new_dims, num_groups=G)
 
 
+def presence_one(lowering: GroupByLowering, cols, counts, kernel: str):
+    """Rows per code of each grouped dimension under the row mask over one
+    unit of rows (a segment, a shard's block), added to `counts` (None
+    before the first): the kernel (`kernel`: "cuda" on a card, its plain
+    version "dense" on the CPU) up to SCATTER_CUTOVER codes, `index_add_`
+    above.  Counts of ones in float32 are exact (a unit has far fewer than
+    2^24 rows), so the unordered `index_add_` gives the same counts on
+    every run."""
+    mask = lowering.row_mask(cols)
+    R = mask.shape[0]
+    ones = mask.to(torch.float32)[:, None]
+    none_f = torch.zeros((R, 0), dtype=torch.float32, device=mask.device)
+    none_b = torch.zeros((R, 0), dtype=torch.bool, device=mask.device)
+    per = []
+    for d in lowering.dims:
+        card = d.cardinality
+        codes = d.codes_fn(cols).clamp(0, card - 1)
+        if card <= SCATTER_CUTOVER:
+            s, _, _ = partial_aggregate(
+                codes, mask, ones, none_f, none_b, num_groups=card,
+                num_min=0, num_max=0, strategy=kernel,
+            )
+            per.append(s[:, 0])
+        else:
+            per.append(
+                torch.zeros(card, dtype=torch.float32, device=mask.device)
+                .index_add_(0, codes.long(), ones[:, 0])
+            )
+    return per if counts is None else [a + b for a, b in zip(counts, per)]
+
+
+def kept_codes(memo, qkey, q, lowering: GroupByLowering, ds, segs, measure, m):
+    """The kept code sets of each grouped dimension and the tier's decline
+    reason (None: it runs), with `memo` (memo key -> entry) the engine's.
+    A measured set (`measure()`: the presence counts) is only valid for the
+    segment set it scanned, so it carries that set and is measured again
+    when it moved; a set derived from the filter is a superset on any
+    segment set.  Sets `m.kept_source` and `m.compact_groups`; a decline
+    drops the memo entry."""
+    seg_sig = tuple(s.uid for s in segs)
+    entry = memo.get(qkey)
+    kept = None
+    if entry is not None:
+        if entry[0] == "derived":
+            kept = entry[1]
+        elif entry[1] == seg_sig:
+            kept = entry[2]
+        if kept is not None:
+            m.kept_source = "memo"
+    if kept is None:
+        kept = filter_derived_kept(q, lowering, ds)
+        if kept is not None:
+            memo[qkey] = ("derived", kept)
+            m.kept_source = "derived"
+    if kept is None:
+        if segs:
+            kept = [np.nonzero(c > 0)[0].astype(np.int32) for c in measure()]
+        else:
+            kept = [np.zeros(0, np.int32) for _ in lowering.dims]
+        memo[qkey] = ("measured", seg_sig, kept)
+        m.kept_source = "measured"
+    Gc = 1
+    for kd in kept:
+        Gc *= len(kd)
+    m.compact_groups = Gc
+    reason = None
+    if Gc > ADAPTIVE_MAX_COMPACT_GROUPS:
+        reason = f"adaptive: G'={Gc} > ADAPTIVE_MAX_COMPACT_GROUPS={ADAPTIVE_MAX_COMPACT_GROUPS}"
+    elif Gc > ADAPTIVE_MIN_SHRINK * lowering.num_groups:
+        reason = f"adaptive: G'={Gc} > ADAPTIVE_MIN_SHRINK * G={lowering.num_groups}"
+    if reason is not None:
+        memo.pop(qkey, None)
+        m.declines.append(reason)
+    return kept, reason
+
+
 class AdaptiveDomainMixin:
     """Engine mixin (`exec/engine.Engine`): the adaptive tier.  It uses the
     engine's `_adaptive_kept` (memo key -> kept sets), `_adaptive_declined`
@@ -256,70 +332,19 @@ class AdaptiveDomainMixin:
         return out
 
     def _presence_one(self, lowering, cols, counts):
-        """One segment's rows per code of each grouped dimension, added to
-        `counts` (None before the first segment)."""
-        mask = lowering.row_mask(cols)
-        R = mask.shape[0]
-        ones = mask.to(torch.float32)[:, None]
-        none_f = torch.zeros((R, 0), dtype=torch.float32, device=mask.device)
-        none_b = torch.zeros((R, 0), dtype=torch.bool, device=mask.device)
-        per = []
-        for d in lowering.dims:
-            card = d.cardinality
-            codes = d.codes_fn(cols).clamp(0, card - 1)
-            if card <= SCATTER_CUTOVER:
-                s, _, _ = partial_aggregate(
-                    codes, mask, ones, none_f, none_b, num_groups=card,
-                    num_min=0, num_max=0, strategy=self._kernel_class(),
-                )
-                per.append(s[:, 0])
-            else:
-                per.append(
-                    torch.zeros(card, dtype=torch.float32, device=mask.device)
-                    .index_add_(0, codes.long(), ones[:, 0])
-                )
-        return per if counts is None else [a + b for a, b in zip(counts, per)]
+        """One segment's rows per code, added to `counts`."""
+        return presence_one(lowering, cols, counts, self._kernel_class())
 
     def _adaptive_kept_codes(self, q, ds, lowering: GroupByLowering, segs, m):
-        """The kept code sets of each grouped dimension, or None when the
-        tier declines (the reason goes to `m.declines` and the decline
-        memo).  A measured set is only valid for the segment set it scanned,
-        so it carries that set and is measured again when it moved; a set
-        derived from the filter is a superset on any segment set."""
+        """The kept code sets of each grouped dimension (`kept_codes`), or
+        None when the tier declines (the reason goes to `m.declines` and
+        the decline memo)."""
         qkey = memo_key(q, ds)
-        seg_sig = tuple(s.uid for s in segs)
-        entry = self._adaptive_kept.get(qkey)
-        kept = None
-        if entry is not None:
-            if entry[0] == "derived":
-                kept = entry[1]
-            elif entry[1] == seg_sig:
-                kept = entry[2]
-            if kept is not None:
-                m.kept_source = "memo"
-        if kept is None:
-            kept = filter_derived_kept(q, lowering, ds)
-            if kept is not None:
-                self._adaptive_kept[qkey] = ("derived", kept)
-                m.kept_source = "derived"
-        if kept is None:
-            counts = self._presence_counts(q, ds, lowering, segs, m)
-            kept = [np.nonzero(c > 0)[0].astype(np.int32) for c in counts]
-            self._adaptive_kept[qkey] = ("measured", seg_sig, kept)
-            m.kept_source = "measured"
-        Gc = 1
-        for kd in kept:
-            Gc *= len(kd)
-        m.compact_groups = Gc
-        reason = None
-        if Gc > ADAPTIVE_MAX_COMPACT_GROUPS:
-            reason = f"adaptive: G'={Gc} > ADAPTIVE_MAX_COMPACT_GROUPS={ADAPTIVE_MAX_COMPACT_GROUPS}"
-        elif Gc > ADAPTIVE_MIN_SHRINK * lowering.num_groups:
-            reason = f"adaptive: G'={Gc} > ADAPTIVE_MIN_SHRINK * G={lowering.num_groups}"
+        kept, reason = kept_codes(
+            self._adaptive_kept, qkey, q, lowering, ds, segs,
+            lambda: self._presence_counts(q, ds, lowering, segs, m), m)
         if reason is not None:
             self._adaptive_declined[qkey] = reason
-            self._adaptive_kept.pop(qkey, None)
-            m.declines.append(reason)
             return None
         return kept
 

@@ -72,15 +72,22 @@ replayed with one host call.
 * **Threads.**  Capture, replay and the copy out of a replay's outputs run
   under the engine's execution lock (`Engine._exec_lock`), as do the
   device half of every other execution and every eviction: the graphs
-  share memory pools and the capture runs in the global capture mode, so
-  no other thread may touch the card meanwhile.  Lowering and finalizing
-  are host work and run outside it.
+  share memory pools.  Lowering and finalizing are host work and run
+  outside it, and so may another thread's CUDA calls (a delta refresh's
+  frees and fetches, an append's copies): the capture runs in the
+  thread-local capture mode, where only this thread's own unsafe calls,
+  work on its capture stream and a whole-device synchronize (which the
+  port never makes) could void it; in the global mode any CUDA call of
+  another thread voided a capture, even a launch on another stream.  The
+  cyclic garbage collector is off during a capture: a collection there
+  that frees a CUDA graph voids the capture in either mode.
 """
 
 from __future__ import annotations
 
 import contextlib
 import contextvars
+import gc
 import math
 import threading
 import time
@@ -324,6 +331,29 @@ def _build(engine, body, pool, family: str):
     return graph, out, launches, ms
 
 
+_gc_lock = threading.Lock()
+_gc_pauses = [0, True]  # captures in progress, and whether the collector ran before
+
+
+@contextlib.contextmanager
+def _gc_paused():
+    """The cyclic garbage collector off while any thread captures: a
+    collection inside a capture that frees a CUDA graph (a program left in
+    a reference cycle) voids the capture, in either capture mode."""
+    with _gc_lock:
+        if _gc_pauses[0] == 0:
+            _gc_pauses[1] = gc.isenabled()
+            gc.disable()
+        _gc_pauses[0] += 1
+    try:
+        yield
+    finally:
+        with _gc_lock:
+            _gc_pauses[0] -= 1
+            if _gc_pauses[0] == 0 and _gc_pauses[1]:
+                gc.enable()
+
+
 def _capture(engine, body, pool):
     dev = engine.device
     t0 = time.perf_counter()
@@ -338,8 +368,13 @@ def _capture(engine, body, pool):
         # of its constants yet
         body()
     graph = torch.cuda.CUDAGraph()
-    with cuda_groupby.capture_launches() as launches, torch.cuda.stream(stream):
-        graph.capture_begin(pool=pool)
+    with cuda_groupby.capture_launches() as launches, torch.cuda.stream(stream), _gc_paused():
+        # thread-local mode: another thread's CUDA call (a pinned or device
+        # allocation, an event query, a synchronous copy) cannot void this
+        # capture, as in the global mode it could; no other thread enqueues
+        # work on the capture stream (it is this engine's, used under its
+        # execution lock), and the port never synchronizes the whole device
+        graph.capture_begin(pool=pool, capture_error_mode="thread_local")
         try:
             out = body()
         except BaseException:

@@ -60,6 +60,13 @@ the result cache answered it with no device work, "delta" when it merged
 a cached partial state with the partials of the segments appended since
 (the strategy is then "result-cache-delta"), "miss" when the cache was
 asked and missed, "" when it was not asked.
+
+Multi-device (`parallel/distributed.py`): `distributed` marks an execution
+of the mesh engine, `mesh_shape` its mesh's axis sizes ((data, groups), or
+(slice, data) on a slice mesh); `device` is then the first shard's device
+and `shard_device_ms` each row shard's device time on a sampled query (CUDA
+events around the shard's work; empty otherwise).  `est_collective_ms` is
+the cost model's price of the merge, `merge_tree` the tree that ran.
 """
 
 from __future__ import annotations
@@ -116,6 +123,11 @@ class QueryMetrics:
     fused_batch: int = 0
     lane: str = ""
     result_cache: str = ""
+    distributed: bool = False
+    mesh_shape: Optional[tuple] = None
+    merge_tree: str = ""
+    est_collective_ms: float = 0.0
+    shard_device_ms: List[float] = dataclasses.field(default_factory=list)
 
     @property
     def tier_declines(self) -> List[str]:

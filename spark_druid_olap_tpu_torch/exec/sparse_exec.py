@@ -43,6 +43,37 @@ from ..resilience import checkpoint, checkpoint_partial, current_partial, fire
 from .lowering import GroupByLowering, memo_key
 
 
+def first_row_capacity(q, ds, rows: int) -> Optional[int]:
+    """The first row-capacity rung of a pass whose largest unit (a segment,
+    a shard's block) holds `rows` rows: None (a full sort) for an
+    unfiltered query, whose every row survives; else from the filter's
+    estimated selectivity with 2x headroom."""
+    if q.filter is None and not q.intervals:
+        return None
+    sel = estimate_selectivity(q.filter, ds) if q.filter is not None else 1.0
+    if sel >= 1.0:
+        return sg.ROW_CAPACITY  # nothing to act on: the default rung
+    need = 2.0 * sel * rows
+    return next((c for c in sg.ROW_CAPACITY_LADDER if c >= need), None)
+
+
+def next_row_capacity(n_rows: int, cap: int) -> Optional[int]:
+    """After a row overflow: the smallest rung above `cap` that holds the
+    largest unit's `n_rows` survivors, or None (a full sort) past the top."""
+    return next((c for c in sg.ROW_CAPACITY_LADDER if c >= n_rows and c > cap), None)
+
+
+def next_slots(n_real: int, slots: int) -> Optional[int]:
+    """After a slots overflow: the smallest rung that holds the `n_real`
+    present groups.  An overflowed merge reports a lower bound, so past the
+    top of the ladder it climbs one rung and lets the rerun decide; None
+    when `slots` is the top."""
+    new = next((s for s in sg.SLOTS_LADDER if s >= n_real and s > slots), None)
+    if new is None:
+        new = next((s for s in sg.SLOTS_LADDER if s > slots), None)
+    return new
+
+
 class SparseExecMixin:
     """Engine mixin (`exec/engine.Engine`): the sparse tier.  It uses the
     engine's `_sparse_row_capacity` and `_sparse_slots` (memo key -> the
@@ -68,16 +99,8 @@ class SparseExecMixin:
         )
 
     def _first_row_capacity(self, q, ds, segs):
-        """The first row-capacity rung: None (a full-segment sort) for an
-        unfiltered query, whose every row survives; else from the filter's
-        estimated selectivity with 2x headroom."""
-        if q.filter is None and not q.intervals:
-            return None
-        sel = estimate_selectivity(q.filter, ds) if q.filter is not None else 1.0
-        if sel >= 1.0:
-            return sg.ROW_CAPACITY  # nothing to act on: the default rung
-        need = 2.0 * sel * max(s.num_rows for s in segs)
-        return next((c for c in sg.ROW_CAPACITY_LADDER if c >= need), None)
+        """The first row-capacity rung over the scope's largest segment."""
+        return first_row_capacity(q, ds, max(s.num_rows for s in segs))
 
     def _sparse_pass(self, ds, lowering: GroupByLowering, segs, row_capacity, slots, m):
         """One pass over the segments at the given rungs: the merged state,
@@ -143,23 +166,14 @@ class SparseExecMixin:
                 m.declines.append("sparse: a draining query climbs no ladder")
                 return None
             if cap is not None and row_overflow:
-                # the smallest rung that holds the largest segment's
-                # survivors, or a full-segment sort past the top
-                cap = next(
-                    (c for c in sg.ROW_CAPACITY_LADDER if c >= n_rows and c > cap), None)
-                self._sparse_row_capacity[qkey] = cap
+                cap = self._sparse_row_capacity[qkey] = next_row_capacity(n_rows, cap)
                 continue
             if not overflow:
                 break
             # every rung runs the whole scope again: a deadline cancels
             # between rungs
             checkpoint("sparse.slots_ladder")
-            # more present groups than slots: the smallest rung that holds
-            # the count; an overflowed merge reports a lower bound, so past
-            # the top of the ladder climb one rung and let the rerun decide
-            new = next((s for s in sg.SLOTS_LADDER if s >= n_real and s > slots), None)
-            if new is None:
-                new = next((s for s in sg.SLOTS_LADDER if s > slots), None)
+            new = next_slots(n_real, slots)
             if new is None:
                 reason = (f"sparse: more than {slots} groups present "
                           "(the top of SLOTS_LADDER)")

@@ -20,6 +20,15 @@ device at any moment:
     chunks, folded in chunk order (`engine.fold_partials`), so a stream's
     frame is bit-identical with double buffering on and off.
 
+On a mesh (`StreamExecutor(mesh=...)`, `parallel/mesh.py`) the chunk pads
+to a multiple of ROW_PAD x the data-axis size and splits over the data axis:
+each device gets the rows of its shards, copied from the same pinned slot
+on a copy stream of its own, and each shard runs the same per-shard body at
+(rows per shard, groups per shard), its kernel priced there; the shards'
+states merge by the mesh's merge path
+(`DistributedEngine.merge_positions`) and the merged state folds in chunk
+order.
+
 Deadlines: the consumer checkpoints before each chunk
 (`streaming.chunk_loop`, with the `device_dispatch` fault site after it).
 Under a partial collector an expiry stops the stream: the chunk generator
@@ -51,8 +60,10 @@ import numpy as np
 import torch
 
 from ..catalog.segment import NULL_ID, ROW_PAD, DataSource
+from ..models import aggregations as A
 from ..models import query as Q
 from ..obs import SPAN_DEVICE_FETCH, SPAN_FINALIZE, SPAN_STREAM_CHUNK, prof, span
+from ..ops.quantiles import SEGMENT_POSITION
 from ..plan.cost import choose_kernel_strategy
 from ..resilience import checkpoint_partial, current_partial, fire
 from .engine import Engine, fold_partials, shard_partials
@@ -97,26 +108,37 @@ class StreamExecutor:
     rows; shorter chunks are padded, and a validity mask keeps the padding
     out of every aggregate.  `double_buffer=False` issues each chunk's copy
     on the compute stream just before its compute, with no chunk held back:
-    the serial counterfactual, with the same results."""
+    the serial counterfactual, with the same results.  `mesh` runs each
+    chunk over a mesh's shards (the engine still lowers and prices)."""
 
     def __init__(
         self,
         engine: Optional[Engine] = None,
         prefetch: int = 2,
         double_buffer: bool = True,
+        mesh=None,
     ):
         self.engine = engine or Engine()
         self.prefetch = prefetch
         self.double_buffer = double_buffer
         self.stats = StreamStats()
+        self.mesh = mesh
+        self._dist = None
+        if mesh is not None:
+            from ..parallel.distributed import DistributedEngine
+
+            self._dist = DistributedEngine(mesh, shard_cache_bytes=0)
+        devs = mesh.distinct() if mesh is not None else [self.engine.device]
         # time narrowing pays where the chunk crosses a link; on the CPU the
         # copy is a local memcpy and the narrowing's extra host passes
         # (min, max, subtract) are pure loss
-        self._narrow_time = self.engine.device.type == "cuda"
+        self._narrow_time = all(d.type == "cuda" for d in devs)
 
-    def _prep(self, dev, base: int, nrows: int, time_col, chunk_rows: int):
-        """Device-side chunk reconstruction: int64 time from int32 offsets
-        plus the base, the validity mask from the row count."""
+    def _prep(self, dev, base: int, nrows: int, time_col, chunk_rows: int, device,
+              offset: int = 0):
+        """Device-side chunk reconstruction on `device`: int64 time from
+        int32 offsets plus the base, the validity mask from the row count
+        (the rows from `offset` on: a shard's)."""
         cols = dict(dev)
         off = cols.pop("__time_off", None)
         if off is not None:
@@ -126,7 +148,7 @@ class StreamExecutor:
         elif time_col and time_col in cols:
             cols["__time"] = cols[time_col]
         cols["__valid"] = (
-            torch.arange(chunk_rows, dtype=torch.int32, device=self.engine.device)
+            torch.arange(offset, offset + chunk_rows, dtype=torch.int32, device=device)
             < nrows
         )
         return cols
@@ -165,8 +187,13 @@ class StreamExecutor:
         chunk_rows: int,
     ):
         q = groupby_with_time_granularity(q)
-        if chunk_rows % ROW_PAD:
-            chunk_rows = -(-chunk_rows // ROW_PAD) * ROW_PAD
+        pad_unit = ROW_PAD
+        if self.mesh is not None:
+            from ..parallel.mesh import DATA_AXIS
+
+            pad_unit = ROW_PAD * self.mesh.shape[DATA_AXIS]
+        if chunk_rows % pad_unit:
+            chunk_rows = -(-chunk_rows // pad_unit) * pad_unit
         if (
             any(d.dimension == "__time" or d.granularity for d in q.dimensions)
             and not q.intervals
@@ -180,7 +207,16 @@ class StreamExecutor:
         eng = self.engine
         lowering = eng._lowering_for(q, ds)
         la, G = lowering.la, lowering.num_groups
-        strategy = self._stream_strategy(G, chunk_rows)
+        root = eng.device
+        if self._dist is None:
+            strategy = self._stream_strategy(G, chunk_rows)
+        else:
+            # the kernel at the shape each shard runs
+            from ..parallel.mesh import DATA_AXIS
+
+            root = self._dist.device
+            _, Gl = self._dist._groups_split(G)
+            strategy = self._stream_strategy(Gl, chunk_rows // self.mesh.shape[DATA_AXIS])
         self.stats = StreamStats(strategy=strategy)
         pc = current_partial()
         if pc is not None:
@@ -194,27 +230,79 @@ class StreamExecutor:
         # a stream cut short closes its generator here, so the producer is
         # stopped and joined before the partial state is fetched
         with contextlib.closing(device_chunks):
-            for dev, base, nrows in device_chunks:
+            for puts, base, nrows in device_chunks:
                 if checkpoint_partial("streaming.chunk_loop"):
                     self.stats.truncated = True
                     break
                 fire("device_dispatch")
                 t0 = time.perf_counter()
                 with span(SPAN_STREAM_CHUNK, chunk=self.stats.chunks), \
-                        prof.device_timer(eng.device):
-                    cols = self._prep(dev, base, nrows, ds.time_column, chunk_rows)
+                        prof.device_timer(root):
+                    if self._dist is None:
+                        cols = self._prep(puts[0][2], base, nrows, ds.time_column, chunk_rows,
+                                          puts[0][0])
+                        part = shard_partials(lowering, cols, strategy)
+                    else:
+                        part = self._mesh_chunk(lowering, puts, base, nrows, ds.time_column,
+                                                chunk_rows, strategy)
                     # the fold is in chunk order, whatever the copy order
-                    state = fold_partials(la, state, shard_partials(lowering, cols, strategy))
+                    state = fold_partials(la, state, part)
                 self.stats.chunks += 1
                 self.stats.dispatch_s += time.perf_counter() - t0
                 if pc is not None:
                     pc.add_seen(1, nrows)
         if state is None:  # empty stream
-            state = empty_partials(la, G, eng.device)
+            state = empty_partials(la, G, root)
         with span(SPAN_DEVICE_FETCH):
-            sums, mins, maxs, sketches, _ = eng._host_state(la, state)
+            fetcher = eng if self._dist is None else self._dist
+            sums, mins, maxs, sketches, _ = fetcher._host_state(la, state)
         with span(SPAN_FINALIZE):
             return finalize_groupby(q, lowering.dims, la, sums, mins, maxs, sketches)
+
+    def _mesh_chunk(self, lowering, puts, base: int, nrows: int, time_col,
+                    chunk_rows: int, strategy: str):
+        """One chunk over the mesh: every shard's state from its rows of the
+        chunk (each launched before any merge), merged by the mesh's merge
+        path onto the first shard's device."""
+        from ..parallel.mesh import DATA_AXIS, GROUPS_AXIS
+
+        dist = self._dist
+        nd, NG = self.mesh.shape[DATA_AXIS], self.mesh.shape[GROUPS_AXIS]
+        ng, Gl = dist._groups_split(lowering.num_groups)
+        local = chunk_rows // nd
+        on = {dev: (lo, cols) for dev, lo, cols in puts}
+        grid = self.mesh.devices
+        # a quantile sample hashes the chunk's row positions, as one stream does
+        positions = any(isinstance(a, A.QuantilesSketch) for a in lowering.la.sketch_aggs)
+        parts = []
+        for i, p in enumerate(dist._positions(ng)):
+            d, g = divmod(p, NG)
+            lo, cols = on[grid[d, g]]
+            a = d * local - lo
+            shard = {k: t[a:a + local] for k, t in cols.items()}
+            shard = self._prep(shard, base, nrows, time_col, local, grid[d, g], offset=d * local)
+            if positions:
+                shard[SEGMENT_POSITION] = torch.arange(d * local, (d + 1) * local,
+                                                       dtype=torch.int32, device=grid[d, g])
+            parts.append(dist._shard_state(lowering, shard, strategy, i % ng, ng, Gl))
+        return dist.merge_positions(lowering, parts, ng)
+
+    def _targets(self, chunk_rows: int):
+        """(device, first row, end row) of each device a chunk is copied
+        to: the whole chunk to the engine's device, or on a mesh each
+        distinct device's span of data shards."""
+        if self.mesh is None:
+            return [(self.engine.device, 0, chunk_rows)]
+        from ..parallel.mesh import DATA_AXIS, GROUPS_AXIS
+
+        nd, NG = self.mesh.shape[DATA_AXIS], self.mesh.shape[GROUPS_AXIS]
+        local = chunk_rows // nd
+        grid = self.mesh.devices
+        out = []
+        for dev in self.mesh.distinct():
+            held = [d for d in range(nd) for g in range(NG) if grid[d, g] == dev]
+            out.append((dev, min(held) * local, (max(held) + 1) * local))
+        return out
 
     def _stream_strategy(self, G: int, rows_per_dispatch: int) -> str:
         """The kernel strategy of every chunk: the engine's own when it was
@@ -284,9 +372,11 @@ class StreamExecutor:
     ) -> Iterator:
         """A background thread normalizes host chunks into the staging ring;
         this (consumer) side issues the copies and every other device call,
-        and yields (device columns, time base, rows) in chunk order, each
-        chunk's copy waited on by the compute stream."""
-        device = self.engine.device
+        and yields ([(device, first row, device columns)] per target device
+        (`_targets`), time base, rows) in chunk order, each chunk's copies
+        waited on by their devices' compute streams."""
+        targets = self._targets(chunk_rows)
+        device = targets[0][0]
         # a slot for the producer, `prefetch` queued, one in the consumer's
         # hand and one whose copy may be in flight: the producer never
         # waits for a slot the consumer cannot free
@@ -322,22 +412,23 @@ class StreamExecutor:
             except BaseException as e:  # surfaced to (re-raised by) the consumer
                 _put(e)
 
-        def release(slot, event):
-            if event is not None:
-                event.synchronize()  # the copy has read the slot
+        def release(slot, events):
+            for event in events:
+                if event is not None:
+                    event.synchronize()  # the copy has read the slot
             ring.release(slot)
 
         def ready(entry):
-            dev, event, base, rows = entry
-            if event is not None:
-                torch.cuda.current_stream(device).wait_event(event)
-            return dev, base, rows
+            puts, base, rows = entry
+            for dev, _, _, event in puts:
+                if event is not None:
+                    torch.cuda.current_stream(dev).wait_event(event)
+            return [(dev, lo, cols) for dev, lo, cols, _ in puts], base, rows
 
-        copy_stream = (
-            torch.cuda.Stream(device)
-            if self.double_buffer and device.type == "cuda"
-            else None
-        )
+        copy_streams = {
+            dev: torch.cuda.Stream(dev) if self.double_buffer and dev.type == "cuda" else None
+            for dev, _, _ in targets
+        }
         held = None
         in_flight = None
         t = threading.Thread(target=produce, daemon=True)
@@ -353,15 +444,20 @@ class StreamExecutor:
                 rows = item.pop("__rows")
                 base = item.pop("__time_base", 0)
                 t0 = time.perf_counter()
-                dev, event, nbytes = pipelined_put(item, device, copy_stream)
+                puts = []
+                for dev, lo, hi in targets:  # a pinned slice per device
+                    part = item if (lo, hi) == (0, chunk_rows) else {
+                        k: v[lo:hi] for k, v in item.items()}
+                    cols, event, nbytes = pipelined_put(part, dev, copy_streams[dev])
+                    puts.append((dev, lo, cols, event))
+                    self.stats.h2d_bytes += nbytes
                 self.stats.put_s += time.perf_counter() - t0
-                self.stats.h2d_bytes += nbytes
                 self.stats.rows += rows
                 # the previous chunk's copy was issued a chunk ago
                 if in_flight is not None:
                     release(*in_flight)
-                in_flight = (slot, event)
-                entry = (dev, event, base, rows)
+                in_flight = (slot, [p[3] for p in puts])
+                entry = (puts, base, rows)
                 if not self.double_buffer:
                     yield ready(entry)
                     continue

@@ -37,6 +37,7 @@ from .trace import (  # noqa: F401
     SPAN_ADAPTIVE_PROBE,
     SPAN_ADMISSION,
     SPAN_ARENA_BUILD,
+    SPAN_COLLECTIVE_MERGE,
     SPAN_COMPACT,
     SPAN_DEGRADED,
     SPAN_DEVICE_FETCH,

@@ -71,6 +71,7 @@ LINK_MBPS_BUCKETS = (
 DEVICE_SPANS = frozenset(
     {
         "segment_dispatch",
+        "collective_merge",
         "device_fetch",
         "sparse_dispatch",
         "adaptive_probe",
@@ -87,6 +88,7 @@ ROOT_SPAN = "query"
 DISPATCH_SPANS = frozenset(
     {
         "segment_dispatch",
+        "collective_merge",
         "sparse_dispatch",
         "adaptive_probe",
         "stream_chunk",
@@ -251,6 +253,73 @@ def device_timer(device):
         s.attrs["timing"] = "cuda_events"
 
 
+class ShardClock:
+    """Per-shard device time of one mesh dispatch (`shard_timer`): `start(i)`
+    and `stop(i)` around shard i's work, on its device's compute stream."""
+
+    def __init__(self, devices, mode: Optional[str]):
+        self.devices = list(devices)
+        self.mode = mode  # None (unsampled), "cuda_events" or "host"
+        self._marks: Dict[int, list] = {}
+
+    def start(self, i: int) -> None:
+        self._mark(i, 0)
+
+    def stop(self, i: int) -> None:
+        self._mark(i, 1)
+
+    def _mark(self, i: int, which: int) -> None:
+        if self.mode is None:
+            return
+        marks = self._marks.setdefault(i, [None, None])
+        if self.mode == "host":
+            marks[which] = time.perf_counter()
+            return
+        import torch
+
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record(torch.cuda.current_stream(self.devices[i]))
+        marks[which] = ev
+
+    def shard_ms(self) -> List[float]:
+        out = []
+        for i in sorted(self._marks):
+            a, b = self._marks[i]
+            if self.mode == "host":
+                out.append(round((b - a) * 1e3, 3))
+            else:
+                b.synchronize()
+                out.append(round(a.elapsed_time(b), 3))
+        return out
+
+
+@contextlib.contextmanager
+def shard_timer(devices):
+    """Around one mesh dispatch: on a sampled query, each shard's device
+    time (CUDA events on its device's compute stream on a card, its host
+    time on the CPU), waited for after every shard was launched, in the
+    enclosing span's attrs `shard_device_ms` (a list in shard order),
+    `device_ms` (their sum) and `timing`.  Unsampled: nothing is recorded
+    and nothing waits."""
+    ps = _active.get()
+    mode = None
+    if ps is not None and ps.sampled:
+        mode = "cuda_events" if all(_on_card(d) for d in devices) else "host"
+    clock = ShardClock(devices, mode)
+    t0 = time.perf_counter()
+    yield clock
+    if mode is None:
+        return
+    t1 = time.perf_counter()
+    ms = clock.shard_ms()
+    if mode == "cuda_events":
+        _note_sync(ps)
+    s = current_span()
+    if s is not None:
+        s.attrs.update(shard_device_ms=ms, device_ms=round(sum(ms), 3), timing=mode,
+                       enqueue_ms=round((t1 - t0) * 1e3, 3))
+
+
 def fetch_sync(device) -> None:
     """Just before a blocking fetch: on a sampled query on a card, wait for
     the compute stream first, so the fetch span separates the wait on the
@@ -408,6 +477,8 @@ def _walk_exclusive(node: dict, acc: Dict[str, float], depth: int) -> None:
     if attrs.get("timing") == "cuda_events":
         acc["events"] += float(attrs.get("device_ms", 0.0))
         acc["timed"] += 1
+    if "shard_device_ms" in attrs:
+        acc.setdefault("shards", []).append(list(attrs["shard_device_ms"]))
     if depth == 0 and name == ROOT_SPAN:
         acc["unattributed"] += excl
     elif name in DEVICE_SPANS:
@@ -460,6 +531,9 @@ def build_receipt(
         "sampled": bool(scope.sampled) if scope is not None else False,
         "device_timing": "cuda_events" if timed else "span",
     }
+    if acc.get("shards"):
+        # a sampled query on the mesh: each dispatch's per-shard device time
+        receipt["shard_device_ms"] = acc["shards"]
     if scope is not None:
         cache: Dict[str, Any] = {
             "result_cache": scope.result_cache,

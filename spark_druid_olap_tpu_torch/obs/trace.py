@@ -67,6 +67,7 @@ SPAN_RETRY = "retry"  # one transient-failure re-attempt
 SPAN_DEGRADED = "degraded"  # breaker/failure degradation to the fallback
 SPAN_SPARSE_DISPATCH = "sparse_dispatch"  # sort-compaction tier dispatch
 SPAN_ADAPTIVE_PROBE = "adaptive_probe"  # adaptive presence pass
+SPAN_COLLECTIVE_MERGE = "collective_merge"  # mesh shards' dispatch and the merge of their states
 SPAN_STREAM_CHUNK = "stream_chunk"  # one streaming chunk dispatch
 SPAN_PARTIAL = "partial"  # deadline-bounded best-effort answer (coverage)
 SPAN_STREAM_FLUSH = "stream_flush"  # one progressive-response refinement
@@ -98,6 +99,7 @@ SPAN_NAMES = frozenset(
         SPAN_DEGRADED,
         SPAN_SPARSE_DISPATCH,
         SPAN_ADAPTIVE_PROBE,
+        SPAN_COLLECTIVE_MERGE,
         SPAN_STREAM_CHUNK,
         SPAN_PARTIAL,
         SPAN_STREAM_FLUSH,

@@ -17,7 +17,8 @@ the host.
 accumulator regime from the shapes alone, so the same shapes always sum in
 the same order.  `cuda_partial_aggregate` launches the kernel for CUDA
 tensors and counts each launch in `LAUNCHES`, and by (G, Ms, Mn, Mx) in
-`LAUNCH_SHAPES`; for CPU tensors it runs `plain_partial_aggregate`, the
+`LAUNCH_SHAPES` (the most rows a launch took at each in `LAUNCH_ROWS`);
+for CPU tensors it runs `plain_partial_aggregate`, the
 plain PyTorch version the tests and `chip_smoke.py` compare the kernel
 with.  There is no fallback: a CUDA tensor the kernel does not take raises.
 
@@ -50,6 +51,9 @@ from .groupby import SCATTER_CUTOVER, dense_partial_aggregate
 # and by (G, Ms, Mn, Mx); graph replays add the launches they captured
 LAUNCHES = 0
 LAUNCH_SHAPES: Dict[Tuple[int, int, int, int], int] = {}
+# the most rows one launch (or one captured launch) took at each
+# (G, Ms, Mn, Mx): with the shapes, it bounds the chunk counts a run met
+LAUNCH_ROWS: Dict[Tuple[int, int, int, int], int] = {}
 
 # shapes recorded into the CUDA graph being captured (`capture_launches`)
 _captured: Optional[List[Tuple[int, int, int, int]]] = None
@@ -297,6 +301,7 @@ def cuda_partial_aggregate(
             f"group-by kernel launch failed: {lib.sdol_error_string(rc).decode()}"
         )
     shape = (num_groups, Ms, num_min, num_max)
+    LAUNCH_ROWS[shape] = max(LAUNCH_ROWS.get(shape, 0), R)
     if torch.cuda.is_current_stream_capturing():
         if _captured is None:
             raise KernelError(

@@ -34,6 +34,15 @@ SCATTER_CUTOVER = 4096
 
 _INF = float("inf")
 
+# the scatter's float64 sums go into one table row per (block of kept rows,
+# group): the deterministic accumulation walks an index's duplicates one
+# after another, so a block bounds that walk at SCATTER_BLOCK_ROWS rows
+# (a time-sorted segment puts all its rows in one or two groups).  The
+# table holds at most SCATTER_TABLE_CELLS cells; its blocks are then summed
+# by a reduction whose order the shapes fix.
+SCATTER_BLOCK_ROWS = 1024
+SCATTER_TABLE_CELLS = 1 << 22
+
 
 def combine_group_ids(
     codes: Sequence[torch.Tensor], cards: Sequence[int]
@@ -122,6 +131,12 @@ def dense_partial_aggregate(
     return sums, mins, maxs
 
 
+def _blocked_accumulation(device) -> bool:
+    """Whether the scatter's sums add by row blocks: on a card; the host's
+    accumulation is one pass in row order."""
+    return device.type == "cuda"
+
+
 @contextlib.contextmanager
 def _deterministic():
     """PyTorch's deterministic mode for the duration of one call."""
@@ -149,14 +164,32 @@ def scatter_partial_aggregate(
     Only the rows the mask keeps are scattered.  (Sending masked rows to a
     trash slot, as the reference does, piles every filtered-out row onto
     one index, and the deterministic CUDA accumulation walks duplicates of
-    an index one after another.)"""
+    an index one after another; for the same reason, on a card the kept
+    rows add into a table row per (block of rows, group), SCATTER_BLOCK_ROWS
+    rows a block where the table fits SCATTER_TABLE_CELLS.)  A segment's
+    sums accumulate in float64, deterministically, and are cast to float32
+    once, at the segment's fold: at few groups a group takes up to a
+    segment's rows, and a float32 running sum of 2^19 rows drifts by up to
+    rows x 2^-24 of the total, where float64 keeps the float32 state within
+    its last bit."""
     dev = gid.device
     keep = mask.nonzero().squeeze(1)
     seg = gid[keep].to(torch.int64)
     Ms = sum_values.shape[1]
-    sums = torch.zeros((num_groups, Ms), dtype=torch.float32, device=dev)
+    n = keep.shape[0]
+    blocks = 1
+    if _blocked_accumulation(dev):
+        blocks = max(1, min(-(-n // SCATTER_BLOCK_ROWS),
+                            SCATTER_TABLE_CELLS // max(1, num_groups * Ms)))
+    if blocks > 1:
+        per = -(-n // blocks)
+        seg_b = torch.arange(n, device=dev) // per * num_groups + seg
+    else:
+        seg_b = seg
+    acc = torch.zeros((blocks * num_groups, Ms), dtype=torch.float64, device=dev)
     with _deterministic():
-        sums.index_add_(0, seg, sum_values[keep])
+        acc.index_add_(0, seg_b, sum_values[keep].to(torch.float64))
+    sums = acc.view(blocks, num_groups, Ms).sum(0).to(torch.float32)
     # min/max do not depend on the accumulation order
     mins = torch.full((num_groups, num_min), _INF, dtype=torch.float32, device=dev)
     maxs = torch.full((num_groups, num_max), -_INF, dtype=torch.float32, device=dev)

@@ -2,7 +2,9 @@
 (the `quantilesDoublesSketch` / APPROX_QUANTILE analog).
 
 Each row draws a pseudo-random priority (a hash of its padded row position
-mixed with the value's bits, independent of the value's magnitude), and
+in its segment, `SEGMENT_POSITION` where the caller's rows span several
+segments, mixed with the value's bits, independent of the value's
+magnitude), and
 each group keeps the K rows with the smallest priorities: a uniform sample
 without replacement.  The bottom-K of a union is the union of bottom-Ks
 re-trimmed to K, so per-segment partials merge like theta sketches
@@ -33,6 +35,11 @@ from ..utils.hashing import hash_column
 # int32 priority domain [0, 2^31); empty slots carry the max value so they
 # sort last and never displace a real sample row
 SENTINEL_P = 0x7FFFFFFF
+# the column of each row's position in its segment, where one call's rows
+# are not one segment (a mesh's row shard): a row then draws the priority
+# it draws in its segment's call, so the merged sample is the same bits
+# however the rows shard
+SEGMENT_POSITION = "__segpos"
 
 
 def _bottom_k_pairs(
@@ -82,7 +89,9 @@ def partial_quantiles(
     # across (position, value) pairs: identical positions recur in every
     # segment, so mixing in the value bits keeps repeated layouts from
     # sampling the same positions everywhere
-    pos = torch.arange(val.shape[0], dtype=torch.int32, device=val.device)
+    pos = cols.get(SEGMENT_POSITION)
+    if pos is None:
+        pos = torch.arange(val.shape[0], dtype=torch.int32, device=val.device)
     h = hash_column(pos, seed=11) ^ hash_column(val, seed=13)
     return _bottom_k_pairs(h >> 1, val, gid, mask, num_groups, agg.size)
 

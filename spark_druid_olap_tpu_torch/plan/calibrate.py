@@ -20,6 +20,13 @@ card at 16 times those, see below):
 * one near-empty launch and its sync -> `cost_dispatch_us`;
 * a host-to-device copy from page-locked memory, the copy
   `exec/pipeline.TransferPipeline.put` makes -> `h2d_bytes_per_s`;
+* on two or more distinct cards, the mesh's merge (`parallel/mesh.py`
+  `reduce_states`) of a [4096, 64] float32 state (1 MiB) a card, against
+  the same call with a one-float state (the collective's fixed latency),
+  each salted so no repeat is a cached answer ->
+  `collective_bytes_per_us` (the ring's 2(n - 1)/n of the state over the
+  difference).  On one card it stays unmeasured (None, and the file's
+  `collective` says why): the config keeps its data-sheet default;
 * on the host, the two constants of the device assist's decision: the host
   fallback's vectorized grouped pass (`exec/fallback._vectorized_set`: a
   pandas groupby of one key with a sum and its count) per input row, over
@@ -251,6 +258,28 @@ def host_constants(rows: int, reps: int, rng, dev) -> Tuple[Dict, Dict]:
             {"cost_per_row_interp": interp_spread, "cost_per_group_decode": decode_spread})
 
 
+def collective_rate(cards: int, rng, reps: int = 5) -> float:
+    """Bytes per us of the mesh's merge across `cards` distinct cards: the
+    sum-merge (`parallel/mesh.reduce_states`) of a [4096, 64] float32
+    state per card, less the same merge of one float (its fixed latency),
+    the ring's 2(n - 1)/n of a state over the difference.  The salt rides
+    into every state, so no repeat merges the same bytes."""
+    from ..parallel.mesh import reduce_states
+
+    devs = [torch.device("cuda", i) for i in range(cards)]
+    g, m = 4096, 64
+    states = [torch.from_numpy(rng.random((g, m)).astype(np.float32)).to(d) for d in devs]
+    tiny = [torch.zeros(1, device=d) for d in devs]
+
+    def merge(parts, salt):
+        return reduce_states([p + salt for p in parts], "sum").reshape(-1)[-1:]
+
+    t_full = _timeit_synced(lambda s: merge(states, s), reps=max(reps, 5))
+    t_base = _timeit_synced(lambda s: merge(tiny, s), reps=max(reps, 5))
+    moved = 2.0 * (cards - 1) / cards * g * m * 4
+    return moved / (max(t_full - t_base, 1e-7) * 1e6)
+
+
 def calibrate(
     rows: int = 1 << 19,
     groups: int = 1024,
@@ -437,6 +466,14 @@ def calibrate(
             bw = _clamp_bandwidth(big * 4 / max(t_b - t_rtt, 1e-9))
         measured["h2d_bytes_per_s"] = bw
 
+    # the mesh's merge across distinct cards
+    measured["collective_bytes_per_us"] = None
+    cards = torch.cuda.device_count() if dev.type == "cuda" else 0
+    collective = f"unmeasured: {cards if dev.type == 'cuda' else 'no'} card(s), it needs two"
+    if cards > 1 and not over():
+        measured["collective_bytes_per_us"] = collective_rate(cards, rng, reps)
+        collective = f"measured across {cards} cards"
+
     # the host's two constants of the device assist
     measured["cost_per_row_interp"] = measured["cost_per_group_decode"] = None
     if not over():
@@ -460,6 +497,7 @@ def calibrate(
         "power_limit": power_limit(dev),
         "platform": dev.type,
         "n_devices": torch.cuda.device_count() if dev.type == "cuda" else 1,
+        "collective": collective,
         "torch": torch.__version__,
         "kernel_class": kernel_class,
         # per-row constants are slopes between the least of `reps` timed

@@ -18,7 +18,14 @@ device by `plan/calibrate.py`):
   presence probe amortized over repeats plus the best of dense and segment
   at the compacted domain G x selectivity.
 
-`choose_physical` is the planner's decision (`Rewrite.physical`);
+`choose_physical` is the planner's decision (`Rewrite.physical`): the
+class, and, where the context sees more than one device, whether the query
+runs on the mesh (`parallel/distributed.py`): the per-shard compute from
+the same model at the per-device shape, plus the merge's bytes over
+`collective_bytes_per_us` and one dispatch, against the single-device
+cost, the reference's rule.  `choose_merge_tree` prices the flat and the
+hierarchical merge of a slice mesh; `groupby_state_bytes` is the state the
+merge moves.
 `choose_kernel_strategy` the class at one (rows, G) for a caller without a
 plan: the adaptive tier's compacted pass and the stream.  The engine maps
 "dense" onto the kernel on a card and onto its plain version on the CPU
@@ -27,9 +34,7 @@ plan: the adaptive tier's compacted pass and the stream.  The engine maps
 The reference prices dense by 128-group tiles, after its accelerator's
 vector lanes; the port's tile width is its own, measured on the card
 (`dense_tile_groups`).  With `dense_tile_groups=128` and the same constants
-the two models agree.  The mesh half of the reference's model (the
-distributed target, the merge tree, the collective constants) comes with
-multi-device execution: on one card `PhysicalPlan.distributed` is False.
+the two models agree, the mesh half included.
 """
 
 from __future__ import annotations
@@ -59,8 +64,8 @@ class PhysicalPlan:
 
     query: Q.QuerySpec
     strategy: str  # "dense" | "segment" | "sparse" | "adaptive"
-    distributed: bool  # False on one card
-    mesh_shape: Optional[Tuple[int, int]]  # None on one card
+    distributed: bool  # run on the mesh
+    mesh_shape: Optional[Tuple[int, int]]  # (data, groups) when distributed
     est_cost_local: float
     est_cost_dist: float
     num_groups: int
@@ -78,6 +83,51 @@ class PhysicalPlan:
             f"cost(local)={self.est_cost_local:.3g}, "
             f"cost(dist)={self.est_cost_dist:.3g}]"
         )
+
+
+def groupby_state_bytes(q: Q.QuerySpec, num_groups: int, cfg: Optional[SessionConfig]) -> int:
+    """Bytes of per-group aggregate state the merge moves (the broker
+    merge's payload): 4 per plain aggregate, an HLL's registers, a theta
+    sketch's entries, and the hidden row counter."""
+    per_group = 0
+    for a in getattr(q, "aggregations", ()):
+        base = a.aggregator if isinstance(a, A.FilteredAgg) else a
+        if isinstance(base, (A.HyperUnique, A.CardinalityAgg)):
+            per_group += 4 * (1 << base.precision)
+        elif isinstance(base, A.ThetaSketch):
+            per_group += 4 * base.size
+        else:
+            per_group += 4
+    return (per_group + 4) * num_groups  # +4: hidden __rows counter
+
+
+def choose_merge_tree(
+    state_bytes: int,
+    n_slices: int,
+    nd_per_slice: int,
+    cfg: SessionConfig,
+) -> Tuple[str, float, float]:
+    """The merge tree of a slice mesh's partial states: (tree, flat_us,
+    hier_us), tree "flat" or "hierarchical".
+
+    * flat: one ring all-reduce over slice x data, 2(N-1)/N x bytes, every
+      hop priced at the slice link's rate (`dcn_bytes_per_us`) because the
+      ring crosses the slice boundary;
+    * hierarchical: an all-reduce within each slice at the collective rate,
+      then one of the merged state across slices at the slice link's rate.
+
+    With one slice the ring never leaves it (flat is priced at the
+    collective rate and the trees coincide); flat wins ties."""
+    n = max(1, n_slices * nd_per_slice)
+    flat_bw = cfg.dcn_bytes_per_us if n_slices > 1 else cfg.collective_bytes_per_us
+    flat_us = 2.0 * (n - 1) / n * state_bytes / max(1.0, flat_bw)
+    hier_us = 2.0 * (nd_per_slice - 1) / max(1, nd_per_slice) * (
+        state_bytes / max(1.0, cfg.collective_bytes_per_us)
+    ) + 2.0 * (n_slices - 1) / max(1, n_slices) * (
+        state_bytes / max(1.0, cfg.dcn_bytes_per_us)
+    )
+    tree = "hierarchical" if hier_us < flat_us else "flat"
+    return tree, flat_us, hier_us
 
 
 def on_card(device) -> bool:
@@ -288,22 +338,63 @@ def choose_physical(
     n_devices: int = 1,
     device=None,
 ) -> PhysicalPlan:
-    """The kernel class of one query on one card, by modelled cost (us).
+    """The kernel class of one query by modelled cost (us), and on
+    `n_devices` > 1 (the shards of the context's device list) whether it
+    runs on the mesh: a GroupBy-family query does when `prefer_distributed`
+    is on and the mesh's modelled cost beats the single device's (always,
+    with the model off).  The mesh is (data, groups): `mesh_groups_axis`
+    shards the group domain, `mesh_data_axis` (default: the rest) the rows.
     The selectivity walk runs once."""
-    if n_devices != 1:
-        raise ValueError("the port plans for one device; the mesh target comes with "
-                         "multi-device execution")
     sel = estimate_selectivity(getattr(q, "filter", None), ds)
     costs = query_kernel_costs(q, ds, num_groups, cfg, selectivity=sel, device=device)
     strategy = choose_query_kernel(q, ds, num_groups, cfg, costs=costs, device=device)
     local_cost = costs[strategy]
+    rows = ds.num_rows
+    aggregate_family = isinstance(q, (Q.GroupByQuery, Q.TimeseriesQuery, Q.TopNQuery))
+    distributed = False
+    mesh_shape = None
+    dist_cost = local_cost
+    if n_devices > 1 and aggregate_family:
+        ng = max(1, cfg.mesh_groups_axis)
+        nd = cfg.mesh_data_axis or max(1, n_devices // ng)
+        nd = min(nd, max(1, n_devices // ng))
+        # rows shard over the data axis, the group domain over the groups
+        # axis; each shard's compute is the same model at its own shape
+        per_device_groups = -(-num_groups // ng)
+        compute = dict(_kernel_costs(
+            max(1, rows // nd), per_device_groups, cfg,
+            sparse_ok=strategy == "sparse",
+            selectivity=sel,
+            n_segments=1,  # one shard per device
+            adaptive_ok=strategy == "adaptive",
+            ndims=max(1, len(getattr(q, "dimensions", ()) or ())),
+            device=device,
+        ))[strategy]
+        # the bytes the merge moves: the dense classes all-reduce the
+        # [Gl, M] state; the sparse rung all-gathers slot-compacted states
+        # and adaptive merges the compacted domain, both bounded by the
+        # populated groups (~ G x selectivity)
+        if strategy in ("sparse", "adaptive"):
+            g_eff = max(1, min(per_device_groups, round(num_groups * sel)))
+            state_bytes = groupby_state_bytes(q, g_eff, cfg)
+            factor = float(nd - 1)  # an all-gather moves (nd - 1) states
+        else:
+            state_bytes = groupby_state_bytes(q, per_device_groups, cfg)
+            factor = 2.0 * (nd - 1) / nd  # a ring all-reduce
+        collective = factor * state_bytes / max(cfg.collective_bytes_per_us, 1e-9)
+        dist_cost = compute + collective + cfg.cost_dispatch_us
+        distributed = cfg.prefer_distributed and (
+            not cfg.cost_model_enabled or dist_cost < local_cost
+        )
+        if distributed:
+            mesh_shape = (nd, ng)
     return PhysicalPlan(
         query=q,
         strategy=strategy,
-        distributed=False,
-        mesh_shape=None,
+        distributed=distributed,
+        mesh_shape=mesh_shape,
         est_cost_local=local_cost,
-        est_cost_dist=local_cost,
+        est_cost_dist=dist_cost,
         num_groups=num_groups,
-        rows=ds.num_rows,
+        rows=rows,
     )

@@ -97,12 +97,16 @@ class Rewrite:
 
 
 class Planner:
-    def __init__(self, catalog, cfg: Optional[SessionConfig] = None, device=None):
+    def __init__(self, catalog, cfg: Optional[SessionConfig] = None, device=None,
+                 n_devices: int = 1):
         self.catalog = catalog  # name -> DataSource (catalog/cache.py)
         self.cfg = cfg or SessionConfig()
         # the executing device: the cost model prices the dense class by
         # its kernel there (None: the CPU's rules)
         self.device = device
+        # the shards of the context's device list: above one the cost model
+        # may plan the mesh
+        self.n_devices = n_devices
 
     # -- plan walking --------------------------------------------------------
 
@@ -398,7 +402,7 @@ class Planner:
             )
 
         q = b.build()
-        phys = choose_physical(q, ds, G_kernel, self.cfg, 1, device=self.device)
+        phys = choose_physical(q, ds, G_kernel, self.cfg, self.n_devices, device=self.device)
         log.debug("rewrite: %s over %s -> strategy=%s groups=%d", type(q).__name__, table,
                   phys.strategy, G_kernel)
         return Rewrite(
@@ -624,7 +628,8 @@ class Planner:
             datasource=node.table,
             builder=b,
             query=q,
-            physical=choose_physical(q, self._ds(node.table), 1, self.cfg, 1, device=self.device),
+            physical=choose_physical(q, self._ds(node.table), 1, self.cfg, self.n_devices,
+                                     device=self.device),
             num_groups=0,
             output_columns=tuple(columns),
             dim_names=(),

@@ -957,8 +957,9 @@ BREAKER_STATE_CODES = {"closed": 0, "half_open": 1, "open": 2}
 # ---------------------------------------------------------------------------
 
 # the backends with breakers of their own: a host fallback wedged on bad
-# data fails fast instead of re-grinding every degraded query
-BREAKER_BACKENDS = ("device", "fallback")
+# data fails fast instead of re-grinding every degraded query, and a sick
+# mesh trips only its own, leaving single-device queries routed
+BREAKER_BACKENDS = ("device", "mesh", "fallback")
 
 
 class ResilienceState:

@@ -145,10 +145,11 @@ class ServingCore:
         a miss or for an uncacheable type."""
         return self._cached(q, ds, self.native_key(q, ds), allow_delta=False)[0]
 
-    def _cached(self, q, ds, key, allow_delta=True, post=None, strategy=None):
+    def _cached(self, q, ds, key, allow_delta=True, post=None, strategy=None, engine=None):
         """(answer or None, the declines of its delta refresh).  A lookup
         that may refresh (`allow_delta`) counts its miss; a refresh runs
-        under `strategy`, the cached run's."""
+        under `strategy`, the cached run's, on `engine` (None: the
+        context's)."""
         cfg = self.ctx.config
         if key is None or cfg.result_cache_entries <= 0:
             return None, []
@@ -161,7 +162,7 @@ class ServingCore:
             entry, decline = self.result_cache.reusable_entry(
                 key, ds.version, (s.uid for s in ds.segments))
             if entry is not None:
-                out, decline = self._delta_refresh(q, ds, key, entry, post, strategy)
+                out, decline = self._delta_refresh(q, ds, key, entry, post, strategy, engine)
                 if out is not None:
                     return out, []
             if decline:
@@ -170,13 +171,16 @@ class ServingCore:
             self.result_cache.note_miss()
         return None, declines
 
-    def answer(self, q, ds, key, fusable: bool, post=None, execute=None, strategy=None):
+    def answer(self, q, ds, key, fusable: bool, post=None, execute=None, strategy=None,
+               engine=None):
         """One query's answer through the serving core.  `key` is its
         result-cache key (None: the cache is not used); `fusable` whether
         it may ride a fused micro-batch; `post` the host post-processing of
         the engine's frame; `execute` the engine call for a query that is
         neither fused nor plain (grouping sets); `strategy` the execution's
-        (the plan's class; None: the engine's).
+        (the plan's class; None: the engine's); `engine` the executing engine
+        (None: the context's single-device one; the mesh's when the plan
+        took the mesh).
 
         A cache hit or a delta refresh answers at once.  Otherwise the
         query runs fused, else through `execute`, else on the engine alone,
@@ -192,12 +196,12 @@ class ServingCore:
         cfg = self.ctx.config
         if cfg.result_cache_entries <= 0:
             key = None
-        hit, declines = self._cached(q, ds, key, post=post, strategy=strategy)
+        hit, declines = self._cached(q, ds, key, post=post, strategy=strategy, engine=engine)
         if hit is not None:
             return hit
-        engine = self.ctx.engine
+        engine = engine or self.ctx.engine
         state = None
-        fused = (self.fused_execute(q, ds, strategy=strategy)
+        fused = (self.fused_execute(q, ds, engine=engine, strategy=strategy)
                  if fusable and self.fusion.enabled else None)
         if fused is not None:
             df, state, m = fused
@@ -224,7 +228,7 @@ class ServingCore:
                                   uids=frozenset(s.uid for s in ds.segments), state=state)
         return df
 
-    def _delta_refresh(self, q, ds, key, entry, post=None, strategy=None):
+    def _delta_refresh(self, q, ds, key, entry, post=None, strategy=None, engine=None):
         """(cached partial state) merged with (the partials of the segments
         appended since): the engine scans only the segments the entry did
         not cover, the states merge, and the answer is finalized (with the
@@ -238,7 +242,7 @@ class ServingCore:
         from ..resilience import current_partial
 
         t0 = time.perf_counter()
-        engine = self.ctx.engine
+        engine = engine or self.ctx.engine
         fresh = [s for s in ds.segments if s.uid not in entry.uids]
         delta_state, dm = engine.groupby_partials_host(
             q, ds, within_uids=frozenset(s.uid for s in fresh), strategy=strategy)

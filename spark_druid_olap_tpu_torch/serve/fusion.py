@@ -131,7 +131,8 @@ class _Batch:
         self.members: List[_Member] = []
         self.closed = False
         # the executing engine (None: the context's own); the signature
-        # carries a backend label, so engines never share a batch
+        # carries its backend label ("device" or "mesh"), so a mesh-routed
+        # query and a single-device one never share a batch
         self.engine = engine
 
 
@@ -227,7 +228,7 @@ class FusionScheduler:
         if engine is None or engine is ctx.engine:
             engine, backend = None, "device"
         else:
-            backend = f"engine-{id(engine)}"
+            backend = "mesh"
         now = time.monotonic()
         window_ms, mode, n_recent = self._decide_window_ms(now)
         self._note_arrival(now)

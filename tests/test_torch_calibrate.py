@@ -185,3 +185,20 @@ def test_reference_calibration_files_are_never_touched(tiny):
     assert str(path) in opened
     for name in REFERENCE_FILES:
         assert not CUDA_CALIBRATION.endswith(name)
+
+
+def test_the_collective_is_unmeasured_below_two_cards(tiny, tmp_path):
+    """The mesh's merge rate needs two or more distinct cards: on one device
+    the file marks it unmeasured (None, with the reason), and the config
+    keeps its default, the data sheet's NVLink rate; a file that has it
+    sets it."""
+    path, out, cfg, _ = tiny
+    assert out["collective_bytes_per_us"] is None
+    assert out["collective"].startswith("unmeasured")
+    assert cfg.collective_bytes_per_us == SessionConfig().collective_bytes_per_us == 450_000.0
+    data = json.loads(path.read_text())
+    data["collective_bytes_per_us"] = 123_456.0
+    measured = tmp_path / "calibration.json"
+    measured.write_text(json.dumps(data))
+    got = SessionConfig.load_calibrated(path=str(measured), device="cpu")
+    assert got.collective_bytes_per_us == 123_456.0

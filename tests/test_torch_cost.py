@@ -26,6 +26,13 @@
   under a plan of the scatter class takes its own G's class.  The adaptive
   tier's compacted pass and the stream take the model's class at their own
   (rows, G), as the reference's do.
+* **The mesh half.**  `choose_physical` at `n_devices` 8 plans the mesh as
+  the reference does (the class, the target, the mesh shape, the modelled
+  mesh cost within rel 1e-12) under equal constants, the collective rate,
+  `prefer_distributed` and the two axis flags included, over the SSB and
+  TPC-H specs; `choose_merge_tree` and `groupby_state_bytes` give the
+  reference's values over a seeded grid; `SET` on `prefer_distributed`,
+  `mesh_data_axis` and `mesh_groups_axis` replans a context over 8 devices.
 * **The calibrated assist.**  Under equal constants it assists a
   q2-class subtree (a few groups over the base) and declines a q18-class
   one (a group per order), as the reference decides, with the modelled
@@ -233,8 +240,10 @@ def test_scan_plans_one_group_single_device():
     q = ScanQuery(datasource="t", columns=("d",))
     p = tcost.choose_physical(q, _FakeDS(500_000_000), 1, port, 1)
     assert (p.distributed, p.mesh_shape, p.num_groups) == (False, None, 1)
-    with pytest.raises(ValueError, match="one device"):
-        tcost.choose_physical(q, _FakeDS(10), 1, port, 8)
+    # a Scan stays on one device with several in the list, as the
+    # reference's (the mesh runs GroupBy-family queries)
+    p = tcost.choose_physical(q, _FakeDS(10), 1, port, 8)
+    assert (p.distributed, p.mesh_shape) == (False, None)
 
 
 # -- the model over the SSB and TPC-H specs ------------------------------------------
@@ -277,6 +286,87 @@ def test_query_costs_and_plan_match_reference(datasources, consts, workload, nam
         assert got.est_cost_local == pytest.approx(exp.est_cost_local, rel=1e-12)
         if type(spec).__name__ != "TopNQuery":
             assert got.describe() == exp.describe()
+
+
+MESH_FLAGS = {
+    "data8": {},
+    "groups2": {"mesh_groups_axis": 2},
+    "data2_groups2": {"mesh_data_axis": 2, "mesh_groups_axis": 2},
+    "slow_link": {"collective_bytes_per_us": 1.0},
+    "model_off": {"cost_model_enabled": False},
+}
+
+
+@pytest.mark.parametrize("flags", sorted(MESH_FLAGS))
+@pytest.mark.parametrize("workload,name,spec", CASES, ids=[c[1] for c in CASES])
+def test_mesh_half_matches_reference(datasources, flags, workload, name, spec):
+    """`choose_physical` over 8 devices: the reference's class, target, mesh
+    shape and modelled costs under equal constants (the collective rate,
+    the dispatch cost and the mesh flags included)."""
+    ref_ds, port_ds = (d[workload] for d in datasources)
+    kw = {"collective_bytes_per_us": 40_000.0, **MESH_FLAGS[flags]}
+    ref, port = configs(**kw)
+    ref = dataclasses.replace(ref, prefer_distributed=True)
+    port = dataclasses.replace(port, prefer_distributed=True,
+                               **{k: getattr(ref, k) for k in ("collective_bytes_per_us",
+                                                               "mesh_data_axis",
+                                                               "mesh_groups_axis")})
+    jq = _reference_form(spec, to_reference(spec))
+    g = _groups(spec, port_ds)
+    for G in (g, 4 * g + 4097):
+        got = tcost.choose_physical(spec, port_ds, G, port, 8)
+        exp = jcost.choose_physical(jq, ref_ds, G, ref, 8)
+        assert (got.strategy, got.distributed, got.mesh_shape) == (
+            exp.strategy, exp.distributed, exp.mesh_shape)
+        assert got.est_cost_local == pytest.approx(exp.est_cost_local, rel=1e-12)
+        assert got.est_cost_dist == pytest.approx(exp.est_cost_dist, rel=1e-12)
+        off = tcost.choose_physical(spec, port_ds, G, dataclasses.replace(
+            port, prefer_distributed=False), 8)
+        assert not off.distributed and off.mesh_shape is None
+
+
+def test_merge_tree_and_state_bytes_match_reference():
+    """`choose_merge_tree` over a seeded grid of state sizes, slice counts and
+    rates, and `groupby_state_bytes` over plain and sketch aggregations."""
+    rng = np.random.default_rng(5)
+    for _ in range(200):
+        kw = {"collective_bytes_per_us": float(10 ** rng.uniform(2, 6)),
+              "dcn_bytes_per_us": float(10 ** rng.uniform(2, 6))}
+        ref, port = configs(**kw)
+        port = dataclasses.replace(port, **kw)
+        args = (int(10 ** rng.uniform(2, 9)), int(rng.integers(1, 5)), int(rng.integers(1, 9)))
+        got, exp = tcost.choose_merge_tree(*args, port), jcost.choose_merge_tree(*args, ref)
+        assert got[0] == exp[0]
+        assert got[1:] == pytest.approx(exp[1:], rel=1e-12)
+    for aggs in ((A.Count("n"),), (A.DoubleSum("s", "v"), A.HyperUnique("h", "u")),
+                 (A.ThetaSketch("t", "u", size=512), A.Count("n"))):
+        q = GroupByQuery(datasource="t", dimensions=(DimensionSpec("d", "d"),), aggregations=aggs)
+        for G in (1, 208, 5000):
+            assert tcost.groupby_state_bytes(q, G, None) == jcost.groupby_state_bytes(
+                to_reference(q), G, None)
+
+
+def test_set_on_the_mesh_flags_replans():
+    """A context over 8 devices: SET of `prefer_distributed`,
+    `mesh_data_axis` and `mesh_groups_axis` plans again at once; with the
+    defaults' H100 rates the model prices the logical CPU mesh as it is
+    told, and with the model off a GroupBy takes the mesh."""
+    ctx = TPUOlapContext(SessionConfig(result_cache_entries=0), device="cpu",
+                         devices=["cpu"] * 8)
+    tssb.register(ctx, scale=0.002)
+    q41 = tssb.QUERIES["q4_1"]
+    ctx.sql("SET cost_model_enabled = false")
+    assert ctx.plan_cached(q41).physical.mesh_shape == (8, 1)
+    ctx.sql("SET mesh_groups_axis = 2")
+    assert ctx.plan_cached(q41).physical.mesh_shape == (4, 2)
+    ctx.sql("SET mesh_data_axis = 2")
+    assert ctx.plan_cached(q41).physical.mesh_shape == (2, 2)
+    ctx.sql("SET prefer_distributed = false")
+    p = ctx.plan_cached(q41).physical
+    assert not p.distributed and p.mesh_shape is None
+    assert ctx.config.prefer_distributed is False and ctx.config.mesh_data_axis == 2
+    ctx.sql("SET mesh_data_axis = none")
+    assert ctx.config.mesh_data_axis is None
 
 
 @pytest.fixture(scope="module")

@@ -1040,3 +1040,77 @@ def test_dense_class_is_never_planned_above_4096_on_card(card, monkeypatch):
                 assert rw.physical.strategy != "dense" and m.strategy != "cuda", m.describe()
             else:
                 assert rw.physical.strategy == "dense" and m.strategy == "cuda", m.describe()
+
+
+# -- multi-device execution -----------------------------------------------------
+
+
+def _mesh_frames_close(got, want, rtol=1e-5):
+    floats = [c for c in want.columns if want[c].dtype.kind == "f"]
+    keys = [c for c in want.columns if c not in floats]
+    got = got.sort_values(keys, kind="stable").reset_index(drop=True)
+    want = want.sort_values(keys, kind="stable").reset_index(drop=True)
+    for c in keys:
+        np.testing.assert_array_equal(np.asarray(got[c]), np.asarray(want[c]), err_msg=c)
+    for c in floats:
+        np.testing.assert_allclose(np.asarray(got[c], np.float64), np.asarray(want[c], np.float64),
+                                   rtol=rtol, err_msg=c)
+
+
+@pytest.mark.parametrize("strategy", ["dense", "segment", "sparse", "adaptive"])
+def test_logical_mesh_on_the_card_equals_the_cpu_mesh(card, strategy):
+    """A (4, 1) mesh of 4 x the card against the same mesh of CPU shards and
+    the card's single-device engine, per class (sums within rtol 1e-5: the
+    kernel and the plain version add in other orders); the kernel's
+    launches reach the card, the arena's graphs replay from the third run."""
+    from spark_druid_olap_tpu_torch.parallel.distributed import DistributedEngine
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+
+    tables = ssb.gen_tables(0.01, seed=7)
+    cols, dicts = ssb.flat_columns(tables)
+    ds = ssb.datasource(cols, dicts, rows_per_segment=8192)
+    names = ("q4_1", "q3_2", "q1_1") if strategy in ("dense", "segment") else ("q3_2", "q2_1")
+    gpu = DistributedEngine(make_mesh(4, 1, [card] * 4), strategy=strategy)
+    cpu = DistributedEngine(make_mesh(4, 1, ["cpu"] * 4), strategy=strategy)
+    one = Engine(device=card)
+    for name in names:
+        q = ssb.NATIVE_QUERIES[name]
+        before = cg.LAUNCHES
+        for _ in range(3):
+            got = gpu.execute(q, ds)
+        m = gpu.last_metrics
+        assert m.distributed and m.mesh_shape == (4, 1) and m.device.startswith("cuda")
+        if m.strategy == "cuda" or (m.strategy == "adaptive" and m.compact_groups <= 4096):
+            assert cg.LAUNCHES > before, m.describe()
+        if m.strategy == "cuda":
+            assert m.graph_replays == 4  # one graph per shard
+        _mesh_frames_close(got, cpu.execute(q, ds))
+        _mesh_frames_close(got, one.execute(q, ds, strategy))
+
+
+def test_mesh_over_real_cards_merges_with_nccl(card):
+    """(n, 1) over every card: the merge reduces across cards with NCCL and
+    the answers equal the single card's."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip(f"needs two or more cards for an NCCL merge; this machine has {n}")
+    from spark_druid_olap_tpu_torch.parallel import mesh as tmesh
+    from spark_druid_olap_tpu_torch.parallel.distributed import DistributedEngine
+
+    parts = [torch.full((4, 3), float(i + 1), device=torch.device("cuda", i)) for i in range(n)]
+    assert torch.equal(tmesh.reduce_states(parts, "sum").cpu(),
+                       torch.full((4, 3), float(n * (n + 1) // 2)))
+    assert torch.equal(tmesh.reduce_states(parts, "max").cpu(), torch.full((4, 3), float(n)))
+    got = tmesh.gather_states(parts)
+    assert [float(t[0, 0]) for t in got] == [float(i + 1) for i in range(n)]
+    tables = ssb.gen_tables(0.01, seed=7)
+    cols, dicts = ssb.flat_columns(tables)
+    ds = ssb.datasource(cols, dicts, rows_per_segment=8192)
+    eng = DistributedEngine(tmesh.make_mesh())
+    one = Engine(device=card)
+    for name in ("q4_1", "q3_2"):
+        q = ssb.NATIVE_QUERIES[name]
+        for _ in range(3):
+            got = eng.execute(q, ds)
+        assert eng.last_metrics.mesh_shape == (n, 1)
+        _mesh_frames_close(got, one.execute(q, ds))

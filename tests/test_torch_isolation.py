@@ -53,7 +53,8 @@ def test_importing_the_port_loads_no_jax():
                   "exec.pipeline", "exec.fallback", "exec.arena",
                   "ingest", "ingest.shard", "ingest.delta", "ingest.compact",
                   "ingest.wal", "catalog.persist", "storage", "obs.telemetry",
-                  "config", "plan.calibrate", "plan.planner")
+                  "config", "plan.calibrate", "plan.planner", "parallel.mesh",
+                  "parallel.distributed", "parallel.spmd_arena")
     } <= set(out)
     assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []

@@ -349,3 +349,31 @@ def test_event_chunk_matches_reference(i):
     assert {k: d.values for k, d in schema.dicts.items()} == {
         k: d.values for k, d in ref.dicts.items()}
     assert schema.interval() is None and schema.time_column == ref.time_column
+
+
+# -- the mesh stream ------------------------------------------------------------
+
+
+@pytest.mark.parametrize("shape", [(8, 1), (4, 2)], ids=["8x1", "4x2"])
+@pytest.mark.parametrize("name", sorted(QUERIES))
+def test_mesh_stream_matches_reference(chunks, name, shape):
+    """A mesh stream (8 logical CPU shards; the groups axis on (4, 2)) against
+    the reference's `StreamExecutor(mesh=...)` on the conftest's 8 devices:
+    the chunk pads to ROW_PAD x the data axis and splits over it, each shard
+    runs the per-shard body, the states merge, and the frames match (keys,
+    counts, extrema and HLL registers exact, sums within rtol 1e-6) with
+    the same rows, chunks and bytes shipped."""
+    from spark_druid_olap_tpu.parallel.mesh import make_mesh as jmake_mesh
+    from spark_druid_olap_tpu_torch.parallel.mesh import make_mesh
+
+    q = QUERIES[name]
+    port = tstreaming.StreamExecutor(engine=Engine(device="cpu", strategy="dense"),
+                                     mesh=make_mesh(*shape, devices=["cpu"] * 8))
+    ref = jstreaming.StreamExecutor(mesh=jmake_mesh(n_data=shape[0], n_groups=shape[1]))
+    got = port.execute(q, datagen.event_stream_schema(), iter(chunks), CHUNK)
+    want = ref.execute(to_reference(q), jdatagen.event_stream_schema(), iter(chunks), CHUNK)
+    assert_frames_match(got, want)
+    _assert_stats_match(port, ref)
+    single = tstreaming.StreamExecutor(engine=Engine(device="cpu", strategy="dense")).execute(
+        q, datagen.event_stream_schema(), iter(chunks), CHUNK)
+    assert_frames_match(got, single)
