@@ -56,7 +56,7 @@ Phases, one JSON line each:
    values (the exact floor(log2) with the committed exception table).
    Then `ssb.SKETCH_QUERIES` through `ctx.sql` (TopN + HLL, the same
    TopN over a filter that masks half of each segment's rows, CUBE + HLL,
-   CUBE + theta, APPROX_QUANTILE), 1 cold and 3 warm runs each: frames
+   CUBE + theta, APPROX_QUANTILE), 1 cold and 1 warm run each: frames
    bit-identical from run to run and held against the exact oracle
    (`ssb.check_sketch_answer`: sums within rtol 2e-5, distinct counts
    within 4 standard errors, quantiles within 4 standard errors in rank
@@ -81,8 +81,8 @@ Phases, one JSON line each:
    plan's class answers (the next path only after a recorded decline), the kernel launches for every pass at most 4096 wide, frames
    hold against the oracle, are bit-identical over two runs and agree
    across tiers (keys exact, sums within 2e-5); per query and tier the
-   tier taken, G', the rungs, launches, the p50 of 3 warm runs, and device
-   busy ms and idle share from one profiled run.  Last, exact
+   tier taken, G', the rungs, launches, the time of 1 warm run, and (under
+   "auto") device busy ms and idle share from one profiled run.  Last, exact
    COUNT(DISTINCT lo_custkey) (BASELINE config #3's TopN with the sketch
    replaced, and a global count) under count_distinct_mode = 'exact' over
    `ssb.key_dimension_datasource`: equal to the exact oracle, answered on a
@@ -94,19 +94,20 @@ Phases, one JSON line each:
    the arena on (SET arena_execution = true): a first run (eager), a
    second (the capture) and a third (a replay), bit-identical and held
    against the oracle; then a warm run each way, on and off interleaved,
-   every frame bit-identical to the replay's; then one profiled run each
-   way.  The run fails where a pass neither replayed (one dispatch over
+   every frame bit-identical to the replay's; then one profiled run with
+   the arena on (each way until phase 18 came).  The run fails where a pass neither replayed (one dispatch over
    every in-scope segment) nor recorded an "arena:" decline, or where the
    kernel did not launch once per in-scope segment of a replayed run
    (replays counted).  Reported per query: dispatches of the first run,
    on and off; captures and capture ms; launches on and off; p50 each way
-   and their ratio; device busy ms and idle share each way; the declines.
+   and their ratio; device busy ms and idle share with the arena on; the
+   declines.
    Each CUBE also runs its sets through `Engine.execute_groupby_batch`
    against one after another, interleaved, bit-identical set by set: p50
    each way.  Last, one cold SSB scope (q4.1, `Engine.drop_residency`
    before each run) with the transfer pipeline on (copies from pinned
    host copies) and off (pageable copies): the first pipelined run (which
-   pins the columns), then 2 runs each way interleaved: wall, h2d ms and
+   pins the columns), then 1 run each way (2 until phase 18): wall, h2d ms and
    bytes, and from one profiled run each way the HtoD copy ms, kernel ms,
    the share of copy time that overlaps a kernel and the idle share;
 10. fallback: the twelve extended TPC-H classes (`tpch.EXTENDED_QUERIES`:
@@ -147,7 +148,7 @@ Phases, one JSON line each:
    q1.1 and q2.1 as TableQuery chains, bit-identical to `ctx.sql`.  And
    `execute_native_degraded` on TPC-H Q1's wire spec and an ordered Scan at
    SF1, against the device frames (rows exact, sums within rtol 2e-5).
-   Reported per query: p50 of 3 warm runs, and for scans and searches the
+   Reported per query: p50 of 2 warm runs, and for scans and searches the
    segments, rows per second scanned and bytes copied to the host;
 12. resilience: deadlines, partial answers, retries and the breaker on the
    resident contexts of phases 4 to 11 (SSB SF10, TPC-H SF1).  (a) A
@@ -215,7 +216,7 @@ Phases, one JSON line each:
    top-100 Scan) and their SQL, each response's bytes equal to the
    in-process answer's envelope, `X-Druid-Query-Id` echoing
    `context.queryId`, every trace served, `/status/metrics` parsing and
-   counting the requests.  (b) A dashboard mix: 8 client threads, 40
+   counting the requests.  (b) A dashboard mix: 8 client threads, 24
    requests each, a seeded shuffle of the 13 SSB queries (native JSON or
    SQL by a coin), the Timeseries and the TopN, beside a thread sending
    the heavy-lane top-100 Scan, with fusion off and then on
@@ -318,8 +319,37 @@ Phases, one JSON line each:
    query routes to "device"; a fused batch eager, captured and replayed.
    Phase 3 checks and times the mesh's new shapes: half of every even G
    (the (2, 2) mesh's per-device domains) and the stream's 2^19-row shard.
+18. processes (after phase 17, before phase 15's appends): the
+   multi-process tiers.  (a) Phase 4's SSB SF10 lineorder (and the SQL
+   dimension tables) written once to a temporary `storage_dir` by a broker
+   context that shares the SSB context's resident engine.  (b) Two ranks
+   of `python3 chip_smoke.py --rank-worker ...` on the card over gloo on
+   127.0.0.1 (`parallel/multihost.py`), each booting the store and placing
+   only its own rows (the arena's blocks of its row device: its
+   `local_segments`), run q1.1, q2.1 (adaptive), q3.1, q4.1, the
+   Timeseries, the TopN, topn_hll and the quantiles: both ranks' frames
+   bit-equal, and bit-equal to this process's 2-slice x 1 slice mesh of
+   the card; each rank's residency half the slice mesh's; every answer
+   against the oracle.  Where the machine has two or more cards, one rank
+   per card over NCCL as well.  (c) Two historicals, `python -m
+   spark_druid_olap_tpu_torch.cluster.historical` on the card, booted from
+   the store, each under an explicit residency cap, and the broker
+   (replication 2) behind an `OlapServer`: the 13 SSB queries, the
+   Timeseries and the TopN as native JSON and as SQL through the broker's
+   server, twice each (the same response bytes), held against the oracle
+   and the single context's frames (keys and counts exact, sums within
+   rtol 2e-5); those the broker covers scatter (the rest answer on the
+   broker, as in the JAX package).  h0 is SIGKILLed mid-sequence and a
+   covered query answers from its replica with the bytes it had before;
+   `/status/metrics?cluster=1` stamps h0 stale; with both killed a covered
+   query answers 200 as a coverage-stamped partial (coverage 0).  No RPC
+   failed but those to killed nodes.  (d) Every child reports its kernel
+   launches by shape (a rank in its result, a historical on `GET
+   /status/kernels` before it is killed), each checked against phase 3's
+   shapes and rows; the kernels line counts them as `launches_multihost`
+   and `launches_cluster`.
 
-Every kernel launch of phases 4 to 17, CUDA graph replays included
+Every kernel launch of phases 4 to 18, children included, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -468,7 +498,7 @@ PLAIN_REPS_CELLS = 1 << 31
 ROTATE_BYTES = 200e6  # inputs cycled per timing: four times the 50 MB L2
 WARM_RUNS = 3  # warm runs of a query: few enough to keep the run in its time limit
 SQL_PAIRS = 4  # interleaved SQL/native pairs per query in phase 6 (even)
-SKETCH_COLD, SKETCH_WARM = 1, 3  # runs of each sketch query in phase 7
+SKETCH_COLD, SKETCH_WARM = 1, 1  # runs of each sketch query in phase 7 (3 warm until phase 18)
 OP_CHECK_SEGMENTS = 4
 STREAM_CHUNKS = 512  # 1B rows of 2^21: BASELINE config #4
 STREAM_AB_CHUNKS = 64  # double buffering on against off
@@ -1396,6 +1426,7 @@ def profile_sketch_queries(ctx, summaries):
 HIGH_G = [("ssb", n) for n in ("q2_1", "q2_2", "q2_3", "q3_1", "q3_2", "q3_3", "q3_4",
                                "q4_2", "q4_3")] + [("tpch", "q3"), ("tpch", "q10")]
 TIER_STRATEGIES = ("auto", "sparse", "segment")
+TIER_WARM = 1  # warm runs of each tier query (3 until phase 18)
 TIER_SLOTS = (4096, 1 << 18)  # the kernel over slots; the segmented reduce
 
 
@@ -1551,12 +1582,12 @@ def _cross_tier_check(name, frames):
                 raise AssertionError(f"{name}: {tier} column {c} off from auto's")
 
 
-def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
+def run_tier_queries(ctxs, workloads, warm=TIER_WARM):
     """The 11 high-cardinality queries through `ctx.sql` under each of
     TIER_STRATEGIES: the route, the oracle, bit-identical runs, the kernel
     launched where a pass is at most 4096 wide, the same answer across
-    tiers; p50 of the warm runs and, from one profiled run, device busy ms
-    and idle share.  One summary per query and tier."""
+    tiers; p50 of the warm runs and, under "auto", from one profiled run,
+    device busy ms and idle share.  One summary per query and tier."""
     out, frames = [], {}
     for strategy in TIER_STRATEGIES:
         for workload, name in HIGH_G:
@@ -1582,8 +1613,11 @@ def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
             check_route(name, m, strategy, plan=plan, device=ctx.engine.device)
             if ctx.engine.device.type == "cuda" and uses_kernel(m) and launches == 0:
                 raise AssertionError(f"{name}: {m.describe()} but the kernel never launched")
+            # profiled under the plan's own tier only (all three until
+            # phase 18: the time limit)
             busy = sum(profiled_device_ms(lambda: ctx.sql(sql),
-                                          allow_empty=m.compact_groups == 0).values())
+                                          allow_empty=m.compact_groups == 0).values()
+                       ) if strategy == "auto" else None
             p50 = statistics.median(times)
             if "LIMIT" not in sql:
                 frames.setdefault(name, {})[strategy] = first
@@ -1593,7 +1627,7 @@ def run_tier_queries(ctxs, workloads, warm=WARM_RUNS):
                 **tier_fields(m),
                 "segments": m.segments, "result_rows": len(first), "cold_ms": cold_ms,
                 "p50_ms": p50, "kernel_launches": launches, "device_busy_ms": busy,
-                "device_idle_share": 1 - busy / p50,
+                "device_idle_share": None if busy is None else 1 - busy / p50,
                 "oracle_max_rel_err": check_against_oracle(name, first, workloads[workload][1],
                                                            workload),
                 "bit_identical": True,
@@ -1650,7 +1684,7 @@ ARENA_WARM = 1  # warm runs each way, arena on and off interleaved (3 until phas
 CUBE_REVENUE = ("SELECT c_region, s_region, d_year, sum(lo_revenue) AS revenue "
                 "FROM lineorder GROUP BY CUBE (c_region, s_region, d_year)")
 COLD_QUERY = "q4_1"  # the cold SSB scope: every segment, six columns
-COLD_RUNS = 2  # cold runs each way, pipeline on and off interleaved
+COLD_RUNS = 1  # cold runs each way, pipeline on and off interleaved (2 until phase 18)
 
 
 def _set(ctx, flag: str, on: bool) -> None:
@@ -1758,7 +1792,8 @@ def run_arena_queries(ctxs, workloads, warm=ARENA_WARM):
     arena_execution): after the engines' programs are dropped, a first run
     (eager, the warm-up), a second (the capture) and a third (a replay),
     bit-identical to each other, to every arena-off run and to the oracle;
-    then `warm` runs each way, interleaved; then one profiled run each way.
+    then `warm` runs each way, interleaved; then one profiled run with the
+    arena on.
     Fails on a pass that neither replayed nor recorded an arena decline,
     and on the card where the kernel did not launch once per in-scope
     segment in a run, replays counted.  The CUBEs also run their sets
@@ -1799,10 +1834,7 @@ def run_arena_queries(ctxs, workloads, warm=ARENA_WARM):
                     if any(m.graph_replays for m in sets):
                         raise AssertionError(f"{label}: a replay with the arena off")
         _set(ctx, "arena_execution", True)
-        busy_on = _busy_ms(run)
-        _set(ctx, "arena_execution", False)
-        busy_off = _busy_ms(run)
-        _set(ctx, "arena_execution", True)
+        busy_on = _busy_ms(run)  # the arena-off side is not profiled: the time limit
         p50 = {k: statistics.median(v) for k, v in times.items()}
         row = {
             "query": label, "workload": workload, "kind": kind,
@@ -1819,9 +1851,8 @@ def run_arena_queries(ctxs, workloads, warm=ARENA_WARM):
             "declines": sorted({d for m in m_replay for d in m.declines if d.startswith("arena:")}),
             "p50_on_ms": p50["on"], "p50_off_ms": p50["off"],
             "on_over_off": p50["on"] / p50["off"],
-            "device_busy_on_ms": busy_on, "device_busy_off_ms": busy_off,
+            "device_busy_on_ms": busy_on,
             "device_idle_share_on": None if busy_on is None else 1 - busy_on / p50["on"],
-            "device_idle_share_off": None if busy_off is None else 1 - busy_off / p50["off"],
             "oracle_max_rel_err": err, "bit_identical_on_off": True,
         }
         if kind == "cube":
@@ -2075,7 +2106,7 @@ def run_fallback_queries(ctx, tables, frame, shapes=None, warm=FALLBACK_WARM):
 
 # -- phase 11: the Druid-native surface ----------------------------------------
 
-NATIVE_WARM = 3  # warm runs of each wire query
+NATIVE_WARM = 2  # warm runs of each wire query (3 until phase 18)
 # q1.1's fact predicate, the filter of every scan and of one search
 FACT_WHERE = "lo_discount BETWEEN 1 AND 3 AND lo_quantity < 25"
 FACT_FILTER = {"type": "and", "fields": [
@@ -2658,10 +2689,9 @@ def armed_deadline_cost(ctxs, workloads, pairs=RESILIENCE_PAIRS):
             finally:
                 ctx.sql("SET query_timeout_ms = 0")
 
-        base = run()
-        first, first_ms = _timed(armed)
+        # the first armed run is the base every later run must equal
+        base, first_ms = _timed(armed)
         m_first = ctx.last_metrics
-        pd.testing.assert_frame_equal(first, base, check_exact=True)
         times = {"off": [], "armed": []}
         for i in range(pairs):
             for side in (("off", "armed") if i % 2 == 0 else ("armed", "off")):
@@ -2860,10 +2890,10 @@ def run_resilience(ctxs, workloads):
 # -- phase 14: serving -------------------------------------------------------------
 
 SERVE_CLIENTS = 8  # dashboard client threads in the concurrent mix
-SERVE_REQUESTS = 40  # requests per client per run
+SERVE_REQUESTS = 24  # requests per client per run (40 until phase 18)
 SERVE_TIMEOUT_S = 30  # every HTTP request's client timeout
 SERVE_FUSION = {"fusion_window_ms": 2, "fusion_max_batch": 16}
-TRACE_PAIRS = 6  # interleaved pairs, trace on and off, per query
+TRACE_PAIRS = 4  # interleaved pairs, trace on and off, per query (6 until phase 18)
 FUSED_MEMBERS = ("q1_1", "q1_2", "q1_3", "q4_1")  # fusable: G <= 4096, no tier
 DASHBOARD_REFRESHES = 12  # refreshes of the 8-panel dashboard, each way
 DASHBOARD_WINDOW_MS = 50  # the fusion window a refresh's panels arrive within
@@ -3412,7 +3442,7 @@ DELTA_SKETCH_SQL = ("SELECT c_region, approx_count_distinct(lo_custkey) AS u_hll
                     "approx_count_distinct_ds_theta(lo_custkey) AS u_theta, "
                     "sum(lo_revenue) AS revenue FROM lineorder GROUP BY c_region")
 RESTART_SCALE = 1.0  # the restart's own SSB context: a depth cut (PERF.md §4)
-RESTART_WARM = 3
+RESTART_WARM = 2  # (3 until phase 18)
 SYS_TICKS = 3
 
 
@@ -4240,7 +4270,7 @@ def profile_stream(device, chunks, chunk_rows: int, double_buffer: bool):
 
 # -- phase 16: the cost model ---------------------------------------------------
 
-COST_WARM = 3  # timed runs of each class of a query, after its first run and capture
+COST_WARM = 2  # timed runs of each class of a query, after its first run and capture (3 until phase 18)
 # the SSB queries of phase 4 (the 13, the Timeseries, the TopN) and TPC-H Q1, q3, q10
 COST_QUERIES = ([("ssb", n) for n in ssb.QUERIES] + [("ssb", "timeseries"), ("ssb", "topn")]
                 + [("tpch", n) for n in ("q1", "q3", "q10")])
@@ -4472,7 +4502,7 @@ def run_cost_model(ctxs, workloads, tier_rows, fallback_rows, device, tmp):
 
 # -- phase 17: multi-device ------------------------------------------------------
 
-MESH_WARM = 2  # warm runs of each query's plan on a mesh, after its cold run and capture
+MESH_WARM = 1  # warm runs of each query's plan on a mesh, after its cold run and capture (2 until phase 18)
 MESH_STREAM_CHUNKS = 32  # BASELINE config #4's stream cut to 32 chunks of 2^21 rows
 MESH_DEADLINE_STEP = 3  # the local step the mesh's deadline sweep stops before
 MESH_SKETCHES = ("topn_hll", "cube_theta", "quantiles")
@@ -4861,12 +4891,512 @@ def run_mesh(ctxs, workloads, device):
             "meshes": [label for label, _, _ in meshes]}
 
 
+# -- phase 18: processes -----------------------------------------------------
+
+PROC_RANKS = 2  # ranks on the card over gloo
+PROC_QUERIES = ("q1_1", "q2_1", "q3_1", "q4_1", "timeseries", "topn", "topn_hll", "quantiles")
+PROC_STRATEGIES = {"q2_1": "adaptive"}
+PROC_NODES = ("h0", "h1")
+PROC_REPLICATION = 2
+# each child's device residency cap: the parent's resident SF10 and TPC-H
+# SF1, two ranks and two historicals fit on one card together
+PROC_RESIDENCY_MB = 12 * 1024
+PROC_TIMEOUT_S = 300  # a child's budget: boot, queries and exit
+PROC_KILL_AT = 6  # the cluster case before which h0 is SIGKILLed
+CLUSTER_TIMESERIES_SQL = ("SELECT DATE_TRUNC('month', lo_orderdate) AS \"timestamp\", "
+                          "sum(lo_revenue) AS revenue FROM lineorder "
+                          "GROUP BY DATE_TRUNC('month', lo_orderdate) ORDER BY \"timestamp\"")
+CLUSTER_TOPN_SQL = ("SELECT c_nation, sum(lo_revenue) AS revenue FROM lineorder "
+                    "JOIN customer ON lo_custkey = c_custkey "
+                    "GROUP BY c_nation ORDER BY revenue DESC LIMIT 10")
+ROOT = os.path.dirname(os.path.abspath(__file__))
+
+
+def _free_port() -> int:
+    import socket
+
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _child(cmd, log_path):
+    """A child process of this run, from the checkout's root, its output to
+    `log_path`."""
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [ROOT] + [p for p in os.environ.get("PYTHONPATH", "").split(os.pathsep) if p]))
+    log = open(log_path, "w")
+    try:
+        return subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+    finally:
+        log.close()
+
+
+def _tail(path, n=3000) -> str:
+    with open(path) as f:
+        return f.read()[-n:]
+
+
+def _stop(procs) -> None:
+    """SIGTERM every child still running, then SIGKILL what did not exit."""
+    for p in procs:
+        if p.poll() is None:
+            p.terminate()
+    for p in procs:
+        try:
+            p.wait(timeout=20)
+        except subprocess.TimeoutExpired:
+            p.kill()
+            p.wait()
+
+
+def check_child_launches(label, record) -> dict:
+    """A child's launch record (`cuda_groupby.launch_record`): every shape
+    checked in phase 3, no launch over more rows than it was checked at."""
+    checked = checked_rows()
+    missing, over = [], []
+    for G, Ms, Mn, Mx, count, rows in record["shapes"]:
+        key = (G, Ms, Mn, Mx)
+        if count and key not in checked:
+            missing.append(key)
+        elif rows > checked.get(key, 0):
+            over.append((key, rows, checked.get(key, 0)))
+    if missing or over:
+        raise AssertionError(f"{label}: launches at unchecked shapes {missing} or over the "
+                             f"checked rows {over}")
+    return {"launches": record["launches"], "shapes": len(record["shapes"])}
+
+
+def _proc_case(ctx, name):
+    """(native spec, post) of one query of phase 18(b): a SQL query's
+    rewrite (a sketch query's too) with the SQL surface's post-processing,
+    or the native Timeseries and TopN."""
+    if name in ssb.SKETCH_QUERIES:
+        rw = ctx.plan_sql(ssb.SKETCH_QUERIES[name])
+        ds = ctx.catalog.get(rw.datasource)
+        return rw.query, (lambda df, rw=rw, ds=ds: ctx._post_process(rw, ds, df))
+    q, _, post, _ = _mesh_case(ctx, "ssb", name)
+    return q, post
+
+
+def _proc_oracle(name, got, frame):
+    if name in ssb.SKETCH_QUERIES:
+        return ssb.check_sketch_answer(name, got, ssb.sketch_oracle(frame, name))
+    return {"oracle_max_rel_err": check_against_oracle(name, got, frame, "ssb")}
+
+
+def rank_worker(argv) -> int:
+    """One rank of phase 18(b) (`python3 chip_smoke.py --rank-worker PORT RANK
+    NPROC STORE SPEC OUT BACKEND`): joins the process group, boots the
+    store's lineorder, runs the spec's queries on the hybrid mesh over its
+    card (a card the spec names and this machine lacks raises) and pickles the frames, metrics, residency, its placed segments
+    and its kernel launches to OUT."""
+    import pandas as pd
+
+    from spark_druid_olap_tpu_torch.catalog.persist import load_snapshot
+    from spark_druid_olap_tpu_torch.parallel import multihost
+
+    port, rank, nproc, store, spec_path, out, backend = argv
+    t0 = time.perf_counter()
+    with open(spec_path) as f:
+        spec = json.load(f)
+    multihost.initialize(f"127.0.0.1:{port}", int(nproc), int(rank), backend=backend)
+    # the card (the spec names the CPU only in a rehearsal without one)
+    device = (torch.device("cuda", torch.cuda.current_device()) if spec["device"] == "cuda"
+              else torch.device("cpu"))
+    ds, _, _ = load_snapshot(os.path.join(store, "lineorder"))
+    eng = DistributedEngine(multihost.hybrid_mesh(devices=[device]),
+                            shard_cache_bytes=spec["residency_bytes"])
+    eng.cost_config = SessionConfig.load_calibrated(device=device)
+    boot_s = time.perf_counter() - t0
+    res = {"frames": {}, "metrics": {}, "boot_s": boot_s}
+    for item in spec["queries"]:
+        q = wire.query_from_druid(item["query"])
+        t = time.perf_counter()
+        res["frames"][item["name"]] = eng.execute(q, ds, item["strategy"])
+        m = eng.last_metrics
+        res["metrics"][item["name"]] = {
+            "ms": (time.perf_counter() - t) * 1e3, "strategy": m.strategy,
+            "merge_tree": m.merge_tree, "h2d_bytes": m.h2d_bytes}
+    layout = spmd_arena.plan_spmd_layout(ds, eng._arena_mesh().size)
+    mine = {r for r, _ in eng._owned_row_devices()}
+    res.update(
+        resident=eng.bytes_resident(), launches=cuda_groupby.launch_record(),
+        placed=[layout.segs[b].segment_id for b in range(layout.B) if b % layout.ndt in mine],
+        local_segments=[s.segment_id for s in multihost.local_segments(ds.segments)],
+        info=multihost.process_info(devices=[device]), device=str(device),
+        seconds=time.perf_counter() - t0)
+    pd.to_pickle(res, out)
+    multihost.shutdown()
+    return 0
+
+
+def run_ranks(ctx, workloads, device, store, tmp, nproc, backend):
+    """(b) `nproc` ranks over `backend`, against this process's `nproc`-slice
+    x 1 slice mesh (of the card for gloo, of the cards for NCCL)."""
+    import pandas as pd
+
+    frame = workloads["ssb"][1]
+    cases = {name: _proc_case(ctx, name) for name in PROC_QUERIES}
+    docs = {name: json.loads(json.dumps(q.to_druid(), default=str))
+            for name, (q, _) in cases.items()}
+    spec = {"residency_bytes": PROC_RESIDENCY_MB << 20, "device": torch.device(device).type,
+            "queries": [{"name": n, "query": docs[n], "strategy": PROC_STRATEGIES.get(n)}
+                        for n in PROC_QUERIES]}
+    spec_path = os.path.join(tmp, f"spec-{backend}.json")
+    with open(spec_path, "w") as f:
+        json.dump(spec, f)
+    port = _free_port()
+    outs = [os.path.join(tmp, f"rank-{backend}-{i}.pkl") for i in range(nproc)]
+    logs = [os.path.join(tmp, f"rank-{backend}-{i}.log") for i in range(nproc)]
+    t0 = time.perf_counter()
+    procs = [_child([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--rank-worker",
+                     str(port), str(i), str(nproc), store, spec_path, outs[i], backend], logs[i])
+             for i in range(nproc)]
+    try:
+        # this process's slice mesh over the same specs, meanwhile
+        devs = [device] * nproc if backend == "gloo" else [
+            torch.device("cuda", i) for i in range(nproc)]
+        eng = DistributedEngine(make_slice_mesh(nproc, 1, devs))
+        eng.cost_config = SessionConfig.load_calibrated(device=device)
+        ds = workloads["ssb"][0]
+        single = {}
+        for name in PROC_QUERIES:
+            single[name] = eng.execute(wire.query_from_druid(docs[name]), ds,
+                                       PROC_STRATEGIES.get(name))
+        single_resident = eng.bytes_resident()
+        eng.clear_cache()
+        deadline = time.monotonic() + PROC_TIMEOUT_S
+        for i, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(1.0, deadline - time.monotonic()))
+            except subprocess.TimeoutExpired:
+                raise AssertionError(f"rank {i} ({backend}) ran past {PROC_TIMEOUT_S} s:\n"
+                                     f"{_tail(logs[i])}")
+            if p.returncode != 0:
+                raise AssertionError(f"rank {i} ({backend}) exited {p.returncode}:\n"
+                                     f"{_tail(logs[i])}")
+    finally:
+        _stop(procs)
+    wall_s = time.perf_counter() - t0
+    ranks = [pd.read_pickle(o) for o in outs]
+    rows = []
+    for name in PROC_QUERIES:
+        _, post = cases[name]
+        for r, res in enumerate(ranks):
+            got = res["frames"][name]
+            if backend == "gloo" or nproc == 2:
+                # bit-equal to the other ranks and to the one-process mesh
+                pd.testing.assert_frame_equal(got, single[name], check_exact=True)
+            else:  # NCCL reduces more than two cards in its own order
+                _same_as_single(name, post(got), post(single[name]))
+            pd.testing.assert_frame_equal(got, ranks[0]["frames"][name], check_exact=True)
+        row = {"query": name, "strategy": ranks[0]["metrics"][name]["strategy"],
+               "merge_tree": ranks[0]["metrics"][name]["merge_tree"],
+               "rank_ms": [res["metrics"][name]["ms"] for res in ranks],
+               **_proc_oracle(name, post(ranks[0]["frames"][name]), frame)}
+        rows.append(row)
+    launches = 0
+    for r, res in enumerate(ranks):
+        if res["info"]["process_count"] != nproc or res["info"]["process_index"] != r:
+            raise AssertionError(f"rank {r}: {res['info']}")
+        if res["resident"] * nproc != single_resident:
+            raise AssertionError(f"rank {r} holds {res['resident']} B, the {nproc}-slice mesh "
+                                 f"{single_resident} B: not its own share")
+        if res["placed"] != res["local_segments"]:
+            raise AssertionError(f"rank {r} placed other segments than its local_segments")
+        launches += check_child_launches(f"rank {r}", res["launches"])["launches"]
+    if torch.device(device).type == "cuda" and launches == 0:
+        raise AssertionError(f"the ranks ({backend}) never launched the kernel")
+    out = {"backend": backend, "ranks": nproc, "wall_s": wall_s,
+           "boot_s": [res["boot_s"] for res in ranks], "launches": launches,
+           "resident_bytes": [res["resident"] for res in ranks],
+           "slice_mesh_resident_bytes": single_resident, "queries": rows}
+    emit("processes_ranks", **out)
+    return out
+
+
+def _shaped(payload):
+    """A response's rows as a frame: groupBy events, Timeseries results
+    with their timestamps, a TopN's first bucket, or SQL's row objects."""
+    import pandas as pd
+
+    if not payload:
+        return pd.DataFrame()
+    first = payload[0]
+    if "event" in first:
+        return pd.DataFrame([r["event"] for r in payload])
+    if "result" in first and isinstance(first["result"], list):
+        return pd.DataFrame(first["result"])
+    if "result" in first:
+        df = pd.DataFrame([{"timestamp": r["timestamp"], **r["result"]} for r in payload])
+        df["timestamp"] = pd.to_datetime(df["timestamp"], utc=True).dt.tz_localize(None)
+        return df
+    return pd.DataFrame(payload)
+
+
+def _cluster_oracle(name, got, frame) -> float:
+    """`check_against_oracle`, where an empty answer (no columns on the
+    wire) must meet an empty oracle."""
+    if len(got) == 0:
+        want = oracle("ssb", name, frame)
+        if isinstance(want, float) or len(want):
+            raise AssertionError(f"cluster {name}: an empty answer, the oracle has rows")
+        return 0.0
+    return check_against_oracle(name, got, frame, "ssb")
+
+
+def _cluster_cases():
+    """(name, native spec, SQL, the single context's native and SQL frames)
+    of (c): the 13 SSB queries, the Timeseries and the TopN."""
+    out = []
+    for name in list(ssb.NATIVE_QUERIES) + ["timeseries", "topn"]:
+        q = (ssb.TIMESERIES_QUERY if name == "timeseries" else ssb.TOPN_QUERY
+             if name == "topn" else ssb.NATIVE_QUERIES[name])
+        sql = (CLUSTER_TIMESERIES_SQL if name == "timeseries" else CLUSTER_TOPN_SQL
+               if name == "topn" else ssb.QUERIES[name])
+        out.append((name, q, sql))
+    return out
+
+
+def _post_json(base, path, body):
+    status, headers, raw = _http(base, path, body)
+    if status != 200:
+        raise AssertionError(f"{path}: {status} {raw[:400]!r}")
+    return headers, raw
+
+
+def _scatter_failures(reg) -> dict:
+    """{node: failed attempts} of the broker's `sdol_cluster_scatter_total`."""
+    out = {}
+    for key, v in reg.counter("sdol_cluster_scatter_total", labels=("node", "outcome")) \
+            .snapshot().items():
+        node, outcome = key.split(",", 1)
+        if outcome != "ok" and v:
+            out[node] = out.get(node, 0) + v
+    return out
+
+
+def _kill(proc) -> None:
+    import signal
+
+    proc.send_signal(signal.SIGKILL)
+    proc.wait(timeout=30)
+
+
+def run_cluster(broker, ctxs, workloads, device, nodes):
+    """(c) The broker over the historicals `nodes` ({id: (process, url,
+    log)}): every case native and SQL through the broker's server, h0
+    killed mid-sequence, the federated scrape, both killed."""
+    from spark_druid_olap_tpu_torch.cluster import ClusterClient
+    from spark_druid_olap_tpu_torch.obs import get_registry
+    from spark_druid_olap_tpu_torch.server import OlapServer
+
+    import pandas as pd
+
+    frame = workloads["ssb"][1]
+    sctx = ctxs["ssb"]
+    reg = get_registry()
+    fails0 = _scatter_failures(reg)
+    client = ClusterClient(broker, nodes={n: url for n, (_, url, _) in nodes.items()},
+                           replication=PROC_REPLICATION).attach()
+    srv = OlapServer(broker, port=0).start()
+    base = f"http://127.0.0.1:{srv.port}"
+    rows, launches, killed, answers = [], {}, [], {}
+
+    def new_failures():
+        now = _scatter_failures(reg)
+        return {n: v - fails0.get(n, 0) for n, v in now.items() if v > fails0.get(n, 0)}
+
+    def kill(node):
+        st, _, raw = _http(nodes[node][1], "/status/kernels")
+        if st != 200:
+            raise AssertionError(f"{node}: /status/kernels answered {st}")
+        launches[node] = check_child_launches(node, json.loads(raw))
+        bad = {n: v for n, v in new_failures().items() if n not in killed}
+        if bad:
+            raise AssertionError(f"failed RPCs to live nodes before killing {node}: {bad}")
+        _kill(nodes[node][0])
+        killed.append(node)
+
+    def run_case(name, q, sql):
+        body = json.loads(json.dumps(q.to_druid(), default=str))
+        row = {"query": name}
+        raws = []
+        for _ in range(2):
+            t = time.perf_counter()
+            _, raw = _post_json(base, "/druid/v2", body)
+            row.setdefault("native_ms", []).append((time.perf_counter() - t) * 1e3)
+            raws.append(raw)
+        if raws[0] != raws[1]:
+            raise AssertionError(f"cluster {name}: native responses differ from run to run")
+        row["native_executor"] = broker.last_metrics.executor
+        got = _shaped(json.loads(raws[0]))
+        want = _shaped(json.loads(_envelope_bytes(wire.druid_result_shape(
+            q, NATIVE_FRAMES[("ssb", name)]))))
+        row["native_oracle_max_rel_err"] = _cluster_oracle(name, got, frame)
+        if len(want) or len(got):
+            _same_as_single(name, got, want)
+        sraws = []
+        for _ in range(2):
+            t = time.perf_counter()
+            _, raw = _post_json(base, "/druid/v2/sql", {"query": sql})
+            row.setdefault("sql_ms", []).append((time.perf_counter() - t) * 1e3)
+            sraws.append(raw)
+        if sraws[0] != sraws[1]:
+            raise AssertionError(f"cluster {name}: SQL responses differ from run to run")
+        row["sql_executor"] = broker.last_metrics.executor
+        got = pd.DataFrame(json.loads(sraws[0]))
+        if name == "timeseries":
+            got["timestamp"] = pd.to_datetime(got["timestamp"], utc=True).dt.tz_localize(None)
+        row["sql_oracle_max_rel_err"] = _cluster_oracle(name, got, frame)
+        want = sctx.sql(sql)
+        if len(want) or len(got):
+            _same_as_single(name, got, want)
+        answers[name] = (raws[0], sraws[0])
+        return row
+
+    t0 = time.perf_counter()
+    try:
+        cases = _cluster_cases()
+        specs = {name: q for name, q, _ in cases}
+        for i, (name, q, sql) in enumerate(cases):
+            if i == PROC_KILL_AT:
+                kill("h0")
+                # a covered query answered before: its replica answers with
+                # the same bytes (the fold runs in chain order)
+                for again in ("q1_1", "topn"):
+                    if again in answers:
+                        _, raw = _post_json(base, "/druid/v2", json.loads(
+                            json.dumps(specs[again].to_druid(), default=str)))
+                        if raw != answers[again][0]:
+                            raise AssertionError(f"{again} after h0's kill: other bytes")
+                        if broker.last_metrics.executor != "cluster":
+                            raise AssertionError(f"{again} after h0's kill did not scatter")
+            rows.append(run_case(name, q, sql))
+            emit("processes_cluster_query", **rows[-1])
+        # what the broker covers (G <= 4096, no tier; a DATE_TRUNC group
+        # has no wire form, so the SQL Timeseries answers on the broker)
+        scattered = {way: [r["query"] for r in rows if r[f"{way}_executor"] == "cluster"]
+                     for way in ("native", "sql")}
+        want = {"q1_1", "q1_2", "q1_3", "q4_1", "topn"}
+        if not (want | {"timeseries"} <= set(scattered["native"])
+                and want <= set(scattered["sql"])):
+            raise AssertionError(f"the broker scattered only {scattered}")
+        status, _, text = _http(base, "/status/metrics?cluster=1")
+        text = text.decode()
+        stale = {ln.split('node="')[1].split('"')[0]: ln.rsplit(" ", 1)[-1]
+                 for ln in text.splitlines() if ln.startswith("sdol_cluster_scrape_stale{")}
+        if status != 200 or stale.get("h0") != "1" or stale.get("h1") != "0" \
+                or 'node="h1"' not in text:
+            raise AssertionError(f"federated scrape: {status} {stale}")
+        kill("h1")
+        q1 = ssb.NATIVE_QUERIES["q1_1"]
+        body = dict(json.loads(json.dumps(q1.to_druid(), default=str)),
+                    context={"partialResults": True})
+        status, headers, raw = _http(base, "/druid/v2", body)
+        rc = json.loads(headers.get("X-Druid-Response-Context", "{}") or "{}")
+        if status != 200 or not rc.get("partial") or rc.get("coverage") != 0.0:
+            raise AssertionError(f"both historicals killed: {status} {rc} {raw[:300]!r}")
+        partial = {"status": status, "coverage": rc.get("coverage")}
+        unexpected = {n: v for n, v in new_failures().items() if n not in killed}
+        if unexpected:
+            raise AssertionError(f"failed RPCs to live nodes: {unexpected}")
+        state = client.state()
+    finally:
+        srv.shutdown()
+        client.close()
+    out = {"queries": len(rows), "scattered": scattered, "seconds": time.perf_counter() - t0,
+           "killed": killed, "failed_rpcs_to_killed": new_failures(),
+           "launches": sum(v["launches"] for v in launches.values()),
+           "node_launches": launches, "both_killed": partial,
+           "stale": stale, "epoch": state["epoch"], "segments_lost": state["segments_lost"]}
+    emit("processes_cluster", **out)
+    if torch.device(device).type == "cuda" and out["launches"] == 0:
+        raise AssertionError("the historicals never launched the kernel")
+    return out
+
+
+def start_historicals(store, tmp, device):
+    """The historicals of (c) as processes on `device`, each under the
+    residency cap; returns {id: (process, announce path, log)}."""
+    procs = {}
+    for node in PROC_NODES:
+        ann = os.path.join(tmp, f"{node}.json")
+        log = os.path.join(tmp, f"{node}.log")
+        cmd = [sys.executable, "-m", "spark_druid_olap_tpu_torch.cluster.historical",
+               "--storage-dir", store, "--node-id", node, "--port", "0", "--announce", ann,
+               "--residency-mb", str(PROC_RESIDENCY_MB)]
+        if torch.device(device).type != "cuda":
+            cmd += ["--device", "cpu"]
+        procs[node] = (_child(cmd, log), ann, log)
+    return procs
+
+
+def await_historicals(procs) -> dict:
+    """{id: (process, url, log)} once every historical announced itself."""
+    deadline = time.monotonic() + PROC_TIMEOUT_S
+    out = {}
+    for node, (p, ann, log) in procs.items():
+        while not os.path.exists(ann):
+            if p.poll() is not None:
+                raise AssertionError(f"historical {node} exited {p.returncode}:\n{_tail(log)}")
+            if time.monotonic() > deadline:
+                raise AssertionError(f"historical {node} never announced:\n{_tail(log)}")
+            time.sleep(0.2)
+        with open(ann) as f:
+            doc = json.load(f)
+        if torch.cuda.is_available() and not doc["device"].startswith("cuda"):
+            raise AssertionError(f"historical {node} serves on {doc['device']}")
+        out[node] = (p, doc["url"], log)
+    return out
+
+
+def run_processes(ctxs, workloads, device, tmp):
+    """Phase 18: the store, the ranks, the cluster."""
+    t0 = time.perf_counter()
+    store = os.path.join(tmp, "store")
+    broker = TPUOlapContext(dataclasses.replace(ctxs["ssb"].config, storage_dir=store),
+                            device=device)
+    broker.engine = ctxs["ssb"].engine  # phase 4's resident segments: the same uids
+    dims = workloads["dims"]["ssb"]
+    broker.register_datasource(workloads["ssb"][0], star_schema=ssb.STAR_SCHEMA)
+    broker.register_table("dwdate", dims["dwdate"], time_column="d_datekey")
+    for name in ("customer", "supplier", "part"):
+        broker.register_table(name, dims[name])
+    write_s = time.perf_counter() - t0
+    emit("processes_store", seconds=write_s, segments=len(workloads["ssb"][0].segments),
+         bytes=sum(os.path.getsize(os.path.join(d, f)) for d, _, fs in os.walk(store)
+                   for f in fs))
+    children = start_historicals(store, tmp, device)
+    try:
+        ranks = [run_ranks(ctxs["ssb"], workloads, device, store, tmp, PROC_RANKS, "gloo")]
+        n = torch.cuda.device_count()
+        if torch.device(device).type == "cuda" and n >= 2:
+            ranks.append(run_ranks(ctxs["ssb"], workloads, device, store, tmp, n, "nccl"))
+        nodes = await_historicals(children)
+        cluster = run_cluster(broker, ctxs, workloads, device, nodes)
+    finally:
+        _stop([p for p, _, _ in children.values()])
+        broker.close()
+    return {"store_s": write_s, "ranks": ranks, "cluster": cluster,
+            "seconds": time.perf_counter() - t0}
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ssb-scale", type=float, default=10.0)
     ap.add_argument("--tpch-scale", type=float, default=1.0)
     ap.add_argument("--stream-chunks", type=int, default=STREAM_CHUNKS)
+    ap.add_argument("--rank-worker", nargs=7, default=None,
+                    metavar=("PORT", "RANK", "NPROC", "STORE", "SPEC", "OUT", "BACKEND"),
+                    help="run one rank of phase 18 (the run starts its ranks itself)")
     args = ap.parse_args(argv)
+    if args.rank_worker is not None:
+        return rank_worker(args.rank_worker)
+    run_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
         return 2
@@ -5089,6 +5619,21 @@ def main(argv=None) -> int:
     if mesh_launches == 0:
         raise AssertionError("the mesh phase never launched the kernel")
 
+    # phase 18 before phase 15 too: the store holds phase 4's data
+    t0 = time.perf_counter()
+    cuda_groupby.LAUNCHES = 0  # count only this process's launches of phase 18
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = run_processes(ctxs, workloads, device, tmp)
+    proc_launches = cuda_groupby.LAUNCHES
+    multihost_launches = sum(r["launches"] for r in procs["ranks"])
+    cluster_launches = procs["cluster"]["launches"]
+    emit("processes", nvidia_smi=card, seconds=time.perf_counter() - t0,
+         store_seconds=procs["store_s"], ranks_seconds=[r["wall_s"] for r in procs["ranks"]],
+         cluster_seconds=procs["cluster"]["seconds"], kernel_launches=proc_launches,
+         launches_multihost=multihost_launches, launches_cluster=cluster_launches,
+         scattered=procs["cluster"]["scattered"], bytes_resident=resident(),
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+
     t0 = time.perf_counter()
     cuda_groupby.LAUNCHES = 0  # count only the ingest phase's launches
     ingest = run_ingest(ctxs, workloads, queries)
@@ -5134,6 +5679,7 @@ def main(argv=None) -> int:
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     del staged
     shapes.check()
+    emit("total", nvidia_smi=card, seconds=time.perf_counter() - run_t0)
 
     head = next(t for t in timed if t["shape"] == HEADLINE and t["layout"] == "random")
     print(json.dumps({"kernels": [{
@@ -5145,6 +5691,7 @@ def main(argv=None) -> int:
                      + arena_launches + fallback_launches + native_launches
                      + resilience_launches + serving_launches + ingest_launches
                      + cost_launches + mesh_launches + mesh_baseline_launches
+                     + proc_launches + multihost_launches + cluster_launches
                      + stream_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
@@ -5159,6 +5706,9 @@ def main(argv=None) -> int:
         "launches_cost_model": cost_launches,
         "launches_mesh": mesh_launches,
         "launches_mesh_baseline": mesh_baseline_launches,
+        "launches_processes": proc_launches,
+        "launches_multihost": multihost_launches,
+        "launches_cluster": cluster_launches,
         "launches_stream": stream_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),

@@ -197,6 +197,11 @@ class TPUOlapContext:
         # engine the last execution ran on (`last_metrics` reads it)
         self._dist_engine = None
         self._last_engine = self.engine
+        # the cluster tier (cluster/): a broker's ClusterClient, set by its
+        # `attach()` (covered queries then scatter to the historicals), and
+        # a historical's node id, which its scatter route stamps
+        self.cluster = None
+        self.cluster_node_id = ""
         # the cost constants of the engine's device (its calibration file,
         # or on the CPU the CPU profile) unless the caller brings a config
         self.config = config or SessionConfig.load_calibrated(device=self.engine.device)
@@ -273,8 +278,9 @@ class TPUOlapContext:
         pipeline, arena, retry budget), the breaker flags to the breakers,
         the serving flags to the result cache, the fusion scheduler and the
         admission, ingest and lane pools, the tracing flags to the tracer,
-        and the ingest and storage flags to the compactor, the WALs and the
-        sweeps; `SET` calls it after every change."""
+        the ingest and storage flags to the compactor, the WALs and the
+        sweeps, and the cluster flags to an attached ClusterClient; `SET`
+        calls it after every change."""
         cfg = self.config
         self.engine.configure_pipeline(cfg)
         self.engine.cost_config = cfg
@@ -290,6 +296,8 @@ class TPUOlapContext:
         self.tracer.ring.capacity = max(1, int(cfg.trace_ring_capacity))
         self.tracer.otlp_path = cfg.otlp_export_path
         self._apply_ingest_config(cfg)
+        if self.cluster is not None:
+            self.cluster.configure(cfg)
 
     def _apply_ingest_config(self, cfg) -> None:
         """The ingest and storage flags: the compactor's sizes, period and

@@ -502,3 +502,26 @@ def gc_snapshot_files(directory: str) -> List[str]:
         except OSError:  # reclamation only: an orphan costs disk, not answers
             pass
     return removed
+
+
+# ---------------------------------------------------------------------------
+# The cluster's assignment manifest (cluster/assignment.py): the broker's
+# segment -> historical replica map, committed beside the snapshots it
+# indexes, so a restarted broker continues the epoch sequence.
+# ---------------------------------------------------------------------------
+
+ASSIGNMENT_MANIFEST_NAME = "cluster_assignment.json"
+
+
+def save_assignment_manifest(directory: str, doc: dict) -> str:
+    """Commits the assignment manifest atomically (the snapshot's rename)."""
+    os.makedirs(directory, exist_ok=True)
+    return atomic_write_json(os.path.join(directory, ASSIGNMENT_MANIFEST_NAME), doc)
+
+
+def load_assignment_manifest(directory: str) -> Optional[dict]:
+    path = os.path.join(directory, ASSIGNMENT_MANIFEST_NAME)
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return json.load(f)

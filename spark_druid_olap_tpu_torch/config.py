@@ -3,12 +3,13 @@
 Only the flags this package reads, with the JAX package's defaults, except
 the cost model's constants: those are the port's own, measured on its card
 (`plan/calibrate.py`), and the merge's rates, which are the H100's data
-sheet's and an assumption about the host link.  A flag of a tier the port
-does not have yet (the cluster) is absent, so `SET` on it raises KeyError
-instead of reporting a change that nothing reads; each comes back with the
-slice that reads it.  `SET` applies a flag at once (`TPUOlapContext.apply_config`):
-the serving and tracing flags reach the result cache, the fusion
-scheduler, the admission and lane pools and the tracer.
+sheet's and an assumption about the host link.  A flag that nothing in the
+port reads is absent, so `SET` on it raises KeyError instead of reporting a
+change that nothing reads.  `SET` applies a flag at once
+(`TPUOlapContext.apply_config`): the serving and tracing flags reach the
+result cache, the fusion scheduler, the admission and lane pools and the
+tracer, and the seven `cluster_*` flags the broker's `ClusterClient`
+(`cluster/broker.py`) when one is attached.
 """
 
 from __future__ import annotations
@@ -261,6 +262,26 @@ class SessionConfig:
     # published version moved past its snapshot, so a restart maps instead
     # of replaying; 0 starts no thread (appends stay durable through the WAL)
     snapshot_flush_s: float = 0.0
+
+    # -- the cluster tier (cluster/) --------------------------------------------
+    # replicas per segment in the broker's assignment (rendezvous hashing over
+    # the historicals' node ids), clamped to the membership
+    cluster_replication: int = 2
+    # one scatter attempt's budget: past it the broker fails over to the next
+    # replica of the chain
+    cluster_rpc_timeout_ms: float = 5000.0
+    # re-walks of the replica chain after every replica failed once
+    cluster_rpc_retries: int = 1
+    # hedging: when the primary has not answered within this, the same fetch
+    # goes to the next replica and the first answer wins; 0 disables it
+    cluster_hedge_ms: float = 0.0
+    # the per-historical breaker: consecutive failed attempts before it opens,
+    # and its cooldown before a probe
+    cluster_breaker_failures: int = 3
+    cluster_breaker_cooldown_ms: float = 2000.0
+    # per-node budget of the broker's federated scrape (/status/metrics?cluster=1
+    # and /status/profile?cluster=1); a slower node is stamped stale
+    cluster_scrape_timeout_ms: float = 2000.0
 
     # -- observability (obs/) --------------------------------------------------
     # slow-query log: a finished query whose span-tree total reaches this

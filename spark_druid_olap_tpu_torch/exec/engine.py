@@ -908,6 +908,13 @@ class Engine(AdaptiveDomainMixin, SparseExecMixin):
             return
         holder["state"] = {"sums": sums, "mins": mins, "maxs": maxs, "sketches": sketches}
 
+    def set_residency_budget(self, nbytes: int) -> None:
+        """Caps the device residency at `nbytes` (3/4 of the card by
+        default), evicting past it at once: processes that share one card
+        (a broker and its historicals, ranks on one card) each take a
+        share."""
+        self._device_cache.set_budget(nbytes)
+
     def groupby_partials_host(self, q: Q.QuerySpec, ds: DataSource, within_uids=None,
                               strategy: Optional[str] = None):
         """The merged host partial state of a GroupBy-family query over its

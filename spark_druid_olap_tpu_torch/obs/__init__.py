@@ -21,6 +21,8 @@ from .registry import (  # noqa: F401
     MetricsRegistry,
     bounded_label,
     get_registry,
+    record_cluster_health,
+    record_cluster_rpc,
     record_compaction,
     record_ingest,
     record_partial,
@@ -37,6 +39,8 @@ from .trace import (  # noqa: F401
     SPAN_ADAPTIVE_PROBE,
     SPAN_ADMISSION,
     SPAN_ARENA_BUILD,
+    SPAN_CLUSTER_MERGE,
+    SPAN_CLUSTER_RPC,
     SPAN_COLLECTIVE_MERGE,
     SPAN_COMPACT,
     SPAN_DEGRADED,
@@ -46,6 +50,7 @@ from .trace import (  # noqa: F401
     SPAN_FALLBACK_DECODE,
     SPAN_FINALIZE,
     SPAN_FUSED_BATCH,
+    SPAN_GATHER,
     SPAN_H2D,
     SPAN_INGEST,
     SPAN_INGEST_ENCODE,
@@ -57,6 +62,7 @@ from .trace import (  # noqa: F401
     SPAN_QUERY,
     SPAN_RETRY,
     SPAN_ROLLUP,
+    SPAN_SCATTER,
     SPAN_SEGMENT_DISPATCH,
     SPAN_SNAPSHOT_FLUSH,
     SPAN_SPARSE_DISPATCH,
@@ -75,4 +81,5 @@ from .trace import (  # noqa: F401
     new_query_id,
     span,
     span_event,
+    span_in,
 )

@@ -13,6 +13,13 @@ The query_id hashes into the trace id; span ids are content hashes of
 tracer clock is monotonic-relative, so spans are anchored at the export
 wall-clock minus the trace total: durations and tree structure are exact,
 absolute placement is approximate to within the export delay.
+
+Across processes: the trace id comes from the query_id alone, so a broker
+and every historical serving the same query export under one trace id.  The
+broker stamps each `cluster_rpc` span with an id computed before the span
+closes (`rpc_span_id`, its `otlp_span_id` attr, sent in the
+`X-Sdol-Parent-Span` header), and a historical's trace opened under that
+header exports its root with it as `parentSpanId`.
 """
 
 from __future__ import annotations
@@ -25,6 +32,14 @@ from typing import Any, Dict, List, Optional
 
 def _hex_id(seed: str, nbytes: int) -> str:
     return hashlib.sha256(seed.encode()).hexdigest()[: 2 * nbytes]
+
+
+def rpc_span_id(query_id: str, node: str, attempt: int) -> str:
+    """The OTLP span id of one broker attempt at a historical, known before
+    the span closes (the broker sends it in the request's headers, and the
+    export must emit the same id): a hash of (query id, node, attempt), so
+    stable across exports and distinct across failovers and hedges."""
+    return _hex_id(f"rpc:{query_id}:{node}:{int(attempt)}", 8)
 
 
 def _attr(key: str, value: Any) -> Dict[str, Any]:
@@ -55,7 +70,11 @@ def trace_to_otlp(
     def walk(node: Dict[str, Any], parent_id: str, path: str) -> None:
         start_ms = float(node.get("start_ms", 0.0))
         dur_ms = float(node.get("duration_ms", 0.0))
-        span_id = _hex_id(f"span:{qid}:{path}:{node.get('name')}:{start_ms}", 8)
+        # an `otlp_span_id` attr pins the id (an attempt's, sent to the
+        # historical before the span closed)
+        pinned = (node.get("attrs") or {}).get("otlp_span_id")
+        span_id = str(pinned) if pinned else _hex_id(
+            f"span:{qid}:{path}:{node.get('name')}:{start_ms}", 8)
         start_ns = epoch_ns + int(start_ms * 1e6)
         span: Dict[str, Any] = {
             "traceId": trace_id,
@@ -99,7 +118,9 @@ def trace_to_otlp(
 
     root = doc.get("spans") or {}
     if root:
-        walk(root, "", "0")
+        # a historical's trace opened under a broker's attempt exports its
+        # root as that attempt's child
+        walk(root, str(doc.get("parent_span_id") or ""), "0")
     return {
         "resourceSpans": [
             {

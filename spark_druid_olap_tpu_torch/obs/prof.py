@@ -80,6 +80,19 @@ DEVICE_SPANS = frozenset(
 )
 TRANSFER_SPANS = frozenset({"h2d"})
 ARENA_SPANS = frozenset({"arena_build"})
+# the cluster's broker (cluster/): the scatter span is the replica fetches in
+# flight, gather the merge of what came back, cluster_merge one state's
+# fold; each its own bucket, so a slow cluster query attributes to the
+# wire, the gather or the merge and not to host time
+SCATTER_SPANS = frozenset({"scatter"})
+GATHER_SPANS = frozenset({"gather"})
+CLUSTER_MERGE_SPANS = frozenset({"cluster_merge"})
+# one replica attempt: these run concurrently on pool threads under the one
+# scatter span, so they overlay its wall instead of partitioning it; their
+# time, and the remote subtrees grafted under them (on the remote clock),
+# fold into the receipt's per-historical `cluster.nodes` section and never
+# into the additive buckets
+CLUSTER_RPC_SPANS = frozenset({"cluster_rpc"})
 ROOT_SPAN = "query"
 
 # device launch spans: the receipt's `dispatch_count`, the host calls that
@@ -465,9 +478,30 @@ def note_lane(lane: str) -> None:
 # ---------------------------------------------------------------------------
 
 
+def _is_remote(node: dict) -> bool:
+    """A grafted remote subtree's root (the broker's clock does not apply)."""
+    return bool((node.get("attrs") or {}).get("remote"))
+
+
+def _is_overlay(node: dict) -> bool:
+    """Spans outside the local partition of the wall: concurrent replica
+    attempts and grafted remote subtrees."""
+    return str(node.get("name", "")) in CLUSTER_RPC_SPANS or _is_remote(node)
+
+
+def _new_acc() -> Dict[str, Any]:
+    return {
+        "device": 0.0, "transfer": 0.0, "host": 0.0, "arena_build": 0.0,
+        "unattributed": 0.0, "dispatch_count": 0, "events": 0.0, "timed": 0,
+        "scatter": 0.0, "gather": 0.0, "cluster_merge": 0.0,
+    }
+
+
 def _walk_exclusive(node: dict, acc: Dict[str, float], depth: int) -> None:
+    if _is_overlay(node):
+        return  # folded per node by _walk_cluster_nodes
     dur = float(node.get("duration_ms", 0.0))
-    children = list(node.get("children") or ())
+    children = [c for c in (node.get("children") or ()) if not _is_overlay(c)]
     child_sum = sum(float(c.get("duration_ms", 0.0)) for c in children)
     excl = max(0.0, dur - child_sum)
     name = str(node.get("name", ""))
@@ -487,10 +521,100 @@ def _walk_exclusive(node: dict, acc: Dict[str, float], depth: int) -> None:
         acc["transfer"] += excl
     elif name in ARENA_SPANS:
         acc["arena_build"] += excl
+    elif name in SCATTER_SPANS:
+        acc["scatter"] += excl
+    elif name in GATHER_SPANS:
+        acc["gather"] += excl
+    elif name in CLUSTER_MERGE_SPANS:
+        acc["cluster_merge"] += excl
     else:
         acc["host"] += excl
     for c in children:
         _walk_exclusive(c, acc, depth + 1)
+
+
+def _fold_remote_buckets(graft: dict) -> Dict[str, float]:
+    """One grafted remote subtree's device, transfer and host time: its
+    receipt (riding in the graft's root) when present, else the subtree
+    folded through the same buckets (remote spans use the same names)."""
+    rc = graft.get("receipt")
+    if isinstance(rc, dict):
+        return {
+            "device_ms": float(rc.get("device_ms", 0.0) or 0.0),
+            "transfer_ms": float(rc.get("transfer_ms", 0.0) or 0.0),
+            "host_ms": float(rc.get("host_ms", 0.0) or 0.0),
+            "remote_wall_ms": float(rc.get("wall_ms", 0.0) or 0.0),
+        }
+    acc = _new_acc()
+    clean = dict(graft)
+    attrs = dict(clean.get("attrs") or {})
+    attrs.pop("remote", None)
+    clean["attrs"] = attrs
+    _walk_exclusive(clean, acc, 0)
+    return {
+        "device_ms": round(acc["device"], 3),
+        "transfer_ms": round(acc["transfer"], 3),
+        "host_ms": round(acc["host"], 3),
+        "remote_wall_ms": float(graft.get("duration_ms", 0.0) or 0.0),
+    }
+
+
+def _node_bucket(nodes: Dict[str, Dict[str, Any]], nid: str) -> Dict[str, Any]:
+    return nodes.setdefault(nid, {"ms": 0.0, "rpcs": 0, "ok": 0, "failed": 0, "segments": 0})
+
+
+def _fold_rpc_span(c: dict, nodes: Dict[str, Dict[str, Any]]) -> None:
+    """One `cluster_rpc` span into its node's bucket: the attempt's count,
+    latency and outcome, and its grafted subtree's buckets.  `untraced`
+    counts grafts that degraded to a stub (a receipt that came separately
+    still folds)."""
+    attrs = c.get("attrs") or {}
+    b = _node_bucket(nodes, str(attrs.get("node", "?")))
+    b["rpcs"] += 1
+    ms = float(attrs.get("ms", c.get("duration_ms", 0.0)) or 0.0)
+    b["ms"] = round(b["ms"] + ms, 3)
+    if attrs.get("outcome") == "ok":
+        b["ok"] += 1
+        b["segments"] += int(attrs.get("segments", 0) or 0)
+    else:
+        b["failed"] += 1
+    if attrs.get("hedge"):
+        b["hedged"] = int(b.get("hedged", 0)) + 1
+    for g in c.get("children") or ():
+        if not _is_remote(g):
+            continue
+        if (g.get("attrs") or {}).get("untraced"):
+            b["untraced"] = int(b.get("untraced", 0)) + 1
+            if not isinstance(g.get("receipt"), dict):
+                continue
+        for k, v in _fold_remote_buckets(g).items():
+            b[k] = round(float(b.get(k, 0.0)) + float(v), 3)
+
+
+def _walk_cluster_nodes(node: dict, nodes: Dict[str, Dict[str, Any]]) -> None:
+    """The scatter span's attempts (its `cluster_rpc` children), and its
+    `rpc` events (a lost replica group marks itself so), into one bucket
+    per historical the query touched: {node: {ms, rpcs, ok, failed,
+    segments, device_ms, transfer_ms, host_ms, remote_wall_ms, ...}}."""
+    if str(node.get("name", "")) in SCATTER_SPANS:
+        for e in node.get("events") or ():
+            if e.get("name") != "rpc":
+                continue
+            attrs = e.get("attrs") or {}
+            b = _node_bucket(nodes, str(attrs.get("node", "?")))
+            b["rpcs"] += 1
+            b["ms"] = round(b["ms"] + float(attrs.get("ms", 0.0)), 3)
+            if attrs.get("outcome") == "ok":
+                b["ok"] += 1
+                b["segments"] += int(attrs.get("segments", 0))
+            else:
+                b["failed"] += 1
+        for c in node.get("children") or ():
+            if str(c.get("name", "")) in CLUSTER_RPC_SPANS:
+                _fold_rpc_span(c, nodes)
+    for c in node.get("children") or ():
+        if not _is_overlay(c):
+            _walk_cluster_nodes(c, nodes)
 
 
 def build_receipt(
@@ -503,13 +627,12 @@ def build_receipt(
     `device_ms` is the CUDA-event time of the query's sampled dispatches,
     "span" when it is the device spans' host time (enqueue time on a card,
     the work itself on the CPU)."""
-    acc = {
-        "device": 0.0, "transfer": 0.0, "host": 0.0, "arena_build": 0.0,
-        "unattributed": 0.0, "dispatch_count": 0, "events": 0.0, "timed": 0,
-    }
+    acc = _new_acc()
+    cluster_nodes: Dict[str, Dict[str, Any]] = {}
     root = trace_doc.get("spans")
     if isinstance(root, dict):
         _walk_exclusive(root, acc, 0)
+        _walk_cluster_nodes(root, cluster_nodes)
     wall = float(trace_doc.get("total_ms") or 0.0)
     timed = acc["timed"] > 0
     device = acc["events"] if timed else acc["device"]
@@ -534,6 +657,13 @@ def build_receipt(
     if acc.get("shards"):
         # a sampled query on the mesh: each dispatch's per-shard device time
         receipt["shard_device_ms"] = acc["shards"]
+    if cluster_nodes or acc["scatter"] or acc["gather"] or acc["cluster_merge"]:
+        # a broker's query: the scatter, gather and merge buckets and one
+        # bucket per historical (absent elsewhere, as in the reference)
+        receipt["scatter_ms"] = round(acc["scatter"], 3)
+        receipt["gather_ms"] = round(acc["gather"], 3)
+        receipt["cluster_merge_ms"] = round(acc["cluster_merge"], 3)
+        receipt["cluster"] = {"nodes": cluster_nodes}
     if scope is not None:
         cache: Dict[str, Any] = {
             "result_cache": scope.result_cache,

@@ -743,3 +743,71 @@ def record_storage_load(nbytes: int) -> None:
             "logical bytes of persisted columns opened from disk "
             "(mmap-backed; pages fault in lazily on first touch)",
         ).inc(nbytes)
+
+
+def record_cluster_rpc(
+    node: str, outcome: str, ms: float = 0.0, query_id: str = "",
+    hedged: bool = False, failover: bool = False,
+) -> None:
+    """One broker attempt at a historical (cluster/): a count per node and
+    outcome, the attempt's latency, and the failover and hedge counters.
+    Node ids pass the label cardinality guard."""
+    reg = get_registry()
+    labels = {
+        "node": bounded_label("cluster_node", node or "unknown"),
+        "outcome": bounded_label("cluster_outcome", outcome or "unknown"),
+    }
+    reg.counter(
+        "sdol_cluster_scatter_total",
+        "broker scatter RPCs to historicals, by node and outcome",
+        labels=("node", "outcome"),
+    ).labels(**labels).inc()
+    if ms > 0:
+        reg.histogram(
+            "sdol_cluster_rpc_ms",
+            "broker->historical RPC latency (one replica attempt)",
+            buckets=(1.0, 5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
+                     1000.0, 5000.0),
+        ).observe(float(ms), exemplar=query_id or None)
+    if failover:
+        reg.counter(
+            "sdol_cluster_failover_total",
+            "scatter attempts that failed over to another replica",
+            labels=("node",),
+        ).labels(node=labels["node"]).inc()
+    if hedged:
+        reg.counter(
+            "sdol_cluster_hedge_total",
+            "scatter fetches hedged to a second replica past the "
+            "hedge threshold",
+            labels=("node",),
+        ).labels(node=labels["node"]).inc()
+
+
+def record_cluster_health(
+    live: int, total: int, epoch: int, deficit: int, lost: int = 0,
+) -> None:
+    """The broker's cluster gauges: live historicals, the membership, the
+    assignment epoch, segments below their replication and (`lost`)
+    segments with no live replica, which answer as stamped partials."""
+    reg = get_registry()
+    reg.gauge(
+        "sdol_cluster_historicals_live",
+        "historicals whose breaker admits traffic",
+    ).set(int(live))
+    reg.gauge(
+        "sdol_cluster_historicals_total",
+        "historicals in the broker's membership",
+    ).set(int(total))
+    reg.gauge(
+        "sdol_cluster_assignment_epoch",
+        "monotonic assignment epoch (bumps on membership change)",
+    ).set(int(epoch))
+    reg.gauge(
+        "sdol_cluster_replication_deficit",
+        "segments currently below their replication factor",
+    ).set(int(deficit))
+    reg.gauge(
+        "sdol_cluster_segments_lost",
+        "segments with zero live replicas (served as stamped partials)",
+    ).set(int(lost))

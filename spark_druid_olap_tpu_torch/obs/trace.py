@@ -81,6 +81,10 @@ SPAN_COMPACT = "compact"  # delta -> historical roll of one datasource (ingest/c
 SPAN_WAL_APPEND = "wal_append"  # fsync'd journal write of one append batch (storage.py)
 SPAN_WAL_REPLAY = "wal_replay"  # boot-time recovery of one datasource: snapshot load and WAL replay
 SPAN_SNAPSHOT_FLUSH = "snapshot_flush"  # one persistent snapshot commit
+SPAN_SCATTER = "scatter"  # broker: the replica fetches in flight (cluster/)
+SPAN_GATHER = "gather"  # broker: the merge of the gathered replica states
+SPAN_CLUSTER_MERGE = "cluster_merge"  # broker: one replica state merged in
+SPAN_CLUSTER_RPC = "cluster_rpc"  # broker: one replica attempt (a pool thread's)
 
 SPAN_NAMES = frozenset(
     {
@@ -113,6 +117,10 @@ SPAN_NAMES = frozenset(
         SPAN_WAL_APPEND,
         SPAN_WAL_REPLAY,
         SPAN_SNAPSHOT_FLUSH,
+        SPAN_SCATTER,
+        SPAN_GATHER,
+        SPAN_CLUSTER_MERGE,
+        SPAN_CLUSTER_RPC,
     }
 )
 
@@ -133,9 +141,14 @@ class Span:
     device time from CUDA events on a sampled query); `events` are
     point-in-time observations inside the phase (the breaker state read at
     routing time): a name, a clock reading and small attrs, without a child
-    span."""
+    span.
 
-    __slots__ = ("name", "start", "end", "attrs", "children", "events")
+    `grafts` hold rendered remote subtrees: a historical's span tree,
+    spliced under the broker's `cluster_rpc` span when the tree renders.  A
+    graft keeps its remote clock (its `start_ms` counts from the remote
+    root: two processes' clocks do not join) and carries `attrs.remote`."""
+
+    __slots__ = ("name", "start", "end", "attrs", "children", "events", "grafts")
 
     def __init__(self, name: str, start: float, attrs: Optional[dict] = None):
         self.name = name
@@ -144,6 +157,7 @@ class Span:
         self.attrs = attrs or {}
         self.children: List["Span"] = []
         self.events: List[Dict[str, Any]] = []
+        self.grafts: List[dict] = []
 
     @property
     def duration_ms(self) -> float:
@@ -174,8 +188,8 @@ class Span:
                 }
                 for e in self.events
             ]
-        if self.children:
-            d["children"] = [c.to_dict(origin, now) for c in self.children]
+        if self.children or self.grafts:
+            d["children"] = [c.to_dict(origin, now) for c in self.children] + list(self.grafts)
         return d
 
 
@@ -197,6 +211,9 @@ class QueryTrace:
         # it rides every to_dict, so the ring's document and
         # /druid/v2/trace/{id} carry it
         self.receipt: Optional[dict] = None
+        # the broker's span id when a historical serves a broker's attempt:
+        # the OTLP export then joins both processes into one tree
+        self.parent_span_id: str = ""
 
     def start_span(
         self, name: str, parent: Optional[Span], attrs: Optional[dict] = None
@@ -220,6 +237,13 @@ class QueryTrace:
                 {"name": name, "at": self._clock(), "attrs": attrs or {}}
             )
 
+    def graft(self, s: Span, subtree: dict) -> None:
+        """Splice a rendered remote subtree (a historical's
+        `to_dict()["spans"]`, or an `untraced` stub) under `s`; the scatter's
+        pool threads graft concurrently, so under the trace's lock."""
+        with self._lock:
+            s.grafts.append(subtree)
+
     def finish(self) -> None:
         with self._lock:
             if self.root.end is None:
@@ -236,6 +260,8 @@ class QueryTrace:
             "total_ms": round(self.total_ms, 3),
             "spans": self.root.to_dict(self.root.start),
         }
+        if self.parent_span_id:
+            d["parent_span_id"] = self.parent_span_id
         if self.receipt is not None:
             d["receipt"] = self.receipt
         return d
@@ -328,6 +354,24 @@ def span(name: str, **attrs):
         tr.end_span(s)
 
 
+@contextlib.contextmanager
+def span_in(trace: Optional[QueryTrace], parent: Optional[Span], name: str, **attrs):
+    """A span on an explicit trace handle under an explicit parent: for pool
+    threads, which see no active trace (a new thread starts with an empty
+    context).  The broker's scatter workers (`cluster/broker.py`) pass
+    (trace, scatter span) here, so every replica attempt gets its own
+    `cluster_rpc` span.  Owns the pairing as `span(...)` does; a no-op when
+    `trace` is None."""
+    if trace is None:
+        yield None
+        return
+    s = trace.start_span(name, parent, attrs or None)
+    try:
+        yield s
+    finally:
+        trace.end_span(s)
+
+
 def span_event(name: str, **attrs) -> None:
     """Attach a point-in-time event to the active span (no child span, no
     duration): the routing layer records the breaker state it observed,
@@ -417,10 +461,13 @@ class Tracer:
         query_id: Optional[str] = None,
         query_type: str = "",
         slow_ms: float = 0.0,
+        parent_span_id: str = "",
     ):
         """Open (or join) the per-query trace.  The outermost scope wins,
         as with `resilience.deadline_scope`: the server starts the trace
-        and `ctx.sql` inside it joins instead of nesting a second root."""
+        and `ctx.sql` inside it joins instead of nesting a second root.
+        `parent_span_id` stamps a parent in another process (a historical's
+        trace opened under a broker's attempt)."""
         existing = _active_trace.get()
         if existing is not None:
             yield existing
@@ -431,6 +478,8 @@ class Tracer:
             query_id or new_query_id(), clock=self.clock,
             query_type=query_type,
         )
+        if parent_span_id:
+            tr.parent_span_id = str(parent_span_id)
         tok_t = _active_trace.set(tr)
         tok_s = _active_span.set(tr.root)
         ps = _prof.ProfScope(sampled=self.sampler.take())

@@ -230,6 +230,17 @@ def count_replay(shapes) -> None:
         _count(shape)
 
 
+def launch_record() -> dict:
+    """This process's launches as JSON: the total, and per (G, Ms, Mn, Mx)
+    the count and the most rows one launch took.  A process started by
+    another (a historical, a rank) reports it, and its parent checks each
+    shape and row count against the ones it verified."""
+    shapes = sorted(set(LAUNCH_SHAPES) | set(LAUNCH_ROWS))
+    return {"launches": LAUNCHES,
+            "shapes": [[*shape, LAUNCH_SHAPES.get(shape, 0), LAUNCH_ROWS.get(shape, 0)]
+                       for shape in shapes]}
+
+
 def _check(name, t, dtype, shape):
     if t.dtype != dtype:
         raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")

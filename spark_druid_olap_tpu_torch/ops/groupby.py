@@ -237,6 +237,11 @@ def partial_aggregate(
             num_groups=num_groups, num_min=num_min, num_max=num_max,
         )
     if strategy == "dense":
+        if gid.is_cuda:
+            # the plain version runs only because its tensors lie on the
+            # CPU: on the card the kernel answers (`strategy="cuda"`)
+            raise ValueError("the dense class on a CUDA tensor is the kernel's "
+                             "(strategy 'cuda'); the plain version runs on the CPU only")
         R = gid.shape[0]
         br = choose_block_rows(R, num_groups)
         # shrink to divide R (segments are ROW_PAD-padded so 1024 always divides)

@@ -40,6 +40,16 @@ never by a query's filter, so a scope's placement is paid once; the arena's
 stacks are keyed by the full segment signature alone.  The fault site
 `h2d` fires before each placement.
 
+**Processes.**  A mesh from `multihost.hybrid_mesh` spans processes: this
+rank holds a contiguous run of the data axis (its slice), builds and places
+only those positions' rows (`multihost.local_rows`; the arena stacks only
+its own row devices' blocks), computes only their states, and merges them
+with the other ranks' through `parallel/mesh`'s step across processes, in
+rank order: the hierarchical tree, so a P x D run equals the one-process
+P-slice x D slice mesh under that tree bit for bit.  Every rank decides
+the same route (the cost model, and ladders read from merged states), so
+their collectives pair up; deadline chunking stays in one process.
+
 **Resilience.**  `execute` runs under `resilience.run_device_attempts`: a
 transient failure evicts the query's lowering and programs and the
 datasource's shards, and runs again, each outcome reported to the engine's
@@ -103,7 +113,7 @@ from ..resilience import (
 )
 from ..utils.log import get_logger
 from ..utils.lru import ByteBudgetCache, CountBudgetCache
-from . import spmd_arena
+from . import multihost, spmd_arena
 from .mesh import (
     DATA_AXIS,
     GROUPS_AXIS,
@@ -228,10 +238,16 @@ class DistributedEngine:
                  shard_cache_bytes: Optional[int] = None):
         if strategy not in STRATEGIES:
             raise ValueError(f"unknown groupby strategy {strategy!r}; one of {STRATEGIES}")
-        mesh = mesh if mesh is not None else make_mesh()
+        # the process group rides the engine's construction: a no-op in one
+        # process, the rendezvous where the environment names one
+        multihost.initialize()
+        mesh = mesh if mesh is not None else multihost.hybrid_mesh()
+        # over processes: this rank holds its run of the data axis
+        self.processes, self.rank = mesh.processes, mesh.rank
         if SLICE_AXIS in mesh.shape:
             self.slice_mesh = mesh
             self.mesh = make_mesh(n_data=mesh.size, n_groups=1, devices=mesh.flat())
+            self.mesh.processes, self.mesh.rank = mesh.processes, mesh.rank
         else:
             self.slice_mesh = None
             self.mesh = mesh
@@ -330,14 +346,20 @@ class DistributedEngine:
         self._shard_cache[key] = t
         return t
 
-    def _row_shards(self, ds: DataSource, names, segs, m) -> Tuple[List[Dict], int]:
+    def _owned_data(self) -> range:
+        """The data-axis shards this process holds (all in one process)."""
+        return multihost.owned(self.mesh.shape[DATA_AXIS], self.processes, self.rank)
+
+    def _row_shards(self, ds: DataSource, names, segs, m) -> Tuple[List[Optional[Dict]], int]:
         """Each mesh position's columns over `segs` (row-major positions;
         the data shard's rows, replicated across the groups axis): the
-        scope's rows concatenated in canonical order, padded to a multiple
-        of (data-axis size x ROW_PAD), split into equal contiguous shards.
-        A device holding a run of consecutive data shards holds them as one
-        tensor, each shard a view of it.  Returns (columns per position,
-        rows per shard)."""
+        scope's rows in canonical order, padded to a multiple of (data-axis
+        size x ROW_PAD), split into equal contiguous shards.  A device
+        holding a run of consecutive data shards holds them as one tensor,
+        each shard a view of it.  Only this process's data shards are
+        built, from the segments that overlap them (`multihost.local_rows`);
+        another process's positions are None.  Returns (columns per
+        position, rows per shard)."""
         nd, ng = self.mesh.shape[DATA_AXIS], self.mesh.shape[GROUPS_AXIS]
         total = sum(s.num_rows_padded for s in segs)
         chunk = nd * ROW_PAD
@@ -345,9 +367,10 @@ class DistributedEngine:
         local = padded // nd
         sig = tuple(s.uid for s in segs)
         grid = self.mesh.devices
+        mine = self._owned_data()
         runs: Dict[torch.device, List[Tuple[int, int]]] = {}
         for dev in self.devices:
-            held = sorted({d for d in range(nd) for g in range(ng) if grid[d, g] == dev})
+            held = sorted({d for d in mine for g in range(ng) if grid[d, g] == dev})
             out: List[Tuple[int, int]] = []
             for d in held:
                 if out and out[-1][0] + out[-1][1] == d:
@@ -355,24 +378,16 @@ class DistributedEngine:
                 else:
                     out.append((d, 1))
             runs[dev] = out
-        hosts: Dict = {}
 
-        def host(name):
-            if name not in hosts:
-                if name == SEGMENT_POSITION:
-                    parts = [np.arange(s.num_rows_padded, dtype=np.int32) for s in segs]
-                    fill, dtype = 0, np.int32
-                elif name is None:
-                    parts = [s.valid for s in segs]
-                    fill, dtype = False, bool
-                else:
-                    parts = [np.asarray(s.column(name)) for s in segs]
-                    fill, dtype = (-1 if name in ds.dicts else 0), None
-                h = np.concatenate(parts) if parts else np.zeros(0, dtype=dtype or np.int32)
-                if len(h) < padded:
-                    h = np.concatenate([h, np.full(padded - len(h), fill, dtype=h.dtype)])
-                hosts[name] = h
-            return hosts[name]
+        def host(name, lo, hi):
+            if name == SEGMENT_POSITION:
+                return multihost.local_rows(
+                    segs, lambda s: np.arange(s.num_rows_padded, dtype=np.int32), lo, hi, 0,
+                    np.int32)
+            if name is None:
+                return multihost.local_rows(segs, lambda s: s.valid, lo, hi, False, bool)
+            return multihost.local_rows(segs, lambda s: s.column(name), lo, hi,
+                                        -1 if name in ds.dicts else 0)
 
         shards: Dict[Tuple[torch.device, int], Dict] = {}
         for dev, dev_runs in runs.items():
@@ -382,13 +397,16 @@ class DistributedEngine:
                     key = (ds.name, tag[0], tag[1:], nd, sig, str(dev), d0, n)
                     t = self._place(
                         key, lambda name=name, d0=d0, n=n: np.ascontiguousarray(
-                            host(name)[d0 * local:(d0 + n) * local]), dev, m)
+                            host(name, d0 * local, (d0 + n) * local)), dev, m)
                     for k in range(n):
                         shards.setdefault((dev, d0 + k), {})[
                             "__valid" if name is None else name] = t[k * local:(k + 1) * local]
-        out = []
+        out: List[Optional[Dict]] = []
         for d in range(nd):
             for g in range(ng):
+                if d not in mine:
+                    out.append(None)
+                    continue
                 cols = dict(shards[(grid[d, g], d)])
                 if ds.time_column and ds.time_column in cols:
                     cols["__time"] = cols[ds.time_column]
@@ -595,12 +613,12 @@ class DistributedEngine:
     # -- dense-state path ----------------------------------------------------
 
     def _positions(self, ng: int) -> List[int]:
-        """The mesh positions (row-major) that compute a query whose group
-        domain splits `ng` ways: every position when the groups axis shards
-        it, else the first group column of each data shard (the others
-        would compute the same replica)."""
+        """The mesh positions (row-major) of this process that compute a
+        query whose group domain splits `ng` ways: every position when the
+        groups axis shards it, else the first group column of each data
+        shard (the others would compute the same replica)."""
         NG = self.mesh.shape[GROUPS_AXIS]
-        return [d * NG + g for d in range(self.mesh.shape[DATA_AXIS]) for g in range(ng)]
+        return [d * NG + g for d in self._owned_data() for g in range(ng)]
 
     def _shard_state(self, lowering, cols: Dict, kstrat: str, g: int, ng: int, Gl: int):
         """One position's partial state over its rows: (sums, mins, maxs,
@@ -627,27 +645,32 @@ class DistributedEngine:
             sub = dataclasses.replace(lowering, num_groups=Gl)
         return s, mn, mx, sketch_partials(sub, cols, gid, mask)
 
-    def merge_positions(self, lowering, parts, ng: int):
-        """The positions' states (row-major over (data, groups)) merged over
-        the data axis per group slice, the slices concatenated on the first
-        shard's device: (sums, mins, maxs, sketch states)."""
+    def merge_positions(self, lowering, parts, ng: int, tree: str = "flat"):
+        """This process's positions' states (row-major over (data, groups))
+        merged over the data axis per group slice by `tree` (on a slice
+        mesh, "hierarchical" folds each slice first), across processes in
+        rank order, the slices concatenated on the first shard's device:
+        (sums, mins, maxs, sketch states).  The sketch merges are exact in
+        any order, so they fold flat."""
         from ..exec.lowering import sketch_ops
 
         nd = len(parts) // ng
+        rows = self._arena_mesh() if ng == 1 else self.mesh
+        across = self.processes > 1
         slices = []
         for g in range(ng):
             col = [parts[d * ng + g] for d in range(nd)]
-            s = reduce_states([p[0] for p in col], "sum")
-            mn = reduce_states([p[1] for p in col], "min")
-            mx = reduce_states([p[2] for p in col], "max")
+            s = merge_tree(rows, tree, [p[0] for p in col], "sum")
+            mn = merge_tree(rows, tree, [p[1] for p in col], "min")
+            mx = merge_tree(rows, tree, [p[2] for p in col], "max")
             sk = {}
             for agg in lowering.la.sketch_aggs:
                 sts = [p[3][agg.name] for p in col]
                 if isinstance(agg, (A.HyperUnique, A.CardinalityAgg)):
-                    sk[agg.name] = reduce_states(sts, "max")
+                    sk[agg.name] = reduce_states(sts, "max", across_processes=across)
                 else:
                     ops = sketch_ops(agg)
-                    gathered = gather_states(sts)
+                    gathered = gather_states(sts, across_processes=across)
                     acc = gathered[0]
                     for x in gathered[1:]:
                         acc = ops.merge_states(acc, x, agg)
@@ -694,7 +717,8 @@ class DistributedEngine:
         nd = self.mesh.shape[DATA_AXIS]
         m.est_collective_ms = (2.0 * (nd - 1) / nd * groupby_state_bytes(lowering.query, Gl, None)
                                / self.cost_config.collective_bytes_per_us / 1e3)
-        m.merge_tree = "flat"
+        tree = self._merge_tree_for(lowering.query, lowering)[0]
+        m.merge_tree = tree
         names = list(lowering.columns)
         if any(isinstance(a, A.QuantilesSketch) for a in lowering.la.sketch_aggs):
             names.append(SEGMENT_POSITION)  # the sample does not depend on the shards
@@ -702,7 +726,7 @@ class DistributedEngine:
         at = self._positions(ng)
         devs = [self.mesh.flat()[p] for p in at]
         t0 = time.perf_counter()
-        with span(SPAN_COLLECTIVE_MERGE, merge_tree="flat", shards=len(at)):
+        with span(SPAN_COLLECTIVE_MERGE, merge_tree=tree, shards=len(at)):
             with prof.shard_timer(devs) as clock:
                 parts = []
                 for i, p in enumerate(at):  # every shard launched before any fetch
@@ -710,7 +734,7 @@ class DistributedEngine:
                     parts.append(self._shard_state(lowering, cols[p], kstrat, i % ng, ng, Gl))
                     clock.stop(i)
                 m.dispatch_count += 1
-            state = self.merge_positions(lowering, parts, ng)
+            state = self.merge_positions(lowering, parts, ng, tree)
             host = self._host_state(la, state)
         m.shard_device_ms = clock.shard_ms() if clock.mode else []
         m.device_ms += (time.perf_counter() - t0) * 1e3
@@ -723,7 +747,7 @@ class DistributedEngine:
     def _sparse_pass(self, lowering, cols, slots, cap, inner):
         """One sparse pass: every position's slot-compacted state (its
         blocks' merged in row order), launched before any fetch,
-        all-gathered over the data axis and folded with
+        all-gathered over the data axis (and the processes) and folded with
         `merge_sparse_states` in shard order per group slice.  Returns the
         merged state per slice."""
         la, G = lowering.la, lowering.num_groups
@@ -748,9 +772,10 @@ class DistributedEngine:
         for g in range(ng):
             col = [states[d * ng + g] for d in range(nd)]
             keys = _SPARSE_STATE_KEYS + _SPARSE_FLAG_KEYS
-            gathered = {k: gather_states([st[k] for st in col]) for k in keys}
+            gathered = {k: gather_states([st[k] for st in col],
+                                         across_processes=self.processes > 1) for k in keys}
             acc = {k: gathered[k][0] for k in keys}
-            for i in range(1, nd):
+            for i in range(1, len(gathered[keys[0]])):
                 acc = sg.merge_sparse_states(acc, {k: gathered[k][i] for k in keys}, G)
             out.append(acc)
         return out
@@ -829,7 +854,7 @@ class DistributedEngine:
     def _presence(self, q, ds, lowering, segs, m) -> List[np.ndarray]:
         """Rows per code of each grouped dimension under the row mask: every
         data shard's counts (its blocks' summed in row order), summed
-        across shards."""
+        across shards and processes."""
         from ..exec.adaptive_exec import presence_columns, presence_one
 
         need = presence_columns(q, lowering, ds)
@@ -838,6 +863,8 @@ class DistributedEngine:
         per_shard = []
         with span(SPAN_ADAPTIVE_PROBE, shards=len(cols) // ng):
             for p in range(0, len(cols), ng):  # one position per data shard
+                if cols[p] is None:
+                    continue  # another process's
                 c = lowering.add_virtual(dict(cols[p]))
                 counts = None
                 for lo, hi in _row_blocks(local):
@@ -845,7 +872,8 @@ class DistributedEngine:
                                           counts, _kernel_class(self.mesh.flat()[p]))
                 per_shard.append(torch.cat(counts))
             m.dispatch_count += 1
-            host = reduce_states(per_shard, "sum").cpu().numpy()
+            host = reduce_states(per_shard, "sum",
+                                 across_processes=self.processes > 1).cpu().numpy()
         out, at = [], 0
         for d in lowering.dims:
             out.append(host[at:at + d.cardinality])
@@ -897,6 +925,12 @@ class DistributedEngine:
         (its groups axis is 1 wherever the arena runs)."""
         return self._arena_mesh().flat()
 
+    def _owned_row_devices(self) -> List[Tuple[int, torch.device]]:
+        """(r, device) of the row devices this process holds: their blocks
+        alone are stacked, placed and folded here."""
+        devs = self._row_devices()
+        return [(r, devs[r]) for r in multihost.owned(len(devs), self.processes, self.rank)]
+
     def _arena_layout(self, ds: DataSource, m=None):
         """The stacked layout of `ds`, or None where the arena declines:
         the session flag or the per-query opt-out, a groups axis, fewer
@@ -932,26 +966,29 @@ class DistributedEngine:
         else:
             ns, nd = 1, self.mesh.shape[DATA_AXIS]
         tree, flat_us, hier_us = choose_merge_tree(sbytes, ns, nd, self.cost_config)
-        if self.slice_mesh is None:
+        if self.processes > 1:
+            tree = "hierarchical"  # the processes are the slices
+        elif self.slice_mesh is None:
             tree = "flat"
         return tree, flat_us, hier_us
 
-    def _arena_stacks(self, ds, layout, names, m) -> List[Dict]:
-        """Each row device's `[L, R]` stacks of `names` and the validity
-        mask (None), placed once per datasource version."""
-        out = []
+    def _arena_stacks(self, ds, layout, names, m) -> Dict[int, Dict]:
+        """This process's row devices' `[L, R]` stacks of `names` and the
+        validity mask (None), by row device, placed once per datasource
+        version."""
+        out = {}
         base = (ds.name, "spmd_arena", layout.ndt, layout.uids)
         t0 = time.perf_counter()
         placed = m.h2d_bytes
         with span(SPAN_ARENA_BUILD, datasource=ds.name, blocks=layout.B, shards=layout.ndt):
-            for r, dev in enumerate(self._row_devices()):
+            for r, dev in self._owned_row_devices():
                 stacks = {}
                 for name in list(names) + [None]:
                     key = base + (name, r, str(dev))
                     stacks[name] = self._place(
                         key, lambda name=name, r=r: spmd_arena.stack_column(layout, name, r),
                         dev, m)
-                out.append(stacks)
+                out[r] = stacks
         if m.h2d_bytes > placed:
             span_event("shard_h2d", datasource=ds.name, bytes=m.h2d_bytes - placed,
                        shards=layout.ndt, ms=round((time.perf_counter() - t0) * 1e3, 3))
@@ -985,6 +1022,10 @@ class DistributedEngine:
         return prog
 
     def _chunked(self) -> bool:
+        """Deadline chunking, in one process only: ranks that stopped at
+        different steps would merge different scopes."""
+        if self.processes > 1:
+            return False
         d = current_deadline()
         import math
 
@@ -1029,7 +1070,7 @@ class DistributedEngine:
         capturable = "segment" not in kstrats
         if not capturable:
             m.declines.append("arena: the scatter strategy's nonzero has a data-dependent size")
-        devs = self._row_devices()
+        devs = [dev for _, dev in self._owned_row_devices()]
         t0 = time.perf_counter()
         if self._chunked():
             carries = self._arena_steps(ds, layout, lowerings, kstrats, stacks, memb, scopes,
@@ -1042,7 +1083,8 @@ class DistributedEngine:
                            hier_us=round(hier_us, 3), shards=layout.ndt,
                            slices=self._slice_count())
                 with prof.shard_timer(devs) as clock:
-                    for r, dev in enumerate(devs):  # every device launched before the merge
+                    for i, (r, dev) in enumerate(self._owned_row_devices()):
+                        # every device launched before the merge
                         steps = [(k, j_lo + k) for k in range(Lk)
                                  if layout.block(r, j_lo + k) is not None]
                         key = base + ("window", j_lo, Lk, r, str(dev))
@@ -1052,9 +1094,9 @@ class DistributedEngine:
                                                          buf, ds.time_column, share)
 
                         prog = self._program(key, r, dev, make_body, Lk, n, m, capturable)
-                        clock.start(r)
+                        clock.start(i)
                         outs = prog.run(spmd_arena.shard_membership(layout, memb, r, j_lo, Lk))
-                        clock.stop(r)
+                        clock.stop(i)
                         m.graph_replays += prog.graph is not None
                         carries.append([tuple(outs[3 * i:3 * i + 3]) for i in range(n)])
                 m.dispatch_count += 1

@@ -33,11 +33,17 @@ with one participant, not a fallback.  `merge_tree` orders the reductions:
 flat over every row shard, or, on a slice mesh, within each slice first and
 then across slices.
 
+A mesh may span processes (`parallel/multihost.hybrid_mesh`): `processes`
+ranks, each holding a contiguous run of the data axis (its slice).  A
+process holds only its own positions' states, so the merge gains a last
+step (`across_processes`): each process's result is all-gathered over
+`torch.distributed` and folded in rank order, the same bits on every rank.
+Its order is the hierarchical tree's: a P-process x D-device run equals the
+one-process P-slice x D slice mesh under that tree.
+
 The reference's `shard_map_compat`, `row_sharding` and `replicated` have no
 counterpart: the port places each shard on its device itself
 (`parallel/distributed.py`), and there is no SPMD program to annotate.
-Processes on several hosts over `torch.distributed` are a later slice
-(`parallel/multihost.py` in the reference).
 """
 
 from __future__ import annotations
@@ -60,14 +66,23 @@ _NCCL_OPS = {"sum": 0, "max": 2, "min": 3}
 
 class Mesh:
     """A 2-D array of devices with named axes.  `shape` maps each axis name
-    to its size, in axis order, like the reference's `Mesh.shape`."""
+    to its size, in axis order, like the reference's `Mesh.shape`.  Over
+    several processes, `processes` ranks split the first axis into
+    contiguous runs (`multihost.owned`) and this one is `rank`; the
+    positions of other ranks name this process's devices and are never
+    placed."""
 
-    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, str]):
+    def __init__(self, devices: np.ndarray, axis_names: Tuple[str, str], processes: int = 1,
+                 rank: int = 0):
         if devices.ndim != 2 or len(axis_names) != 2:
             raise ValueError("a mesh is a 2-D array of devices with two axis names")
+        if devices.shape[0] % processes:
+            raise ValueError(f"{devices.shape[0]} rows do not split over {processes} processes")
         self.devices = devices
         self.axis_names = tuple(axis_names)
         self.shape: Dict[str, int] = dict(zip(self.axis_names, devices.shape))
+        self.processes = int(processes)
+        self.rank = int(rank)
 
     @property
     def size(self) -> int:
@@ -82,7 +97,10 @@ class Mesh:
         return list(dict.fromkeys(self.flat()))
 
     def describe(self) -> dict:
-        return {"axes": self.shape, "devices": [str(d) for d in self.flat()]}
+        d = {"axes": self.shape, "devices": [str(d) for d in self.flat()]}
+        if self.processes > 1:
+            d.update(processes=self.processes, rank=self.rank)
+        return d
 
     def __repr__(self) -> str:
         return f"Mesh({self.shape}, {[str(d) for d in self.flat()]})"
@@ -169,11 +187,14 @@ def _fold(op: str) -> Callable:
     raise ValueError(f"unknown reduction {op!r}")
 
 
-def reduce_states(parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
+def reduce_states(parts: Sequence[torch.Tensor], op: str,
+                  across_processes: bool = False) -> torch.Tensor:
     """`parts` (one per shard, in shard order, each on its shard's device)
     reduced by `op` ("sum", "min", "max") onto the first shard's device:
     on each device the shards it holds fold in shard order, then NCCL
-    reduces the per-card results across distinct cards."""
+    reduces the per-card results across distinct cards, then, with
+    `across_processes`, every process's result folds in rank order
+    (`multihost.process_fold`)."""
     fold = _fold(op)
     per_dev: Dict[torch.device, torch.Tensor] = {}
     for t in parts:
@@ -181,10 +202,16 @@ def reduce_states(parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
         per_dev[t.device] = t if acc is None else fold(acc, t)
     outs = list(per_dev.values())
     if len(outs) == 1:
-        return outs[0]
-    if any(t.device.type != "cuda" for t in outs):
+        out = outs[0]
+    elif any(t.device.type != "cuda" for t in outs):
         raise ValueError(f"shards on distinct non-CUDA devices: {[str(t.device) for t in outs]}")
-    return _nccl_reduce(outs, op)
+    else:
+        out = _nccl_reduce(outs, op)
+    if across_processes:
+        from .multihost import process_fold
+
+        out = process_fold(out, fold)
+    return out
 
 
 def _nccl_reduce(outs: List[torch.Tensor], op: str) -> torch.Tensor:
@@ -201,10 +228,23 @@ def _nccl_reduce(outs: List[torch.Tensor], op: str) -> torch.Tensor:
     return result
 
 
-def gather_states(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
+def gather_states(parts: Sequence[torch.Tensor],
+                  across_processes: bool = False) -> List[torch.Tensor]:
     """Every shard's tensor on the first shard's device, in shard order:
     across distinct cards an NCCL all-gather of each card's shards (same
-    shapes), on one device the parts as they are."""
+    shapes), on one device the parts as they are; with `across_processes`,
+    every process's shards after this process's step, in rank order (the
+    global shard order)."""
+    local = _gather_local(parts)
+    if not across_processes:
+        return local
+    from .multihost import all_gather
+
+    per_rank = all_gather(torch.stack(local))
+    return [t for block in per_rank for t in block]
+
+
+def _gather_local(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
     root = parts[0].device
     devs = list(dict.fromkeys(t.device for t in parts))
     if len(devs) == 1:
@@ -235,7 +275,12 @@ def gather_states(parts: Sequence[torch.Tensor]) -> List[torch.Tensor]:
 
 def merge_tree(mesh: Mesh, tree: str, parts: Sequence[torch.Tensor], op: str) -> torch.Tensor:
     """The row shards' `parts` reduced by `op` in the order of `tree`
-    (`merge_groups`): each group reduced, then the groups' results."""
+    (`merge_groups`): each group reduced, then the groups' results.  Over
+    processes `parts` are this process's shards, its slice: they reduce,
+    then the processes' results fold in rank order (the hierarchical tree,
+    whatever `tree` says: a process's shards are one group)."""
+    if mesh.processes > 1:
+        return reduce_states(parts, op, across_processes=True)
     groups = merge_groups(mesh, tree)
     if len(groups) == 1:
         return reduce_states([parts[i] for i in groups[0]], op)

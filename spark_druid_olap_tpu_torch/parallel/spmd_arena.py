@@ -13,7 +13,9 @@ layout and the fold, and captures each device's share as a CUDA graph
   column; a runt tail block (an append's delta) is zero-padded with False
   validity.  The stacks are keyed by the full segment signature, never by
   a query's scope, so residency lasts across every query of a datasource
-  version.
+  version.  Over several processes a rank stacks only its own row
+  devices' blocks (`DistributedEngine._owned_row_devices`): with one device
+  a rank, block b lives on rank b % P, its `multihost.local_segments`.
 * **Membership and window as data.**  A query's scope is the local-step
   window `[j_lo, j_lo + Lk)` covering its blocks and a membership flag per
   (block, member).  A device's program folds every block of the window

@@ -39,7 +39,9 @@ time:
     path above runs on the CPU and on the card alike.
     The durable storage tier's stages are sites too (`STORAGE_SITES`): a
     test raises at one and boots a new context over the same directory,
-    which is what a process killed there leaves behind.
+    which is what a process killed there leaves behind.  So are the
+    cluster's (`CLUSTER_SITES`): a refused or slow replica, a torn
+    response, a historical that dies serving.
 
   * **Admission control.**  The server gates every query on a bounded slot
     pool with a queue-wait timeout (`AdmissionController`), after the
@@ -512,6 +514,20 @@ STORAGE_SITES = (
     "persist.snapshot_rename",  # before the snapshot.json commit rename
     "compact.retire",  # before retired column files are deleted
     "storage.replay_batch",  # before a replayed batch is applied
+)
+
+# the cluster tier's fault sites (cluster/): the broker fires the first two
+# in its scatter and gather loops (checkpoints, so deadlines stop there
+# too), the next two inside one replica attempt (the network's failures),
+# the historical the fifth while it serves a partial, and the federated
+# scrape the last once per node
+CLUSTER_SITES = (
+    "cluster.scatter",  # broker: before each replica attempt of a chain walk
+    "cluster.gather",  # broker: before each replica state is merged
+    "cluster.rpc",  # broker: inside one attempt (error: refused or timed out; delay: slow)
+    "cluster.torn_response",  # broker: partial mode truncates the response body
+    "cluster.historical_kill",  # historical: dies while serving a partial
+    "cluster.federate",  # broker: before each node's scrape
 )
 
 

@@ -199,6 +199,9 @@ class ServingCore:
         hit, declines = self._cached(q, ds, key, post=post, strategy=strategy, engine=engine)
         if hit is not None:
             return hit
+        cluster = getattr(self.ctx, "cluster", None)
+        if execute is None and cluster is not None and cluster.covers(q, ds):
+            return self._cluster_answer(cluster, q, ds, key, post)
         engine = engine or self.ctx.engine
         state = None
         fused = (self.fused_execute(q, ds, engine=engine, strategy=strategy)
@@ -226,6 +229,24 @@ class ServingCore:
         if key is not None and (pc is None or not pc.triggered):
             self.result_cache.put(key, df, version=ds.version,
                                   uids=frozenset(s.uid for s in ds.segments), state=state)
+        return df
+
+    def _cluster_answer(self, cluster, q, ds, key, post):
+        """A broker's answer (`cluster/broker.py`): the historicals' states
+        merged with the broker's own delta segments'.  The result cache
+        rides the broker (a hit never scatters), fusion stays local, and
+        the answer is cached as a frame alone (no local state to refresh
+        from), never when it is a coverage-stamped partial."""
+        from ..resilience import current_partial
+
+        df = cluster.execute(q, ds)
+        self.ctx._stamp_metrics(cluster.last_metrics)
+        if post is not None:
+            df = post(df)
+        pc = current_partial()
+        if key is not None and (pc is None or not pc.triggered):
+            self.result_cache.put(key, df, version=ds.version,
+                                  uids=frozenset(s.uid for s in ds.segments), state=None)
         return df
 
     def _delta_refresh(self, q, ds, key, entry, post=None, strategy=None, engine=None):

@@ -9,9 +9,11 @@ and dashboards can point at it:
     GET  /druid/v2/datasources/{name}     -> {"dimensions": .., "metrics": ..}
     GET  /druid/v2/trace/{query_id}       -> span tree (and cost receipt) of a recent query
     POST /druid/v2/ingest/{datasource}    streamed rows -> {"appended", "datasourceVersion", "totalRows"}
-    GET  /status, /status/health          -> liveness, breakers, admission, storage, last metrics
-    GET  /status/metrics                  -> Prometheus text exposition
-    GET  /status/profile                  -> the rolling workload profile
+    POST /druid/v2/cluster/partial        a historical's partial state over given segments (cluster/)
+    GET  /status, /status/health          -> liveness, breakers, admission, storage, cluster, last metrics
+    GET  /status/metrics[?cluster=1]      -> Prometheus text exposition (a broker's: every node's)
+    GET  /status/profile[?cluster=1]      -> the rolling workload profile (a broker's: every node's)
+    GET  /status/kernels                  -> this process's group-by kernel launches, by shape
 
 Every query response carries `X-Druid-Query-Id` (the client's
 `context.queryId` when set, generated otherwise); the id keys the query's
@@ -23,8 +25,15 @@ collector; a partial answer and, on a sampled query, the cost receipt ride
 nothing internal in it (the traceback goes to the log), 503 with
 Retry-After when admission or a lane is full, the device breaker is open
 and the query cannot degrade, or the node is replaying its WAL at boot,
-504 on an expired deadline.  The cluster's scatter route of the JAX
-package answers 501 until the cluster tier is ported.
+504 on an expired deadline.
+
+A context with a `ClusterClient` attached is a broker: a native or SQL
+query it covers scatters to the historicals and their states merge
+(`cluster/broker.py`).  A historical answers the broker's
+`POST /druid/v2/cluster/partial` ({"query", "segments", "version"}) with
+its partial state over exactly those segments, 409 when its snapshot
+version or segment ids disagree with the broker's assignment, and 503 while
+it replays its WAL.
 
     POST /druid/v2/ingest/{datasource}    {"rows": [...]} | {"columns": {...}} -> ack
 
@@ -89,10 +98,12 @@ def _route_label(path: str) -> str:
         "/druid/v2/datasources",
         "/druid/v2/sql",
         "/druid/v2/ingest",
+        "/druid/v2/cluster",
         "/druid/v2",
         "/status/metrics",
         "/status/health",
         "/status/profile",
+        "/status/kernels",
         "/status",
     ):
         if path == prefix or path.startswith(prefix + "/"):
@@ -247,6 +258,16 @@ class _Handler(BaseHTTPRequestHandler):
     def _tracer(self):
         return getattr(self.ctx, "tracer", None) or default_tracer()
 
+    def _cluster_scrape(self):
+        """The broker's ClusterClient when the GET asked `?cluster=1`."""
+        from urllib.parse import parse_qs, urlparse
+
+        cluster = getattr(self.ctx, "cluster", None)
+        if cluster is None:
+            return None
+        qs = parse_qs(urlparse(self.path).query)
+        return cluster if qs.get("cluster", ["0"])[0] in ("1", "true") else None
+
     def do_GET(self):
         import time as _time
 
@@ -267,10 +288,24 @@ class _Handler(BaseHTTPRequestHandler):
             # progress, dirty deltas (what a restart would replay)
             storage = getattr(self.ctx, "storage", None)
             doc["storage"] = storage.state() if storage is not None else {"enabled": False}
+            # a broker's: each historical's liveness and breaker, the
+            # assignment epoch and the replication deficit, served through
+            # any breaker state
+            cluster = getattr(self.ctx, "cluster", None)
+            if cluster is not None:
+                doc["cluster"] = cluster.state()
             return self._send(200, doc)
         if path == "/status/metrics":
             # Prometheus text exposition of the process registry (engine,
-            # resilience, serving, http counters, phase histograms)
+            # resilience, serving, http counters, phase histograms);
+            # ?cluster=1 on a broker merges every historical's under a
+            # `node` label, a dead one stamped stale (cluster/federation.py)
+            cluster = self._cluster_scrape()
+            if cluster is not None:
+                return self._send_bytes(
+                    200, cluster.federated_metrics().encode(),
+                    "text/plain; version=0.0.4; charset=utf-8",
+                )
             return self._send_bytes(
                 200,
                 get_registry().render_prometheus().encode(),
@@ -292,11 +327,22 @@ class _Handler(BaseHTTPRequestHandler):
                 except (KeyError, IndexError, TypeError, ValueError):
                     return None
 
-            return self._send(200, profile_doc(
+            local = profile_doc(
                 config=getattr(self.ctx, "config", None),
                 top_k=_num("k", int),
                 window_s=_num("window_s", float),
-            ))
+            )
+            cluster = self._cluster_scrape()
+            if cluster is not None:
+                return self._send(200, cluster.federated_profile(local))
+            return self._send(200, local)
+        if path == "/status/kernels":
+            # the hand-written kernel's launches in this process, by shape
+            # and with the most rows one took (how a historical reports
+            # what it ran to the process that checks the shapes)
+            from .ops import cuda_groupby
+
+            return self._send(200, cuda_groupby.launch_record())
         if path.startswith("/druid/v2/trace/"):
             qid = path.rsplit("/", 1)[1]
             tr = self._tracer().ring.get(qid)
@@ -373,10 +419,7 @@ class _Handler(BaseHTTPRequestHandler):
         if path.startswith("/druid/v2/ingest/"):
             return self._ingest(path.rsplit("/", 1)[1], body)
         if path == "/druid/v2/cluster/partial":
-            return self._error(
-                501, "the cluster tier is not available in this package yet",
-                "UnsupportedOperationException",
-            )
+            return self._cluster_partial(body)
         if path not in ("/druid/v2", "/druid/v2/sql"):
             return self._error(404, f"no route {path!r}", "NotFound")
         # A non-dict context is client noise, not a server error: ignore it.
@@ -503,6 +546,113 @@ class _Handler(BaseHTTPRequestHandler):
         finally:
             if res is not None:
                 res.ingest_admission.release()
+
+    def _cluster_partial(self, body: dict):
+        """POST /druid/v2/cluster/partial: a historical's scatter route.
+        Body: {"query": a native query, "segments": [segment_id, ...] or
+        null (the whole scope), "version": the snapshot version the
+        broker's assignment expects, "context": {...}}.  Answers the host
+        partial state over exactly those segments, wire-encoded, with the
+        snapshot version, the segment ids served, this node's receipt and
+        its rendered trace (which the broker grafts under its attempt's
+        span).  503 with Retry-After while the WAL replays; 409 when the
+        version or a segment id disagrees with the catalog (the broker
+        fails over, never merges a wrong state)."""
+        from .cluster.wire import HEADER_PARENT_SPAN, HEADER_QUERY_ID, encode_state, encode_trace
+        from .resilience import fire
+
+        res = self._resilience()
+        cfg = getattr(self.ctx, "config", None)
+        qctx = body.get("context")
+        qctx = qctx if isinstance(qctx, dict) else {}
+        client_qid = qctx.get("queryId") or self.headers.get(HEADER_QUERY_ID)
+        self._query_id = str(client_qid) if client_qid else new_query_id()
+        parent_span = str(self.headers.get(HEADER_PARENT_SPAN) or "")
+        storage = getattr(self.ctx, "storage", None)
+        if storage is not None and storage.replay_in_progress:
+            return self._error(
+                503, "node is recovering (WAL replay in progress); retry later",
+                "QueryUnavailableException",
+                headers={"Retry-After": res.admission.retry_after_s() if res is not None else 1},
+            )
+        qdoc = body.get("query")
+        if not isinstance(qdoc, dict):
+            return self._error(400, 'body must carry a native "query" object',
+                               "BadQueryException")
+        if not self._admit(res):
+            return None
+        try:
+            # fault site: an armed error is this historical dying while it
+            # serves (the broker fails over); a delay is a slow replica
+            fire("cluster.historical_kill")
+            q = query_from_druid(qdoc)
+            ds = self.ctx.catalog.get(q.datasource)
+            if ds is None:
+                return self._error(400, f"unknown dataSource {q.datasource!r}",
+                                   "BadQueryException")
+            # the snapshot version, the same in every process that booted
+            # this store (the live version is this process's own)
+            have = storage.snapshot_version(q.datasource) if storage is not None else None
+            if have is None:
+                have = int(ds.version)
+            expect = body.get("version")
+            if expect is not None and have != int(expect):
+                return self._error(
+                    409,
+                    f"datasource {q.datasource!r} at snapshot version {have}, the broker's "
+                    f"assignment expects {int(expect)}; rebalance and retry",
+                    "VersionMismatchException",
+                )
+            want = body.get("segments")
+            by_id = {s.segment_id: s.uid for s in ds.segments}
+            if want is None:
+                uids = None
+                served = sorted(by_id)
+            else:
+                missing = [sid for sid in want if sid not in by_id]
+                if missing:
+                    return self._error(
+                        409, f"unknown segments {missing[:4]} (assignment and catalog "
+                        "disagree); rebalance and retry", "VersionMismatchException")
+                uids = frozenset(by_id[sid] for sid in want)
+                served = [str(sid) for sid in want]
+            node = getattr(self.ctx, "cluster_node_id", "")
+            with self._tracer().query_trace(
+                query_id=self._query_id, query_type="cluster_partial",
+                slow_ms=cfg.slow_query_ms if cfg else 0.0, parent_span_id=parent_span,
+            ) as tr:
+                tr.root.attrs["node"] = node
+                self.ctx._sync_engine_resilience(self.ctx.engine)
+                state, m = self.ctx.engine.groupby_partials_host(q, ds, within_uids=uids)
+            doc = {
+                "node": node,
+                "version": int(have),
+                "rows": int(m.rows_scanned),
+                "segments": served,
+                "state": encode_state(state),
+            }
+            if tr.receipt:
+                # folded into the broker's receipt under this node
+                doc["receipt"] = tr.receipt
+            subtree = encode_trace(tr.to_dict())
+            if subtree is not None:
+                doc["trace"] = subtree
+            return self._send(200, doc)
+        except (WireError, ValueError) as e:
+            return self._error(400, str(e), "BadQueryException")
+        except DeadlineExceeded as e:
+            if res is not None:
+                res.note_deadline_exceeded()
+            return self._error(504, str(e), "QueryTimeoutException")
+        except Exception as e:
+            log.error("cluster partial failed: %s", type(e).__name__, exc_info=True)
+            if res is not None:
+                res.note_server_error(e)
+            return self._error(500, "cluster partial failed; see server logs",
+                               type(e).__name__)
+        finally:
+            if res is not None:
+                res.admission.release()
 
     def _handle_query(self, path, body, qctx, res, cfg):
         # a recovering node is busy, not wedged: while boot replay applies

@@ -166,6 +166,16 @@ class DurableStorage:
         )
         return snap
 
+    def snapshot_version(self, name: str) -> Optional[int]:
+        """The datasource version of the last snapshot this process flushed
+        or booted.  The live catalog version moves with every republish in
+        one process; this one is the same in every process that shares the
+        directory at the same snapshot, so the cluster pins it in its
+        assignment and checks it on every scatter."""
+        with self._lock:
+            v = self._snap_versions.get(name)
+        return int(v) if v is not None else None
+
     # -- background flush sweep ----------------------------------------------
 
     def _dirty(self, name: str) -> bool:

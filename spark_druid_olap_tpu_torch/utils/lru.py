@@ -66,6 +66,13 @@ class ByteBudgetCache:
             self._bytes += int(arr.nbytes)
             self._evict()
 
+    def set_budget(self, budget_bytes: int) -> None:
+        """A new byte budget, the least recently used entries past it
+        evicted at once."""
+        with self._lock:
+            self.budget_bytes = int(budget_bytes)
+            self._evict()
+
     def __delitem__(self, key):
         with self._lock:
             old = self._od.pop(key)

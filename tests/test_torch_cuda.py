@@ -1114,3 +1114,58 @@ def test_mesh_over_real_cards_merges_with_nccl(card):
             got = eng.execute(q, ds)
         assert eng.last_metrics.mesh_shape == (n, 1)
         _mesh_frames_close(got, one.execute(q, ds))
+
+
+# -- processes and the cluster on the card -------------------------------------
+
+
+def test_two_ranks_on_one_card_over_gloo_equal_the_slice_mesh(card, tmp_path):
+    """Two processes on the card, merged over gloo through the host (NCCL
+    will not put two ranks on one card): every case of
+    `test_torch_multihost` bit-equal on both ranks and to this process's
+    2 x 1 slice mesh of the card under the hierarchical tree, each rank
+    holding half its residency."""
+    from spark_druid_olap_tpu_torch.parallel import mesh as tmesh
+    from test_torch_multihost import CASES, run_cases, spawn
+
+    ranks = spawn(tmp_path, 2, 1, device="cuda:0")
+    single = run_cases(tmesh.make_slice_mesh(2, 1, [card] * 2))
+    for res in ranks:
+        assert res["info"]["process_count"] == 2
+        for case, *_ in CASES:
+            pd.testing.assert_frame_equal(res[case]["frame"], single[case]["frame"],
+                                          check_exact=True)
+            assert res[case]["strategy"] == single[case]["strategy"]
+            assert res[case]["resident"] * 2 == single[case]["resident"] > 0, case
+
+
+def test_historical_on_the_card_answers_as_a_cpu_historical(card, tmp_path):
+    """A broker over one historical on the card and one over a CPU
+    historical, both booted from one store: the same frames (sums within
+    rtol 1e-5: the kernel and its plain version add in other orders), the
+    card's partials launched by the kernel."""
+    from spark_druid_olap_tpu_torch.cluster import ClusterClient, HistoricalNode
+
+    broker = TPUOlapContext(SessionConfig(storage_dir=str(tmp_path)), device="cpu")
+    ssb.register(broker, scale=0.01, rows_per_segment=8192)
+    ds = broker.catalog.get("lineorder")
+    frames = {}
+    for dev in (card, "cpu"):
+        node = HistoricalNode(f"h-{torch.device(dev).type}", str(tmp_path), device=dev).start()
+        client = ClusterClient(broker, nodes={node.node_id: node.url}, replication=1)
+        try:
+            before = cg.LAUNCHES
+            cases = {"q1_1": ssb.NATIVE_QUERIES["q1_1"], "q4_1": ssb.NATIVE_QUERIES["q4_1"],
+                     "timeseries": ssb.TIMESERIES_QUERY, "topn": ssb.TOPN_QUERY}
+            for name, q in cases.items():
+                assert client.covers(q, ds), name
+                frames.setdefault(name, {})[str(dev)] = client.execute(q, ds)
+                assert client.last_metrics.executor == "cluster" and not client.last_metrics.partial
+            if torch.device(dev).type == "cuda":
+                assert cg.LAUNCHES > before
+        finally:
+            client.close()
+            node.shutdown()
+    for name, got in frames.items():
+        _mesh_frames_close(got[str(card)], got["cpu"])
+    broker.close()

@@ -54,7 +54,9 @@ def test_importing_the_port_loads_no_jax():
                   "ingest", "ingest.shard", "ingest.delta", "ingest.compact",
                   "ingest.wal", "catalog.persist", "storage", "obs.telemetry",
                   "config", "plan.calibrate", "plan.planner", "parallel.mesh",
-                  "parallel.distributed", "parallel.spmd_arena")
+                  "parallel.distributed", "parallel.spmd_arena", "parallel.multihost",
+                  "cluster", "cluster.wire", "cluster.assignment", "cluster.historical",
+                  "cluster.broker", "cluster.federation")
     } <= set(out)
     assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []

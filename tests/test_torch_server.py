@@ -9,8 +9,9 @@ fixture's `finally`; every request has a 30 s timeout.
 * Errors: equal structured error objects for 400 and 404; 503 with
   Retry-After when admission is full, and per lane while the other lane
   admits; 504 on an expired deadline; 200 with the partial coverage header
-  under `partialResults`; 500 leaks nothing internal.  The cluster route,
-  not ported yet, answers 501; the ingest route acknowledges as the
+  under `partialResults`; 500 leaks nothing internal.  The cluster's
+  scatter route answers a body without a query as the reference's does
+  (`test_torch_cluster.py` holds it); the ingest route acknowledges as the
   reference's does (`test_torch_ingest.py` holds it).
 * Observability: `X-Druid-Query-Id` echoes `context.queryId`, the trace is
   served with the reference's span-name tree, `/status/metrics` counts the
@@ -205,8 +206,11 @@ def test_get_404s_equal_the_reference(servers, path):
 
 def test_unported_routes_answer_501(servers):
     rbase, pbase, _, _ = servers
-    status, _, body = _call(pbase, "/druid/v2/cluster/partial", {"rows": []})
-    assert status == 501 and body["errorClass"] == "UnsupportedOperationException"
+    # the cluster's scatter route is ported: a body without a native query
+    # is a 400, as the reference's (tests/test_torch_cluster.py holds it)
+    path = "/druid/v2/cluster/partial"
+    (rs, _, rbody), (ps, _, pbody) = _call(rbase, path, {"rows": []}), _call(pbase, path, {"rows": []})
+    assert ps == rs == 400 and pbody["errorClass"] == rbody["errorClass"] == "BadQueryException"
     # the ingest route is ported: an empty append acknowledges as the
     # reference's does (tests/test_torch_ingest.py holds the route)
     path = "/druid/v2/ingest/lineorder"
