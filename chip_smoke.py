@@ -24,7 +24,9 @@ Phases, one JSON line each:
    through the wrapper on the host clock (`call_ms`, CUDA events around
    one Python call); the plain version (`plain_ms`, CUDA events); and, to
    see what holds the kernel back, its device time per pass (`pass_ms`),
-   on L2-resident inputs (`l2_ms`) and with every row masked (`floor_ms`);
+   and at the headline shape and the first sorted one also on L2-resident
+   inputs (`l2_ms`) and with every row masked (`floor_ms`; at every shape
+   until phase 19 came);
 4. main path: SSB (SF10: 60M lineorder rows in 512K-row time-sorted
    segments, resident on the card) and TPC-H lineitem (SF1), the 13 SSB
    queries, TPC-H Q1, a Timeseries and a TopN through
@@ -160,7 +162,8 @@ Phases, one JSON line each:
    the scope's, frames bit-identical on and off and equal to the float64
    oracle over those segments' rows (rtol 2e-5), partial.  (b) Wall-clock
    deadlines at about half each query's warm p50 (the ordered top-100
-   Scan, cube_theta, TPC-H q18 on the fallback; the stream in phase 13):
+   Scan, cube_theta, TPC-H q18 on the fallback, the last two at the p50s
+   phases 7 and 10 measured; the stream in phase 13):
    wall, overshoot past the timeout and coverage reported, the run failing
    only where the overshoot passes the p50 (no checkpoint reached).  (c)
    Every query of phase 9 with no deadline and one armed that never
@@ -348,8 +351,34 @@ Phases, one JSON line each:
    /status/kernels` before it is killed), each checked against phase 3's
    shapes and rows; the kernels line counts them as `launches_multihost`
    and `launches_cluster`.
+19. csv (last, after the stream frees its host memory): CSV ingest through
+   the port's native decoder (`native/`, built with g++ on first use).  A
+   worker process (`--csv-worker`, started after phase 3, beside phases 4
+   onwards: host work only) writes SSB SF1 (6M lineorder rows) under a
+   temporary directory as CSV (the flat lineorder as 8 sharded files and
+   as one file, and the four dimension tables) and makes the reference:
+   the one file through `pd.read_csv` (timed alone) and the sharded build,
+   saved with `catalog.persist.save_datasource`.  Phase 19 loads that
+   reference, then lineorder through the native decoder: the one file
+   through `register_table` (the native decode and encode), the shards
+   through `ingest/shard.build_datasource_from_csv` (the files decoded in
+   parallel, their dictionaries merged); the dimension tables through
+   `register_table`, every native load checked to have read natively,
+   with no decline.  The native loads' segments equal the pandas
+   load's (dictionaries, codes, metrics, zone maps), and the 13 SSB queries
+   as SQL on the card over each load, every context pinned to the adaptive
+   class (so every pass at most 4096 wide is the kernel's, the tier's
+   presence passes included), launch the kernel for every query and
+   answer as the pandas load does: keys exact, sums within rtol 1e-6.
+   Reported beside the card's name and power limit: rows per second of
+   `pd.read_csv` and of the native decode over the one file, back to back
+   in the worker right after it wrote the file (both from the page cache),
+   and of the native decode inside phase 19's `register_table`; the
+   write, build and register seconds; per query the ms and launches of
+   each load.
+   Every launch is at a (G, Ms, Mn, Mx) phase 3 checked.
 
-Every kernel launch of phases 4 to 18, children included, CUDA graph replays included
+Every kernel launch of phases 4 to 19, children included, CUDA graph replays included
 (`cuda_groupby.LAUNCH_SHAPES`), is at a (G, Ms, Mn, Mx) that phase 3
 checked, or the run fails.  The arena is on (the default) in every phase
 but where phase 9 turns it off.
@@ -652,9 +681,10 @@ def check_kernel_shape(R, G, Ms, Mn, Mx, device, seed, mask_p=0.8, layout="rando
     return args, max_abs, max_rel
 
 
-def time_kernel(args, R, G, Ms, Mn, Mx, device):
+def time_kernel(args, R, G, Ms, Mn, Mx, device, diagnose=False):
     """Times of the kernel, its plain version and the library call at one
-    shape, beside the bound."""
+    shape, beside the bound; with `diagnose`, also on L2-resident inputs and
+    with every row masked."""
     set_bytes = sum(t.numel() * t.element_size() for t in args)
     n = max(20, -(-int(ROTATE_BYTES) // set_bytes))
     sets = [args] + [[t.clone() for t in args] for _ in range(n - 1)]
@@ -662,15 +692,18 @@ def time_kernel(args, R, G, Ms, Mn, Mx, device):
     launch = 2 * n  # a partial pass and a fold pass per call
     ms, timer, by_name, events = device_ms(
         lambda i: cuda_groupby.cuda_partial_aggregate(*sets[i], **kw), n, launch)
-    # the same launch on L2-resident inputs, and with every row masked
-    # (staging, set-up and the combines only): what is left when HBM and the
-    # per-row work are taken away
-    l2_ms, _, _, l2_events = device_ms(
-        lambda i: cuda_groupby.cuda_partial_aggregate(*args, **kw), n, launch)
-    masked = [[g, torch.zeros_like(m), sv, mmv, mmm] for g, m, sv, mmv, mmm in sets]
-    floor_ms, _, _, floor_events = device_ms(
-        lambda i: cuda_groupby.cuda_partial_aggregate(*masked[i], **kw), n, launch)
-    del masked
+    l2_ms = floor_ms = None
+    l2_events = floor_events = {}
+    if diagnose:
+        # the same launch on L2-resident inputs, and with every row masked
+        # (staging, set-up and the combines only): what is left when HBM
+        # and the per-row work are taken away
+        l2_ms, _, _, l2_events = device_ms(
+            lambda i: cuda_groupby.cuda_partial_aggregate(*args, **kw), n, launch)
+        masked = [[g, torch.zeros_like(m), sv, mmv, mmm] for g, m, sv, mmv, mmm in sets]
+        floor_ms, _, _, floor_events = device_ms(
+            lambda i: cuda_groupby.cuda_partial_aggregate(*masked[i], **kw), n, launch)
+        del masked
     lib_in = [
         (torch.where(m, g.long(), torch.full_like(g.long(), G)), sv)
         for g, m, sv, _, _ in sets
@@ -708,7 +741,13 @@ def time_kernel(args, R, G, Ms, Mn, Mx, device):
     }
 
 
+# the shapes phase 3 also times on L2-resident and all-masked inputs (every
+# main shape until phase 19 came)
+DIAGNOSED = {(HEADLINE, "random"), (SORTED_SHAPES[0], "sorted")}
+
+
 def kernel_phase(device):
+    t0 = time.perf_counter()
     torch.backends.cuda.matmul.allow_tf32 = False  # the plain version's product in full f32
     rows = []
     for i, shape in enumerate(TEST_SHAPES):
@@ -728,7 +767,8 @@ def kernel_phase(device):
             "geometry": cuda_groupby.geometry(R, G, Ms, Mn + Mx)._asdict(),
             "max_abs_err": max_abs,
             "max_rel_err": max_rel,
-            **time_kernel(args, R, G, Ms, Mn, Mx, device),
+            **time_kernel(args, R, G, Ms, Mn, Mx, device,
+                          diagnose=((R, G, Ms, Mn, Mx), layout) in DIAGNOSED),
         })
         emit("kernel_timing", **timed[-1])
     for i, R in enumerate(DELTA_ROWS):
@@ -746,7 +786,8 @@ def kernel_phase(device):
         })
         emit("kernel_delta_check", **rows[-1])
     rows += mesh_kernel_checks(device)
-    emit("kernel_check", cases=rows, rtol=KERNEL_RTOL, bit_stable=True)
+    emit("kernel_check", cases=rows, rtol=KERNEL_RTOL, bit_stable=True,
+         seconds=time.perf_counter() - t0)
     return rows, timed
 
 
@@ -2646,12 +2687,13 @@ def _p50(fn, n):
     return statistics.median(_timed(fn)[1] for _ in range(n))
 
 
-def wall_deadline(ctx, label, run, warm=3):
-    """`run()` (a `ctx.sql`) warm p50 unarmed, then once with
-    `query_timeout_ms` about half of it: the wall, the overshoot past the
-    timeout (queued device work and the finalize) and the coverage.  Fails
-    if the overshoot exceeds the p50: no checkpoint was reached."""
-    p50 = _p50(run, warm)
+def wall_deadline(ctx, label, run, warm=3, p50=None):
+    """`run()` (a `ctx.sql`) warm p50 unarmed (or `p50`, an earlier phase's
+    warm p50 of the same query), then once with `query_timeout_ms` about
+    half of it: the wall, the overshoot past the timeout (queued device work
+    and the finalize) and the coverage.  Fails if the overshoot exceeds the
+    p50: no checkpoint was reached."""
+    p50 = _p50(run, warm) if p50 is None else p50
     timeout = max(1, int(p50 / 2))
     ctx.sql(f"SET query_timeout_ms = {timeout}")
     try:
@@ -2866,17 +2908,23 @@ def progressive(ctx):
     return row
 
 
-def run_resilience(ctxs, workloads):
-    """Phase 12 on the resident SSB SF10 and TPC-H SF1 contexts."""
+def run_resilience(ctxs, workloads, p50s=None):
+    """Phase 12 on the resident SSB SF10 and TPC-H SF1 contexts.  `p50s`
+    (label -> ms) holds warm p50s of the wall-deadline queries that earlier
+    phases measured (cube_theta in phase 7, q18 in phase 10), which the
+    deadlines then take instead of timing the queries again (until phase 19
+    came, 3 and 2 warm runs)."""
     sctx, tctx = ctxs["ssb"], ctxs["tpch"]
+    p50s = p50s or {}
     sweeps = [r for name in SWEEP_QUERIES for r in deadline_sweep(sctx, name)]
     walls = [
         wall_deadline(sctx, "scan:ordered_top100", lambda: sctx.sql(
             "SELECT lo_orderdate, lo_extendedprice, lo_discount FROM lineorder "
             f"WHERE {FACT_WHERE} ORDER BY lo_extendedprice DESC LIMIT 100")),
-        wall_deadline(sctx, "cube_theta", lambda: sctx.sql(ssb.SKETCH_QUERIES["cube_theta"])),
+        wall_deadline(sctx, "cube_theta", lambda: sctx.sql(ssb.SKETCH_QUERIES["cube_theta"]),
+                      p50=p50s.get("cube_theta")),
         wall_deadline(tctx, "fallback:q18", lambda: tctx.sql(tpch.EXTENDED_QUERIES["q18"]),
-                      warm=2),
+                      warm=2, p50=p50s.get("fallback:q18")),
     ]
     armed = armed_deadline_cost(ctxs, workloads)
     retries = retries_on_warm_graph(sctx)
@@ -5385,6 +5433,314 @@ def run_processes(ctxs, workloads, device, tmp):
             "seconds": time.perf_counter() - t0}
 
 
+# -- phase 19: CSV ingest through the native decoder ------------------------------
+
+CSV_SCALE = 1.0  # SSB SF1: 6M lineorder rows
+CSV_SHARDS = 8  # lineorder's sharded files (the build's phase-1 shards)
+CSV_RTOL = 1e-6
+# lineorder's build, in every load: the flat star's columns, time-sorted
+# 512K-row segments as the main path's
+CSV_BUILD = dict(dimension_cols=ssb.FLAT_DIMS, metric_cols=ssb.FLAT_METRICS,
+                 time_col="lo_orderdate", rows_per_segment=1 << 19)
+# the flat lineorder's CSV columns: the date's attributes follow lo_orderdate
+# (its key), then each dimension table's, then the metrics
+CSV_DIM_COLUMNS = {
+    "dwdate": ["d_datekey", "d_year", "d_yearmonthnum", "d_yearmonth", "d_weeknuminyear"],
+    "customer": ["c_region", "c_nation", "c_city"],
+    "supplier": ["s_region", "s_nation", "s_city"],
+    "part": ["p_mfgr", "p_category", "p_brand1"],
+}
+CSV_FACT_HEADER = (["lo_orderdate"] + CSV_DIM_COLUMNS["dwdate"][1:]
+                   + CSV_DIM_COLUMNS["customer"] + CSV_DIM_COLUMNS["supplier"]
+                   + CSV_DIM_COLUMNS["part"] + ssb.FLAT_METRICS)
+
+
+def _fragments(table, cols):
+    """Each row of a dimension table as its CSV text, comma-terminated."""
+    vals = [[str(v) for v in np.asarray(table[c]).tolist()] for c in cols]
+    return np.array([",".join(r) + "," for r in zip(*vals)], dtype=object)
+
+
+def _fact_lines(tables, frags, lo):
+    """The flat lineorder rows of fact chunk `lo` as CSV lines.  A fact row
+    joins its dimension rows' text (`frags`: each dimension row rendered
+    once) to its metrics: quantity and discount as integers, the prices in
+    cents (extendedprice rounded; revenue and supplycost derived from it as
+    the generator derives them, truncated to the cent), so the file holds
+    decimals that any reader parses to the same doubles."""
+    ints = frags["ints"]
+    cents = frags["cents"]
+    ext = np.rint(np.asarray(lo["lo_extendedprice"], np.float64) * 100).astype(np.int64)
+    disc = np.asarray(lo["lo_discount"]).astype(np.int64)
+    rev = ext * (100 - disc) // 100
+    cost = ext * 60 // 100
+    day = ssb._fk_row_index(lo, "lo_orderdate", "dwdate", tables["dwdate"])
+    pieces = [
+        frags["dwdate"][day], frags["customer"][lo["lo_custkey"]],
+        frags["supplier"][lo["lo_suppkey"]], frags["part"][lo["lo_partkey"]],
+        frags["intc"][np.asarray(lo["lo_quantity"]).astype(np.int64)],
+        ints[ext // 100], cents[ext % 100],
+        frags["intc"][disc],
+        ints[rev // 100], cents[rev % 100],
+        ints[cost // 100], cents[cost % 100],
+        ints[lo["lo_custkey"]],
+    ]
+    return "\n".join(map("".join, zip(*(p.tolist() for p in pieces)))) + "\n"
+
+
+def write_ssb_csv(tables, root, shards=CSV_SHARDS):
+    """SSB's flat lineorder as `shards` CSV files and as one file (the
+    shards' rows in order, under one header), and the four dimension tables
+    as CSV, under `root`; returns the paths and the bytes written."""
+    import pandas as pd
+
+    lo = tables["lineorder"]
+    n = len(lo["lo_orderdate"])
+    frags = {name: _fragments(tables[name], cols) for name, cols in CSV_DIM_COLUMNS.items()}
+    frags["ints"] = np.array([str(i) for i in range(100_000)], dtype=object)
+    frags["intc"] = frags["ints"] + ","
+    frags["cents"] = np.array([f".{i:02d}," for i in range(100)], dtype=object)
+    header = ",".join(CSV_FACT_HEADER) + "\n"
+    whole = os.path.join(root, "lineorder.csv")
+    paths = []
+    with open(whole, "w") as out:
+        out.write(header)
+        for i, idx in enumerate(np.array_split(np.arange(n), shards)):
+            body = _fact_lines(tables, frags, {k: v[idx] for k, v in lo.items()})
+            paths.append(os.path.join(root, f"lineorder_{i:02d}.csv"))
+            with open(paths[-1], "w") as f:
+                f.write(header)
+                f.write(body)
+            out.write(body)
+    dims = {}
+    for name in CSV_DIM_COLUMNS:
+        dims[name] = os.path.join(root, f"{name}.csv")
+        pd.DataFrame(tables[name]).to_csv(dims[name], index=False)
+    nbytes = sum(os.path.getsize(p) for p in [whole, *paths, *dims.values()])
+    return {"lineorder": whole, "shards": paths, "dims": dims, "bytes": nbytes}
+
+
+def _csv_context(session, device):
+    ctx = TPUOlapContext(dataclasses.replace(session), device=device)
+    # every group-by on the kernel: G <= 4096 on the dense class, wider ones
+    # through the adaptive tier's presence and compacted passes
+    ctx.engine.strategy = "adaptive"
+    return ctx
+
+
+def _register_csv_dims(ctx, files):
+    for name, path in files["dims"].items():
+        ctx.register_table(name, path, time_column="d_datekey" if name == "dwdate" else None)
+        if ctx.last_ingest.decoders != ["native"]:
+            raise AssertionError(f"{name}.csv: {ctx.last_ingest}")
+
+
+def _same_segments(what, a, b):
+    """Two builds of one table: the same dictionaries, segments, codes,
+    metrics and zone maps (row counts, mins and maxs)."""
+    if {k: d.values for k, d in a.dicts.items()} != {k: d.values for k, d in b.dicts.items()}:
+        raise AssertionError(f"{what}: dictionaries differ")
+    if [s.num_rows for s in a.segments] != [s.num_rows for s in b.segments]:
+        raise AssertionError(f"{what}: segment row counts differ")
+    for sa, sb in zip(a.segments, b.segments):
+        if sa.stats != sb.stats or sa.interval != sb.interval:
+            raise AssertionError(f"{what}: {sa.segment_id} zone maps differ")
+        for kind in ("dims", "metrics"):
+            ca, cb = getattr(sa, kind), getattr(sb, kind)
+            if list(ca) != list(cb) or any(
+                    ca[k].dtype != cb[k].dtype or not np.array_equal(ca[k], cb[k]) for k in ca):
+                raise AssertionError(f"{what}: {sa.segment_id} {kind} differ")
+
+
+def _csv_answer_check(name, got, want):
+    """Keys, counts and integer columns exact, sums within CSV_RTOL; returns
+    (largest relative error, bit-identical)."""
+    keys = [c for c in want.columns if want[c].dtype.kind not in "f"]
+    err = _frame_check(name, got[list(want.columns)], want, keys, CSV_RTOL)
+    same = list(got.columns) == list(want.columns) and all(
+        np.asarray(got[c]).tobytes() == np.asarray(want[c]).tobytes()
+        if np.asarray(want[c]).dtype.kind != "O" else list(got[c]) == list(want[c])
+        for c in want.columns)
+    return err, same
+
+
+def prepare_csv(root, scale=CSV_SCALE, seed=7) -> dict:
+    """Phase 19's host-only half: SSB at `scale` written as CSV under `root`
+    (`write_ssb_csv`); the one lineorder file decoded by `pd.read_csv` and
+    then by the native decoder, back to back, each timed alone over the
+    file just written (both from the page cache); then the reference load:
+    pandas' frame through the sharded build, saved to
+    `root/pandas_lineorder` (`catalog.persist.save_datasource`).  Returns
+    (and writes to `root/prepared.json`) the files, rows and seconds."""
+    import pandas as pd
+
+    from spark_druid_olap_tpu_torch import native
+    from spark_druid_olap_tpu_torch.catalog.ingest import _from_pandas
+    from spark_druid_olap_tpu_torch.catalog.persist import save_datasource
+    from spark_druid_olap_tpu_torch.ingest.shard import build_datasource_sharded
+    from spark_druid_olap_tpu_torch.native import csv_decode
+
+    out = {"scale": scale}
+    t0 = time.perf_counter()
+    tables = ssb.gen_tables(scale, seed=seed)
+    out["rows"] = len(tables["lineorder"]["lo_orderdate"])
+    out["generate_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    out["files"] = write_ssb_csv(tables, root)
+    out["write_s"] = time.perf_counter() - t0
+    del tables
+    t0 = time.perf_counter()
+    frame = pd.read_csv(out["files"]["lineorder"])
+    out["pandas_decode_s"] = time.perf_counter() - t0
+    native.load()  # the first use builds the library: not decode time
+    t0 = time.perf_counter()
+    cols, _ = csv_decode.read_csv_encoded(out["files"]["lineorder"])
+    out["native_decode_s"] = time.perf_counter() - t0
+    del cols
+    out["native_rows_per_s"] = out["rows"] / out["native_decode_s"]
+    out["pandas_rows_per_s"] = out["rows"] / out["pandas_decode_s"]
+    t0 = time.perf_counter()
+    ds = build_datasource_sharded("lineorder", _from_pandas(frame), **CSV_BUILD)
+    out["pandas_build_s"] = time.perf_counter() - t0
+    del frame
+    out["pandas_datasource"] = os.path.join(root, "pandas_lineorder")
+    save_datasource(ds, out["pandas_datasource"], ssb.STAR_SCHEMA)
+    with open(os.path.join(root, "prepared.json"), "w") as f:
+        json.dump(out, f)
+    return out
+
+
+def csv_worker(argv) -> int:
+    """`python3 chip_smoke.py --csv-worker ROOT SCALE`: `prepare_csv` in its
+    own process, beside the card phases (it uses no card)."""
+    root, scale = argv
+    prepare_csv(root, float(scale))
+    return 0
+
+
+def start_csv_worker(scale=CSV_SCALE):
+    """Starts phase 19's `csv_worker` in the background; (process, root,
+    log).  The root directory and a still-running worker are removed at
+    exit whatever happens."""
+    import atexit
+    import shutil
+
+    root = tempfile.mkdtemp(prefix="sdol-phase19-")
+    log = os.path.join(root, "worker.log")
+    proc = _child([sys.executable, os.path.join(ROOT, "chip_smoke.py"), "--csv-worker",
+                   root, str(scale)], log)
+    atexit.register(shutil.rmtree, root, True)
+    atexit.register(_stop, [proc])
+    return proc, root, log
+
+
+def await_csv_worker(proc, root, log, timeout_s=600) -> dict:
+    try:
+        rc = proc.wait(timeout=timeout_s)
+    except subprocess.TimeoutExpired:
+        _stop([proc])
+        raise AssertionError(f"the CSV worker ran past {timeout_s} s:\n{_tail(log)}")
+    if rc != 0:
+        raise AssertionError(f"the CSV worker exited {rc}:\n{_tail(log)}")
+    with open(os.path.join(root, "prepared.json")) as f:
+        return json.load(f)
+
+
+def run_csv_ingest(session, device, prepared) -> dict:
+    """Phase 19 on the card over `prepared` (`prepare_csv`'s files and its
+    pandas-loaded reference): lineorder loaded through the native decoder
+    as one file (`register_table`) and as sharded files
+    (`build_datasource_from_csv`), segments equal to the reference's; the
+    13 SSB queries as SQL on the card over each load, every group-by through
+    the kernel, answered as the reference answers."""
+    from spark_druid_olap_tpu_torch.catalog.ingest import IngestReport
+    from spark_druid_olap_tpu_torch.catalog.persist import load_datasource
+    from spark_druid_olap_tpu_torch.ingest.shard import build_datasource_from_csv
+    from spark_druid_olap_tpu_torch.native import csv_decode
+
+    out = {k: v for k, v in prepared.items() if k not in ("files", "pandas_datasource")}
+    files = prepared["files"]
+    rows = prepared["rows"]
+    out["csv_bytes"] = files["bytes"]
+    pandas_ds, _ = load_datasource(prepared["pandas_datasource"])
+    ctxs = {k: _csv_context(session, device) for k in ("pandas", "native", "sharded")}
+    ctxs["pandas"].register_datasource(pandas_ds, star_schema=ssb.STAR_SCHEMA)
+    # the one file through register_table; its native decode timed apart by
+    # a shim around the decoder's entry point (the file written minutes
+    # before, with the stream's staging since: the page cache may not hold it)
+    decode_s = []
+    read = csv_decode.read_csv_encoded
+
+    def timed_read(path):
+        t = time.perf_counter()
+        try:
+            return read(path)
+        finally:
+            decode_s.append(time.perf_counter() - t)
+
+    csv_decode.read_csv_encoded = timed_read
+    try:
+        t0 = time.perf_counter()
+        one = ctxs["native"].register_table(
+            "lineorder", files["lineorder"], star_schema=ssb.STAR_SCHEMA,
+            dimensions=CSV_BUILD["dimension_cols"], metrics=CSV_BUILD["metric_cols"],
+            time_column=CSV_BUILD["time_col"], rows_per_segment=CSV_BUILD["rows_per_segment"])
+        out["native_register_s"] = time.perf_counter() - t0
+    finally:
+        csv_decode.read_csv_encoded = read
+    if ctxs["native"].last_ingest != IngestReport(decoders=["native"]):
+        raise AssertionError(f"lineorder.csv: {ctxs['native'].last_ingest}")
+    out["register_decode_s"] = decode_s[0]
+    out["register_decode_rows_per_s"] = rows / decode_s[0]
+    # the shards through the sharded build
+    report = IngestReport()
+    t0 = time.perf_counter()
+    sharded = build_datasource_from_csv("lineorder", files["shards"], report=report,
+                                        **CSV_BUILD)
+    out["sharded_build_s"] = time.perf_counter() - t0
+    if report != IngestReport(decoders=["native"] * len(files["shards"])):
+        raise AssertionError(f"sharded lineorder: {report}")
+    ctxs["sharded"].register_datasource(sharded, star_schema=ssb.STAR_SCHEMA)
+    for c in ctxs.values():
+        _register_csv_dims(c, files)
+    _same_segments("native one file against pandas", one, pandas_ds)
+    _same_segments("native shards against pandas", sharded, pandas_ds)
+    out["segments"] = len(one.segments)
+    shapes = KernelShapes().start()
+    cuda_groupby.LAUNCHES = 0
+    queries = []
+    for name, sql in ssb.QUERIES.items():
+        row = {"query": name}
+        answers = {}
+        for k in ("pandas", "native", "sharded"):
+            before = cuda_groupby.LAUNCHES
+            t0 = time.perf_counter()
+            answers[k] = ctxs[k].sql(sql)
+            row[f"{k}_ms"] = (time.perf_counter() - t0) * 1e3
+            m = ctxs[k].last_metrics
+            launches = cuda_groupby.LAUNCHES - before
+            # the kernel carries every pass: the dense class, or the
+            # adaptive tier's presence passes and its compacted pass (none
+            # where the filter keeps no group)
+            carried = uses_kernel(m) or (m.strategy == "adaptive" and m.compact_groups == 0)
+            if torch.device(device).type == "cuda" and (not carried or launches == 0):
+                raise AssertionError(f"{name} over the {k} load: {m.describe()}, "
+                                     f"{launches} launches")
+            row[f"{k}_launches"] = launches
+        row.update(strategy=m.strategy, num_groups=m.num_groups, compact_groups=m.compact_groups)
+        for k in ("native", "sharded"):
+            err, same = _csv_answer_check(f"{name} ({k})", answers[k], answers["pandas"])
+            row[f"{k}_max_rel_err"] = err
+            row[f"{k}_bit_identical"] = same
+        queries.append(row)
+        emit("csv_query", **row)
+    out["launches"] = cuda_groupby.LAUNCHES
+    shapes.stop()
+    shapes.check()
+    out["queries"] = queries
+    return out
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--ssb-scale", type=float, default=10.0)
@@ -5393,9 +5749,13 @@ def main(argv=None) -> int:
     ap.add_argument("--rank-worker", nargs=7, default=None,
                     metavar=("PORT", "RANK", "NPROC", "STORE", "SPEC", "OUT", "BACKEND"),
                     help="run one rank of phase 18 (the run starts its ranks itself)")
+    ap.add_argument("--csv-worker", nargs=2, default=None, metavar=("ROOT", "SCALE"),
+                    help="prepare phase 19's files (the run starts its worker itself)")
     args = ap.parse_args(argv)
     if args.rank_worker is not None:
         return rank_worker(args.rank_worker)
+    if args.csv_worker is not None:
+        return csv_worker(args.csv_worker)
     run_t0 = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs one card", file=sys.stderr)
@@ -5411,6 +5771,9 @@ def main(argv=None) -> int:
          ptxas=[l for l in cuda_groupby.BUILD_LOG.splitlines() if "registers" in l])
 
     _, timed = kernel_phase(device)
+    # phase 19's CSV files and pandas-loaded reference, made by a worker
+    # process beside phases 4 onwards (host work on other cores)
+    csv_worker_run = start_csv_worker()
 
     workloads = build_workloads(args.ssb_scale, args.tpch_scale)
     # one context per workload: its engine drives that workload through
@@ -5545,7 +5908,9 @@ def main(argv=None) -> int:
 
     t0 = time.perf_counter()
     cuda_groupby.LAUNCHES = 0  # count only the resilience phase's launches
-    res = run_resilience(ctxs, workloads)
+    res = run_resilience(ctxs, workloads, p50s={
+        "cube_theta": next(q["p50_ms"] for q in sketches if q["query"] == "cube_theta"),
+        "fallback:q18": next(q["p50_ms"] for q in fallback if q["query"] == "q18")})
     resilience_launches = cuda_groupby.LAUNCHES
     emit("resilience", seconds=time.perf_counter() - t0, kernel_launches=resilience_launches,
          sweeps=len(res["sweeps"]), armed_queries=len(res["armed"]),
@@ -5679,6 +6044,25 @@ def main(argv=None) -> int:
          peak_device_bytes=torch.cuda.max_memory_allocated(device))
     del staged
     shapes.check()
+    gc.collect()
+
+    t0 = time.perf_counter()
+    csv = run_csv_ingest(session, device, await_csv_worker(*csv_worker_run))
+    csv_launches = csv["launches"]
+    emit("csv_rates", nvidia_smi=card, rows=csv["rows"], csv_bytes=csv["csv_bytes"],
+         native_rows_per_s=csv["native_rows_per_s"], pandas_rows_per_s=csv["pandas_rows_per_s"],
+         register_decode_rows_per_s=csv["register_decode_rows_per_s"])
+    emit("csv_ingest", seconds=time.perf_counter() - t0, kernel_launches=csv_launches,
+         queries=len(csv["queries"]),
+         bit_identical=sum(1 for q in csv["queries"]
+                           if q["native_bit_identical"] and q["sharded_bit_identical"]),
+         **{k: v for k, v in csv.items() if k not in ("queries", "launches")},
+         peak_device_bytes=torch.cuda.max_memory_allocated(device))
+    if csv_launches == 0:
+        raise AssertionError("the CSV phase never launched the kernel")
+    del csv
+    gc.collect()
+    torch.cuda.empty_cache()
     emit("total", nvidia_smi=card, seconds=time.perf_counter() - run_t0)
 
     head = next(t for t in timed if t["shape"] == HEADLINE and t["layout"] == "random")
@@ -5692,7 +6076,7 @@ def main(argv=None) -> int:
                      + resilience_launches + serving_launches + ingest_launches
                      + cost_launches + mesh_launches + mesh_baseline_launches
                      + proc_launches + multihost_launches + cluster_launches
-                     + stream_launches),
+                     + stream_launches + csv_launches),
         "launches_native": launches,
         "launches_sql": sql_launches,
         "launches_sketch": sketch_launches,
@@ -5710,6 +6094,7 @@ def main(argv=None) -> int:
         "launches_multihost": multihost_launches,
         "launches_cluster": cluster_launches,
         "launches_stream": stream_launches,
+        "launches_csv": csv_launches,
         "max_abs_err": max(t["max_abs_err"] for t in timed),
         "max_rel_err": max(t["max_rel_err"] for t in timed),
         "ms": head["ms"],

@@ -238,6 +238,8 @@ class TPUOlapContext:
         )
         self.storage = None
         self.sys_sampler = None
+        # how the last register_table read its CSV (catalog.ingest.IngestReport)
+        self.last_ingest = None
         self.apply_config()
         # SQL text -> (Rewrite, logical plan): a repeated dashboard query
         # pays parse + plan once, and keeps the plan it degrades to.  Keyed
@@ -364,17 +366,46 @@ class TPUOlapContext:
         granularity ("second" .. "week"; a time column is required) before
         they are journaled and published, so count(*) counts rolled rows.
 
-        With a durable tier the snapshot commits before the call returns."""
-        from .catalog.ingest import to_columns
+        A CSV path is read by the native decoder, its string columns
+        arriving encoded; `last_ingest` (a `catalog.ingest.IngestReport`)
+        says which decoder read it and why the native one declined.
 
-        cols = to_columns(source)
+        With a durable tier the snapshot commits before the call returns."""
+        from .catalog.ingest import IngestReport, to_columns_encoded
+
+        report = IngestReport()
+        self.last_ingest = report
+        cols, native_dicts = to_columns_encoded(source, report)
         if column_mapping:
             cols = {column_mapping.get(k, k): v for k, v in cols.items()}
+            native_dicts = {column_mapping.get(k, k): v for k, v in native_dicts.items()}
+        if dicts:
+            # caller dictionaries win, by re-encoding the raw values: native
+            # codes are ranks over the file's domain, never another's
+            for k in [k for k in native_dicts if k in dicts]:
+                cols[k] = native_dicts.pop(k).decode(np.asarray(cols[k]))
+        if time_column and time_column in native_dicts:
+            # a string time column arrived as rank codes: parse each
+            # dictionary value once (a value that is no time raises)
+            d = native_dicts.pop(time_column)
+            codes = np.asarray(cols[time_column])
+            if (codes < 0).any():
+                raise ValueError(f"time column {time_column!r} has nulls")
+            cols[time_column] = np.asarray(
+                d.values, dtype="datetime64[ms]").astype(np.int64)[codes]
         if time_column and np.asarray(cols[time_column]).dtype.kind in "OUS":
             # a string time column (CSV): parse each distinct value once
             vals, inv = np.unique(np.asarray(cols[time_column]), return_inverse=True)
             ms = np.asarray(vals, dtype="datetime64[ms]").astype(np.int64)
             cols[time_column] = ms[inv]
+        if native_dicts:
+            dicts = {**native_dicts, **(dicts or {})}
+            if not dimensions and not metrics:
+                # encoded string columns are int32 codes now: those with a
+                # native dictionary are dimensions
+                dims, mets = _infer_schema(cols, time_column)
+                dimensions = dims + [m for m in mets if m in native_dicts]
+                metrics = [m for m in mets if m not in native_dicts]
         if not dimensions and not metrics:
             dimensions, metrics = _infer_schema(cols, time_column)
         if sort_by:

@@ -77,6 +77,11 @@ class MetadataCache:
         with self._lock:
             return self._stars.get(name)
 
+    def star_schemas(self) -> Dict[str, StarSchemaInfo]:
+        """Every registered star schema, by fact datasource (a copy)."""
+        with self._lock:
+            return dict(self._stars)
+
     def tables(self):
         with self._lock:
             return list(self._tables)

@@ -2,17 +2,53 @@
 
 pandas DataFrames, pyarrow tables, dicts of numpy arrays, and parquet/CSV
 paths all normalize to a dict of row-aligned numpy columns; datetimes become
-int64 epoch-ms (the Druid time convention).  CSV is read through pandas: the
-native single-pass CSV decoder of the JAX package (`native/`, whose
-`to_columns_encoded` returns pre-encoded columns) is not ported yet, and the
-JAX package reads CSV the same way when it is absent.
+int64 epoch-ms (the Druid time convention).  A CSV file is read by the
+port's native single-pass decoder (`native/csv_decode.py`), which also
+dictionary-encodes its string columns (`to_columns_encoded`).  pandas reads
+a CSV source only where the decoder declines it for a reason that holds
+every time (no `g++`, a file the parser cannot take, not a local file);
+the decline is recorded in the caller's `IngestReport` (and logged).  Any
+other native failure raises.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+import dataclasses
+from typing import Dict, List, Optional
 
 import numpy as np
+
+from ..utils.log import get_logger
+
+log = get_logger("catalog.ingest")
+
+
+@dataclasses.dataclass
+class IngestReport:
+    """How one registration read its CSV files: `decoders` has one entry per
+    file read ("native" or "pandas"), `declines` why the native decoder did
+    not take a file."""
+
+    decoders: List[str] = dataclasses.field(default_factory=list)
+    declines: List[str] = dataclasses.field(default_factory=list)
+
+
+def _native_csv(read, path: str, report: Optional[IngestReport]):
+    """`read(path)` through the native decoder, or None after a recorded
+    decline."""
+    from ..native import NativeDecline
+
+    try:
+        out = read(path)
+    except NativeDecline as e:
+        log.info("native csv decoder declined %s (%s); reading it with pandas", path, e)
+        if report is not None:
+            report.declines.append(f"native csv: {e.kind}: {e}")
+            report.decoders.append("pandas")
+        return None
+    if report is not None:
+        report.decoders.append("native")
+    return out
 
 
 def to_columns(source) -> Dict[str, np.ndarray]:
@@ -38,6 +74,24 @@ def to_columns(source) -> Dict[str, np.ndarray]:
     raise TypeError(f"unsupported source type {type(source).__name__}")
 
 
+def to_columns_encoded(source, report: Optional[IngestReport] = None):
+    """source -> (columns, dicts), the one dispatch `register_table` calls.
+
+    A CSV path goes through the native parse and dictionary encode: string
+    columns come back as int32 rank codes over the file's sorted domain,
+    with their `DimensionDict` in `dicts`.  Other sources, and a CSV the
+    decoder declines, go through `to_columns` with no prebuilt
+    dictionaries."""
+    if isinstance(source, str) and source.endswith(".csv"):
+        from ..native import csv_decode
+
+        out = _native_csv(csv_decode.read_csv_encoded, source, report)
+        if out is not None:
+            return out
+        return _pandas_csv(source), {}
+    return to_columns(source), {}
+
+
 def _from_pandas(df) -> Dict[str, np.ndarray]:
     out: Dict[str, np.ndarray] = {}
     for c in df.columns:
@@ -51,7 +105,16 @@ def _from_pandas(df) -> Dict[str, np.ndarray]:
     return out
 
 
-def read_csv_columns(path: str) -> Dict[str, np.ndarray]:
+def _pandas_csv(path: str) -> Dict[str, np.ndarray]:
     import pandas as pd
 
     return _from_pandas(pd.read_csv(path))
+
+
+def read_csv_columns(path: str, report: Optional[IngestReport] = None) -> Dict[str, np.ndarray]:
+    """CSV -> columns (strings decoded), through the native decoder; pandas
+    after a recorded decline."""
+    from ..native import csv_decode
+
+    out = _native_csv(csv_decode.read_csv, path, report)
+    return out if out is not None else _pandas_csv(path)

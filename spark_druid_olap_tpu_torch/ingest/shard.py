@@ -19,9 +19,9 @@ domain, one chunk at a time.  Here:
 
 Workers are threads (`concurrent.futures.ThreadPoolExecutor`): the hot
 loops are numpy and pandas C loops that release the GIL.  One worker runs
-inline (`_InlineExecutor`).  CSV files are read through pandas
-(`catalog.ingest.to_columns`); the JAX package's native CSV decoder, whose
-per-file rank codes its CSV build merges, is not ported.
+inline (`_InlineExecutor`).  CSV files are read by the native decoder
+(`native/csv_decode.py`), whose per-file rank codes are a finished phase 1
+(`build_datasource_from_csv`).
 """
 
 from __future__ import annotations
@@ -179,6 +179,18 @@ def _reshard(chunks: Iterable[Mapping], rows_per_shard: int):
         yield {k: np.concatenate(v) for k, v in buf.items()}
 
 
+def _read_csv_file(path: str):
+    """One CSV file -> (columns, per-file dicts, its IngestReport): the native
+    parse and dictionary encode, string columns as int32 rank codes over the
+    file's sorted domain; pandas (no dictionaries) after a recorded
+    decline."""
+    from ..catalog.ingest import IngestReport, to_columns_encoded
+
+    report = IngestReport()
+    cols, dicts = to_columns_encoded(path, report)
+    return cols, dicts, report
+
+
 def build_datasource_from_csv(
     name: str,
     paths: Sequence[str],
@@ -188,25 +200,62 @@ def build_datasource_from_csv(
     rows_per_segment: int = 1 << 22,
     dicts: Optional[Mapping[str, DimensionDict]] = None,
     workers: Optional[int] = None,
+    report=None,
 ) -> DataSource:
-    """Bulk-build a DataSource from CSV files: the files parse in parallel
-    (threads, through pandas) and feed `build_datasource_sharded` in order,
-    so the output is row-, code- and stats-identical to concatenating the
-    files through the serial build.  Time columns must already be numeric
-    (epoch ms), as on the dict and array paths."""
-    from ..catalog.ingest import to_columns
+    """Bulk-build a DataSource from CSV files, one file per phase-1 shard.
 
+    The native decoder's output for a file is a finished phase-1
+    factorize: int32 rank codes over the file's sorted domain, the (local
+    codes, local values) the factorize workers make.  The files parse in
+    parallel (threads; the native parse releases the GIL), their domains
+    merge with the deterministic sorted union, each file's codes remap
+    through a LUT, and the chunks feed `build_datasource_sharded` in order:
+    the output is row-, code- and stats-identical to concatenating the
+    files through the serial build.
+
+    A dimension takes that path only when every file came with a native
+    dictionary for it and the caller gave none; otherwise its codes decode
+    back to values and phase 1 encodes them again.  Time columns must
+    already be numeric (epoch ms), as on the dict and array paths.
+    `report` (a `catalog.ingest.IngestReport`) gets each file's decoder and
+    declines, in file order."""
     workers = sharded_ingest_workers(workers)
     pool_cls = ThreadPoolExecutor if workers > 1 else _InlineExecutor
     paths = list(paths)
     if not paths:
         raise ValueError("csv ingest needs at least one file")
+    dicts = dict(dicts) if dicts else {}
     with pool_cls(max_workers=workers) as pool:
-        futs = [pool.submit(to_columns, p) for p in paths]
-        chunks = []
+        futs = [pool.submit(_read_csv_file, p) for p in paths]
+        files = []
         for fut in futs:
             checkpoint("ingest.csv_file")
-            chunks.append(fut.result())
+            cols, fdicts, frep = fut.result()
+            files.append((cols, fdicts))
+            if report is not None:
+                report.decoders.extend(frep.decoders)
+                report.declines.extend(frep.declines)
+    # dimensions every file pre-encoded (and no caller dictionary): merge
+    # the per-file domains and remap, phase 1 is done
+    native_dims = [
+        d for d in dimension_cols
+        if d not in dicts and all(d in fdicts for _, fdicts in files)
+    ]
+    for d in native_dims:
+        dicts[d] = merge_shard_values([fdicts[d].values for _, fdicts in files])
+    chunks: List[Dict[str, np.ndarray]] = []
+    for cols, fdicts in files:
+        cols = dict(cols)
+        for d, fdict in fdicts.items():
+            if d in native_dims:
+                cols[d] = global_codes(
+                    np.asarray(cols[d]), np.asarray(fdict.values, dtype=object), dicts[d])
+            else:
+                # typed differently across files, or under a caller
+                # dictionary: ranks over this file's domain only, so decode
+                # to values and let phase 1 encode them
+                cols[d] = fdict.decode(np.asarray(cols[d]))
+        chunks.append(cols)
     return build_datasource_sharded(
         name,
         chunks,

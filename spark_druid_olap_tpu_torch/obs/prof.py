@@ -12,7 +12,8 @@ device numbers honest and folds them into per-query cost receipts:
     `enqueue_ms`).  On an unsampled query it is one contextvar read: no
     event, no sync, and the card runs ahead of the host as before.
     `transfer_sync` and `fetch_sync` do the same for an h2d copy and the
-    wait before a fetch.  Every sync they add is counted (`ProfScope.syncs`
+    wait before a fetch, and `dispatch_sync` for a dispatch timed by a
+    device-wide sync.  Every sync they add is counted (`ProfScope.syncs`
     and the process-wide `SYNCS`), so a run can show the default rate adds
     none.  Events inside a replayed graph cannot be split per segment: a
     replay is timed whole.
@@ -331,6 +332,29 @@ def shard_timer(devices):
     if s is not None:
         s.attrs.update(shard_device_ms=ms, device_ms=round(sum(ms), 3), timing=mode,
                        enqueue_ms=round((t1 - t0) * 1e3, 3))
+
+
+def dispatch_sync(result, t_enqueue: float, device=None):
+    """Right after an asynchronous dispatch on `device`, with the clock read
+    before it.  On a sampled query: wait until the device finished
+    (`torch.cuda.synchronize(device)` on a card; the CPU ran synchronously)
+    and split the enclosing span into `enqueue_ms` and `device_ms`.
+    Unsampled: nothing, no sync.  Returns `result`."""
+    ps = _active.get()
+    if ps is None or not ps.sampled:
+        return result
+    t1 = time.perf_counter()
+    if _on_card(device):
+        import torch
+
+        torch.cuda.synchronize(device)
+    t2 = time.perf_counter()
+    _note_sync(ps)
+    s = current_span()
+    if s is not None:
+        s.attrs["enqueue_ms"] = round((t1 - t_enqueue) * 1e3, 3)
+        s.attrs["device_ms"] = round((t2 - t1) * 1e3, 3)
+    return result
 
 
 def fetch_sync(device) -> None:

@@ -115,6 +115,14 @@ def merge_states(a: torch.Tensor, b: torch.Tensor, agg) -> torch.Tensor:
     return torch.cat([merged, a[:, k:, :] + b[:, k:, :]], dim=1)
 
 
+def merge_many(states, agg) -> torch.Tensor:
+    """`merge_states` folded left over a non-empty sequence of states."""
+    acc = states[0]
+    for s in states[1:]:
+        acc = merge_states(acc, s, agg)
+    return acc
+
+
 # the interface every sketch ops module gives `exec/lowering.sketch_ops`
 partial = partial_quantiles
 

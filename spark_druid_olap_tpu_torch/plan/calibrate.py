@@ -67,6 +67,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import time
 from typing import Dict, List, Optional, Tuple
@@ -74,9 +75,19 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from ..config import CUDA_CALIBRATION, SessionConfig, calibration_device, device_name
+from ..config import _REPO_ROOT, SessionConfig, calibration_device, device_name
 from ..ops.groupby import SCATTER_CUTOVER, partial_aggregate, scatter_partial_aggregate
 from ..ops.sparse_groupby import SPARSE_SLOTS, compact_rows, sparse_partial_aggregate
+
+
+def sidecar_path(platform: str, root: Optional[str] = None) -> str:
+    """`calibration.<platform>.json` in `root` (default: the repository
+    root), the one place the per-platform file name is made: a card's run
+    writes `sidecar_path("torch_cuda")`, which is `config.CUDA_CALIBRATION`,
+    the file `SessionConfig.load_calibrated` reads on a card."""
+    return os.path.join(root if root is not None else _REPO_ROOT,
+                        "calibration.%s.json" % platform)
+
 
 # input copies a timed repeat rotates through: 8 segment-sized copies hold
 # about 55 MB at 2^19 rows, past the H100's 50 MB L2
@@ -513,7 +524,7 @@ def calibrate(
         "partial": bool(over()),
     })
     if save_path is None and dev.type == "cuda":
-        save_path = CUDA_CALIBRATION
+        save_path = sidecar_path("torch_cuda")
     if save_path:
         with open(save_path, "w") as f:
             json.dump(out, f, indent=1)

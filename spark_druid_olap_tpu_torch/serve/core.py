@@ -226,10 +226,36 @@ class ServingCore:
         if post is not None:
             df = post(df)
         pc = current_partial()
-        if key is not None and (pc is None or not pc.triggered):
-            self.result_cache.put(key, df, version=ds.version,
-                                  uids=frozenset(s.uid for s in ds.segments), state=state)
+        if pc is None or not pc.triggered:
+            self.store_result(q, ds, key, df, state)
         return df
+
+    def store_result(self, rw, ds, key, df, state=None) -> None:
+        """Publish one computed answer (`rw` the rewrite or spec it answers,
+        `state` its mergeable partial state or None) at the executed
+        snapshot's own version, never the live catalog's: an append racing
+        this write must read as a version mismatch.  No-op without a key or
+        with the cache off."""
+        if key is None or self.ctx.config.result_cache_entries <= 0:
+            return
+        self.result_cache.put(key, df, version=ds.version,
+                              uids=frozenset(s.uid for s in ds.segments), state=state)
+
+    def store_native(self, q, ds, df, state=None, key=None) -> None:
+        """Publish one wire-native answer under `key` (default `native_key`),
+        unless it is uncacheable or deadline-truncated (a partial frame must
+        never be served back as the exact answer).  No-op with the cache off
+        (its floor of one entry must not keep what a later SET would
+        serve)."""
+        from ..resilience import current_partial
+
+        if self.ctx.config.result_cache_entries <= 0:
+            return
+        key = key if key is not None else self.native_key(q, ds)
+        pc = current_partial()
+        if key is None or (pc is not None and pc.triggered):
+            return
+        self.store_result(q, ds, key, df, state)
 
     def _cluster_answer(self, cluster, q, ds, key, post):
         """A broker's answer (`cluster/broker.py`): the historicals' states
@@ -244,9 +270,8 @@ class ServingCore:
         if post is not None:
             df = post(df)
         pc = current_partial()
-        if key is not None and (pc is None or not pc.triggered):
-            self.result_cache.put(key, df, version=ds.version,
-                                  uids=frozenset(s.uid for s in ds.segments), state=None)
+        if pc is None or not pc.triggered:
+            self.store_result(q, ds, key, df)
         return df
 
     def _delta_refresh(self, q, ds, key, entry, post=None, strategy=None, engine=None):
@@ -277,8 +302,7 @@ class ServingCore:
         df = engine.finalize_groupby_state(q, ds, merged)
         if post is not None:
             df = post(df)
-        self.result_cache.put(key, df, version=ds.version,
-                              uids=frozenset(s.uid for s in ds.segments), state=merged)
+        self.store_result(q, ds, key, df, merged)
         self.result_cache.note_delta_hit(entry)
         m = self._stamp_hit_metrics(q, ds, outcome="delta")
         for f in ("strategy", "rows_scanned", "bytes_scanned", "segments", "num_groups",

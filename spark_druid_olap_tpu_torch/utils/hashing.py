@@ -13,6 +13,7 @@ every device.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 MASK32 = 0xFFFFFFFF
@@ -32,6 +33,16 @@ def mix32(x: torch.Tensor, seed: int = 0) -> torch.Tensor:
     h = _mul32(h, 0x85EBCA6B)
     h = h ^ (h >> 13)
     h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def mix32_np(x: np.ndarray, seed: int = 0) -> np.ndarray:
+    """Numpy twin of `mix32` (for host oracles): uint32 in, uint32 out."""
+    h = x.astype(np.uint32) ^ np.uint32((seed * 0x9E3779B9 + 0x85EBCA6B) & MASK32)
+    h = h ^ (h >> 16)
+    h = (h * np.uint32(0x85EBCA6B)) & np.uint32(MASK32)
+    h = h ^ (h >> 13)
+    h = (h * np.uint32(0xC2B2AE35)) & np.uint32(MASK32)
     return h ^ (h >> 16)
 
 

@@ -227,6 +227,11 @@ def _fk_row_index(lo, fk_col: str, table: str, dwdate) -> np.ndarray:
     return fk.astype(np.int64)  # dense 0..n-1 keys
 
 
+def _dim_row_index(tables, fk_col: str, table: str) -> np.ndarray:
+    """Row of `table` each fact row of `tables` joins through `fk_col`."""
+    return _fk_row_index(tables["lineorder"], fk_col, table, tables["dwdate"])
+
+
 def _attr_dicts(tables) -> Dict[str, Tuple[DimensionDict, np.ndarray]]:
     """Per flat attribute: (dictionary, encoded dim-table codes) — built on
     the SMALL dimension tables once; fact rows gather through the FK."""
@@ -814,12 +819,11 @@ TOPN_QUERY = Q.TopNQuery(
 # ---------------------------------------------------------------------------
 
 
-def flat_frame(tables):
-    """Decoded flat pandas DataFrame for oracle computation (string attrs
-    materialized: small scales only)."""
+def flat_frame_chunk(tables, lo):
+    """The decoded flat pandas frame of ONE fact chunk `lo` (the unit of a
+    chunked oracle: strings materialize a chunk at a time)."""
     import pandas as pd
 
-    lo = tables["lineorder"]
     data = {
         "lo_orderdate": lo["lo_orderdate"],
         **{m: np.asarray(lo[m], dtype=np.float64) for m in FLAT_METRICS},
@@ -832,6 +836,31 @@ def flat_frame(tables):
             )
         data[attr] = np.asarray(tables[table][attr])[idx_cache[table]]
     return pd.DataFrame(data)
+
+
+def flat_frame(tables):
+    """Decoded flat pandas DataFrame for oracle computation (string attrs
+    materialized: small scales only)."""
+    return flat_frame_chunk(tables, tables["lineorder"])
+
+
+def merge_oracle_parts(parts):
+    """Per-chunk `oracle` results merged into the whole table's: every SSB
+    aggregate of `QUERIES` is a sum, so partials concatenate and re-sum by
+    their group columns (the measure is the last column)."""
+    import pandas as pd
+
+    if isinstance(parts[0], float):
+        return float(sum(parts))
+    # empty partials are dropped first: a filtered query misses whole
+    # date-sliced chunks, and a concat with empties makes int keys float
+    nonempty = [p for p in parts if len(p)]
+    if not nonempty:
+        return parts[0]
+    df = pd.concat(nonempty, ignore_index=True)
+    vcol = df.columns[-1]
+    g = [c for c in df.columns if c != vcol]
+    return df.groupby(g, as_index=False, observed=True)[vcol].sum()
 
 
 def coded_frame(cols, dicts):

@@ -66,6 +66,16 @@ def tiny(tmp_path_factory):
     return path, out, cfg, opened
 
 
+@pytest.mark.parametrize("platform", ["cpu", "tpu", "torch_cuda"])
+@pytest.mark.parametrize("root", [None, "elsewhere"])
+def test_sidecar_path_is_the_references(tmp_path, platform, root):
+    from spark_druid_olap_tpu_torch import config as tconfig
+
+    where = None if root is None else str(tmp_path)
+    assert tcal.sidecar_path(platform, where) == jcal.sidecar_path(platform, where)
+    assert tcal.sidecar_path("torch_cuda") == tconfig.CUDA_CALIBRATION
+
+
 def test_calibration_schema(tiny):
     path, out, _, _ = tiny
     assert json.loads(path.read_text()) == json.loads(json.dumps(out))

@@ -4,7 +4,9 @@ JAX package.
 
 A subprocess imports every module of the port and the scripts' helpers
 and checks what that added to `sys.modules`; an AST scan checks
-every import statement, including the ones inside functions.
+every import statement, including the ones inside functions.  The native
+CSV decoder decodes a file in a subprocess that maps the port's own
+library alone.
 """
 
 import ast
@@ -56,7 +58,7 @@ def test_importing_the_port_loads_no_jax():
                   "config", "plan.calibrate", "plan.planner", "parallel.mesh",
                   "parallel.distributed", "parallel.spmd_arena", "parallel.multihost",
                   "cluster", "cluster.wire", "cluster.assignment", "cluster.historical",
-                  "cluster.broker", "cluster.federation")
+                  "cluster.broker", "cluster.federation", "native", "native.csv_decode")
     } <= set(out)
     assert set(SCRIPTS) <= set(out)
     assert [m for m in out if _is_forbidden(m)] == []
@@ -78,3 +80,30 @@ def test_no_import_statement_names_jax():
                 continue
             bad += [f"{path.name}:{node.lineno} {n}" for n in names if _is_forbidden(n)]
     assert bad == []
+
+
+def test_native_decoder_loads_its_own_library(tmp_path):
+    """The port's CSV decoder is built from the port's own source into
+    `build/native/` and loaded from there: the JAX package's library is
+    never mapped, nor its package imported."""
+    csv = tmp_path / "t.csv"
+    csv.write_text("a,b\nx,1\ny,2\n")
+    code = (
+        "import sys\n"
+        "from spark_druid_olap_tpu_torch.native import _SRC, csv_decode, load\n"
+        f"cols, dicts = csv_decode.read_csv_encoded({str(csv)!r})\n"
+        "assert list(cols['b']) == [1, 2] and dicts['a'].values == ('x', 'y')\n"
+        "maps = [l.split()[-1] for l in open('/proc/self/maps') if l.rstrip().endswith('.so')]\n"
+        "print(load()._name)\n"
+        "print(_SRC)\n"
+        "print('\\n'.join(m for m in maps if 'olap_native' in m))\n"
+        "print('\\n'.join(m for m in sys.modules if m.split('.')[0] in "
+        f"{FORBIDDEN!r}))\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, check=True,
+    ).stdout.split()
+    lib, src, mapped = out[0], out[1], out[2:]
+    assert lib.startswith(str(ROOT / "build" / "native" / "olap_native_"))
+    assert src == str(PKG / "native" / "olap_native.cc")
+    assert set(mapped) == {lib}  # no other olap_native library, no forbidden module

@@ -147,6 +147,33 @@ def test_tracer_costs_two_clock_reads_a_span(pkg):
     assert tracer.ring.ids() == ["b", "c"] and tracer.ring.get("a") is None
 
 
+@pytest.mark.parametrize("sampled", [False, True], ids=["unsampled", "sampled"])
+def test_dispatch_sync_equals_the_reference(sampled):
+    """`prof.dispatch_sync` on the CPU: the result back untouched; on a
+    sampled query one counted sync and the span split into `enqueue_ms`
+    and `device_ms`, as the reference splits it; unsampled nothing."""
+    import jax.numpy as jnp
+    import torch
+
+    from spark_druid_olap_tpu.obs import prof as jprof
+
+    seen = []
+    for pkg, prof, result in ((jobs, jprof, jnp.arange(4)), (tobs, tprof, torch.arange(4))):
+        tracer = pkg.Tracer()
+        if sampled:
+            tracer.force_sample_next()
+        with tracer.query_trace(query_id="q", query_type="native"):
+            with pkg.span(pkg.SPAN_SEGMENT_DISPATCH):
+                args = (result, 0.0) if prof is jprof else (result, 0.0, torch.device("cpu"))
+                assert prof.dispatch_sync(*args) is result
+        doc = tracer.last_trace_dict()
+        attrs = next(c for c in _walk(doc["spans"]) if c["name"] == "segment_dispatch").get("attrs", {})
+        seen.append((sorted(k for k in attrs if k in ("enqueue_ms", "device_ms")),
+                     doc["receipt"]["syncs"]))
+    assert seen[0] == seen[1]
+    assert seen[1] == ((["device_ms", "enqueue_ms"], 1) if sampled else ([], 0))
+
+
 def test_tracers_render_the_same_document():
     docs = []
     for pkg in (jobs, tobs):

@@ -10,8 +10,9 @@ the JAX reference on the CPU at SSB scale 0.01.
   batch, reroutes a deadline to the serial path and raises a device fault
   to every member.
 * Result cache and lanes: the same sequence of hits and misses as the
-  reference, and the same lane for the same queries; `SET
-  result_cache_entries` takes effect.
+  reference, what `store_native` and `store_result` publish (a truncated,
+  uncacheable or keyless answer never), and the same lane for the same
+  queries; `SET result_cache_entries` takes effect.
 * Admission: a full pool rejects after its queue timeout with the
   reference's Retry-After; lanes are separate pools.
 * Concurrency: eight threads hammer one port context, fusion on; every
@@ -250,6 +251,41 @@ def test_result_cache_hits_and_misses_equal_the_reference(tables):
                     len(ctx.serve.result_cache)))
     assert got == want
     assert got[:-1] == [False, True, False, True, True, False, True]
+
+
+@pytest.mark.parametrize("case", ["stored", "truncated", "uncacheable", "cache_off",
+                                  "explicit_key", "no_key"])
+def test_store_native_and_store_result_equal_the_reference(tables, case):
+    """What `ServingCore.store_native` / `store_result` publish, and what a
+    lookup then serves, step for step as the reference's."""
+    ref = sd.TPUOlapContext(reference_config())
+    jssb.register(ref, tables=tables, rows_per_segment=SEGMENT_ROWS)
+    port = _port_ctx(tables)
+    outs = []
+    for ctx, w, res in ((port, tssb, tres), (ref, jssb, jres)):
+        q = w.NATIVE_QUERIES["q4_1"] if ctx is port else _ref_spec(tssb.NATIVE_QUERIES["q4_1"])
+        if case == "uncacheable":  # a wire subtotalsSpec is never cached
+            q = dataclasses.replace(q, subtotals=(("d_year",), ()))
+        ds = ctx.catalog.get("lineorder")
+        df = ctx.engine.execute(dataclasses.replace(q, subtotals=()), ds)
+        core = ctx.serve
+        if case == "cache_off":
+            ctx.sql("SET result_cache_entries = 0")
+        if case in ("explicit_key", "no_key"):
+            key = ("explicit", ds.name) if case == "explicit_key" else None
+            core.store_result(None, ds, key, df)
+            hit = core.result_cache.get(key, ds.version) if key else None
+        else:
+            with res.partial_scope(True) as pc:
+                if case == "truncated":
+                    pc.trigger("engine.segment_loop")
+                core.store_native(q, ds, df)
+            hit = core.cached_native(q, ds) if case != "uncacheable" else None
+        outs.append((len(core.result_cache), hit is not None))
+        if hit is not None:
+            _bit_equal(hit, df)
+    assert outs[0] == outs[1]
+    assert outs[0][1] == (case in ("stored", "explicit_key"))
 
 
 def test_set_result_cache_entries_takes_effect(tables):

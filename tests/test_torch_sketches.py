@@ -1,7 +1,7 @@
 """Sketch ops of the PyTorch port against the JAX reference, bit for bit.
 
-* `mix32`, `hash_column` (every dtype branch, edge values) and
-  `combine_hashes` give the reference's uint32 hashes.
+* `mix32`, its numpy twin `mix32_np`, `hash_column` (every dtype branch,
+  edge values) and `combine_hashes` give the reference's uint32 hashes.
 * `_rho` gives the reference's value over all of w < 2^21 (p = 11) and over
   ±8192 windows around every power of two below 2^28 (p = 4), where the
   reference's float32 log2 is off by one; the exception table committed in
@@ -9,7 +9,8 @@
 * HLL, theta and quantile partial states and their merges equal the
   reference's, through `to_reference_state`: random rows, every row masked,
   out-of-range group ids, tied quantile priorities, CardinalityAgg byRow and
-  union-of-fields.  Estimates and theta set operations agree.
+  union-of-fields; `merge_many` folds like the reference's.  Estimates and
+  theta set operations agree.
 """
 
 import jax.numpy as jnp
@@ -74,6 +75,22 @@ def test_mix32_and_combine_match_reference():
     want = np.asarray(jhash.combine_hashes([jnp.asarray(h) for h in hs]))
     got = thash.combine_hashes([torch.from_numpy(h.astype(np.int64)) for h in hs])
     np.testing.assert_array_equal(got.numpy(), want.astype(np.int64))
+
+
+def test_mix32_np_matches_reference():
+    rng = np.random.default_rng(2)
+    x = np.concatenate([
+        rng.integers(0, 2**32, 4000, dtype=np.uint64).astype(np.uint32),
+        np.array([0, 1, 2**31, 0xFFFFFFFF], dtype=np.uint32),
+    ])
+    signed = rng.integers(-2**31, 2**31, 1000).astype(np.int32)  # wraps to uint32
+    for col in (x, signed):
+        for seed in (0, 1, 7, 13):
+            got, want = thash.mix32_np(col, seed), jhash.mix32_np(col, seed)
+            assert got.dtype == want.dtype == np.uint32
+            np.testing.assert_array_equal(got, want)
+            torch_h = thash.mix32(torch.from_numpy(col.astype(np.int64)), seed).numpy()
+            np.testing.assert_array_equal(got.astype(np.int64), torch_h)
 
 
 def _windows(top_bits=28, half=8192):
@@ -200,6 +217,19 @@ def test_partials_and_merge_match_reference(kind, masked):
     if masked:  # nothing kept: the merge identity
         empty = tmod.to_reference_state(tmod.empty_state(agg, G, "cpu"))
         np.testing.assert_array_equal(empty, ja)
+
+
+@pytest.mark.parametrize("kind", ["theta", "quantiles"])
+@pytest.mark.parametrize("n_states", [1, 2, 4])
+def test_merge_many_matches_reference(kind, n_states):
+    jmod, tmod = _OPS[kind]
+    runs = [_run_both(kind, seed, masked=seed == 3) for seed in range(1, n_states + 1)]
+    agg = runs[0][2]
+    k = runs[0][0].shape[1] - (tmod is tq)
+    want = np.asarray(jmod.merge_many([jnp.asarray(r[0]) for r in runs], k))
+    got = tmod.merge_many([r[1] for r in runs], agg)
+    assert tmod.to_reference_state(got).dtype == want.dtype
+    np.testing.assert_array_equal(tmod.to_reference_state(got), want)
 
 
 def test_estimates_and_set_ops_match_reference():

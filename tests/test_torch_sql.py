@@ -11,7 +11,9 @@
   and keys exact, sums within rtol 1e-6; the SSB ones also hold against
   their exact oracles within the sketches' error bounds.
 * Commands (CREATE TABLE ... OPTIONS, CREATE VIEW, SET, SHOW TABLES,
-  DESCRIBE) give the reference's frames.
+  DESCRIBE) give the reference's frames.  The catalog's star schemas, the
+  SSB flat frame of a fact chunk, its foreign-key row index and the merge
+  of per-chunk oracles equal the reference's.
 * What the port does not execute yet raises where the reference answers:
   SET on a flag of a tier the port does not have (KeyError).  A subquery
   and a SELECT over a view, once such gaps, plan to a RewriteError and run
@@ -193,6 +195,48 @@ def test_sketch_sql_matches_reference(ctxs, frames, workload, name, sql):
     pd.testing.assert_frame_equal(port.sql(sql), got)
     if name in tssb.SKETCH_QUERIES:
         tssb.check_sketch_answer(name, got, tssb.sketch_oracle(frames[workload], name))
+
+
+def test_star_schemas_equal_the_reference(ctxs):
+    ref, port = ctxs
+    got, want = port.catalog.star_schemas(), ref.catalog.star_schemas()
+    assert sorted(got) == sorted(want) == ["lineitem", "lineorder"]
+    assert {k: v.to_json() for k, v in got.items()} == {k: v.to_json() for k, v in want.items()}
+    got.clear()  # a copy: the catalog keeps its schemas
+    assert port.catalog.star_schemas().keys() == want.keys()
+
+
+def _fact_chunks(tables, n=3):
+    lo = tables["lineorder"]
+    return [{k: v[idx] for k, v in lo.items()}
+            for idx in np.array_split(np.arange(len(lo["lo_orderdate"])), n)]
+
+
+def test_flat_frame_chunks_and_row_index_equal_the_reference(tables):
+    t = tables["ssb"]
+    for chunk in _fact_chunks(t):
+        pd.testing.assert_frame_equal(tssb.flat_frame_chunk(t, chunk),
+                                      jssb.flat_frame_chunk(t, chunk))
+    pd.testing.assert_frame_equal(tssb.flat_frame(t), jssb.flat_frame(t))
+    for attr, (table, fk) in tssb.DIM_ATTRS.items():
+        got, want = tssb._dim_row_index(t, fk, table), jssb._dim_row_index(t, fk, table)
+        assert got.dtype == want.dtype
+        np.testing.assert_array_equal(got, want, err_msg=attr)
+
+
+@pytest.mark.parametrize("name", list(jssb.QUERIES))
+def test_merge_oracle_parts_equals_the_reference(tables, name):
+    t = tables["ssb"]
+    frames = [tssb.flat_frame_chunk(t, c) for c in _fact_chunks(t)]
+    got = tssb.merge_oracle_parts([tssb.oracle(f, name) for f in frames])
+    want = jssb.merge_oracle_parts([jssb.oracle(f, name) for f in frames])
+    whole = tssb.oracle(tssb.flat_frame(t), name)
+    if isinstance(want, float):
+        assert got == want
+        np.testing.assert_allclose(got, whole, rtol=1e-12)
+        return
+    pd.testing.assert_frame_equal(got.reset_index(drop=True), want.reset_index(drop=True))
+    assert_frames_match(got, whole.reset_index(drop=True), 1e-12)
 
 
 def test_repeated_text_is_planned_once(ctxs):
